@@ -1,0 +1,63 @@
+"""Model builders (counterpart of ``lsnet_tpu/models/__init__.py``): config
+dicts with a ``type`` key -> ``nn.Module``s. This slice builds ResNet, FPN,
+LSHead (bbox) and LSDetector."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence
+
+from .backbones.resnet import ResNet
+from .detectors.lsnet import LSDetector
+from .heads.ls_head import LSHead
+from .necks.fpn import FPN
+
+
+def build_backbone(cfg: Dict[str, Any]) -> ResNet:
+    cfg = dict(cfg)
+    kind = cfg.pop("type")
+    if kind != "ResNet":
+        raise NotImplementedError(f"backbone {kind}")
+    for k in ("pretrained", "norm_cfg", "norm_eval", "style",
+              "zero_init_residual"):
+        cfg.pop(k, None)     # BN is always FrozenBatchNorm; pytorch style
+    if cfg.pop("dcn", None) is not None and "stage_with_dcn" not in cfg:
+        cfg["stage_with_dcn"] = (False, True, True, True)
+    return ResNet(**cfg)
+
+
+def build_neck(cfg: Dict[str, Any], in_channels: Sequence[int]) -> FPN:
+    cfg = dict(cfg)
+    kind = cfg.pop("type")
+    if kind != "FPN":
+        raise NotImplementedError(f"neck {kind}")
+    cfg.pop("in_channels", None)     # taken from the backbone
+    return FPN(in_channels=list(in_channels), **cfg)
+
+
+def build_head(cfg: Dict[str, Any]) -> LSHead:
+    cfg = dict(cfg)
+    kind = cfg.pop("type")
+    if kind != "LSHead":
+        raise NotImplementedError(f"head {kind}")
+    # losses and the point layout are read by training and decode
+    for k in [k for k in cfg if k.startswith("loss_")] + [
+            "point_strides", "point_base_scale", "num_vectors"]:
+        cfg.pop(k, None)
+    norm_cfg = cfg.pop("norm_cfg", None)
+    if norm_cfg is not None:
+        cfg["norm_groups"] = norm_cfg.get("num_groups", 32)
+    if cfg.pop("fuse_towers", False):
+        raise NotImplementedError("fuse_towers is a TPU layout option")
+    return LSHead(**cfg)
+
+
+def build_detector(cfg: Dict[str, Any]) -> LSDetector:
+    """Build the detector from a full ``model`` config dict."""
+    cfg = dict(cfg)
+    kind = cfg.pop("type")
+    if kind != "LSDetector":
+        raise NotImplementedError(f"detector {kind}")
+    backbone = build_backbone(cfg.pop("backbone"))
+    neck = build_neck(cfg.pop("neck"), backbone.out_channels)
+    head = build_head(cfg.pop("bbox_head"))
+    return LSDetector(backbone, neck, head)
