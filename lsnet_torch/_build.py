@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library ``build/lsnet_torch/lib<name>.so`` (beside the package, at the
 repository root) the first time it is needed, and again whenever the
-source is newer than the library. The sources expose plain C entry
+source, or any shared header ``csrc/*.cuh``, is newer than the library.
+The sources expose plain C entry
 points: pointers and the stream are passed as ``c_void_p``, and each entry
 returns ``cudaGetLastError()`` after its launch.
 
@@ -34,6 +35,10 @@ SIGNATURES = {
         "lsnet_deform_gather_contract":
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     },
+    "grouped_deform_contract": {
+        "lsnet_grouped_deform_contract":
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    },
 }
 
 _lock = threading.Lock()
@@ -57,9 +62,13 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    shared header (a stale header would load an old kernel)."""
     lib = _lib_path(name)
-    src = CSRC_DIR / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    srcs = [CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in srcs)
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:

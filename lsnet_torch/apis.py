@@ -3,12 +3,14 @@
 ``init_detector`` builds a detector on the card (or on the CPU when the
 caller asks for it) with seeded random weights; ``inference_detector`` runs
 forward + decode + NMS, the path ``bench.py`` (``e2e_fn``) times for the
-JAX package. Image loading and resizing come with a later slice.
+JAX package, with the shipped inference sampling (``backbone=nearest``) as
+the JAX entry points apply it with ``inference_sampling()``. Image loading
+and resizing come with a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Mapping
 
 import torch
 
@@ -16,6 +18,7 @@ from .core.decode import Detections, TestConfig, lsnet_decode
 from .models import build_detector
 from .models.detectors.lsnet import LSDetector
 from .models.layers import FrozenBatchNorm
+from .ops.flat_deform import INFERENCE_SAMPLING
 
 
 def random_weights_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
@@ -48,9 +51,13 @@ def init_detector(cfg: Dict[str, Any], device: str = "cuda", seed: int = 0,
 def inference_detector(model: LSDetector, images: torch.Tensor,
                        img_shapes: torch.Tensor,
                        scale_factors: torch.Tensor,
-                       test_cfg: TestConfig) -> Detections:
+                       test_cfg: TestConfig,
+                       sampling: Mapping[str, str] = INFERENCE_SAMPLING
+                       ) -> Detections:
     """images (B, H, W, 3) NHWC in the model's dtype; img_shapes (B, 2)
-    [h, w]; scale_factors (B, 4). Returns padded Detections."""
+    [h, w]; scale_factors (B, 4); ``sampling`` maps each sampling site to
+    its mode (``flat_deform.TRAIN_SAMPLING`` for bilinear everywhere).
+    Returns padded Detections."""
     with torch.inference_mode():
-        outs = model(images)
+        outs = model(images, sampling)
         return lsnet_decode(outs, img_shapes, scale_factors, test_cfg)

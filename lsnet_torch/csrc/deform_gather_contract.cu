@@ -22,44 +22,16 @@
 // design is simple: one block per 64 px x 64 cout tile, no multi-stage
 // pipeline, and the gather is redone for each cout tile. Those are the
 // levers for later work (wgmma, TMA/cp.async staging, wider cout tiles).
-//
-// Clipped indices are always read, even when their weight is 0, exactly
-// like the XLA reference: a NaN in a clipped row propagates the same way.
+// The tile sizes, the gather and the epilogues live in deform_tile.cuh,
+// shared with the grouped kernel.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
+#include "deform_tile.cuh"
 
 namespace {
 
-constexpr int BM = 64;     // pixels per block
-constexpr int BN = 64;     // output channels per block
-constexpr int MAXNC = 4;   // corners per tap
-
-// Per-tap corner rows and weights of this block's pixels into shared memory.
-// Pixels past px read row 0 with weight 0 and are never written out.
-__device__ __forceinline__ void load_taps(const int* __restrict__ idx,
-                                          const float* __restrict__ w,
-                                          int nc, int K, int px, int k, int p0,
-                                          int* s_idx, float* s_w) {
-  for (int t = threadIdx.x; t < nc * BM; t += blockDim.x) {
-    const int c = t / BM;
-    const int r = t % BM;
-    const int p = p0 + r;
-    const bool ok = p < px;
-    const size_t off = ((size_t)c * K + k) * (size_t)px + (size_t)(ok ? p : 0);
-    s_idx[c * BM + r] = ok ? idx[off] : 0;
-    s_w[c * BM + r] = ok ? w[off] : 0.f;
-  }
-}
+using namespace lsnet;
 
 // ---------------------------------------------------------------- bf16
-constexpr int BK16 = 32;
-constexpr int LDA16 = BK16 + 8;   // padded rows (elements), 80 bytes
-constexpr int LDB16 = BN + 8;     // 144 bytes
-constexpr int LDC = BN + 4;       // f32 epilogue tile
-
 __global__ void __launch_bounds__(128)
 dgc_bf16(const __nv_bfloat16* __restrict__ flat, const int* __restrict__ idx,
          const float* __restrict__ w, const __nv_bfloat16* __restrict__ W,
@@ -89,33 +61,7 @@ dgc_bf16(const __nv_bfloat16* __restrict__ flat, const int* __restrict__ idx,
     load_taps(idx, w, nc, K, px, k, p0, s_idx, s_w);
     __syncthreads();
     for (int c0 = 0; c0 < C; c0 += BK16) {
-      // A tile: 64 rows x 32 channels as 8-wide (16-byte) vectors
-      for (int v = threadIdx.x; v < BM * BK16 / 8; v += blockDim.x) {
-        const int r = v / (BK16 / 8);
-        const int cv = (v % (BK16 / 8)) * 8;
-        float a[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) a[e] = 0.f;
-        for (int c = 0; c < nc; ++c) {
-          const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-              flat + (size_t)s_idx[c * BM + r] * C + c0 + cv));
-          const __nv_bfloat162* h =
-              reinterpret_cast<const __nv_bfloat162*>(&raw);
-          const float wt = s_w[c * BM + r];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(h[e]);
-            a[2 * e] += wt * f.x;
-            a[2 * e + 1] += wt * f.y;
-          }
-        }
-        uint4 packed;
-        __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          o[e] = __floats2bfloat162_rn(a[2 * e], a[2 * e + 1]);
-        *reinterpret_cast<uint4*>(&As[r * LDA16 + cv]) = packed;
-      }
+      gather_tile_bf16(flat, C, c0, nc, s_idx, s_w, As);
       // B tile: W[k, c0:c0+32, n0:n0+64]
       for (int v = threadIdx.x; v < BK16 * BN / 8; v += blockDim.x) {
         const int r = v / (BN / 8);
@@ -150,31 +96,15 @@ dgc_bf16(const __nv_bfloat16* __restrict__ flat, const int* __restrict__ idx,
       __syncthreads();
     }
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * LDC + wn + 16 * j,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int t = threadIdx.x; t < BM * BN; t += blockDim.x) {
-    const int r = t / BN;
-    const int c = t % BN;
-    const int p = p0 + r;
-    const int n = n0 + c;
-    if (p < px && n < cout)
-      out[(size_t)p * cout + n] = __float2bfloat16(Cs[r * LDC + c]);
-  }
+  store_tile_bf16(acc, Cs, wm, wn, p0, n0, px, cout, out);
 }
 
 // ---------------------------------------------------------------- f32
-constexpr int BK32 = 16;
-
 __global__ void __launch_bounds__(256)
 dgc_f32(const float* __restrict__ flat, const int* __restrict__ idx,
         const float* __restrict__ w, const float* __restrict__ W,
         float* __restrict__ out, int C, int nc, int K, int px, int cout) {
-  __shared__ __align__(16) float As[BK32][BM + 4];   // channel-major
+  __shared__ __align__(16) float As[BK32][LDA32];    // channel-major
   __shared__ __align__(16) float Bs[BK32][BN + 4];
   __shared__ int s_idx[MAXNC * BM];
   __shared__ float s_w[MAXNC * BM];
@@ -194,22 +124,7 @@ dgc_f32(const float* __restrict__ flat, const int* __restrict__ idx,
     load_taps(idx, w, nc, K, px, k, p0, s_idx, s_w);
     __syncthreads();
     for (int c0 = 0; c0 < C; c0 += BK32) {
-      {  // A tile: 64 rows x 16 channels = 256 float4, one per thread
-        const int r = threadIdx.x / 4;
-        const int cv = (threadIdx.x % 4) * 4;
-        float a[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int c = 0; c < nc; ++c) {
-          const float4 f = __ldg(reinterpret_cast<const float4*>(
-              flat + (size_t)s_idx[c * BM + r] * C + c0 + cv));
-          const float wt = s_w[c * BM + r];
-          a[0] += wt * f.x;
-          a[1] += wt * f.y;
-          a[2] += wt * f.z;
-          a[3] += wt * f.w;
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) As[cv + e][r] = a[e];
-      }
+      gather_tile_f32(flat, C, c0, nc, s_idx, s_w, As);
       {  // B tile: 16 rows x 64 columns = 256 float4
         const int r = threadIdx.x / 16;
         const int cv = (threadIdx.x % 16) * 4;
@@ -236,16 +151,7 @@ dgc_f32(const float* __restrict__ flat, const int* __restrict__ idx,
       __syncthreads();
     }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = p0 + ty * 4 + i;
-    if (p >= px) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < cout) out[(size_t)p * cout + n] = acc[i][j];
-    }
-  }
+  store_tile_f32(acc, ty, tx, p0, n0, px, cout, out);
 }
 
 }  // namespace

@@ -1,6 +1,6 @@
 """Model builders (counterpart of ``lsnet_tpu/models/__init__.py``): config
-dicts with a ``type`` key -> ``nn.Module``s. This slice builds ResNet, FPN,
-LSHead (bbox) and LSDetector."""
+dicts with a ``type`` key -> ``nn.Module``s. The port builds ResNet,
+ResNeXt, FPN, LSHead (bbox) and LSDetector."""
 
 from __future__ import annotations
 
@@ -15,14 +15,15 @@ from .necks.fpn import FPN
 def build_backbone(cfg: Dict[str, Any]) -> ResNet:
     cfg = dict(cfg)
     kind = cfg.pop("type")
-    if kind != "ResNet":
+    block_type = {"ResNet": "resnet", "ResNeXt": "resnext"}.get(kind)
+    if block_type is None:
         raise NotImplementedError(f"backbone {kind}")
     for k in ("pretrained", "norm_cfg", "norm_eval", "style",
               "zero_init_residual"):
         cfg.pop(k, None)     # BN is always FrozenBatchNorm; pytorch style
     if cfg.pop("dcn", None) is not None and "stage_with_dcn" not in cfg:
         cfg["stage_with_dcn"] = (False, True, True, True)
-    return ResNet(**cfg)
+    return ResNet(block_type=block_type, **cfg)
 
 
 def build_neck(cfg: Dict[str, Any], in_channels: Sequence[int]) -> FPN:

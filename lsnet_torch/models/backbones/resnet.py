@@ -1,22 +1,27 @@
-"""ResNet backbone (counterpart of ``lsnet_tpu/models/backbones/resnet.py``).
+"""ResNet / ResNeXt backbone (counterpart of
+``lsnet_tpu/models/backbones/resnet.py``).
 
 'pytorch' style (stride on the 3x3 conv, stage strides 1, 2, 2, 2),
 FrozenBatchNorm, optional DCNv2 on conv2 of the stages in
-``stage_with_dcn`` (bottleneck depths), ``frozen_stages`` (those
-parameters take no gradient) and ``out_indices``. As in the JAX package,
-the first block of every stage has a projection shortcut. ResNeXt and
-Res2Net come with later slices.
+``stage_with_dcn`` (bottleneck depths, sampling site "backbone"),
+``frozen_stages`` (those parameters take no gradient) and ``out_indices``.
+As in the JAX package, the first block of every stage has a projection
+shortcut. ``block_type="resnext"`` gives the bottleneck ``groups`` and
+``base_width`` (conv2 width ``int(planes * base_width / 64) * groups``):
+conv2 is a grouped DCN in the DCN stages and a ``GroupedConv`` elsewhere.
+Res2Net comes with a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Mapping, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import FrozenBatchNorm, ModulatedDeformConvPack
+from ...ops.flat_deform import TRAIN_SAMPLING
+from ..layers import FrozenBatchNorm, GroupedConv, ModulatedDeformConvPack
 
 ARCH_SETTINGS = {
     18: ("basic", (2, 2, 2, 2)),
@@ -46,7 +51,8 @@ class BasicBlock(nn.Module):
             self.downsample_bn = FrozenBatchNorm(planes)
         self.downsample = downsample
 
-    def forward(self, x):
+    def forward(self, x, sampling: Mapping[str, str] = TRAIN_SAMPLING):
+        """``sampling`` is unused: the block has no deformable conv."""
         out = F.relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
         identity = (self.downsample_bn(self.downsample_conv(x))
@@ -58,16 +64,20 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, use_dcn: bool = False):
+                 downsample: bool = False, use_dcn: bool = False,
+                 groups: int = 1, base_width: int = 4):
         super().__init__()
-        width = planes
+        width = (planes if groups == 1
+                 else int(planes * base_width / 64) * groups)
         self.conv1 = _conv(inplanes, width, 1)
         self.bn1 = FrozenBatchNorm(width)
+        self.use_dcn = use_dcn
         if use_dcn:
-            # sampling site "backbone"; bilinear until the shipped
-            # backbone=nearest default is ported with the X-101 slice
             self.conv2 = ModulatedDeformConvPack(
-                width, width, 3, stride=stride, padding=1, use_bias=False)
+                width, width, 3, stride=stride, padding=1, groups=groups,
+                use_bias=False, site="backbone")
+        elif groups > 1:
+            self.conv2 = GroupedConv(width, width, 3, stride, groups=groups)
         else:
             self.conv2 = _conv(width, width, 3, stride)
         self.bn2 = FrozenBatchNorm(width)
@@ -79,9 +89,11 @@ class Bottleneck(nn.Module):
             self.downsample_bn = FrozenBatchNorm(planes * self.expansion)
         self.downsample = downsample
 
-    def forward(self, x):
+    def forward(self, x, sampling: Mapping[str, str] = TRAIN_SAMPLING):
         out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        out = (self.conv2(out, sampling) if self.use_dcn
+               else self.conv2(out))
+        out = F.relu(self.bn2(out))
         out = self.bn3(self.conv3(out))
         identity = (self.downsample_bn(self.downsample_conv(x))
                     if self.downsample else x)
@@ -94,9 +106,14 @@ class ResNet(nn.Module):
                  out_indices: Sequence[int] = (0, 1, 2, 3),
                  frozen_stages: int = -1,
                  stage_with_dcn: Sequence[bool] = (False, False, False,
-                                                   False)):
+                                                   False),
+                 block_type: str = "resnet", groups: int = 1,
+                 base_width: int = 4):
         super().__init__()
+        if block_type not in ("resnet", "resnext"):
+            raise NotImplementedError(f"block_type {block_type!r}")
         kind, stage_blocks = ARCH_SETTINGS[depth]
+        groups = groups if block_type == "resnext" else 1
         self.out_indices = tuple(out_indices)
         self.conv1 = _conv(3, 64, 7, 2)
         self.bn1 = FrozenBatchNorm(64)
@@ -114,7 +131,8 @@ class ResNet(nn.Module):
                     block = BasicBlock(inplanes, planes, stride, bi == 0)
                 else:
                     block = Bottleneck(inplanes, planes, stride, bi == 0,
-                                       stage_with_dcn[si])
+                                       stage_with_dcn[si], groups,
+                                       base_width)
                 setattr(self, name, block)
                 inplanes = planes * block.expansion
                 names.append(name)
@@ -134,13 +152,15 @@ class ResNet(nn.Module):
             for p in m.parameters():
                 p.requires_grad_(False)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor,
+                sampling: Mapping[str, str] = TRAIN_SAMPLING
+                ) -> Tuple[torch.Tensor, ...]:
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
         for si, names in enumerate(self.stage_names):
             for n in names:
-                x = getattr(self, n)(x)
+                x = getattr(self, n)(x, sampling)
             if si in self.out_indices:
                 outs.append(x)
         return tuple(outs)

@@ -3,10 +3,12 @@
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Mapping
 
 import torch
 from torch import nn
+
+from ...ops.flat_deform import TRAIN_SAMPLING
 
 
 class LSDetector(nn.Module):
@@ -18,9 +20,13 @@ class LSDetector(nn.Module):
         self.neck = neck
         self.head = head
 
-    def forward(self, images: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
+    def forward(self, images: torch.Tensor,
+                sampling: Mapping[str, str] = TRAIN_SAMPLING
+                ) -> Dict[str, List[torch.Tensor]]:
         """images (B, H, W, 3) NHWC, as the JAX detector takes them ->
         per-level NHWC head maps. The NCHW view of a contiguous NHWC batch
-        is channels-last, so no copy is made."""
-        feats = self.backbone(images.permute(0, 3, 1, 2))
-        return self.head(list(self.neck(feats)))
+        is channels-last, so no copy is made. ``sampling`` maps each
+        sampling site to its mode (``flat_deform.TRAIN_SAMPLING`` or
+        ``INFERENCE_SAMPLING``)."""
+        feats = self.backbone(images.permute(0, 3, 1, 2), sampling)
+        return self.head(list(self.neck(feats)), sampling)

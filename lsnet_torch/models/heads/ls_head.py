@@ -19,14 +19,14 @@ NCHW; the returned maps are NHWC like the JAX head's.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.flat_deform import SampleJob
+from ...ops.flat_deform import TRAIN_SAMPLING, SampleJob
 from ..layers import (ConvModule, DCNConvModule, PairedPyramidDeformConv,
                       nchw, nhwc)
 
@@ -141,12 +141,12 @@ class LSHead(nn.Module):
         self.register_buffer("base_offset", torch.from_numpy(
             dcn_base_offset(self.dcn_kernel)), persistent=False)
 
-    def _tower(self, prefix: str, feats: List[torch.Tensor]
-               ) -> List[torch.Tensor]:
+    def _tower(self, prefix: str, feats: List[torch.Tensor],
+               sampling: Mapping[str, str]) -> List[torch.Tensor]:
         cur = list(feats)
         for i in range(self.stacked_convs):
             blk = getattr(self, f"{prefix}_convs_{i}")
-            cur = blk(cur) if isinstance(blk, DCNConvModule) \
+            cur = blk(cur, sampling) if isinstance(blk, DCNConvModule) \
                 else [blk(f) for f in cur]
         return cur
 
@@ -174,20 +174,22 @@ class LSHead(nn.Module):
         x = gn(x + feat_conv(skip_feat))
         return out_conv(F.relu(x))
 
-    def forward(self, feats: Sequence[torch.Tensor]
+    def forward(self, feats: Sequence[torch.Tensor],
+                sampling: Mapping[str, str] = TRAIN_SAMPLING
                 ) -> Dict[str, List[torch.Tensor]]:
         """NCHW level maps -> {"cls", "bbox_init", "bbox_refine"}: per-level
-        NHWC maps."""
+        NHWC maps. The towers sample at site "tower", the paired refine and
+        cls gathers at "refine"."""
         n = len(feats)
-        cls_feats = self._tower("cls", list(feats))
-        bbox_feats = self._tower("bbox", list(feats))
+        cls_feats = self._tower("cls", list(feats), sampling)
+        bbox_feats = self._tower("bbox", list(feats), sampling)
         pairs = [self._init_branch(bf) for bf in bbox_feats]
         init_sps = [p[0] for p in pairs]
         jobs = branch_pyramid_jobs([tuple(f.shape[-2:]) for f in bbox_feats],
                                    [p[1] for p in pairs], self.dcn_kernel)
         bbox_raws, cls_raws = self.pts_bbox_cls_pair(
             [nhwc(f) for f in bbox_feats], [nhwc(f) for f in cls_feats],
-            jobs)
+            jobs, sampling)
         outs = {"cls": [], "bbox_init": [], "bbox_refine": []}
         for lvl in range(n):
             out = self._fuse([nchw(r) for r in bbox_raws[3 * lvl:3 * lvl + 3]],

@@ -13,7 +13,8 @@ Reference semantics (``mmdet/ops/dcn/src/cuda/deform_conv_cuda_kernel.cu``):
   ``y = (h*stride - pad + i*dil) * scale_h + off_y``.
 
 Each bilinear corner outside the map contributes zero. Layout is NHWC,
-weights HWIO, offsets ``[y0, x0, y1, x1, ...]`` on the last axis.
+weights HWIO (``(kh, kw, Cin/groups, cout)`` with group-major channels when
+``groups`` > 1), offsets ``[y0, x0, y1, x1, ...]`` on the last axis.
 """
 
 from __future__ import annotations
@@ -84,24 +85,35 @@ def _sample_patches(x: torch.Tensor, offset: torch.Tensor,
     return bilinear_gather(x, ys, xs).reshape(B, Ho, Wo, K, C)
 
 
-def _contract(patches: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """(B,Ho,Wo,K,C) x (kh,kw,C,cout) -> (B,Ho,Wo,cout), f32 accumulate."""
+def _contract(patches: torch.Tensor, weight: torch.Tensor,
+              groups: int = 1) -> torch.Tensor:
+    """(B,Ho,Wo,K,C) x (kh,kw,C/groups,cout) -> (B,Ho,Wo,cout), f32
+    accumulate; grouped: group-major channels and cout."""
     B, Ho, Wo, K, C = patches.shape
-    w = weight.reshape(K * C, -1).float()
-    out = patches.reshape(B * Ho * Wo, K * C).float() @ w
-    return out.reshape(B, Ho, Wo, -1).to(patches.dtype)
+    cout = weight.shape[-1]
+    if groups == 1:
+        w = weight.reshape(K * C, cout).float()
+        out = patches.reshape(B * Ho * Wo, K * C).float() @ w
+        return out.reshape(B, Ho, Wo, cout).to(patches.dtype)
+    cg = C // groups
+    pg = patches.reshape(B, Ho * Wo, K, groups, cg).float()
+    wg = weight.reshape(K, cg, groups, cout // groups).float()
+    out = torch.einsum("bpkgc,kcgo->bpgo", pg, wg)
+    return out.reshape(B, Ho, Wo, cout).to(patches.dtype)
 
 
 def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor,
                           mask: torch.Tensor, weight: torch.Tensor,
                           bias: Optional[torch.Tensor] = None, *, stride=1,
-                          padding=0, dilation=1) -> torch.Tensor:
-    """DCNv2. mask (B,Ho,Wo,K) already sigmoid-ed."""
+                          padding=0, dilation=1,
+                          groups: int = 1) -> torch.Tensor:
+    """DCNv2. mask (B,Ho,Wo,K) already sigmoid-ed; weight
+    (kh,kw,Cin/groups,cout)."""
     ks = (weight.shape[0], weight.shape[1])
     patches = _sample_patches(x, offset, ks, _pair(stride), _pair(padding),
                               _pair(dilation))
     patches = patches * mask.unsqueeze(-1).to(patches.dtype)
-    out = _contract(patches, weight)
+    out = _contract(patches, weight, groups)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
@@ -109,9 +121,10 @@ def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor,
 
 def pyramid_deform_conv(x: torch.Tensor, offset: torch.Tensor,
                         weight: torch.Tensor, scale_h: float, scale_w: float,
-                        *, stride=1, padding=0, dilation=1) -> torch.Tensor:
+                        *, stride=1, padding=0, dilation=1,
+                        groups: int = 1) -> torch.Tensor:
     """LSNet cross-level deformable conv (output grid = offset's grid)."""
     ks = (weight.shape[0], weight.shape[1])
     patches = _sample_patches(x, offset, ks, _pair(stride), _pair(padding),
                               _pair(dilation), scale=(scale_h, scale_w))
-    return _contract(patches, weight)
+    return _contract(patches, weight, groups)

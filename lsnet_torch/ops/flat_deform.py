@@ -12,23 +12,41 @@ and read a clipped, in-bounds row.
 
 Sampling is an explicit argument per call: ``"bilinear"`` (4 corner reads
 per tap) or ``"nearest"`` (one rounded read, round half to even as
-``jnp.round``). There is no process-wide sampling state.
+``jnp.round``). There is no process-wide sampling state. The models take
+a read-only mapping from sampling site to mode at call time:
+``TRAIN_SAMPLING`` (bilinear everywhere, the JAX package without
+``inference_sampling()``) or ``INFERENCE_SAMPLING`` (the shipped inference
+default of ``lsnet_tpu/ops/flat_deform.py:178``, ``backbone=nearest``).
+
+Grouped calls (``groups`` > 1, the ResNeXt backbone DCN) contract with the
+compact (K, C/G, cout) weight through
+:func:`lsnet_torch.ops.grouped.deform_gather_grouped_contract`.
 """
 
 from __future__ import annotations
 
 import math
+from types import MappingProxyType
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from .deform_gather import deform_gather_contract
+from .grouped import deform_gather_grouped_contract
 
-# The sampling every site uses unless a caller says otherwise. The R50
-# flagship samples bilinear at every site (tower and refine; it has no
-# backbone DCN).
+# The sampling of an ops call unless its caller says otherwise.
 DEFAULT_SAMPLING = "bilinear"
 SAMPLING_MODES = ("bilinear", "nearest")
+
+# Sampling sites: the backbone DCN stages, the head's tower DCN blocks, the
+# pyramid refine with its paired cls gather.
+SITES = ("backbone", "tower", "refine")
+# Training and reference parity: bilinear at every site.
+TRAIN_SAMPLING = MappingProxyType({s: "bilinear" for s in SITES})
+# The shipped inference default: nearest at the backbone sites (one read
+# per tap), bilinear at tower and refine.
+INFERENCE_SAMPLING = MappingProxyType(
+    {"backbone": "nearest", "tower": "bilinear", "refine": "bilinear"})
 
 
 class FlatLevels(NamedTuple):
@@ -154,9 +172,9 @@ def _gather_indices_tap(levels: FlatLevels, jobs: Sequence[SampleJob],
 
 
 def _tap_weight(weight: torch.Tensor, dtype) -> torch.Tensor:
-    """HWIO (kh, kw, C, cout) -> (K, C, cout)."""
-    kh, kw, C, cout = weight.shape
-    return weight.reshape(kh * kw, C, cout).to(dtype).contiguous()
+    """HWIO (kh, kw, C/G, cout) -> (K, C/G, cout)."""
+    kh, kw, cin, cout = weight.shape
+    return weight.reshape(kh * kw, cin, cout).to(dtype).contiguous()
 
 
 def _split_jobs(out: torch.Tensor, jobs: Sequence[SampleJob],
@@ -173,15 +191,20 @@ def _split_jobs(out: torch.Tensor, jobs: Sequence[SampleJob],
 
 def batched_deform_matmul(levels: FlatLevels, jobs: Sequence[SampleJob],
                           weight: torch.Tensor,
-                          sampling: str = DEFAULT_SAMPLING
-                          ) -> List[torch.Tensor]:
+                          sampling: str = DEFAULT_SAMPLING,
+                          groups: int = 1) -> List[torch.Tensor]:
     """Run all jobs through one corner table and one kernel launch.
 
-    weight: HWIO (kh, kw, C, cout). Returns per-job (B, Ho, Wo, cout)."""
+    weight: HWIO (kh, kw, C/groups, cout), group-major cout when grouped.
+    Returns per-job (B, Ho, Wo, cout)."""
     K = weight.shape[0] * weight.shape[1]
     idx, w = _gather_indices_tap(levels, jobs, K, sampling)
-    out = deform_gather_contract(levels.flat.contiguous(), idx, w,
-                                 _tap_weight(weight, levels.flat.dtype))
+    flat = levels.flat.contiguous()
+    wk = _tap_weight(weight, flat.dtype)
+    if groups == 1:
+        out = deform_gather_contract(flat, idx, w, wk)
+    else:
+        out = deform_gather_grouped_contract(flat, idx, w, wk, groups)
     return _split_jobs(out, jobs, levels.B)
 
 
@@ -191,17 +214,18 @@ def multilevel_modulated_dcn(feats: Sequence[torch.Tensor],
                              weight: torch.Tensor,
                              bias: Optional[torch.Tensor] = None, *,
                              stride: int = 1, padding: int = 1,
-                             dilation: int = 1,
+                             dilation: int = 1, groups: int = 1,
                              sampling: str = DEFAULT_SAMPLING
                              ) -> List[torch.Tensor]:
     """DCNv2 on every level with shared weights (NHWC in and out, weight
-    HWIO, masks already sigmoid-ed): one kernel launch for all levels."""
+    HWIO (kh, kw, C/groups, cout), masks already sigmoid-ed): one kernel
+    launch for all levels."""
     levels = pack_levels(feats)
     jobs = [SampleJob(i, offsets[i], masks[i], (1.0, 1.0),
                       (stride, stride), (padding, padding),
                       (dilation, dilation))
             for i in range(len(feats))]
-    outs = batched_deform_matmul(levels, jobs, weight, sampling)
+    outs = batched_deform_matmul(levels, jobs, weight, sampling, groups)
     if bias is not None:
         outs = [o + bias.to(o.dtype) for o in outs]
     return outs

@@ -9,7 +9,7 @@ setup(
     packages=find_packages(include=["lsnet_tpu", "lsnet_tpu.*",
                                     "lsnet_torch", "lsnet_torch.*"]),
     # the PyTorch/CUDA port builds its kernels from these sources at first use
-    package_data={"lsnet_torch": ["csrc/*.cu"]},
+    package_data={"lsnet_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy",
                       "pillow"],
