@@ -8,20 +8,30 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ``nvcc`` per source, started together), timed;
 2. hold each kernel against its plain PyTorch version at the shapes the
    main paths give it (f32 with TF32 off, and bf16; nearest and bilinear),
-   and time both: ``deform_gather_contract`` at the head's tower and
-   refine calls, ``deform_gather_grouped_contract`` at the three grouped
-   DCN stages of X-101-64x4d (stride 1 and the stride-2 first block);
+   and time both: (a) ``deform_gather_contract`` at the head's tower and
+   refine calls, (b) ``deform_gather_grouped_contract`` at the three
+   grouped DCN stages of X-101-64x4d (stride 1 and the stride-2 first
+   block), (c) and (d) the bwd-data and bwd-weight kernels of each at the
+   same shapes;
 3. check the port on the card against the port on the CPU on small inputs
-   (a narrow R50-shaped and a narrow ResNeXt-shaped model, f32);
+   (a narrow R50-shaped and a narrow ResNeXt-shaped model, f32): (a) the
+   head outputs, (b) the training loss and every parameter's gradient;
 4. drive the main paths, each with the kernels' launch counts set to 0
-   just before and read just after: the full-width LSNet-R50 flagship and
-   the full-width LSNet X-101-64x4d-DCN, seeded random bf16 weights,
+   just before and read just after: (a) the full-width LSNet-R50 flagship
+   and the full-width LSNet X-101-64x4d-DCN, seeded random bf16 weights,
    ``inference_detector`` (forward + decode + NMS, the shipped inference
-   sampling) on a batch of two 800x1344 images;
-5. profile one forward + decode of each for the device time by kernel.
+   sampling) on a batch of two 800x1344 images; (b) train steps of the
+   full-width X-101-64x4d-DCN on the same batch size and canvas (bf16
+   over f32 master weights, bilinear at every site, 20 seeded GT boxes
+   per image), asserting the launch counts per step, a finite loss, that
+   trainable parameters moved and frozen ones did not;
+5. profile one forward + decode of each, and one train step, for the
+   device time by kernel.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
-and, last, ``{"ok": true, "device": {...}}``. It needs the repository
+(all six kernels) and, last, ``{"ok": true, "device": {...}}``. With
+``CHIP_SMOKE_LOG=<path>`` in the environment it also writes every line it
+prints to that file. It needs the repository
 around it and a CUDA device, and runs no JAX.
 """
 
@@ -37,13 +47,17 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from lsnet_torch import _build  # noqa: E402
-from lsnet_torch.apis import inference_detector, init_detector  # noqa: E402
+from lsnet_torch.apis import (inference_detector, init_detector,  # noqa: E402
+                              train_detector_step)
 from lsnet_torch.configs import (flagship_r50_cfg,  # noqa: E402
                                  x101_flagship_cfg)
 from lsnet_torch.core.decode import TestConfig, lsnet_decode  # noqa: E402
+from lsnet_torch.core.loss import LossConfig, lsnet_loss  # noqa: E402
 from lsnet_torch.models.heads.ls_head import branch_pyramid_jobs  # noqa: E402
 from lsnet_torch.models.layers import FrozenBatchNorm  # noqa: E402
+from lsnet_torch.ops import deform_gather as dg  # noqa: E402
 from lsnet_torch.ops import flat_deform as fd  # noqa: E402
+from lsnet_torch.ops import grouped as gr  # noqa: E402
 from lsnet_torch.ops.deform_gather import (  # noqa: E402
     deform_gather_contract, deform_gather_contract_ref)
 from lsnet_torch.ops.grouped import (  # noqa: E402
@@ -70,10 +84,18 @@ GROUPS = 64
 GROUPED_PER_FORWARD = sum(n for *_, n in X101_STAGES)            # 30
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # x max(1, max|ref|)
 ITERS = 5                        # timed runs of each main path
+TRAIN_WARMUP, TRAIN_STEPS = 2, 3
+NUM_GT = 20
+
+
+LOG_PATH = os.environ.get("CHIP_SMOKE_LOG")    # optional copy of the log
 
 
 def log(msg):
     print(msg, flush=True)
+    if LOG_PATH:
+        with open(LOG_PATH, "a") as f:
+            f.write(msg + "\n")
 
 
 def cuda_ms(fn, iters):
@@ -130,7 +152,38 @@ def work(args):
     return ops, nbytes
 
 
-def bound_ms(args):
+def work_bwd_data(args):
+    """bwd-data: the forward's product once (G = dout @ W^T), two passes
+    over the corners (the d_w dot products and the weighted scatter); it
+    reads flat, the table, the weight and dout and writes d_flat in f32
+    and d_w."""
+    flat, idx, w, weight = args[:4]
+    nc, k, px = idx.shape
+    C = flat.shape[1]
+    cin, cout = weight.shape[1], weight.shape[2]
+    ops = 2 * k * px * cin * cout + 2 * (2 * nc * k * px * C)
+    nbytes = (flat.numel() * flat.element_size() + idx.numel() * 4
+              + w.numel() * 4 + weight.numel() * weight.element_size()
+              + px * cout * flat.element_size()
+              + flat.numel() * 4 + w.numel() * 4)
+    return ops, nbytes
+
+
+def work_bwd_weight(args):
+    """bwd-weight: the product once (V^T @ dout) and the corner weighting;
+    it reads flat, the table and dout and writes d_weight."""
+    flat, idx, w, weight = args[:4]
+    nc, k, px = idx.shape
+    C = flat.shape[1]
+    cin, cout = weight.shape[1], weight.shape[2]
+    ops = 2 * k * px * cin * cout + 2 * nc * k * px * C
+    nbytes = (flat.numel() * flat.element_size() + idx.numel() * 4
+              + w.numel() * 4 + px * cout * flat.element_size()
+              + weight.numel() * weight.element_size())
+    return ops, nbytes
+
+
+def bound_ms(args, work=work):
     ops, nbytes = work(args)
     t_ops = ops / PEAK_OPS[args[0].dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -264,6 +317,169 @@ def check_grouped_kernel():
     return fwd, max_err
 
 
+def check_backward_call(label, args, groups, gen):
+    """Both backward kernels of one call against their plain versions;
+    returns the log row. Tolerance as the forward's, relative to
+    max(1, max|ref|) of each gradient: the kernels sum with f32 atomics in
+    an order that changes from run to run, and the bf16 route rounds the
+    weighted rows and G's inputs to 8 bits of mantissa."""
+    flat, idx, w, weight = args
+    px, cout = idx.shape[2], weight.shape[2]
+    dout = torch.randn(px, cout, device="cuda", generator=gen).to(flat.dtype)
+    if groups:
+        def data():
+            return gr.deform_gather_grouped_contract_bwd_data(
+                flat, idx, w, weight, dout, groups)
+
+        def wgt():
+            return gr.deform_gather_grouped_contract_bwd_weight(
+                flat, idx, w, weight, dout, groups)
+
+        def data_ref():
+            return gr.deform_gather_grouped_contract_bwd_data_ref(
+                flat, idx, w, weight, dout, groups)
+
+        def wgt_ref():
+            return gr.deform_gather_grouped_contract_bwd_weight_ref(
+                flat, idx, w, dout, groups)
+    else:
+        def data():
+            return dg.deform_gather_contract_bwd_data(flat, idx, w, weight,
+                                                      dout)
+
+        def wgt():
+            return dg.deform_gather_contract_bwd_weight(flat, idx, w, weight,
+                                                        dout)
+
+        def data_ref():
+            return dg.deform_gather_contract_bwd_data_ref(flat, idx, w,
+                                                          weight, dout)
+
+        def wgt_ref():
+            return dg.deform_gather_contract_bwd_weight_ref(flat, idx, w,
+                                                            dout)
+
+    row = dict(label, dtype=str(flat.dtype).split(".")[-1], px=px,
+               nc=idx.shape[0])
+    ok = True
+    errs = {}
+    for name, got, want in zip(
+            ("d_flat", "d_w", "d_weight"), (*data(), wgt()),
+            (*data_ref(), wgt_ref())):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        lim = TOL[flat.dtype] * max(1.0, want.float().abs().max().item())
+        ok = ok and bool(torch.isfinite(got).all()) and err <= lim
+        errs[name] = err
+        row[f"err_{name}"] = err
+        row[f"limit_{name}"] = lim
+        del got, want
+    row["data_err"] = max(errs["d_flat"], errs["d_w"])
+    row["weight_err"] = errs["d_weight"]
+    for key, fn, ref, wk in (("data", data, data_ref, work_bwd_data),
+                             ("weight", wgt, wgt_ref, work_bwd_weight)):
+        row[f"{key}_ms"] = cuda_ms(fn, 10)
+        row[f"{key}_plain_ms"] = cuda_ms(ref, 2)
+        row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bound_ms(args, wk)
+    log("backward " + json.dumps(row))
+    if not ok:
+        raise AssertionError(f"backward kernel disagrees: {row}")
+    return row
+
+
+BWD_KEYS = ("ms", "plain_ms", "bound_ms")
+
+
+def sum_rows(weighted_rows, kind):
+    """Per-step totals of one backward kernel (kind "data" or "weight")
+    from (count, row) pairs."""
+    tot = {key: sum(n * r[f"{kind}_{key}"] for n, r in weighted_rows)
+           for key in BWD_KEYS}
+    tot["bound_by"] = max((r for _, r in weighted_rows),
+                          key=lambda r: r[f"{kind}_bound_ms"]
+                          )[f"{kind}_bound_by"]
+    tot["max_abs_err"] = max(r[f"{kind}_err"] for _, r in weighted_rows)
+    return tot
+
+
+def check_backward_kernels():
+    """Phase 2c: the two backward kernels of deform_gather_contract at the
+    head's tower and refine shapes."""
+    gen = torch.Generator().manual_seed(2)
+    cgen = torch.Generator(device="cuda").manual_seed(2)
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for sampling in ("bilinear", "nearest"):
+            for site, args in zip(("tower", "refine"),
+                                  main_path_inputs(dtype, gen, sampling)):
+                row = check_backward_call(
+                    dict(site=site, sampling=sampling), args, 0, cgen)
+                if dtype == torch.bfloat16 and sampling == "bilinear":
+                    main[site] = row
+                del args
+            torch.cuda.empty_cache()
+    # one step = 6 tower calls + 2 refine contractions (bf16, bilinear)
+    rows = [(6, main["tower"]), (2, main["refine"])]
+    out = {kind: sum_rows(rows, kind) for kind in ("data", "weight")}
+    log("backward per step " + json.dumps(out))
+    return out
+
+
+def check_grouped_backward_kernels():
+    """Phase 2d: the two backward kernels of
+    deform_gather_grouped_contract at the X-101 stages, stride 1 and 2;
+    the PyTorch transposed einsums on an already gathered patch tensor as
+    the yardstick. Also the forward's bilinear (training) time."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    main = {}
+    fwd_train = {}
+    library = {"data": {}, "weight": {}}
+    for stage, out_hw, C, _ in X101_STAGES:
+        for stride in (1, 2):
+            levels, job, weight32 = grouped_inputs(gen, out_hw, C, stride)
+            for sampling in ("bilinear", "nearest"):
+                idx, w = fd._gather_indices_tap(levels, [job], K, sampling)
+                for dtype in (torch.float32, torch.bfloat16):
+                    args = (levels.flat.to(dtype).contiguous(), idx, w,
+                            weight32.to(dtype).contiguous())
+                    row = check_backward_call(
+                        dict(stage=stage, stride=stride, sampling=sampling,
+                             C=C), args, GROUPS, gen)
+                    if dtype == torch.bfloat16 and sampling == "bilinear":
+                        main[stage, stride] = row
+                        fwd_train[stage, stride] = cuda_ms(
+                            lambda: deform_gather_grouped_contract(
+                                *args, GROUPS), 20)
+                    del args
+            del levels, job, weight32
+            torch.cuda.empty_cache()
+        px = B * out_hw[0] * out_hw[1]
+        cg = C // GROUPS
+        vals = torch.randn(px, K, GROUPS, cg, device="cuda", generator=gen,
+                           dtype=torch.bfloat16)
+        wg = torch.randn(K, cg, GROUPS, cg, device="cuda", generator=gen,
+                         dtype=torch.bfloat16)
+        dout = torch.randn(px, GROUPS, cg, device="cuda", generator=gen,
+                           dtype=torch.bfloat16)
+        library["data"][stage] = cuda_ms(
+            lambda: torch.einsum("pgj,kcgj->pkgc", dout, wg), 10)
+        library["weight"][stage] = cuda_ms(
+            lambda: torch.einsum("pkgc,pgj->kcgj", vals, dout), 10)
+        del vals, wg, dout
+    rows = []
+    for st, _, _, n in X101_STAGES:
+        rows += [(1, main[st, 2]), (n - 1, main[st, 1])]
+    out = {kind: sum_rows(rows, kind) for kind in ("data", "weight")}
+    for kind in out:
+        out[kind]["library_ms"] = sum(n * library[kind][st]
+                                      for st, _, _, n in X101_STAGES)
+    out["forward_bilinear_ms"] = sum(
+        fwd_train[st, 2] + (n - 1) * fwd_train[st, 1]
+        for st, _, _, n in X101_STAGES)
+    log("grouped backward per step " + json.dumps(out))
+    return out
+
+
 def unit_bn_scales_(model):
     """FrozenBatchNorm scales to 1: at random 0.03 * N(0, 1) scales every
     residual branch, the backbone DCN included, is ~1e-5 of its shortcut
@@ -363,6 +579,149 @@ def drive_main_path(label, cfg, grouped_per_forward):
     return run, img_s, launches
 
 
+def synthetic_batch(batch, hw, num_gt, num_classes, seed, device):
+    """A seeded training batch: random images, ``num_gt`` boxes per image
+    with corners uniform in [0, min(hw)/2) and at least 8 px a side (the
+    recipe of tools/bench_train.py)."""
+    gen = torch.Generator().manual_seed(seed)
+    h, w = hw
+    bb = torch.rand(batch, num_gt, 4, generator=gen) * (min(h, w) / 2)
+    bb = torch.cat([torch.minimum(bb[..., :2], bb[..., 2:]),
+                    torch.maximum(bb[..., :2], bb[..., 2:]) + 8], dim=-1)
+    out = {
+        "image": torch.randn(batch, h, w, 3, generator=gen),
+        "pad_shape": torch.tensor([[h, w]] * batch, dtype=torch.int32),
+        "gt_bboxes": bb,
+        "gt_labels": torch.randint(0, num_classes, (batch, num_gt),
+                                   generator=gen),
+        "gt_valid": torch.ones(batch, num_gt, dtype=torch.bool),
+    }
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def check_small_gradients():
+    """Phase 3b: the training loss and every parameter's gradient of a
+    narrow ResNeXt-shaped model on the card (the kernels, forward and
+    backward) against the same model on the CPU (the plain versions), f32,
+    TF32 off. Tolerance 2e-3 of each gradient's largest entry (floored at
+    1e-3 of the largest gradient of all): the convolutions and the
+    kernels' atomics sum in another order than the CPU."""
+    cfg = x101_flagship_cfg(feat=64, stacked=2)
+    cfg["backbone"].update(depth=50, groups=8)
+    cfg["bbox_head"]["num_classes"] = 8
+    hw = (96, 128)
+    lcfg = LossConfig(image_shape=hw, num_classes=8)
+    grads = {}
+    for device in ("cpu", "cuda"):
+        model = unit_bn_scales_(init_detector(cfg, device=device, seed=1,
+                                              train=True))
+        batch = synthetic_batch(2, hw, 4, 8, 1, device)
+        outs = model(batch["image"], fd.TRAIN_SAMPLING)
+        total, _ = lsnet_loss(outs, batch, lcfg)
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        got = torch.autograd.grad(
+            total, [p for p in model.parameters() if p.requires_grad])
+        grads[device] = (total.item(),
+                         {n: g.cpu() for n, g in zip(names, got)})
+    (loss_c, g_c), (loss_g, g_g) = grads["cpu"], grads["cuda"]
+    top = max(g.abs().max().item() for g in g_c.values())
+    worst, worst_name = 0.0, ""
+    for n, ref in g_c.items():
+        rel = ((g_g[n] - ref).abs().max().item()
+               / max(ref.abs().max().item(), 1e-3 * top))
+        if rel > worst:
+            worst, worst_name = rel, n
+    log(f"small ResNeXt-shaped model gradients, card vs CPU: loss "
+        f"{loss_g:.6f} vs {loss_c:.6f}, {len(g_c)} gradients, max rel err "
+        f"{worst:.3g} ({worst_name})")
+    if abs(loss_g - loss_c) > 1e-4 * abs(loss_c) or worst > 2e-3:
+        raise AssertionError("card gradients disagree with the CPU")
+
+
+def launch_counts():
+    return {
+        "deform_gather_contract": deform_gather_contract.launches,
+        "deform_gather_contract_bwd_data":
+            dg.deform_gather_contract_bwd_data.launches,
+        "deform_gather_contract_bwd_weight":
+            dg.deform_gather_contract_bwd_weight.launches,
+        "deform_gather_grouped_contract":
+            deform_gather_grouped_contract.launches,
+        "deform_gather_grouped_contract_bwd_data":
+            gr.deform_gather_grouped_contract_bwd_data.launches,
+        "deform_gather_grouped_contract_bwd_weight":
+            gr.deform_gather_grouped_contract_bwd_weight.launches,
+    }
+
+
+def zero_launch_counts():
+    for fn in (deform_gather_contract, dg.deform_gather_contract_bwd_data,
+               dg.deform_gather_contract_bwd_weight,
+               deform_gather_grouped_contract,
+               gr.deform_gather_grouped_contract_bwd_data,
+               gr.deform_gather_grouped_contract_bwd_weight):
+        fn.launches = 0
+
+
+def drive_train_path():
+    """Phase 4b: train steps of the full-width X-101-64x4d-DCN, B=2 at
+    800x1344, bf16 compute over f32 master weights."""
+    t0 = time.perf_counter()
+    model = init_detector(x101_flagship_cfg(), device="cuda", seed=0,
+                          train=True)
+    step = train_detector_step(
+        model, LossConfig(image_shape=(H, W), num_classes=80), base_lr=0.01)
+    batch = synthetic_batch(B, (H, W), NUM_GT, 80, 0, "cuda")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    log(f"X-101 trainer built in {time.perf_counter() - t0:.1f}s")
+    for _ in range(TRAIN_WARMUP):
+        step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    history = [step(batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    history = [{k: v.item() for k, v in m.items()} for m in history]
+    img_s = B * TRAIN_STEPS / dt
+    log(f"X-101 train: {img_s:.3f} img/s ({dt / TRAIN_STEPS * 1e3:.2f} ms "
+        f"per step of {B}), peak memory {peak / 2 ** 30:.2f} GiB, launches "
+        f"{launches} over {TRAIN_STEPS} steps")
+    for m in history:
+        log("  step " + json.dumps(m))
+    want = {
+        "deform_gather_contract": LAUNCHES_PER_FORWARD,
+        "deform_gather_contract_bwd_data": LAUNCHES_PER_FORWARD,
+        "deform_gather_contract_bwd_weight": LAUNCHES_PER_FORWARD,
+        "deform_gather_grouped_contract": GROUPED_PER_FORWARD,
+        "deform_gather_grouped_contract_bwd_data": GROUPED_PER_FORWARD,
+        "deform_gather_grouped_contract_bwd_weight": GROUPED_PER_FORWARD}
+    want = {k: v * TRAIN_STEPS for k, v in want.items()}
+    if launches != want:
+        raise AssertionError(f"train: launches {launches}, want {want}")
+    for m in history:
+        for key, x in m.items():
+            if not x == x or abs(x) == float("inf"):
+                raise AssertionError(f"train: non-finite {key}: {m}")
+    moved = frozen_moved = 0
+    for n, p in model.named_parameters():
+        same = torch.equal(p.detach(), before[n])
+        if p.requires_grad and same:
+            raise AssertionError(f"train: trainable {n} did not move")
+        if not p.requires_grad and not same:
+            frozen_moved += 1
+        moved += p.requires_grad
+    if frozen_moved or moved == 0:
+        raise AssertionError(f"train: {frozen_moved} frozen parameters "
+                             f"moved, {moved} trainable ones")
+    log(f"X-101 train: {moved} trainable parameters moved, "
+        f"{len(before) - moved} frozen ones unchanged")
+    return (lambda: step(batch)), img_s, launches, peak
+
+
 def profile(label, run, batch_ms):
     """Phase 5: device time by kernel over one forward + decode, and the
     device's idle share of the measured batch time."""
@@ -377,14 +736,30 @@ def profile(label, run, batch_ms):
         return getattr(e, "device_time_total",
                        getattr(e, "cuda_time_total", 0.0))
 
-    kernels = [e for e in events if dev_us(e) > 0 and "aten::" not in e.key]
+    # kernel events only: an operator's event, or a device-side copy of a
+    # user annotation (the optimizer's step), repeats its kernels' time
+    on_device = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events
+               if dev_us(e) > 0 and e.device_type == on_device
+               and not e.key.startswith("Optimizer.")]
     total = sum(dev_us(e) for e in kernels)
     dgc = sum(dev_us(e) for e in kernels if "dgc_" in e.key)
     gdc = sum(dev_us(e) for e in kernels if "gdc_" in e.key)
+    bwd = {}
+    for e in kernels:
+        for name in ("bwd_data_kernel", "bwd_weight_kernel"):
+            if name in e.key:
+                grouped = "true>" in e.key or "(bool)1>" in e.key
+                key = ("grouped " if grouped else "") + name
+                bwd[key] = bwd.get(key, 0.0) + dev_us(e)
     log(f"{label} profile: device kernel time {total / 1e3:.3f} ms per "
         f"batch, deform_gather_contract {dgc / 1e3:.3f} ms, "
         f"deform_gather_grouped_contract {gdc / 1e3:.3f} ms; device idle "
         f"{1.0 - total / 1e3 / batch_ms:.3f} of the {batch_ms:.2f} ms batch")
+    if bwd:
+        log(f"{label} profile, backward kernels: " + ", ".join(
+            f"{k} {v / 1e3:.3f} ms" for k, v in sorted(bwd.items()))
+            + f"; {sum(bwd.values()) / total:.3f} of the device time")
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
@@ -393,6 +768,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if LOG_PATH:
+        os.makedirs(os.path.dirname(os.path.abspath(LOG_PATH)), exist_ok=True)
+        open(LOG_PATH, "w").close()
     t0 = time.perf_counter()
     logs = _build.build()
     log(f"built {sorted(_build.SIGNATURES)} in "
@@ -411,7 +789,10 @@ def main():
 
     fwd, max_err = check_kernel()
     gfwd, gmax_err = check_grouped_kernel()
+    bwd = check_backward_kernels()
+    gbwd = check_grouped_backward_kernels()
     check_small_against_cpu()
+    check_small_gradients()
     e2e = {}
     for label, cfg, grouped in (
             ("R50", flagship_r50_cfg(), 0),
@@ -422,7 +803,23 @@ def main():
         del run
         torch.cuda.empty_cache()
 
-    # launches: the X-101 main path's run, which goes through both kernels
+    run, train_img_s, launches, peak = drive_train_path()
+    profile("X-101 train step", run, B / train_img_s * 1e3)
+    e2e["X-101-64x4d-DCN train"] = train_img_s
+    del run
+    torch.cuda.empty_cache()
+
+    def bwd_entry(name, source, replaces, row):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row.get("library_ms")}
+
+    # launches: the X-101 train path's run, which goes through all six
+    # kernels; the forward rows keep their per-forward inference times,
+    # the backward rows are per train step (bf16, bilinear)
     log(json.dumps({"kernels": [{
         "name": "deform_gather_contract", "route": "cuda",
         "source": "lsnet_torch/csrc/deform_gather_contract.cu",
@@ -439,9 +836,24 @@ def main():
         "max_abs_err": gmax_err,
         "ms": gfwd["ms"], "plain_ms": gfwd["plain_ms"],
         "bound_ms": gfwd["bound_ms"], "bound_by": gfwd["bound_by"],
-        "library_ms": gfwd["library_ms"]}]}))
+        "library_ms": gfwd["library_ms"],
+        "train_forward_ms": gbwd["forward_bilinear_ms"]},
+        bwd_entry("deform_gather_contract_bwd_data",
+                  "lsnet_torch/csrc/deform_gather_contract_bwd_data.cu",
+                  "lsnet_tpu/ops/pallas_dma_gather.py:184", bwd["data"]),
+        bwd_entry("deform_gather_contract_bwd_weight",
+                  "lsnet_torch/csrc/deform_gather_contract_bwd_weight.cu",
+                  "lsnet_tpu/ops/pallas_dma_gather.py:184", bwd["weight"]),
+        bwd_entry("deform_gather_grouped_contract_bwd_data",
+                  "lsnet_torch/csrc/grouped_deform_contract_bwd_data.cu",
+                  "lsnet_tpu/ops/pallas_grouped.py:113", gbwd["data"]),
+        bwd_entry("deform_gather_grouped_contract_bwd_weight",
+                  "lsnet_torch/csrc/grouped_deform_contract_bwd_weight.cu",
+                  "lsnet_tpu/ops/pallas_grouped.py:127", gbwd["weight"]),
+    ]}))
     log(json.dumps({"e2e_img_per_s": e2e, "batch": B,
-                    "image": [H, W], "dtype": "bfloat16", "card": smi}))
+                    "image": [H, W], "dtype": "bfloat16",
+                    "train_peak_memory_bytes": peak, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,21 +4,26 @@
 caller asks for it) with seeded random weights; ``inference_detector`` runs
 forward + decode + NMS, the path ``bench.py`` (``e2e_fn``) times for the
 JAX package, with the shipped inference sampling (``backbone=nearest``) as
-the JAX entry points apply it with ``inference_sampling()``. Image loading
-and resizing come with a later slice.
+the JAX entry points apply it with ``inference_sampling()``;
+``train_detector_step`` builds the train step of a detector (loss,
+assigners, clip, SGD; ``tools/bench_train.py`` drives the JAX one). Image
+loading and resizing come with a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Sequence
 
 import torch
 
 from .core.decode import Detections, TestConfig, lsnet_decode
+from .core.loss import LossConfig
 from .models import build_detector
 from .models.detectors.lsnet import LSDetector
 from .models.layers import FrozenBatchNorm
-from .ops.flat_deform import INFERENCE_SAMPLING
+from .ops.flat_deform import INFERENCE_SAMPLING, TRAIN_SAMPLING
+from .train.optim import build_optimizer
+from .train.step import make_train_step
 
 
 def random_weights_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
@@ -37,15 +42,39 @@ def random_weights_(model: torch.nn.Module, seed: int) -> torch.nn.Module:
 
 
 def init_detector(cfg: Dict[str, Any], device: str = "cuda", seed: int = 0,
-                  dtype: torch.dtype = torch.float32) -> LSDetector:
+                  dtype: torch.dtype = torch.float32,
+                  train: bool = False) -> LSDetector:
     """Build the detector from a ``model`` config with seeded random
-    weights, in eval mode, on ``device`` (the card by default)."""
+    weights on ``device`` (the card by default), in eval mode or, with
+    ``train=True``, in training mode (FrozenBatchNorm normalises with its
+    stored statistics either way; the frozen stages' parameters have
+    ``requires_grad=False``)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_detector: no CUDA device; pass "
                            "device='cpu' to run on the CPU")
     model = random_weights_(build_detector(cfg), seed)
-    return model.to(device=device, dtype=dtype).eval()
+    return model.to(device=device, dtype=dtype).train(train)
+
+
+def train_detector_step(model: LSDetector, loss_cfg: LossConfig, *,
+                        base_lr: float = 0.01, steps_per_epoch: int = 1000,
+                        decay_epochs: Sequence[int] = (8, 11),
+                        mixed_precision: bool = True,
+                        sampling: Mapping[str, str] = TRAIN_SAMPLING,
+                        **optim_kwargs
+                        ) -> Callable[[Mapping[str, torch.Tensor]],
+                                      Dict[str, torch.Tensor]]:
+    """``step(batch) -> metrics`` for ``model`` (f32 master weights, from
+    ``init_detector(..., train=True)``): the reference recipe (SGD 0.9,
+    weight decay 1e-4, clip 35, warm-up + step schedule) on the bbox loss,
+    bf16 compute unless ``mixed_precision=False``. ``optim_kwargs`` go to
+    :func:`lsnet_torch.train.optim.build_optimizer`."""
+    optimizer, _ = build_optimizer(model.parameters(), base_lr,
+                                   steps_per_epoch, decay_epochs,
+                                   **optim_kwargs)
+    return make_train_step(model, optimizer, loss_cfg, mixed_precision,
+                           sampling)
 
 
 def inference_detector(model: LSDetector, images: torch.Tensor,

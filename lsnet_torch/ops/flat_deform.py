@@ -11,12 +11,21 @@ bilinear, the reference CUDA parity): out-of-range corners carry weight 0
 and read a clipped, in-bounds row.
 
 Sampling is an explicit argument per call: ``"bilinear"`` (4 corner reads
-per tap) or ``"nearest"`` (one rounded read, round half to even as
-``jnp.round``). There is no process-wide sampling state. The models take
+per tap), ``"nearest"`` (one rounded read, round half to even as
+``jnp.round``) or ``"nearest_ste"`` (straight-through nearest, for
+nearest-aware training: the value, and the gradients of the features, the
+weight and the mask, are those of ``"nearest"``; the offsets take the
+gradient the bilinear tent weights would give them). There is no
+process-wide sampling state. The models take
 a read-only mapping from sampling site to mode at call time:
 ``TRAIN_SAMPLING`` (bilinear everywhere, the JAX package without
 ``inference_sampling()``) or ``INFERENCE_SAMPLING`` (the shipped inference
 default of ``lsnet_tpu/ops/flat_deform.py:178``, ``backbone=nearest``).
+
+Every step from offsets and masks to the corner weights is differentiable
+torch code (``floor``, ``round`` and the range compares pass no gradient,
+the tent weights ``1 - |ys - y0 - dy|`` do, as in JAX); the contraction is
+a ``torch.autograd.Function`` with hand-written backward kernels.
 
 Grouped calls (``groups`` > 1, the ResNeXt backbone DCN) contract with the
 compact (K, C/G, cout) weight through
@@ -36,7 +45,7 @@ from .grouped import deform_gather_grouped_contract
 
 # The sampling of an ops call unless its caller says otherwise.
 DEFAULT_SAMPLING = "bilinear"
-SAMPLING_MODES = ("bilinear", "nearest")
+SAMPLING_MODES = ("bilinear", "nearest", "nearest_ste")
 
 # Sampling sites: the backbone DCN stages, the head's tower DCN blocks, the
 # pyramid refine with its paired cls gather.
@@ -122,7 +131,8 @@ def _corner_data(ys: torch.Tensor, xs: torch.Tensor, H: int, W: int,
         return [idx], [v.to(torch.float32)]
     if sampling != "bilinear":
         raise ValueError(f"sampling {sampling!r}: want one of "
-                         f"{SAMPLING_MODES}")
+                         f"{SAMPLING_MODES} (nearest_ste is split into its "
+                         "two tables by _corner_tables)")
     y0 = torch.floor(ys)
     x0 = torch.floor(xs)
     y0i = y0.to(torch.int32)
@@ -171,6 +181,31 @@ def _gather_indices_tap(levels: FlatLevels, jobs: Sequence[SampleJob],
             torch.cat(all_w, dim=2).contiguous())
 
 
+def _corner_tables(levels: FlatLevels, jobs: Sequence[SampleJob], K: int,
+                   sampling: str):
+    """(idx, w, ste) of a call: the table that is sampled, and for
+    ``nearest_ste`` under autograd the straight-through table ``ste`` =
+    (idx, w) of the bilinear corners, else None.
+
+    ``nearest_ste`` is the JAX package's mode of that name
+    (``lsnet_tpu/ops/flat_deform.py`` ``_corner_data``), which reads the
+    nearest row plus the bilinear corners at weights ``+w`` and
+    ``-stop_gradient(w)``, nine reads per tap. Here the nearest table is
+    sampled (one read) and the bilinear table only takes its ``d_w`` in
+    the backward. Its mask is detached: in the JAX sum the two bilinear
+    terms cancel in the mask's gradient, which so follows the nearest
+    table, and leave the tent slopes to the offsets."""
+    if sampling != "nearest_ste":
+        return (*_gather_indices_tap(levels, jobs, K, sampling), None)
+    idx, w = _gather_indices_tap(levels, jobs, K, "nearest")
+    if not (torch.is_grad_enabled()
+            and any(j.offset.requires_grad for j in jobs)):
+        return idx, w, None
+    held = [j._replace(mask=None if j.mask is None else j.mask.detach())
+            for j in jobs]
+    return idx, w, _gather_indices_tap(levels, held, K, "bilinear")
+
+
 def _tap_weight(weight: torch.Tensor, dtype) -> torch.Tensor:
     """HWIO (kh, kw, C/G, cout) -> (K, C/G, cout)."""
     kh, kw, cin, cout = weight.shape
@@ -198,13 +233,13 @@ def batched_deform_matmul(levels: FlatLevels, jobs: Sequence[SampleJob],
     weight: HWIO (kh, kw, C/groups, cout), group-major cout when grouped.
     Returns per-job (B, Ho, Wo, cout)."""
     K = weight.shape[0] * weight.shape[1]
-    idx, w = _gather_indices_tap(levels, jobs, K, sampling)
+    idx, w, ste = _corner_tables(levels, jobs, K, sampling)
     flat = levels.flat.contiguous()
     wk = _tap_weight(weight, flat.dtype)
     if groups == 1:
-        out = deform_gather_contract(flat, idx, w, wk)
+        out = deform_gather_contract(flat, idx, w, wk, ste)
     else:
-        out = deform_gather_grouped_contract(flat, idx, w, wk, groups)
+        out = deform_gather_grouped_contract(flat, idx, w, wk, groups, ste)
     return _split_jobs(out, jobs, levels.B)
 
 
@@ -247,15 +282,18 @@ def dual_pyramid_dcn(feats_a: Sequence[torch.Tensor],
                      sampling: str = DEFAULT_SAMPLING
                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Two branches sampled at identical positions (the refine and cls
-    branches share one offset field): one corner table, two launches."""
+    branches share one offset field): one corner table, two launches
+    (autograd sums the two launches' gradients of the table)."""
     if [f.shape[1:3] for f in feats_a] != [f.shape[1:3] for f in feats_b]:
         raise ValueError("dual_pyramid_dcn: branches differ in level shapes")
     lv_a = pack_levels(feats_a)
     lv_b = pack_levels(feats_b)
     K = weight_a.shape[0] * weight_a.shape[1]
-    idx, w = _gather_indices_tap(lv_a, jobs, K, sampling)
+    idx, w, ste = _corner_tables(lv_a, jobs, K, sampling)
     out_a = deform_gather_contract(lv_a.flat.contiguous(), idx, w,
-                                   _tap_weight(weight_a, lv_a.flat.dtype))
+                                   _tap_weight(weight_a, lv_a.flat.dtype),
+                                   ste)
     out_b = deform_gather_contract(lv_b.flat.contiguous(), idx, w,
-                                   _tap_weight(weight_b, lv_b.flat.dtype))
+                                   _tap_weight(weight_b, lv_b.flat.dtype),
+                                   ste)
     return _split_jobs(out_a, jobs, lv_a.B), _split_jobs(out_b, jobs, lv_b.B)

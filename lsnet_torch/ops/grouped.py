@@ -13,16 +13,36 @@ with g(n) = n // outG, for ``flat`` (R, C) with group-major channels
 grouped weight with group-major cout (outG = cout / G). It accumulates in
 f32 and returns (px, cout) in ``flat``'s dtype.
 
-On a CUDA tensor it launches the hand-written kernel
-``csrc/grouped_deform_contract.cu`` or raises; on a CPU tensor it runs the
-plain version ``deform_gather_grouped_contract_ref``.
+It is a ``torch.autograd.Function`` (the same as
+:func:`lsnet_torch.ops.deform_gather.deform_gather_contract`, with the
+grouped functions): with G[k, p, ch] = sum over the n of ch's group of
+dout[p, n] * weight[k, ch % Cg, n],
+
+    d_flat[idx[c, k, p], :] += w[c, k, p] * G[k, p, :]
+    d_w[c, k, p]             = flat[idx[c, k, p], :] . G[k, p, :]
+    d_weight[k, i, n]        = sum_p v[k, p, g(n) * Cg + i] * dout[p, n]
+
+On CUDA tensors forward and backward launch the hand-written kernels
+``csrc/grouped_deform_contract.cu``,
+``csrc/grouped_deform_contract_bwd_data.cu`` (counterpart of
+``pallas_grouped._make_dv_kernel``) and
+``csrc/grouped_deform_contract_bwd_weight.cu`` (counterpart of
+``pallas_grouped._make_dw_kernel`` and the pull-back to the compact
+layout) or raise; on CPU tensors they run the plain versions
+``deform_gather_grouped_contract_ref`` / ``*_bwd_data_ref`` /
+``*_bwd_weight_ref``. The backward kernels add into f32 buffers with
+atomics, so their sums' order, and the last bits, change from run to run.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
-from .. import _build
+from .deform_gather import (ContractOps, GatherContract, check_dout,
+                            gathered_rows, launch, px_splits,
+                            scatter_rows_ref, tile_splits)
 
 _ALIGN = 16
 TILE = 64          # the kernel's cout tile; outG must divide it
@@ -33,16 +53,47 @@ def deform_gather_grouped_contract_ref(flat: torch.Tensor, idx: torch.Tensor,
                                        groups: int) -> torch.Tensor:
     """Plain PyTorch version: gather and weight the corner rows in f32, then
     one grouped einsum over (K, px, G, Cg) x (K, Cg, G, outG)."""
-    nc, K, px = idx.shape
-    f = flat.float()
-    vals = f[idx[0].long()] * w[0].unsqueeze(-1)
-    for c in range(1, nc):
-        vals = vals + f[idx[c].long()] * w[c].unsqueeze(-1)
+    _, K, px = idx.shape
     Cg, cout = weight.shape[1], weight.shape[2]
     out = torch.einsum("kpgc,kcgj->pgj",
-                       vals.view(K, px, groups, Cg),
+                       gathered_rows(flat, idx, w).view(K, px, groups, Cg),
                        weight.float().view(K, Cg, groups, cout // groups))
     return out.reshape(px, cout).to(flat.dtype)
+
+
+def deform_gather_grouped_contract_bwd_data_ref(flat, idx, w, weight, dout,
+                                                groups, need_flat=True,
+                                                need_w=True):
+    """Plain PyTorch version of the backward w.r.t. (flat, w)."""
+    _, K, px = idx.shape
+    Cg, cout = weight.shape[1], weight.shape[2]
+    G = torch.einsum("pgj,kcgj->kpgc",
+                     dout.float().view(px, groups, cout // groups),
+                     weight.float().view(K, Cg, groups, cout // groups))
+    return scatter_rows_ref(flat, idx, w, G.reshape(K, px, groups * Cg),
+                            need_flat, need_w)
+
+
+def deform_gather_grouped_contract_bwd_weight_ref(flat, idx, w, dout,
+                                                  groups):
+    """Plain PyTorch version of the backward w.r.t. the compact weight:
+    (K, Cg, cout) in flat's dtype."""
+    _, K, px = idx.shape
+    cout = dout.shape[1]
+    Cg = flat.shape[1] // groups
+    d_weight = torch.einsum(
+        "kpgc,pgj->kcgj", gathered_rows(flat, idx, w).view(K, px, groups, Cg),
+        dout.float().view(px, groups, cout // groups))
+    return d_weight.reshape(K, Cg, cout).to(flat.dtype)
+
+
+def deform_gather_grouped_contract_bwd_ref(flat, idx, w, weight, dout,
+                                           groups):
+    """(d_flat, d_w, d_weight) of the plain versions."""
+    d_flat, d_w = deform_gather_grouped_contract_bwd_data_ref(
+        flat, idx, w, weight, dout, groups)
+    return d_flat, d_w, deform_gather_grouped_contract_bwd_weight_ref(
+        flat, idx, w, dout, groups)
 
 
 def _check_shapes(flat, idx, w, weight, groups):
@@ -93,11 +144,17 @@ def _check_kernel_limits(flat, idx, w, weight, groups):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def deform_gather_grouped_contract(flat: torch.Tensor, idx: torch.Tensor,
-                                   w: torch.Tensor, weight: torch.Tensor,
-                                   groups: int) -> torch.Tensor:
-    """(px, cout) in flat's dtype; the kernel on CUDA, the plain version on
-    the CPU."""
+def _check_bwd_limits(weight, groups):
+    """The backward kernels build G and d_weight in 64-channel tiles, one
+    per cout tile: the channel slice of a cout tile must be 64 wide."""
+    _, Cg, cout = weight.shape
+    if TILE // (cout // groups) * Cg != TILE:
+        raise ValueError(f"backward kernels need a {TILE}-channel slice per "
+                         f"cout tile (Cg == outG); got Cg={Cg}, "
+                         f"outG={cout // groups}")
+
+
+def _forward(flat, idx, w, weight, groups):
     _check_shapes(flat, idx, w, weight, groups)
     if flat.device.type == "cpu":
         return deform_gather_grouped_contract_ref(flat, idx, w, weight,
@@ -110,22 +167,106 @@ def deform_gather_grouped_contract(flat: torch.Tensor, idx: torch.Tensor,
     out = torch.empty((px, cout), dtype=flat.dtype, device=flat.device)
     if px == 0:
         return out
-    lib = _build.load("grouped_deform_contract")
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lsnet_grouped_deform_contract(
-            flat.data_ptr(), idx.data_ptr(), w.data_ptr(), weight.data_ptr(),
-            out.data_ptr(), flat.shape[1], Cg, cout // groups, nc, K, px,
-            cout, int(flat.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"grouped_deform_contract launch failed: CUDA "
-                           f"error {rc}")
+    launch("grouped_deform_contract", "lsnet_grouped_deform_contract", flat,
+           flat.data_ptr(), idx.data_ptr(), w.data_ptr(), weight.data_ptr(),
+           out.data_ptr(), flat.shape[1], Cg, cout // groups, nc, K, px,
+           cout, int(flat.dtype == torch.bfloat16))
     deform_gather_grouped_contract.launches += 1
     return out
 
 
-# launches of the CUDA kernel since the count was last set to 0
+def deform_gather_grouped_contract_bwd_data(flat, idx, w, weight, dout,
+                                            groups, need_flat=True,
+                                            need_w=True):
+    """(d_flat (R, C) in flat's dtype, d_w (nc, K, px) f32), None where
+    not needed; the kernel on CUDA, the plain version on the CPU."""
+    _check_shapes(flat, idx, w, weight, groups)
+    if flat.device.type == "cpu":
+        return deform_gather_grouped_contract_bwd_data_ref(
+            flat, idx, w, weight, dout, groups, need_flat, need_w)
+    if flat.device.type != "cuda":
+        raise ValueError(f"no kernel for device {flat.device}")
+    _check_kernel_limits(flat, idx, w, weight, groups)
+    _check_bwd_limits(weight, groups)
+    nc, K, px = idx.shape
+    _, Cg, cout = weight.shape
+    dout = check_dout(dout, flat, px, cout)
+    d_flat = (torch.zeros(flat.shape, dtype=torch.float32,
+                          device=flat.device) if need_flat else None)
+    d_w = torch.zeros_like(w) if need_w else None
+    if px and (need_flat or need_w):
+        launch("grouped_deform_contract_bwd_data",
+               "lsnet_grouped_deform_contract_bwd_data", flat,
+               flat.data_ptr(), idx.data_ptr(), w.data_ptr(),
+               weight.data_ptr(), dout.data_ptr(),
+               d_flat.data_ptr() if need_flat else None,
+               d_w.data_ptr() if need_w else None, flat.shape[1], Cg,
+               cout // groups, nc, K, px, cout,
+               tile_splits(flat, cout // TILE, px),
+               int(flat.dtype == torch.bfloat16))
+        deform_gather_grouped_contract_bwd_data.launches += 1
+    return (d_flat.to(flat.dtype) if need_flat else None), d_w
+
+
+def deform_gather_grouped_contract_bwd_weight(flat, idx, w, weight, dout,
+                                              groups):
+    """d_weight (K, Cg, cout) in flat's dtype (``weight`` gives the shape;
+    its values are not read); the kernel on CUDA, the plain version on the
+    CPU."""
+    _check_shapes(flat, idx, w, weight, groups)
+    if flat.device.type == "cpu":
+        return deform_gather_grouped_contract_bwd_weight_ref(flat, idx, w,
+                                                             dout, groups)
+    if flat.device.type != "cuda":
+        raise ValueError(f"no kernel for device {flat.device}")
+    _check_kernel_limits(flat, idx, w, weight, groups)
+    _check_bwd_limits(weight, groups)
+    nc, K, px = idx.shape
+    _, Cg, cout = weight.shape
+    dout = check_dout(dout, flat, px, cout)
+    d_weight = torch.zeros((K, Cg, cout), dtype=torch.float32,
+                           device=flat.device)
+    if px:
+        launch("grouped_deform_contract_bwd_weight",
+               "lsnet_grouped_deform_contract_bwd_weight", flat,
+               flat.data_ptr(), idx.data_ptr(), w.data_ptr(),
+               dout.data_ptr(), d_weight.data_ptr(), flat.shape[1], Cg,
+               cout // groups, nc, K, px, cout,
+               px_splits(flat, cout // TILE * K, px),
+               int(flat.dtype == torch.bfloat16))
+        deform_gather_grouped_contract_bwd_weight.launches += 1
+    return d_weight.to(flat.dtype)
+
+
+def _ops(groups: int) -> ContractOps:
+    return ContractOps(
+        lambda flat, idx, w, weight: _forward(flat, idx, w, weight, groups),
+        lambda flat, idx, w, weight, dout, need_flat, need_w:
+            deform_gather_grouped_contract_bwd_data(
+                flat, idx, w, weight, dout, groups, need_flat, need_w),
+        lambda flat, idx, w, weight, dout:
+            deform_gather_grouped_contract_bwd_weight(flat, idx, w, weight,
+                                                      dout, groups))
+
+
+def deform_gather_grouped_contract(flat: torch.Tensor, idx: torch.Tensor,
+                                   w: torch.Tensor, weight: torch.Tensor,
+                                   groups: int,
+                                   ste: Optional[Tuple[torch.Tensor,
+                                                       torch.Tensor]] = None
+                                   ) -> torch.Tensor:
+    """(px, cout) in flat's dtype; kernels on CUDA, plain versions on the
+    CPU, differentiable on both. ``ste``: a straight-through table, see
+    :class:`lsnet_torch.ops.deform_gather.GatherContract`."""
+    ste_idx, ste_w = ste if ste is not None else (None, None)
+    return GatherContract.apply(_ops(groups), flat, idx, w, weight, ste_idx,
+                                ste_w)
+
+
+# launches of each CUDA kernel since its count was last set to 0
 deform_gather_grouped_contract.launches = 0
+deform_gather_grouped_contract_bwd_data.launches = 0
+deform_gather_grouped_contract_bwd_weight.launches = 0
 
 
 def grouped_deform_contract(vals: torch.Tensor, weight: torch.Tensor, K: int,

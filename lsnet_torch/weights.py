@@ -12,12 +12,14 @@ The port's modules carry the flax module names, so a variable at
 
 :func:`load_jax_variables` loads strictly: a variable the model does not
 have, or a model entry no variable fills, raises.
+:func:`to_jax_variables` is the inverse bridge, for laying the port's
+parameters, gradients or updated parameters beside the flax trees.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,3 +68,36 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]
     """Load flax variables into ``model`` (strict: raises on an unused or
     missing key, or a shape mismatch)."""
     return model.load_state_dict(from_jax_variables(variables), strict=True)
+
+
+def to_jax_variables(model: nn.Module,
+                     tensors: Optional[Mapping[str, torch.Tensor]] = None
+                     ) -> Dict[str, Dict[str, Any]]:
+    """The inverse of :func:`from_jax_variables`: ``tensors`` keyed like
+    ``model.state_dict()`` (by default the state dict itself; a dict of
+    gradients by parameter name works too) -> {"params": tree,
+    "batch_stats": tree} of f32 numpy arrays in the flax names and
+    layouts (``nn.Conv2d`` weights OIHW -> HWIO ``kernel``, norm weights
+    -> ``scale``). ``model`` tells a convolution's weight from a norm's
+    or a deformable layer's."""
+    if tensors is None:
+        tensors = model.state_dict()
+    modules = dict(model.named_modules())
+    out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for key, t in tensors.items():
+        *path, leaf = key.split(".")
+        module = modules[".".join(path)]
+        arr = t.detach().to("cpu", torch.float32)
+        coll = "params"
+        if leaf in _STAT_LEAVES:
+            coll = "batch_stats"
+        elif leaf == "weight" and isinstance(module, nn.Conv2d):
+            leaf, arr = "kernel", arr.permute(2, 3, 1, 0)
+        elif leaf == "weight" and not hasattr(module, "conv_offset") \
+                and arr.dim() == 1:
+            leaf = "scale"
+        node = out[coll]
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = arr.contiguous().numpy()
+    return out

@@ -128,7 +128,8 @@ def test_config_copy_matches_graft_entry():
     assert flagship_r50_cfg() == want
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "lsnet_tpu", "__graft_entry__")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "lsnet_tpu",
+             "__graft_entry__")
 
 
 def _imports(path):
