@@ -12,24 +12,31 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    refine calls, (b) ``deform_gather_grouped_contract`` at the three
    grouped DCN stages of X-101-64x4d (stride 1 and the stride-2 first
    block), (c) and (d) the bwd-data and bwd-weight kernels of each at the
-   same shapes;
+   same shapes, (e) the four probe kernels at the probes' own inputs and
+   tolerances, each launch under a host-side time limit,
+   ``probe_block_gather`` also at 147,456 random rows with its byte bound,
+   then the checks of ``lsnet_torch.tools.probe`` in-process with the
+   probes' launch counts read around them;
 3. check the port on the card against the port on the CPU on small inputs
-   (a narrow R50-shaped and a narrow ResNeXt-shaped model, f32): (a) the
-   head outputs, (b) the training loss and every parameter's gradient;
+   (a narrow R50-shaped model, and a narrow ResNeXt-shaped model for each
+   of the four tasks, f32): (a) the head outputs, (b) the training loss
+   and every parameter's gradient (ResNeXt-shaped, each task);
 4. drive the main paths, each with the kernels' launch counts set to 0
-   just before and read just after: (a) the full-width LSNet-R50 flagship
-   and the full-width LSNet X-101-64x4d-DCN, seeded random bf16 weights,
-   ``inference_detector`` (forward + decode + NMS, the shipped inference
-   sampling) on a batch of two 800x1344 images; (b) train steps of the
-   full-width X-101-64x4d-DCN on the same batch size and canvas (bf16
-   over f32 master weights, bilinear at every site, 20 seeded GT boxes
-   per image), asserting the launch counts per step, a finite loss, that
+   just before and read just after: (a) ``inference_detector`` (forward +
+   decode + NMS, the shipped inference sampling) on a batch of two
+   800x1344 images, seeded random bf16 weights, for the full-width
+   LSNet-R50 flagship and the full-width LSNet X-101-64x4d-DCN in the
+   bbox, segm and pose_bbox tasks; (b) train steps of the full-width
+   X-101-64x4d-DCN, bbox and pose_bbox, on the same batch size and canvas
+   (bf16 over f32 master weights, bilinear at every site, 20 seeded
+   instances per image: boxes, 36-point contours, 17 keypoints with
+   visibility), asserting the launch counts per step, a finite loss, that
    trainable parameters moved and frozen ones did not;
-5. profile one forward + decode of each, and one train step, for the
-   device time by kernel.
+5. profile one forward + decode of each, and one train step of each, for
+   the device time by kernel.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(all six kernels) and, last, ``{"ok": true, "device": {...}}``. With
+(all ten kernels) and, last, ``{"ok": true, "device": {...}}``. With
 ``CHIP_SMOKE_LOG=<path>`` in the environment it also writes every line it
 prints to that file. It needs the repository
 around it and a CUDA device, and runs no JAX.
@@ -49,6 +56,7 @@ sys.path.insert(0, REPO)
 from lsnet_torch import _build  # noqa: E402
 from lsnet_torch.apis import (inference_detector, init_detector,  # noqa: E402
                               train_detector_step)
+from lsnet_torch import configs  # noqa: E402
 from lsnet_torch.configs import (flagship_r50_cfg,  # noqa: E402
                                  x101_flagship_cfg)
 from lsnet_torch.core.decode import TestConfig, lsnet_decode  # noqa: E402
@@ -58,6 +66,8 @@ from lsnet_torch.models.layers import FrozenBatchNorm  # noqa: E402
 from lsnet_torch.ops import deform_gather as dg  # noqa: E402
 from lsnet_torch.ops import flat_deform as fd  # noqa: E402
 from lsnet_torch.ops import grouped as gr  # noqa: E402
+from lsnet_torch.ops import probes  # noqa: E402
+from lsnet_torch.tools import probe as probe_tool  # noqa: E402
 from lsnet_torch.ops.deform_gather import (  # noqa: E402
     deform_gather_contract, deform_gather_contract_ref)
 from lsnet_torch.ops.grouped import (  # noqa: E402
@@ -71,10 +81,12 @@ K = 9
 # HBM3 bandwidth
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
-# main-path launches of deform_gather_contract per forward: 2 towers x 3
-# DCN blocks, then the refine and cls contractions of the shared refine
-# gather
-LAUNCHES_PER_FORWARD = 2 * 3 + 2
+# main-path launches of deform_gather_contract per forward: 3 DCN blocks
+# per tower (cls and one tower per regression branch), then the two
+# contractions of the refine gather that the main branch shares with cls;
+# pose_bbox has a third tower and its bbox branch's own refine gather
+K1_PER_FORWARD = {"bbox": 2 * 3 + 2, "segm": 2 * 3 + 2,
+                  "pose_bbox": 3 * 3 + 2 + 1, "pose_kbox": 2 * 3 + 2}
 # X-101-64x4d grouped DCN stages at B=2, 800x1344: output map, C = cout,
 # calls per forward (blocks of the stage); the first block of each stage
 # samples at stride 2 from a map twice the size
@@ -86,6 +98,9 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # x max(1, max|ref|)
 ITERS = 5                        # timed runs of each main path
 TRAIN_WARMUP, TRAIN_STEPS = 2, 3
 NUM_GT = 20
+NUM_VECTORS = {"bbox": 4, "segm": 36, "pose_bbox": 17, "pose_kbox": 17}
+PROBE_TIME_LIMIT = 30.0          # seconds a probe launch may take
+COPY_RATE_ROWS = 9 * 16384       # block gathers of the copy-rate timing
 
 
 LOG_PATH = os.environ.get("CHIP_SMOKE_LOG")    # optional copy of the log
@@ -110,6 +125,27 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def dev_us(event):
+    """Device time of a profiler event, in microseconds."""
+    return getattr(event, "device_time_total",
+                   getattr(event, "cuda_time_total", 0.0))
+
+
+def kernel_device_us(fn, kernel, iters=10):
+    """Mean device time of the kernel whose name contains ``kernel`` over
+    iters calls of fn(), from the profiler: for a kernel so short that CUDA
+    events around the calls time the host's issue rate instead."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(dev_us(e) for e in prof.key_averages()
+               if kernel in e.key) / iters
 
 
 def main_path_inputs(dtype, gen, sampling):
@@ -229,6 +265,9 @@ def check_kernel():
            for key in ("ms", "plain_ms", "bound_ms")}
     fwd["bound_by"] = max(per_fwd.values(),
                           key=lambda r: r["bound_ms"])["bound_by"]
+    fwd["per_call"] = {site: {key: row[key] for key in
+                              ("ms", "plain_ms", "bound_ms")}
+                       for site, row in per_fwd.items()}
     return fwd, max_err
 
 
@@ -421,6 +460,10 @@ def check_backward_kernels():
     # one step = 6 tower calls + 2 refine contractions (bf16, bilinear)
     rows = [(6, main["tower"]), (2, main["refine"])]
     out = {kind: sum_rows(rows, kind) for kind in ("data", "weight")}
+    for kind in out:
+        out[kind]["per_call"] = {
+            site: {key: row[f"{kind}_{key}"] for key in BWD_KEYS}
+            for site, row in main.items()}
     log("backward per step " + json.dumps(out))
     return out
 
@@ -480,6 +523,164 @@ def check_grouped_backward_kernels():
     return out
 
 
+def within_time_limit(fn, what):
+    """fn() (which launches on the current stream), then wait for the
+    device under a host-side time limit: a kernel that hangs (a barrier
+    that never completes) ends the run with a message instead of holding
+    the card."""
+    out = fn()
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.perf_counter()
+    while not done.query():
+        if time.perf_counter() - t0 > PROBE_TIME_LIMIT:
+            log(f"chip_smoke: {what} did not finish within "
+                f"{PROBE_TIME_LIMIT:.0f} s (a hung kernel); giving up")
+            os._exit(1)
+        time.sleep(0.001)
+    return out
+
+
+def probe_work(name, args):
+    """(operations, their peak rate, bytes) of one probe call: each input
+    the function needs read once (of a gathered table only the blocks the
+    indices name), the output written once."""
+    x = args[0]
+    if name == "probe_row_copy":
+        row = x.shape[1] * x.element_size()
+        return 0, PEAK_OPS[torch.float32], 2 * row
+    if name == "probe_block_gather":
+        block = probes.BLOCK_ROWS * x.shape[1] * x.element_size()
+        idx = args[1]
+        return (0, PEAK_OPS[torch.float32],
+                (idx.unique().numel() + idx.numel()) * block
+                + idx.numel() * 4)
+    P = x.shape[0]
+    out_bytes = P * 128 * 4
+    if name == "probe_subrow_sum":
+        return (x.numel(), PEAK_OPS[torch.float32],
+                x.numel() * x.element_size() + out_bytes)
+    w = args[1]
+    return (2 * x.numel() * w.shape[2], PEAK_OPS[torch.bfloat16],
+            (x.numel() + w.numel()) * x.element_size() + out_bytes)
+
+
+def probe_bound_ms(name, args):
+    ops, rate, nbytes = probe_work(name, args)
+    t_ops = ops / rate * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def probe_library_call(name, args):
+    """One PyTorch call that computes the probe's function on the same
+    inputs (a yardstick only; the port never calls it)."""
+    x = args[0]
+    if name == "probe_row_copy":
+        return lambda: torch.narrow_copy(x, 0, 0, 1)
+    if name == "probe_block_gather":
+        blocks = x.view(-1, probes.BLOCK_ROWS * x.shape[1])
+        return lambda: torch.index_select(blocks, 0, args[1])
+    if name == "probe_subrow_sum":
+        return lambda: torch.sum(x, dim=1, dtype=torch.float32)
+    a, b = x.view(x.shape[0], -1), args[1].view(-1, args[1].shape[2])
+    return lambda: torch.mm(a, b, out_dtype=torch.float32)
+
+
+def check_probe_kernels():
+    """Phase 2e: the four probe kernels against their plain versions at
+    the JAX probes' inputs and tolerances, every first launch under the
+    host-side time limit; the block gather's copy rate at COPY_RATE_ROWS
+    random rows of a 64 MB table; then the probe tool's own checks
+    in-process, with the probes' launch counts set to 0 just before and
+    read just after. Returns the probes' entries of the kernels line."""
+    dev = torch.device("cuda")
+    replaces = {
+        "probe_row_copy": "lsnet_tpu/ops/pallas_dma_gather.py:220",
+        "probe_block_gather": "tools/probe_dma2.py:33",
+        "probe_subrow_sum": "tools/probe_dma2.py:69",
+        "probe_subrow_dot": "tools/probe_dma2.py:98"}
+    entries = {}
+    for name in probes.PROBES:
+        fn = getattr(probes, name)
+        ref = getattr(probes, name + "_ref")
+        args = [a.to(dev) for a in probes.probe_inputs(name)]
+        got = within_time_limit(lambda: fn(*args), name)
+        want = ref(*args)
+        torch.cuda.synchronize()
+        err = (got.double() - want.double()).abs().max().item()
+        tol = probe_tool.TOLERANCES[name]
+        ok = (torch.equal(got, want) if tol is None
+              else torch.allclose(got, want, rtol=tol[0], atol=tol[1]))
+        bnd, by = probe_bound_ms(name, args)
+        entry = {"name": name, "route": "cuda",
+                 "source": f"lsnet_torch/csrc/{name}.cu",
+                 "replaces": replaces[name], "max_abs_err": err,
+                 "ms": cuda_ms(lambda: fn(*args), 50),
+                 "plain_ms": cuda_ms(lambda: ref(*args), 20),
+                 "bound_ms": bnd, "bound_by": by,
+                 "device_us": kernel_device_us(lambda: fn(*args),
+                                               f"{name}_kernel")}
+        try:
+            entry["library_ms"] = cuda_ms(probe_library_call(name, args), 20)
+        except (TypeError, RuntimeError) as ex:
+            # an older PyTorch without mm(out_dtype=): no yardstick
+            log(f"probe {name}: no library call here ({ex})")
+            entry["library_ms"] = None
+        log("probe " + json.dumps(dict(entry, tolerance=tol, ok=bool(ok))))
+        if not ok or not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"probe kernel disagrees: {entry}")
+        entries[name] = entry
+
+    # the copy-only rate of the gather: random 2,048-byte blocks of a
+    # 64 MB table (larger than the 50 MB L2)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    table = torch.randn(32768 * probes.BLOCK_ROWS, 128, device=dev,
+                        generator=gen).to(torch.bfloat16)
+    rows = torch.randint(0, 32768, (COPY_RATE_ROWS,), device=dev,
+                         generator=gen, dtype=torch.int32)
+    args = [table, rows]
+    got = within_time_limit(lambda: probes.probe_block_gather(*args),
+                            "probe_block_gather at many rows")
+    if not torch.equal(got, probes.probe_block_gather_ref(*args)):
+        raise AssertionError("probe_block_gather disagrees at "
+                             f"{COPY_RATE_ROWS} rows")
+    del got
+    ms = cuda_ms(lambda: probes.probe_block_gather(*args), 20)
+    bnd, by = probe_bound_ms("probe_block_gather", args)
+    rate = {"rows": COPY_RATE_ROWS, "ms": ms,
+            "plain_ms": cuda_ms(
+                lambda: probes.probe_block_gather_ref(*args), 5),
+            "library_ms": cuda_ms(
+                probe_library_call("probe_block_gather", args), 10),
+            "bound_ms": bnd, "bound_by": by,
+            "device_us": kernel_device_us(
+                lambda: probes.probe_block_gather(*args),
+                "probe_block_gather_kernel"),
+            "gathered_gbytes_s": COPY_RATE_ROWS * 2048 / ms / 1e6}
+    log("probe_block_gather copy rate " + json.dumps(rate))
+    entries["probe_block_gather"]["copy_rate"] = rate
+    del table, rows, args
+
+    # the entry point: lsnet_torch.tools.probe's checks, in-process
+    for name in probes.PROBES:
+        getattr(probes, name).launches = 0
+    deform_gather_contract.launches = 0
+    if not within_time_limit(
+            lambda: probe_tool.run_checks(dev, lambda m: log("tool " + m)),
+            "lsnet_torch.tools.probe"):
+        raise AssertionError("lsnet_torch.tools.probe reports a failure")
+    for name in probes.PROBES:
+        entries[name]["launches"] = getattr(probes, name).launches
+        if entries[name]["launches"] < 1:
+            raise AssertionError(f"the probe tool never launched {name}")
+    if deform_gather_contract.launches != 1:
+        raise AssertionError("the probe tool's full-kernel check launched "
+                             f"{deform_gather_contract.launches} times")
+    return entries
+
+
 def unit_bn_scales_(model):
     """FrozenBatchNorm scales to 1: at random 0.03 * N(0, 1) scales every
     residual branch, the backbone DCN included, is ~1e-5 of its shortcut
@@ -491,14 +692,25 @@ def unit_bn_scales_(model):
     return model
 
 
+def narrow_task_cfg(task):
+    """A narrow X-101-shaped model of ``task``: ResNeXt-50, G=8, feat 64,
+    two stacked DCN blocks, the task's own landmark count."""
+    cfg = {"bbox": x101_flagship_cfg, "segm": configs.x101_segm_cfg,
+           "pose_bbox": configs.x101_pose_bbox_cfg,
+           "pose_kbox": configs.x101_pose_kbox_cfg}[task](feat=64, stacked=2)
+    cfg["backbone"].update(depth=50, groups=8)
+    return cfg
+
+
 def check_small_against_cpu():
     """Phase 3: narrow models on the card vs the same models on the CPU
     (where the plain versions run), f32, TF32 off, bilinear sampling (the
-    nearest rounding would amplify the card's ~1e-6 differences)."""
-    r50 = flagship_r50_cfg(feat=64, stacked=2)
-    resnext = x101_flagship_cfg(feat=64, stacked=2)
-    resnext["backbone"].update(depth=50, groups=8)
-    for label, cfg in (("R50-shaped", r50), ("ResNeXt-shaped", resnext)):
+    nearest rounding would amplify the card's ~1e-6 differences): an
+    R50-shaped bbox model and a ResNeXt-shaped model of each task."""
+    cases = [("R50-shaped", flagship_r50_cfg(feat=64, stacked=2))]
+    for task in NUM_VECTORS:
+        cases.append((f"ResNeXt-shaped {task}", narrow_task_cfg(task)))
+    for label, cfg in cases:
         cfg["bbox_head"]["num_classes"] = 8
         cpu = unit_bn_scales_(init_detector(cfg, device="cpu", seed=1))
         gpu = unit_bn_scales_(init_detector(cfg, device="cuda", seed=1))
@@ -517,8 +729,9 @@ def check_small_against_cpu():
             raise AssertionError(f"{label}: card disagrees with CPU: {worst}")
 
 
-def drive_main_path(label, cfg, grouped_per_forward):
-    """Phase 4: a flagship end to end, B=2 at 800x1344, bf16."""
+def drive_main_path(label, cfg, grouped_per_forward, task="bbox"):
+    """Phase 4: a full-width model end to end, B=2 at 800x1344, bf16, with
+    the task's own test settings."""
     t0 = time.perf_counter()
     model = init_detector(cfg, device="cuda", seed=0, dtype=torch.bfloat16)
     gen = torch.Generator().manual_seed(0)
@@ -526,10 +739,8 @@ def drive_main_path(label, cfg, grouped_per_forward):
         "cuda", torch.bfloat16)
     img_shapes = torch.tensor([[H, W]] * B, device="cuda")
     sfs = torch.ones(B, 4, device="cuda")
-    tcfg = TestConfig(image_shape=(H, W), num_classes=80, task="bbox",
-                      nms_pre=1000, score_thr=0.05, nms_iou=0.6,
-                      max_per_img=100)
-    log(f"{label} flagship built in {time.perf_counter() - t0:.1f}s")
+    tcfg = TestConfig(image_shape=(H, W), **configs.TEST_SETTINGS[task])
+    log(f"{label} model built in {time.perf_counter() - t0:.1f}s")
 
     def run():
         return inference_detector(model, images, img_shapes, sfs, tcfg)
@@ -537,31 +748,35 @@ def drive_main_path(label, cfg, grouped_per_forward):
     for _ in range(2):                      # warm-up
         run()
     torch.cuda.synchronize()
-    deform_gather_contract.launches = 0
-    deform_gather_grouped_contract.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
     t0 = time.perf_counter()
     for _ in range(ITERS):
         det = run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"deform_gather_contract": deform_gather_contract.launches,
-                "deform_gather_grouped_contract":
-                    deform_gather_grouped_contract.launches}
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     img_s = B * ITERS / dt
     n_valid = det.valid.sum(dim=1).tolist()
     log(f"{label} e2e: {img_s:.3f} img/s ({dt / ITERS * 1e3:.2f} ms per "
-        f"batch of {B}), launches {launches} over {ITERS} runs, valid "
-        f"{n_valid}")
-    want = {"deform_gather_contract": LAUNCHES_PER_FORWARD * ITERS,
-            "deform_gather_grouped_contract": grouped_per_forward * ITERS}
+        f"batch of {B}), peak memory {peak / 2 ** 30:.2f} GiB, launches "
+        f"{launches} over {ITERS} runs, valid {n_valid}")
+    want = dict.fromkeys(launches, 0)
+    want.update({
+        "deform_gather_contract": K1_PER_FORWARD[task] * ITERS,
+        "deform_gather_grouped_contract": grouped_per_forward * ITERS})
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
     for name, x in det._asdict().items():
         if x.is_floating_point() and not bool(torch.isfinite(x).all()):
             raise AssertionError(f"non-finite {name}")
-    if tuple(det.bboxes.shape) != (B, 100, 4) or min(n_valid) < 1:
-        raise AssertionError(f"bad detections: {det.bboxes.shape}, "
-                             f"valid {n_valid}")
+    shapes = (tuple(det.bboxes.shape), tuple(det.landmarks.shape))
+    if shapes != ((B, tcfg.max_per_img, 4),
+                  (B, tcfg.max_per_img, 2 * tcfg.num_vectors)) \
+            or min(n_valid) < 1:
+        raise AssertionError(f"{label}: bad detections: {shapes}, valid "
+                             f"{n_valid}")
     # host-clock split of one batch: forward alone, decode + NMS alone
     with torch.inference_mode():
         t0 = time.perf_counter()
@@ -576,13 +791,15 @@ def drive_main_path(label, cfg, grouped_per_forward):
         dec_ms = (time.perf_counter() - t0) / ITERS * 1e3
     log(f"{label} split per batch: forward {fwd_ms:.2f} ms, decode+NMS "
         f"{dec_ms:.2f} ms")
-    return run, img_s, launches
+    return run, img_s, launches, peak
 
 
 def synthetic_batch(batch, hw, num_gt, num_classes, seed, device):
     """A seeded training batch: random images, ``num_gt`` boxes per image
     with corners uniform in [0, min(hw)/2) and at least 8 px a side (the
-    recipe of tools/bench_train.py)."""
+    recipe of tools/bench_train.py); for the segm task a 36-point contour
+    on an ellipse inside each box, for the pose tasks 17 keypoints inside
+    each box with visibility 0 / 1 / 2 (invisible ones at (0, 0))."""
     gen = torch.Generator().manual_seed(seed)
     h, w = hw
     bb = torch.rand(batch, num_gt, 4, generator=gen) * (min(h, w) / 2)
@@ -596,21 +813,37 @@ def synthetic_batch(batch, hw, num_gt, num_classes, seed, device):
                                    generator=gen),
         "gt_valid": torch.ones(batch, num_gt, dtype=torch.bool),
     }
+    lo, wh = bb[..., None, :2], (bb[..., 2:] - bb[..., :2])[..., None, :]
+    ang = torch.arange(36) * (2 * torch.pi / 36)
+    radius = wh / 2 * (0.6 + 0.4 * torch.rand(batch, num_gt, 1, 1,
+                                              generator=gen))
+    out["gt_polygons"] = (lo + wh / 2 + radius * torch.stack(
+        [ang.cos(), ang.sin()], dim=-1)).flatten(-2)
+    vs = torch.randint(0, 3, (batch, num_gt, 17, 1), generator=gen).float()
+    vs[..., 0, :] = 2.0               # every instance has a visible keypoint
+    kxy = (lo + torch.rand(batch, num_gt, 17, 2, generator=gen) * wh) \
+        * (vs > 0)
+    out["gt_keypoints_vs"] = torch.cat([kxy, vs], dim=-1).flatten(-2)
     return {k: v.to(device) for k, v in out.items()}
 
 
-def check_small_gradients():
+def loss_config(task, hw, num_classes):
+    return LossConfig(image_shape=hw, num_classes=num_classes, task=task,
+                      num_vectors=NUM_VECTORS[task],
+                      **configs.LOSS_WEIGHTS[task])
+
+
+def check_small_gradients(task):
     """Phase 3b: the training loss and every parameter's gradient of a
-    narrow ResNeXt-shaped model on the card (the kernels, forward and
+    narrow ResNeXt-shaped model of ``task`` on the card (the kernels, forward and
     backward) against the same model on the CPU (the plain versions), f32,
     TF32 off. Tolerance 2e-3 of each gradient's largest entry (floored at
     1e-3 of the largest gradient of all): the convolutions and the
     kernels' atomics sum in another order than the CPU."""
-    cfg = x101_flagship_cfg(feat=64, stacked=2)
-    cfg["backbone"].update(depth=50, groups=8)
+    cfg = narrow_task_cfg(task)
     cfg["bbox_head"]["num_classes"] = 8
     hw = (96, 128)
-    lcfg = LossConfig(image_shape=hw, num_classes=8)
+    lcfg = loss_config(task, hw, 8)
     grads = {}
     for device in ("cpu", "cuda"):
         model = unit_bn_scales_(init_detector(cfg, device=device, seed=1,
@@ -631,11 +864,12 @@ def check_small_gradients():
                / max(ref.abs().max().item(), 1e-3 * top))
         if rel > worst:
             worst, worst_name = rel, n
-    log(f"small ResNeXt-shaped model gradients, card vs CPU: loss "
+    log(f"small ResNeXt-shaped {task} model gradients, card vs CPU: loss "
         f"{loss_g:.6f} vs {loss_c:.6f}, {len(g_c)} gradients, max rel err "
         f"{worst:.3g} ({worst_name})")
     if abs(loss_g - loss_c) > 1e-4 * abs(loss_c) or worst > 2e-3:
-        raise AssertionError("card gradients disagree with the CPU")
+        raise AssertionError(f"{task}: card gradients disagree with the "
+                             "CPU")
 
 
 def launch_counts():
@@ -663,17 +897,18 @@ def zero_launch_counts():
         fn.launches = 0
 
 
-def drive_train_path():
-    """Phase 4b: train steps of the full-width X-101-64x4d-DCN, B=2 at
-    800x1344, bf16 compute over f32 master weights."""
+def drive_train_path(task, cfg):
+    """Phase 4b: train steps of the full-width X-101-64x4d-DCN in
+    ``task``, B=2 at 800x1344, bf16 compute over f32 master weights."""
+    label = f"X-101 {task} train"
+    num_classes = cfg["bbox_head"]["num_classes"]
     t0 = time.perf_counter()
-    model = init_detector(x101_flagship_cfg(), device="cuda", seed=0,
-                          train=True)
+    model = init_detector(cfg, device="cuda", seed=0, train=True)
     step = train_detector_step(
-        model, LossConfig(image_shape=(H, W), num_classes=80), base_lr=0.01)
-    batch = synthetic_batch(B, (H, W), NUM_GT, 80, 0, "cuda")
+        model, loss_config(task, (H, W), num_classes), base_lr=0.01)
+    batch = synthetic_batch(B, (H, W), NUM_GT, num_classes, 0, "cuda")
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    log(f"X-101 trainer built in {time.perf_counter() - t0:.1f}s")
+    log(f"{label}er built in {time.perf_counter() - t0:.1f}s")
     for _ in range(TRAIN_WARMUP):
         step(batch)
     torch.cuda.synchronize()
@@ -687,37 +922,37 @@ def drive_train_path():
     peak = torch.cuda.max_memory_allocated()
     history = [{k: v.item() for k, v in m.items()} for m in history]
     img_s = B * TRAIN_STEPS / dt
-    log(f"X-101 train: {img_s:.3f} img/s ({dt / TRAIN_STEPS * 1e3:.2f} ms "
+    log(f"{label}: {img_s:.3f} img/s ({dt / TRAIN_STEPS * 1e3:.2f} ms "
         f"per step of {B}), peak memory {peak / 2 ** 30:.2f} GiB, launches "
         f"{launches} over {TRAIN_STEPS} steps")
     for m in history:
         log("  step " + json.dumps(m))
     want = {
-        "deform_gather_contract": LAUNCHES_PER_FORWARD,
-        "deform_gather_contract_bwd_data": LAUNCHES_PER_FORWARD,
-        "deform_gather_contract_bwd_weight": LAUNCHES_PER_FORWARD,
+        "deform_gather_contract": K1_PER_FORWARD[task],
+        "deform_gather_contract_bwd_data": K1_PER_FORWARD[task],
+        "deform_gather_contract_bwd_weight": K1_PER_FORWARD[task],
         "deform_gather_grouped_contract": GROUPED_PER_FORWARD,
         "deform_gather_grouped_contract_bwd_data": GROUPED_PER_FORWARD,
         "deform_gather_grouped_contract_bwd_weight": GROUPED_PER_FORWARD}
     want = {k: v * TRAIN_STEPS for k, v in want.items()}
     if launches != want:
-        raise AssertionError(f"train: launches {launches}, want {want}")
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
     for m in history:
         for key, x in m.items():
             if not x == x or abs(x) == float("inf"):
-                raise AssertionError(f"train: non-finite {key}: {m}")
+                raise AssertionError(f"{label}: non-finite {key}: {m}")
     moved = frozen_moved = 0
     for n, p in model.named_parameters():
         same = torch.equal(p.detach(), before[n])
         if p.requires_grad and same:
-            raise AssertionError(f"train: trainable {n} did not move")
+            raise AssertionError(f"{label}: trainable {n} did not move")
         if not p.requires_grad and not same:
             frozen_moved += 1
         moved += p.requires_grad
     if frozen_moved or moved == 0:
-        raise AssertionError(f"train: {frozen_moved} frozen parameters "
+        raise AssertionError(f"{label}: {frozen_moved} frozen parameters "
                              f"moved, {moved} trainable ones")
-    log(f"X-101 train: {moved} trainable parameters moved, "
+    log(f"{label}: {moved} trainable parameters moved, "
         f"{len(before) - moved} frozen ones unchanged")
     return (lambda: step(batch)), img_s, launches, peak
 
@@ -731,11 +966,6 @@ def profile(label, run, batch_ms):
         run()
         torch.cuda.synchronize()
     events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "device_time_total",
-                       getattr(e, "cuda_time_total", 0.0))
-
     # kernel events only: an operator's event, or a device-side copy of a
     # user annotation (the optimizer's step), repeats its kernels' time
     on_device = torch.autograd.DeviceType.CUDA
@@ -771,7 +1001,7 @@ def main():
     if LOG_PATH:
         os.makedirs(os.path.dirname(os.path.abspath(LOG_PATH)), exist_ok=True)
         open(LOG_PATH, "w").close()
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = _build.build()
     log(f"built {sorted(_build.SIGNATURES)} in "
         f"{time.perf_counter() - t0:.1f}s")
@@ -791,36 +1021,72 @@ def main():
     gfwd, gmax_err = check_grouped_kernel()
     bwd = check_backward_kernels()
     gbwd = check_grouped_backward_kernels()
+    probe_entries = check_probe_kernels()
     check_small_against_cpu()
-    check_small_gradients()
-    e2e = {}
-    for label, cfg, grouped in (
-            ("R50", flagship_r50_cfg(), 0),
-            ("X-101-64x4d-DCN", x101_flagship_cfg(), GROUPED_PER_FORWARD)):
-        run, img_s, launches = drive_main_path(label, cfg, grouped)
+    for task in NUM_VECTORS:
+        check_small_gradients(task)
+
+    # every path is driven with the launch counts set to 0 just before it
+    # and read just after; by_path keeps each path's counts per batch or
+    # step
+    e2e, peaks, by_path = {}, {}, {}
+    for label, cfg, grouped, task in (
+            ("R50", flagship_r50_cfg(), 0, "bbox"),
+            ("X-101-64x4d-DCN", x101_flagship_cfg(), GROUPED_PER_FORWARD,
+             "bbox"),
+            ("X-101-64x4d-DCN segm", configs.x101_segm_cfg(),
+             GROUPED_PER_FORWARD, "segm"),
+            ("X-101-64x4d-DCN pose_bbox", configs.x101_pose_bbox_cfg(),
+             GROUPED_PER_FORWARD, "pose_bbox")):
+        run, img_s, launches, peak = drive_main_path(label, cfg, grouped,
+                                                     task)
         profile(label, run, B / img_s * 1e3)
-        e2e[label] = img_s
+        e2e[label], peaks[label] = img_s, peak
+        by_path[label] = {k: v // ITERS for k, v in launches.items()}
         del run
         torch.cuda.empty_cache()
 
-    run, train_img_s, launches, peak = drive_train_path()
-    profile("X-101 train step", run, B / train_img_s * 1e3)
-    e2e["X-101-64x4d-DCN train"] = train_img_s
-    del run
-    torch.cuda.empty_cache()
+    for task, cfg in (("bbox", x101_flagship_cfg()),
+                      ("pose_bbox", configs.x101_pose_bbox_cfg())):
+        label = f"X-101-64x4d-DCN {task} train"
+        run, img_s, launches, peak = drive_train_path(task, cfg)
+        profile(f"X-101 {task} train step", run, B / img_s * 1e3)
+        e2e[label], peaks[label] = img_s, peak
+        by_path[label] = {k: v // TRAIN_STEPS for k, v in launches.items()}
+        del run
+        torch.cuda.empty_cache()
+    for name, entry in probe_entries.items():
+        by_path.setdefault("lsnet_torch.tools.probe", {})[name] = \
+            entry["launches"]
+    log("launches per batch or step " + json.dumps(by_path))
+
+    # "launches": the counts of the heaviest path, the pose_bbox
+    # train steps (TRAIN_STEPS steps through all six kernels), and of the
+    # probe tool for the probes; the rows of every other path are in
+    # launches_by_path. Forward times are per forward of the bbox
+    # inference path as before (6 tower + 2 refine calls), backward times
+    # per bbox train step; pose_bbox_ms is the same for pose_bbox (9 tower
+    # + 3 refine calls).
+    def path_counts(name):
+        return {path: counts[name] for path, counts in by_path.items()
+                if counts.get(name)}
+
+    def pose_bbox_ms(per_call):
+        return 9 * per_call["tower"]["ms"] + 3 * per_call["refine"]["ms"]
 
     def bwd_entry(name, source, replaces, row):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"],
-                "library_ms": row.get("library_ms")}
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                 "bound_by": row["bound_by"],
+                 "library_ms": row.get("library_ms"),
+                 "launches_by_path": path_counts(name)}
+        if "per_call" in row:
+            entry["pose_bbox_ms"] = pose_bbox_ms(row["per_call"])
+        return entry
 
-    # launches: the X-101 train path's run, which goes through all six
-    # kernels; the forward rows keep their per-forward inference times,
-    # the backward rows are per train step (bf16, bilinear)
-    log(json.dumps({"kernels": [{
+    kernels = [{
         "name": "deform_gather_contract", "route": "cuda",
         "source": "lsnet_torch/csrc/deform_gather_contract.cu",
         "replaces": "lsnet_tpu/ops/pallas_dma_gather.py:128",
@@ -828,7 +1094,9 @@ def main():
         "max_abs_err": max_err,
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        "pose_bbox_ms": pose_bbox_ms(fwd["per_call"]),
+        "launches_by_path": path_counts("deform_gather_contract")}, {
         "name": "deform_gather_grouped_contract", "route": "cuda",
         "source": "lsnet_torch/csrc/grouped_deform_contract.cu",
         "replaces": "lsnet_tpu/ops/pallas_grouped.py:176",
@@ -837,7 +1105,8 @@ def main():
         "ms": gfwd["ms"], "plain_ms": gfwd["plain_ms"],
         "bound_ms": gfwd["bound_ms"], "bound_by": gfwd["bound_by"],
         "library_ms": gfwd["library_ms"],
-        "train_forward_ms": gbwd["forward_bilinear_ms"]},
+        "train_forward_ms": gbwd["forward_bilinear_ms"],
+        "launches_by_path": path_counts("deform_gather_grouped_contract")},
         bwd_entry("deform_gather_contract_bwd_data",
                   "lsnet_torch/csrc/deform_gather_contract_bwd_data.cu",
                   "lsnet_tpu/ops/pallas_dma_gather.py:184", bwd["data"]),
@@ -850,10 +1119,17 @@ def main():
         bwd_entry("deform_gather_grouped_contract_bwd_weight",
                   "lsnet_torch/csrc/grouped_deform_contract_bwd_weight.cu",
                   "lsnet_tpu/ops/pallas_grouped.py:127", gbwd["weight"]),
-    ]}))
+        *probe_entries.values()]
+    for entry in kernels:
+        if entry["launches"] < 1:
+            raise AssertionError(f"{entry['name']} was never launched on "
+                                 "its path")
     log(json.dumps({"e2e_img_per_s": e2e, "batch": B,
                     "image": [H, W], "dtype": "bfloat16",
-                    "train_peak_memory_bytes": peak, "card": smi}))
+                    "peak_memory_bytes": peaks, "card": smi,
+                    "seconds": time.perf_counter() - t_start}))
+    log(smi)
+    log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

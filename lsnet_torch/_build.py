@@ -60,6 +60,26 @@ SIGNATURES = {
         "lsnet_grouped_deform_contract_bwd_weight":
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     },
+    # x, out | row_bytes
+    "probe_row_copy": {
+        "lsnet_probe_row_copy":
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p],
+    },
+    # x, idx, out | n, nblocks, block_bytes
+    "probe_block_gather": {
+        "lsnet_probe_block_gather":
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    },
+    # x, out | P
+    "probe_subrow_sum": {
+        "lsnet_probe_subrow_sum":
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p],
+    },
+    # x, w, out | P
+    "probe_subrow_dot": {
+        "lsnet_probe_subrow_dot":
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p],
+    },
 }
 
 _lock = threading.Lock()

@@ -6,8 +6,10 @@ forward + decode + NMS, the path ``bench.py`` (``e2e_fn``) times for the
 JAX package, with the shipped inference sampling (``backbone=nearest``) as
 the JAX entry points apply it with ``inference_sampling()``;
 ``train_detector_step`` builds the train step of a detector (loss,
-assigners, clip, SGD; ``tools/bench_train.py`` drives the JAX one). Image
-loading and resizing come with a later slice.
+assigners, clip, SGD; ``tools/bench_train.py`` drives the JAX one). All
+three serve the four tasks: the task is the head's in the model config and
+the ``TestConfig``'s / ``LossConfig``'s at the call. Image loading and
+resizing are not ported yet.
 """
 
 from __future__ import annotations
@@ -67,7 +69,8 @@ def train_detector_step(model: LSDetector, loss_cfg: LossConfig, *,
                                       Dict[str, torch.Tensor]]:
     """``step(batch) -> metrics`` for ``model`` (f32 master weights, from
     ``init_detector(..., train=True)``): the reference recipe (SGD 0.9,
-    weight decay 1e-4, clip 35, warm-up + step schedule) on the bbox loss,
+    weight decay 1e-4, clip 35, warm-up + step schedule) on the loss of
+    ``loss_cfg.task``,
     bf16 compute unless ``mixed_precision=False``. ``optim_kwargs`` go to
     :func:`lsnet_torch.train.optim.build_optimizer`."""
     optimizer, _ = build_optimizer(model.parameters(), base_lr,

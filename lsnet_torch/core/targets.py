@@ -1,7 +1,6 @@
 """Target construction for the LSHead loss (counterpart of
 ``lsnet_tpu/core/targets.py``): dense, mask-driven gathers over padded GT
-arrays, batch dimension written out. The polygon and keypoint helpers come
-with the segm and pose tasks.
+arrays, batch dimension written out.
 """
 
 from __future__ import annotations
@@ -17,6 +16,55 @@ def get_border_center(gt_bboxes: torch.Tensor) -> torch.Tensor:
     cx = (x1 + x2) / 2.0
     cy = (y1 + y2) / 2.0
     return torch.stack([cx, y1, x1, cy, cx, y2, x2, cy, cx, cy], dim=-1)
+
+
+def _with_centre(pts: torch.Tensor, lo_x, lo_y, hi_x, hi_y) -> torch.Tensor:
+    """pts (..., M, 2*nv) + the centre of the box -> (..., M, 2*(nv+1))."""
+    return torch.cat([pts, ((lo_x + hi_x) / 2.0)[..., None],
+                      ((lo_y + hi_y) / 2.0)[..., None]], dim=-1)
+
+
+def keypoints_with_bbox(gt_bboxes: torch.Tensor,
+                        gt_keypoints_vs: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., M, 4), (..., M, 3*nv) [x, y, v]* -> (kps (..., M, 2*(nv+1)):
+    the keypoints and the box centre, vs (..., M, nv))."""
+    kps = torch.stack([gt_keypoints_vs[..., 0::3], gt_keypoints_vs[..., 1::3]],
+                      dim=-1).flatten(-2)
+    x1, y1, x2, y2 = gt_bboxes.unbind(dim=-1)
+    return _with_centre(kps, x1, y1, x2, y2), gt_keypoints_vs[..., 2::3]
+
+
+def keypoints_with_kbox(gt_keypoints_vs: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(..., M, 3*nv) -> (kps, kboxes (..., M, 4), vs): the box is the
+    extent of the visible keypoints. An instance with none gets the
+    degenerate box [1e7, 1e7, -1, -1], which no point falls into."""
+    kx = gt_keypoints_vs[..., 0::3]
+    ky = gt_keypoints_vs[..., 1::3]
+    vs = gt_keypoints_vs[..., 2::3]
+    vis = vs > 0
+    big = torch.full_like(kx, 1e7)
+    none = torch.full_like(kx, -1.0)
+    xmin = torch.where(vis, kx, big).amin(dim=-1)
+    ymin = torch.where(vis, ky, big).amin(dim=-1)
+    xmax = torch.where(vis, kx, none).amax(dim=-1)
+    ymax = torch.where(vis, ky, none).amax(dim=-1)
+    kps = torch.stack([kx, ky], dim=-1).flatten(-2)
+    return (_with_centre(kps, xmin, ymin, xmax, ymax),
+            torch.stack([xmin, ymin, xmax, ymax], dim=-1), vs)
+
+
+def polygons_to_gt(gt_polygons: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., M, 2*nv) xy-interleaved contour -> (contour and the centre of
+    its extent (..., M, 2*(nv+1)), bboxes (..., M, 4): the extent)."""
+    px = gt_polygons[..., 0::2]
+    py = gt_polygons[..., 1::2]
+    xmin, ymin = px.amin(dim=-1), py.amin(dim=-1)
+    xmax, ymax = px.amax(dim=-1), py.amax(dim=-1)
+    return (_with_centre(gt_polygons, xmin, ymin, xmax, ymax),
+            torch.stack([xmin, ymin, xmax, ymax], dim=-1))
 
 
 class StageTargets(NamedTuple):

@@ -1,6 +1,6 @@
 """Model builders (counterpart of ``lsnet_tpu/models/__init__.py``): config
 dicts with a ``type`` key -> ``nn.Module``s. The port builds ResNet,
-ResNeXt, FPN, LSHead (bbox) and LSDetector."""
+ResNeXt, FPN, LSHead (all four tasks) and LSDetector."""
 
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ def build_head(cfg: Dict[str, Any]) -> LSHead:
         raise NotImplementedError(f"head {kind}")
     # losses and the point layout are read by training and decode
     for k in [k for k in cfg if k.startswith("loss_")] + [
-            "point_strides", "point_base_scale", "num_vectors"]:
+            "point_strides", "point_base_scale"]:
         cfg.pop(k, None)
     norm_cfg = cfg.pop("norm_cfg", None)
     if norm_cfg is not None:

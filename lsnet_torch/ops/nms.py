@@ -1,5 +1,5 @@
-"""Exact greedy NMS on the device, fixed shapes (counterpart of
-``lsnet_tpu/ops/nms.py``).
+"""Exact greedy NMS and soft-NMS on the device, fixed shapes (counterpart
+of ``lsnet_tpu/ops/nms.py``).
 
 Inputs are batches of padded candidate sets, (B, N, 4) boxes and (B, N)
 scores, whose padding carries the score ``NEG_INF``; outputs are padded
@@ -93,3 +93,41 @@ def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
                                                            keepdim=True)
     offsets = idxs.to(boxes.dtype) * (max_coord + 1.0)
     return nms(boxes + offsets.unsqueeze(-1), scores, iou_thr, max_out)
+
+
+def soft_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thr: float,
+             max_out: int, sigma: float = 0.5, min_score: float = 1e-3,
+             method: str = "linear"
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Soft-NMS, linear or gaussian decay, on a batch: ``max_out``
+    sequential selections, each taking the top remaining score (the lowest
+    index among equals, as ``jnp.argmax``), decaying its neighbours'
+    scores and dropping those that fall under ``min_score``. Returns
+    (keep_idx, keep_scores, keep_valid), each (B, max_out), in selection
+    order; invalid slots have idx 0 and score NEG_INF."""
+    if method not in ("linear", "gaussian"):
+        raise ValueError(f"soft_nms method {method!r}")
+    cur = scores.clone()
+    rows = torch.arange(boxes.shape[0], device=boxes.device)
+    neg = torch.full_like(cur, NEG_INF)
+    idxs, kept = [], []
+    for _ in range(max_out):
+        i = cur.argmax(dim=1)            # the first of equal maxima
+        top = cur[rows, i]
+        ious = box_iou(boxes[rows, i][:, None, :], boxes)[:, 0]
+        if method == "gaussian":
+            decay = torch.exp(-(ious * ious) / sigma)
+        else:
+            decay = torch.where(ious > iou_thr, 1.0 - ious,
+                                torch.ones_like(ious))
+        cur = cur * decay
+        cur[rows, i] = NEG_INF
+        cur = torch.where(cur < min_score, neg, cur)
+        idxs.append(i)
+        kept.append(top)
+    idx = torch.stack(idxs, dim=1)
+    kept_scores = torch.stack(kept, dim=1)
+    valid = kept_scores > NEG_INF / 2
+    return (torch.where(valid, idx, torch.zeros_like(idx)),
+            torch.where(valid, kept_scores,
+                        torch.full_like(kept_scores, NEG_INF)), valid)

@@ -11,11 +11,13 @@ import torch
 
 from lsnet_torch.ops import deform_gather as dg
 from lsnet_torch.ops import grouped as gr
+from lsnet_torch.ops import probes
 from lsnet_torch.ops.deform_gather import (deform_gather_contract,
                                            deform_gather_contract_ref)
 from lsnet_torch.ops.grouped import (deform_gather_grouped_contract,
                                      deform_gather_grouped_contract_ref,
                                      grouped_deform_contract)
+from lsnet_torch.tools import probe as probe_tool
 
 
 @pytest.fixture
@@ -246,3 +248,84 @@ def test_straight_through_table_on_the_card(cuda_device):
         flat.detach(), idx4, w4.detach(), wk, dout, False, True)
     _close(d_flat, want_flat, 1e-4)
     _close(d_w4, want_w4, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", probes.PROBES)
+def test_probe_kernels_match_plain_versions(cuda_device, name):
+    """Each probe kernel on the JAX probes' inputs at the JAX probes'
+    tolerances (the two copies exactly), one launch counted."""
+    args = [a.to(cuda_device) for a in probes.probe_inputs(name)]
+    fn = getattr(probes, name)
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = getattr(probes, name + "_ref")(*args)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = probe_tool.TOLERANCES[name]
+    if tol is None:
+        assert torch.equal(got, want)
+    else:
+        assert torch.allclose(got, want, rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.cuda
+def test_probe_kernels_at_other_sizes(cuda_device):
+    """Ragged pixel tiles of the sub-row kernels, many clamped indices of
+    the block gather, a wider row of the row copy."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(37, 8, 128).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    w = torch.from_numpy((rng.randn(8, 128, 128) / 16).astype(np.float32)
+                         ).to(cuda_device, torch.bfloat16)
+    _close(probes.probe_subrow_sum(x), probes.probe_subrow_sum_ref(x), 1e-5)
+    _close(probes.probe_subrow_dot(x, w), probes.probe_subrow_dot_ref(x, w),
+           1e-5)
+    table = torch.from_numpy(rng.randn(64 * 8, 256).astype(np.float32)).to(
+        cuda_device)                                  # 8 KB blocks, f32
+    idx = torch.from_numpy(rng.randint(-5, 70, 1000).astype(np.int32)).to(
+        cuda_device)
+    assert torch.equal(probes.probe_block_gather(table, idx),
+                       probes.probe_block_gather_ref(table, idx))
+    wide = torch.from_numpy(rng.randn(3, 4096).astype(np.float32)).to(
+        cuda_device)                                  # a 16 KB row
+    assert torch.equal(probes.probe_row_copy(wide), wide[:1])
+    with pytest.raises(ValueError, match="bytes"):
+        probes.probe_row_copy(torch.zeros(2, 6, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_probe_tool_on_the_card(cuda_device, capsys):
+    assert probe_tool.main([]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 5 and all(": OK" in ln for ln in lines)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["segm", "pose_bbox", "pose_kbox"])
+def test_task_forward_on_the_card(cuda_device, task):
+    """A narrow X-101-shaped detector of each task: the card (kernels)
+    against the CPU (plain versions), f32, and the launch counts of one
+    forward (2 or 3 towers of one block, the paired refine's two
+    contractions, pose_bbox's own bbox refine)."""
+    from lsnet_torch import configs
+    from lsnet_torch.apis import init_detector
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = getattr(configs, f"x101_{task}_cfg")(feat=64, stacked=1)
+    cfg["backbone"].update(depth=50, groups=8)
+    cfg["bbox_head"]["num_classes"] = 3
+    images = torch.randn(2, 96, 128, 3,
+                         generator=torch.Generator().manual_seed(1))
+    outs = {}
+    for device in ("cpu", "cuda"):
+        model = init_detector(cfg, device=device, seed=1)
+        deform_gather_contract.launches = 0
+        with torch.inference_mode():
+            outs[device] = model(images.to(device))
+    towers = 3 if task == "pose_bbox" else 2
+    assert deform_gather_contract.launches == towers + 2 + (
+        task == "pose_bbox")
+    for key, maps in outs["cpu"].items():
+        for got, want in zip(outs["cuda"][key], maps):
+            _close(got.cpu(), want, 1e-3)

@@ -295,6 +295,17 @@ def test_lsnet_loss_value_and_gradient(case):
 
 
 def test_lsnet_loss_other_tasks_wait():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    """The segm and pose tasks no longer wait (``tests/
+    test_torch_task_loss.py`` holds them against JAX): segm asks for its
+    polygons, and only a task LSNet does not have is refused."""
+    outs = {k: [t(x) for x in v] for k, v in _head_outputs(
+        np.random.RandomState(0), 2, 3).items()}
+    with pytest.raises(KeyError, match="gt_polygons"):
+        lsnet_loss(outs, {"pad_shape": torch.tensor([[96, 128]] * 2),
+                          "gt_bboxes": torch.zeros(2, 1, 4),
+                          "gt_labels": torch.zeros(2, 1, dtype=torch.long),
+                          "gt_valid": torch.zeros(2, 1, dtype=torch.bool)},
+                   LossConfig(image_shape=SHAPE, num_classes=3, task="segm"))
+    with pytest.raises(ValueError, match="task"):
         lsnet_loss({}, {}, LossConfig(image_shape=SHAPE, num_classes=3,
-                                      task="segm"))
+                                      task="mask"))
