@@ -12,8 +12,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    refine calls, (b) ``deform_gather_grouped_contract`` at the three
    grouped DCN stages of X-101-64x4d (stride 1 and the stride-2 first
    block), (c) and (d) the bwd-data and bwd-weight kernels of each at the
-   same shapes, (e) the four probe kernels at the probes' own inputs and
-   tolerances, each launch under a host-side time limit,
+   same shapes, with the bwd-data kernels' split readings (both outputs,
+   one output at a time, a table without and with full contention, the
+   memset and cast around the launch), (e) the four probe kernels at the
+   probes' own inputs and tolerances, kernel, plain version and library
+   call also by device time, each launch under a host-side time limit,
    ``probe_block_gather`` also at 147,456 random rows with its byte bound,
    then the checks of ``lsnet_torch.tools.probe`` in-process with the
    probes' launch counts read around them;
@@ -36,12 +39,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    the device time by kernel.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(all ten kernels) and, last, ``{"ok": true, "device": {...}}``. With
+(all ten kernels) and, last, ``{"ok": true, "device": {...}}``; the
+card's clocks, power draw and temperature are logged before and after
+phases 2c, 2d and the profiled train steps. ``python3 chip_smoke.py --only
+backward`` builds, runs phases 2c and 2d alone and prints no result line
+(for work on the backward kernels). With
 ``CHIP_SMOKE_LOG=<path>`` in the environment it also writes every line it
 prints to that file. It needs the repository
 around it and a CUDA device, and runs no JAX.
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -133,10 +141,11 @@ def dev_us(event):
                    getattr(event, "cuda_time_total", 0.0))
 
 
-def kernel_device_us(fn, kernel, iters=10):
-    """Mean device time of the kernel whose name contains ``kernel`` over
-    iters calls of fn(), from the profiler: for a kernel so short that CUDA
-    events around the calls time the host's issue rate instead."""
+def kernel_device_us(fn, kernel="", iters=10):
+    """Mean device time per call of fn() of the kernels whose name contains
+    ``kernel`` (all of fn's kernels by default), from the profiler: for
+    work so short that CUDA events around the calls time the host's launch
+    rate instead."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
@@ -144,8 +153,22 @@ def kernel_device_us(fn, kernel, iters=10):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    on_device = torch.autograd.DeviceType.CUDA
     return sum(dev_us(e) for e in prof.key_averages()
-               if kernel in e.key) / iters
+               if kernel in e.key and e.device_type == on_device) / iters
+
+
+def card_state(label):
+    """Log the card's SM clock, power draw and temperature; a failure of
+    nvidia-smi is logged and changes nothing."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30, check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError) as ex:
+        out = f"nvidia-smi failed: {ex}"
+    log(f"card state {label}: {out}")
 
 
 def main_path_inputs(dtype, gen, sampling):
@@ -356,19 +379,42 @@ def check_grouped_kernel():
     return fwd, max_err
 
 
-def check_backward_call(label, args, groups, gen):
+def split_readings(data, flat, idx):
+    """Where a bwd-data call's time goes (ms): both outputs, one at a
+    time, the same call on a table that sends every corner to another row
+    (no two adds meet) and on one that sends all to one row (every add
+    meets), and the f32 memset and the cast around the launch."""
+    rows = flat.shape[0]
+    distinct = (torch.arange(idx.numel(), device=idx.device) % rows).to(
+        torch.int32).view(idx.shape)
+    one_row = torch.full_like(idx, rows // 2)
+
+    def zero_cast():
+        return torch.zeros(flat.shape, dtype=torch.float32,
+                           device=flat.device).to(flat.dtype)
+
+    return {"both": cuda_ms(data, 5),
+            "d_w_only": cuda_ms(lambda: data(need_flat=False), 5),
+            "d_flat_only": cuda_ms(lambda: data(need_w=False), 5),
+            "distinct_rows": cuda_ms(lambda: data(table=distinct), 5),
+            "one_row": cuda_ms(lambda: data(table=one_row), 2),
+            "zero_and_cast": cuda_ms(zero_cast, 5)}
+
+
+def check_backward_call(label, args, groups, gen, splits=False):
     """Both backward kernels of one call against their plain versions;
     returns the log row. Tolerance as the forward's, relative to
     max(1, max|ref|) of each gradient: the kernels sum with f32 atomics in
     an order that changes from run to run, and the bf16 route rounds the
-    weighted rows and G's inputs to 8 bits of mantissa."""
+    weighted rows and G's inputs to 8 bits of mantissa. With ``splits``
+    the row also gets the bwd-data kernel's split readings."""
     flat, idx, w, weight = args
     px, cout = idx.shape[2], weight.shape[2]
     dout = torch.randn(px, cout, device="cuda", generator=gen).to(flat.dtype)
     if groups:
-        def data():
+        def data(table=idx, need_flat=True, need_w=True):
             return gr.deform_gather_grouped_contract_bwd_data(
-                flat, idx, w, weight, dout, groups)
+                flat, table, w, weight, dout, groups, need_flat, need_w)
 
         def wgt():
             return gr.deform_gather_grouped_contract_bwd_weight(
@@ -382,9 +428,9 @@ def check_backward_call(label, args, groups, gen):
             return gr.deform_gather_grouped_contract_bwd_weight_ref(
                 flat, idx, w, dout, groups)
     else:
-        def data():
-            return dg.deform_gather_contract_bwd_data(flat, idx, w, weight,
-                                                      dout)
+        def data(table=idx, need_flat=True, need_w=True):
+            return dg.deform_gather_contract_bwd_data(
+                flat, table, w, weight, dout, need_flat, need_w)
 
         def wgt():
             return dg.deform_gather_contract_bwd_weight(flat, idx, w, weight,
@@ -420,6 +466,8 @@ def check_backward_call(label, args, groups, gen):
         row[f"{key}_ms"] = cuda_ms(fn, 10)
         row[f"{key}_plain_ms"] = cuda_ms(ref, 2)
         row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bound_ms(args, wk)
+    if splits:
+        row["data_split_ms"] = split_readings(data, flat, idx)
     log("backward " + json.dumps(row))
     if not ok:
         raise AssertionError(f"backward kernel disagrees: {row}")
@@ -447,16 +495,20 @@ def check_backward_kernels():
     gen = torch.Generator().manual_seed(2)
     cgen = torch.Generator(device="cuda").manual_seed(2)
     main = {}
+    card_state("before phase 2c")
     for dtype in (torch.float32, torch.bfloat16):
         for sampling in ("bilinear", "nearest"):
             for site, args in zip(("tower", "refine"),
                                   main_path_inputs(dtype, gen, sampling)):
+                is_main = dtype == torch.bfloat16 and sampling == "bilinear"
                 row = check_backward_call(
-                    dict(site=site, sampling=sampling), args, 0, cgen)
-                if dtype == torch.bfloat16 and sampling == "bilinear":
+                    dict(site=site, sampling=sampling), args, 0, cgen,
+                    splits=is_main)
+                if is_main:
                     main[site] = row
                 del args
             torch.cuda.empty_cache()
+    card_state("after phase 2c")
     # one step = 6 tower calls + 2 refine contractions (bf16, bilinear)
     rows = [(6, main["tower"]), (2, main["refine"])]
     out = {kind: sum_rows(rows, kind) for kind in ("data", "weight")}
@@ -477,6 +529,7 @@ def check_grouped_backward_kernels():
     main = {}
     fwd_train = {}
     library = {"data": {}, "weight": {}}
+    card_state("before phase 2d")
     for stage, out_hw, C, _ in X101_STAGES:
         for stride in (1, 2):
             levels, job, weight32 = grouped_inputs(gen, out_hw, C, stride)
@@ -485,10 +538,12 @@ def check_grouped_backward_kernels():
                 for dtype in (torch.float32, torch.bfloat16):
                     args = (levels.flat.to(dtype).contiguous(), idx, w,
                             weight32.to(dtype).contiguous())
+                    is_main = (dtype == torch.bfloat16
+                               and sampling == "bilinear")
                     row = check_backward_call(
                         dict(stage=stage, stride=stride, sampling=sampling,
-                             C=C), args, GROUPS, gen)
-                    if dtype == torch.bfloat16 and sampling == "bilinear":
+                             C=C), args, GROUPS, gen, splits=is_main)
+                    if is_main:
                         main[stage, stride] = row
                         fwd_train[stage, stride] = cuda_ms(
                             lambda: deform_gather_grouped_contract(
@@ -513,12 +568,17 @@ def check_grouped_backward_kernels():
     for st, _, _, n in X101_STAGES:
         rows += [(1, main[st, 2]), (n - 1, main[st, 1])]
     out = {kind: sum_rows(rows, kind) for kind in ("data", "weight")}
-    for kind in out:
-        out[kind]["library_ms"] = sum(n * library[kind][st]
-                                      for st, _, _, n in X101_STAGES)
+    # no PyTorch call computes bwd-data's whole function: the einsum gives
+    # G alone (no scatter, no d_w) and is logged as such
+    lib = {kind: sum(n * library[kind][st] for st, _, _, n in X101_STAGES)
+           for kind in library}
+    out["weight"]["library_ms"] = lib["weight"]
+    out["data"]["library_ms"] = None
+    out["data"]["einsum_g_only_ms"] = lib["data"]
     out["forward_bilinear_ms"] = sum(
         fwd_train[st, 2] + (n - 1) * fwd_train[st, 1]
         for st, _, _, n in X101_STAGES)
+    card_state("after phase 2d")
     log("grouped backward per step " + json.dumps(out))
     return out
 
@@ -622,12 +682,18 @@ def check_probe_kernels():
                  "bound_ms": bnd, "bound_by": by,
                  "device_us": kernel_device_us(lambda: fn(*args),
                                                f"{name}_kernel")}
+        # ms, plain_ms and library_ms are CUDA events around the calls: at
+        # these sizes the wrappers' launch rate on the host. The *_device_us
+        # keys compare kernel with kernel.
+        entry["plain_device_us"] = kernel_device_us(lambda: ref(*args))
         try:
-            entry["library_ms"] = cuda_ms(probe_library_call(name, args), 20)
+            library = probe_library_call(name, args)
+            entry["library_ms"] = cuda_ms(library, 20)
+            entry["library_device_us"] = kernel_device_us(library)
         except (TypeError, RuntimeError) as ex:
             # an older PyTorch without mm(out_dtype=): no yardstick
             log(f"probe {name}: no library call here ({ex})")
-            entry["library_ms"] = None
+            entry["library_ms"] = entry["library_device_us"] = None
         log("probe " + json.dumps(dict(entry, tolerance=tol, ok=bool(ok))))
         if not ok or not bool(torch.isfinite(got.float()).all()):
             raise AssertionError(f"probe kernel disagrees: {entry}")
@@ -658,6 +724,8 @@ def check_probe_kernels():
             "device_us": kernel_device_us(
                 lambda: probes.probe_block_gather(*args),
                 "probe_block_gather_kernel"),
+            "library_device_us": kernel_device_us(
+                probe_library_call("probe_block_gather", args)),
             "gathered_gbytes_s": COPY_RATE_ROWS * 2048 / ms / 1e6}
     log("probe_block_gather copy rate " + json.dumps(rate))
     entries["probe_block_gather"]["copy_rate"] = rate
@@ -994,7 +1062,11 @@ def profile(label, run, batch_ms):
         log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", choices=["backward"], default=None,
+                        help="run phases 2c and 2d alone; no result line")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1016,6 +1088,13 @@ def main():
     # f32 checks need full f32: TF32 off for matmuls and cuDNN convs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    if opts.only == "backward":
+        check_backward_kernels()
+        check_grouped_backward_kernels()
+        log(f"partial run (--only backward) passed in "
+            f"{time.perf_counter() - t_start:.1f}s; no result line")
+        return 0
 
     fwd, max_err = check_kernel()
     gfwd, gmax_err = check_grouped_kernel()
@@ -1050,7 +1129,9 @@ def main():
                       ("pose_bbox", configs.x101_pose_bbox_cfg())):
         label = f"X-101-64x4d-DCN {task} train"
         run, img_s, launches, peak = drive_train_path(task, cfg)
+        card_state(f"before the profiled {task} train step")
         profile(f"X-101 {task} train step", run, B / img_s * 1e3)
+        card_state(f"after the profiled {task} train step")
         e2e[label], peaks[label] = img_s, peak
         by_path[label] = {k: v // TRAIN_STEPS for k, v in launches.items()}
         del run
@@ -1082,6 +1163,8 @@ def main():
                  "bound_by": row["bound_by"],
                  "library_ms": row.get("library_ms"),
                  "launches_by_path": path_counts(name)}
+        if "einsum_g_only_ms" in row:
+            entry["einsum_g_only_ms"] = row["einsum_g_only_ms"]
         if "per_call" in row:
             entry["pose_bbox_ms"] = pose_bbox_ms(row["per_call"])
         return entry

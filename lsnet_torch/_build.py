@@ -39,21 +39,20 @@ SIGNATURES = {
         "lsnet_grouped_deform_contract":
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     },
-    # flat, idx, w, W, dout, d_flat, d_w | C, nc, K, px, cout, tile_splits,
-    # is_bf16
+    # flat, idx, w, W, dout, d_flat, d_w | C, nc, K, px, cout, is_bf16
     "deform_gather_contract_bwd_data": {
         "lsnet_deform_gather_contract_bwd_data":
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     },
     # flat, idx, w, dout, d_W | C, nc, K, px, cout, nsplit, is_bf16
     "deform_gather_contract_bwd_weight": {
         "lsnet_deform_gather_contract_bwd_weight":
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     },
-    # ... | C, Cg, outG, nc, K, px, cout, tile_splits, is_bf16
+    # ... | C, Cg, outG, nc, K, px, cout, is_bf16
     "grouped_deform_contract_bwd_data": {
         "lsnet_grouped_deform_contract_bwd_data":
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     },
     # ... | C, Cg, outG, nc, K, px, cout, nsplit, is_bf16
     "grouped_deform_contract_bwd_weight": {

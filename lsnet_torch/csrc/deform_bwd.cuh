@@ -27,9 +27,10 @@
 // taken in chunks of BK along the inner dimension. Mma<T> is the product
 // of one chunk from shared memory: WMMA 16x16x16 bf16 with f32
 // accumulation on 128 threads, or f32 FMA on 256 threads (the exact route
-// for checks), with the same tile sizes as the forward kernels. The
-// kernels differ only in how they fill the A and B chunks and in what
-// they do with the finished tile.
+// for checks), with the same tile sizes as the forward kernels;
+// bwd_data_kernel takes DataMma<T>, the same product on 256 threads from
+// 64-deep chunks. The kernels differ only in how they fill the A and B
+// chunks and in what they do with the finished tile.
 
 #pragma once
 
@@ -37,8 +38,8 @@
 
 namespace lsnet {
 
-// 16-byte vector load of N elements of T as floats, and 4 channels of a
-// row for the d_w dot product.
+// 16-byte vector load of N elements of T, as floats or as loaded (Raw), and
+// 4 channels of a row (Raw4) for the d_w dot product.
 template <typename T>
 struct Vec;
 
@@ -49,8 +50,20 @@ struct Vec<float> {
     const float4 v = __ldg(reinterpret_cast<const float4*>(p));
     f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
   }
-  static __device__ __forceinline__ void load4(const float* p, float* f) {
-    load(p, f);
+  using Raw = float4;
+  static __device__ __forceinline__ Raw load_raw(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ Raw zero_raw() {
+    return make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // 4 channels of a row, loaded now and converted later
+  using Raw4 = float4;
+  static __device__ __forceinline__ Raw4 load4_raw(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void cvt4(Raw4 v, float* f) {
+    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
   }
   static __device__ __forceinline__ float cvt(float x) { return x; }
 };
@@ -69,9 +82,18 @@ struct Vec<__nv_bfloat16> {
       f[2 * e + 1] = v.y;
     }
   }
-  static __device__ __forceinline__ void load4(const __nv_bfloat16* p,
-                                               float* f) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+  using Raw = uint4;
+  static __device__ __forceinline__ Raw load_raw(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ Raw zero_raw() {
+    return make_uint4(0u, 0u, 0u, 0u);
+  }
+  using Raw4 = uint2;
+  static __device__ __forceinline__ Raw4 load4_raw(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  static __device__ __forceinline__ void cvt4(Raw4 raw, float* f) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -202,6 +224,81 @@ struct Mma<float> {
   }
 };
 
+// The product of bwd_data_kernel, on 256 threads: a 64 x 64 f32 tile from
+// chunks A (64 px x BK) and B transposed (Bt: 64 channels x BK, row n is
+// column n of B), both filled with 16-byte vectors as they come from
+// device memory (put_raw).
+template <typename T>
+struct DataMma;
+
+// bf16: 64-deep chunks, rows padded to LD; 8 warps of 16 x 32 outputs; WMMA
+// reads Bt as a column-major fragment.
+template <>
+struct DataMma<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  static constexpr int BK = 64;
+  static constexpr int LD = BK + 8;              // 144 bytes
+  static constexpr int ELEMS = BM * LD;
+  struct Acc {
+    nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> c[2];
+  };
+  static __device__ __forceinline__ void zero(Acc& acc) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc.c[j], 0.f);
+  }
+  static __device__ __forceinline__ void put_raw(T* S, int row, int kv,
+                                                 uint4 raw) {
+    *reinterpret_cast<uint4*>(&S[row * LD + kv]) = raw;
+  }
+  static __device__ __forceinline__ void step_bt(Acc& acc, const T* As,
+                                                 const T* Bt) {
+    using namespace nvcuda;
+    const int warp = threadIdx.x / 32;
+    const int wm = (warp / 2) * 16;
+    const int wn = (warp % 2) * 32;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb[2];
+      wmma::load_matrix_sync(fa, As + wm * LD + kk, LD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], Bt + (wn + 16 * j) * LD + kk, LD);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::mma_sync(acc.c[j], fa, fb[j], acc.c[j]);
+    }
+  }
+  static __device__ __forceinline__ void store(Acc& acc, float* Cs) {
+    using namespace nvcuda;
+    const int warp = threadIdx.x / 32;
+    const int wm = (warp / 2) * 16;
+    const int wn = (warp % 2) * 32;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + wm * LDC + wn + 16 * j, acc.c[j], LDC,
+                              wmma::mem_row_major);
+  }
+};
+
+// f32: Mma<float>'s FMA product and chunk shape (16 deep, both chunks
+// inner-major as its step wants them).
+template <>
+struct DataMma<float> : Mma<float> {
+  static constexpr int ELEMS = A_ELEMS;
+  static __device__ __forceinline__ void put_raw(float* S, int row, int kv,
+                                                 float4 raw) {
+    S[kv * LDA32 + row] = raw.x;
+    S[(kv + 1) * LDA32 + row] = raw.y;
+    S[(kv + 2) * LDA32 + row] = raw.z;
+    S[(kv + 3) * LDA32 + row] = raw.w;
+  }
+  static __device__ __forceinline__ void step_bt(Acc& acc, const float* As,
+                                                 const float* Bt) {
+    step(acc, As, Bt);
+  }
+};
+
 // d_flat's scatter: one 16-byte vector atomic where the toolkit has it
 // (sm_90, CUDA 12.1 on), else four scalar ones. f32 atomics add in an
 // order that changes from run to run, so d_flat is not bit-reproducible.
@@ -219,149 +316,200 @@ __device__ __forceinline__ void atomic_add4(float* p, float4 v) {
 }
 
 // ------------------------------------------------------------------ data
-// d_flat (f32, zeroed by the caller, may be null) and d_w (may be null).
+// d_flat (f32, zeroed by the caller, may be null) and d_w (f32, zeroed by
+// the caller, may be null).
 //
-// Block (x, y) owns 64 pixels through every tap and the y-th share of the
-// channel tiles. With one share (gridDim.y == 1) d_w[c, k, p], a sum over
-// all C channels, is finished inside the block and stored; with more
-// shares, which the wrapper takes where 64-px tiles alone would leave most
-// of the card idle (px / 64 is 132 at c4 and 33 at c5 of X-101), each
-// block adds its partial sum into the zeroed d_w with one atomic per
-// (c, k, p). d_flat's rows, which many (c, k, p) share, are always
-// accumulated with atomics. Per tap k and per 64-channel tile the block
-// computes G = dout_tile * W[k]^T into shared memory:
-//   ungrouped: the tile is channels [64 t, 64 t + 64), inner = all cout;
-//   grouped:   the tile is the channel slice of cout tile t (64 wide when
-//              Cg == outG, which the wrapper requires), inner = the 64
-//              columns of that cout tile, B block-diagonal from the
-//              compact weight.
-// Then each corner c of each pixel reads its row slice for the dot product
-// and adds w * G to it. Pixels past px have weight 0, a zero dout row and
-// are skipped by the scatter; clipped corners (weight 0, in-range pixel)
+// Block (x, y) owns 64 pixels and the 64-channel tile y through every tap:
+//   ungrouped: channels [64 y, 64 y + 64), inner = all cout;
+//   grouped:   the channel slice of cout tile y (64 wide when Cg == outG,
+//              which the wrapper requires), inner = the 64 columns of that
+//              tile, B block-diagonal from the compact weight.
+// Per tap k it computes the tile G = dout_tile * W[k]^T into shared memory
+// and then, 4 threads per pixel and corner, takes the dot product of the
+// corner's row slice with G (d_w, one atomic per (c, k, p) and channel
+// tile) and adds w * G to the row of d_flat with 16-byte vector atomics.
+//
+// What the card asked for (measured, PERF.md): the first design's time
+// went to staging the product's operands, not to the atomics, and a window
+// of d_flat in shared memory (adds combined before they leave the SM,
+// tried two ways) was slower than the vector atomics it saved. So the
+// chunks of dout and of W[k] go global -> registers -> one of two shared
+// buffers as they are (16-byte copies; W[k] stays transposed, a row of W
+// is a column of B, and WMMA reads it as a column-major fragment; grouped:
+// only the vectors of the row's own group are loaded, the rest are
+// zeros). The loads of the next chunk, also the next tap's first, are
+// started before this chunk's product and arrive under it, so one barrier
+// per chunk is enough; the next tap's corners and the rows of flat for the
+// dot products are fetched under the product too. Chunks are 64 deep in
+// bf16: a grouped tap is one chunk.
+//
+// Pixels past px are skipped; clipped corners (weight 0, in-range pixel)
 // are read and added to like any other, as autograd of the plain version
 // does.
+constexpr int BWD_DATA_THREADS = 256;
+constexpr int CORNER_LANES = BWD_DATA_THREADS / BM;     // threads per corner
+constexpr int CORNER_VECS = BN / 4 / CORNER_LANES;      // float4 per thread
+constexpr unsigned FULL_WARP = 0xffffffffu;
+
 template <typename T, bool GROUPED>
-__global__ void __launch_bounds__(Mma<T>::THREADS)
+__global__ void __launch_bounds__(BWD_DATA_THREADS, 2)
 bwd_data_kernel(const T* __restrict__ flat, const int* __restrict__ idx,
                 const float* __restrict__ w, const T* __restrict__ W,
                 const T* __restrict__ dout, float* __restrict__ dflat,
                 float* __restrict__ dw, int C, int Cg, int outG, int nc,
                 int K, int px, int cout) {
-  using M = Mma<T>;
-  constexpr int VN = Vec<T>::N;
-  constexpr int THREADS = M::THREADS;
-  __shared__ __align__(32) T As[M::A_ELEMS];
-  __shared__ __align__(32) T Bs[M::B_ELEMS];
-  __shared__ __align__(32) float Cs[BM * LDC];
+  using M = DataMma<T>;
+  using V = Vec<T>;
+  constexpr int VN = V::N;
+  constexpr int THREADS = BWD_DATA_THREADS;
+  constexpr int VPR = M::BK / VN;                // vectors per chunk row
+  constexpr int NV = BM * VPR / THREADS;         // per thread and operand
+  static_assert(BM * VPR % THREADS == 0 && BM == BN, "whole vectors");
+  static_assert(MAXNC * BM == THREADS, "one corner per thread and tap");
+  static_assert(4 * M::ELEMS * sizeof(T) >= BM * LDC * sizeof(float),
+                "the G tile takes the chunk buffers' place");
+  // two A and two B chunk buffers; the G tile takes their place once a
+  // tap's product is done
+  __shared__ __align__(128) T chunks[4 * M::ELEMS];
   __shared__ int s_idx[MAXNC * BM];
   __shared__ float s_w[MAXNC * BM];
-  __shared__ float s_dw[MAXNC * BM];
+  float* Cs = reinterpret_cast<float*>(chunks);
 
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * BM;
   const int WR = GROUPED ? Cg : C;               // rows of W per tap
-  const int NT = GROUPED ? cout / BN : (C + BN - 1) / BN;
-  const int per = (NT + gridDim.y - 1) / gridDim.y;      // tiles per share
-  const int tile_lo = blockIdx.y * per;
-  const int tile_hi = min(NT, tile_lo + per);
+  const int klo = GROUPED ? blockIdx.y * BN : 0;         // inner range
+  const int khi = GROUPED ? klo + BN : cout;
+  const int chg0 = GROUPED ? klo / outG * Cg : blockIdx.y * BN;
   const bool need_dflat = dflat != nullptr;
   const bool need_dw = dw != nullptr;
 
-  for (int t = tid; t < MAXNC * BM; t += THREADS) s_dw[t] = 0.f;
+  // this thread's corner of a tap: corner tid / 64 of pixel p0 + tid % 64
+  const bool my_tap = tid / BM < nc && p0 + tid % BM < px;
+  const size_t tap_off =
+      (size_t)(tid / BM) * K * (size_t)px + (my_tap ? p0 + tid % BM : 0);
+  int tap_row = 0;
+  float tap_w = 0.f;
+  if (my_tap) {
+    tap_row = idx[tap_off];
+    tap_w = w[tap_off];
+  }
+  // this thread's vectors of an A chunk (dout, zero past px) and of a B
+  // chunk (W[k] transposed: row n holds channel chg0 + n's weights;
+  // grouped: zero where the columns are another group's, which holds for
+  // a whole vector because outG is a multiple of VN)
+  const T* a_src[NV];
+  const T* b_src[NV];
+  int b_own[NV];
+#pragma unroll
+  for (int u = 0; u < NV; ++u) {
+    const int row = (tid + u * THREADS) / VPR;
+    const int kv = (tid + u * THREADS) % VPR * VN;
+    const int wrow = GROUPED ? row % Cg : chg0 + row;
+    a_src[u] = p0 + row < px ? dout + (size_t)(p0 + row) * cout + kv : nullptr;
+    b_src[u] = (GROUPED || wrow < C) ? W + (size_t)wrow * cout + kv : nullptr;
+    b_own[u] = GROUPED ? klo + row / Cg * outG - kv : 0;  // its first column
+  }
+  typename V::Raw ra[NV], rb[NV];
+  // this thread's share of a corner in the pass after the product
+  const int corner_r = tid / CORNER_LANES;
+  const int corner_q = tid % CORNER_LANES;
+  const bool corner_live = p0 + corner_r < px;
+#define LSNET_FETCH_CHUNK(k_, kk0_)                                          \
+  _Pragma("unroll") for (int u = 0; u < NV; ++u) {                           \
+    const bool in = (kk0_) + (tid + u * THREADS) % VPR * VN < khi;           \
+    const int col = (kk0_) - b_own[u];          /* column in its group */    \
+    const bool own = !GROUPED || (col >= 0 && col < outG);                   \
+    ra[u] = in && a_src[u] ? V::load_raw(a_src[u] + (kk0_)) : V::zero_raw(); \
+    rb[u] = in && own && b_src[u]                                            \
+                ? V::load_raw(b_src[u] + (size_t)(k_) * WR * cout + (kk0_))  \
+                : V::zero_raw();                                             \
+  }
 
+  LSNET_FETCH_CHUNK(0, klo)
+  int buf = 0;
   for (int k = 0; k < K; ++k) {
-    __syncthreads();
-    load_taps(idx, w, nc, K, px, k, p0, s_idx, s_w);
-    __syncthreads();
-    for (int tile = tile_lo; tile < tile_hi; ++tile) {
-      const int klo = GROUPED ? tile * BN : 0;           // inner range
-      const int khi = GROUPED ? klo + BN : cout;
-      const int chg0 = GROUPED ? klo / outG * Cg : tile * BN;
-      typename M::Acc acc;
-      M::zero(acc);
-      for (int kk0 = klo; kk0 < khi; kk0 += M::BK) {
-        // A(m, kk) = dout[p0 + m, kk0 + kk], zero past px
-        for (int v = tid; v < BM * (M::BK / VN); v += THREADS) {
-          const int m = v / (M::BK / VN);
-          const int kv = (v % (M::BK / VN)) * VN;
-          float f[VN];
-#pragma unroll
-          for (int e = 0; e < VN; ++e) f[e] = 0.f;
-          if (p0 + m < px && kk0 + kv < khi)
-            Vec<T>::load(dout + (size_t)(p0 + m) * cout + kk0 + kv, f);
-#pragma unroll
-          for (int e = 0; e < VN; ++e) M::a(As, m, kv + e) = Vec<T>::cvt(f[e]);
-        }
-        // B(kk, n) = W[k, row(n), kk0 + kk]: channel chg0 + n's weights
-        for (int v = tid; v < BN * (M::BK / VN); v += THREADS) {
-          const int n = v / (M::BK / VN);
-          const int kv = (v % (M::BK / VN)) * VN;
-          const int wrow = GROUPED ? n % Cg : chg0 + n;
-          float f[VN];
-#pragma unroll
-          for (int e = 0; e < VN; ++e) f[e] = 0.f;
-          if (kk0 + kv < khi && (GROUPED || wrow < C))
-            Vec<T>::load(W + ((size_t)k * WR + wrow) * cout + kk0 + kv, f);
-          if constexpr (GROUPED) {
-#pragma unroll
-            for (int e = 0; e < VN; ++e)
-              if ((kk0 + kv + e - klo) / outG != n / Cg) f[e] = 0.f;
-          }
-#pragma unroll
-          for (int e = 0; e < VN; ++e) M::b(Bs, kv + e, n) = Vec<T>::cvt(f[e]);
-        }
-        __syncthreads();
-        M::step(acc, As, Bs);
-        __syncthreads();
-      }
-      M::store(acc, Cs);
-      __syncthreads();
-      // G tile in Cs: 16 threads per pixel, 4 channels each
-      for (int c = 0; c < nc; ++c) {
-        for (int t = tid; t < BM * (BN / 4); t += THREADS) {
-          const int r = t / (BN / 4);
-          const int j4 = (t % (BN / 4)) * 4;
-          const int ch = chg0 + j4;
-          float dot = 0.f;
-          if (p0 + r < px && ch < C) {
-            const float4 g =
-                *reinterpret_cast<const float4*>(&Cs[r * LDC + j4]);
-            const size_t off = (size_t)s_idx[c * BM + r] * C + ch;
-            if (need_dw) {
-              float f[4];
-              Vec<T>::load4(flat + off, f);
-              dot = f[0] * g.x + f[1] * g.y + f[2] * g.z + f[3] * g.w;
-            }
-            if (need_dflat) {
-              const float wt = s_w[c * BM + r];
-              atomic_add4(dflat + off, make_float4(wt * g.x, wt * g.y,
-                                                   wt * g.z, wt * g.w));
-            }
-          }
-          if (need_dw) {
-#pragma unroll
-            for (int o = 8; o > 0; o >>= 1)
-              dot += __shfl_xor_sync(0xffffffffu, dot, o, 16);
-            if ((t & 15) == 0) s_dw[c * BM + r] += dot;
-          }
-        }
-      }
-      // the next tile's Cs is written only after the syncs of its product
+    __syncthreads();      // the last tap's readers of the taps and of Cs
+    s_idx[tid] = tap_row;
+    s_w[tid] = tap_w;
+    if (k + 1 < K && my_tap) {                   // the next tap's corner
+      tap_row = idx[tap_off + (size_t)(k + 1) * px];
+      tap_w = w[tap_off + (size_t)(k + 1) * px];
     }
+    typename M::Acc acc;
+    M::zero(acc);
+    typename V::Raw4 rows[MAXNC][CORNER_VECS] = {};
+    for (int kk0 = klo; kk0 < khi; kk0 += M::BK) {
+      T* As = chunks + buf * 2 * M::ELEMS;
+      T* Bt = As + M::ELEMS;
+#pragma unroll
+      for (int u = 0; u < NV; ++u) {
+        const int row = (tid + u * THREADS) / VPR;
+        const int kv = (tid + u * THREADS) % VPR * VN;
+        M::put_raw(As, row, kv, ra[u]);
+        M::put_raw(Bt, row, kv, rb[u]);
+      }
+      __syncthreads();
+      if (kk0 + M::BK < khi) {
+        LSNET_FETCH_CHUNK(k, kk0 + M::BK)
+      } else if (k + 1 < K) {
+        LSNET_FETCH_CHUNK(k + 1, klo)
+      }
+      if (kk0 == klo && need_dw && corner_live) {
+        // the corners' rows of flat, on their way while the product runs
+#pragma unroll
+        for (int c = 0; c < MAXNC; ++c)
+#pragma unroll
+          for (int m = 0; m < CORNER_VECS; ++m) {
+            const int ch = chg0 + (corner_q + CORNER_LANES * m) * 4;
+            if (c < nc && ch < C)
+              rows[c][m] = V::load4_raw(
+                  flat + (size_t)s_idx[c * BM + corner_r] * C + ch);
+          }
+      }
+      M::step_bt(acc, As, Bt);
+      buf ^= 1;
+    }
+    __syncthreads();            // every warp is done with the chunk buffers
+    M::store(acc, Cs);
     __syncthreads();
-    if (need_dw) {
-      for (int t = tid; t < nc * BM; t += THREADS) {
-        const int c = t / BM;
-        const int p = p0 + t % BM;
-        if (p < px) {
-          float* dst = dw + ((size_t)c * K + k) * px + p;
-          if (gridDim.y == 1) *dst = s_dw[t];
-          else atomicAdd(dst, s_dw[t]);
+    // G tile in Cs: 4 threads per pixel and corner, each 4 float4 of the 64
+    // channels (lane q takes vectors q, q + 4, ..: the four lanes of a
+    // corner touch 64 contiguous bytes at a time)
+#pragma unroll
+    for (int c = 0; c < MAXNC; ++c) {
+      if (c >= nc) break;
+      const size_t row_off = (size_t)s_idx[c * BM + corner_r] * C;
+      const float wt = s_w[c * BM + corner_r];
+      float dot = 0.f;
+#pragma unroll
+      for (int m = 0; m < CORNER_VECS; ++m) {
+        const int j4 = (corner_q + CORNER_LANES * m) * 4;
+        const int ch = chg0 + j4;
+        if (corner_live && ch < C) {
+          const float4 g =
+              *reinterpret_cast<const float4*>(&Cs[corner_r * LDC + j4]);
+          if (need_dw) {
+            float f[4];
+            V::cvt4(rows[c][m], f);
+            dot += f[0] * g.x + f[1] * g.y + f[2] * g.z + f[3] * g.w;
+          }
+          if (need_dflat)
+            atomic_add4(dflat + row_off + ch,
+                        make_float4(wt * g.x, wt * g.y, wt * g.z, wt * g.w));
         }
-        s_dw[t] = 0.f;
+      }
+      if (need_dw) {
+#pragma unroll
+        for (int o = CORNER_LANES / 2; o > 0; o >>= 1)
+          dot += __shfl_xor_sync(FULL_WARP, dot, o, CORNER_LANES);
+        if (corner_q == 0 && corner_live)
+          atomicAdd(dw + ((size_t)c * K + k) * (size_t)px + p0 + corner_r,
+                    dot);
       }
     }
   }
+#undef LSNET_FETCH_CHUNK
 }
 
 // ---------------------------------------------------------------- weight
@@ -475,20 +623,19 @@ template <bool GROUPED>
 inline int launch_bwd_data(const void* flat, const void* idx, const void* w,
                            const void* W, const void* dout, void* dflat,
                            void* dw, int C, int Cg, int outG, int nc, int K,
-                           int px, int cout, int tile_splits, int is_bf16,
-                           void* stream) {
-  const dim3 grid((px + BM - 1) / BM, tile_splits);
+                           int px, int cout, int is_bf16, void* stream) {
+  const dim3 grid((px + BM - 1) / BM, GROUPED ? cout / BN : (C + BN - 1) / BN);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     using T = __nv_bfloat16;
-    bwd_data_kernel<T, GROUPED><<<grid, Mma<T>::THREADS, 0, s>>>(
+    bwd_data_kernel<T, GROUPED><<<grid, BWD_DATA_THREADS, 0, s>>>(
         static_cast<const T*>(flat), static_cast<const int*>(idx),
         static_cast<const float*>(w), static_cast<const T*>(W),
         static_cast<const T*>(dout), static_cast<float*>(dflat),
         static_cast<float*>(dw), C, Cg, outG, nc, K, px, cout);
   } else {
     using T = float;
-    bwd_data_kernel<T, GROUPED><<<grid, Mma<T>::THREADS, 0, s>>>(
+    bwd_data_kernel<T, GROUPED><<<grid, BWD_DATA_THREADS, 0, s>>>(
         static_cast<const T*>(flat), static_cast<const int*>(idx),
         static_cast<const float*>(w), static_cast<const T*>(W),
         static_cast<const T*>(dout), static_cast<float*>(dflat),

@@ -9,8 +9,8 @@
 //   d_w[c, k, p]             = flat[idx[c, k, p], :] . G[k, p, :]
 //
 //   flat (R, C), W (K, Cg, cout) compact, dout (px, cout) f32 or bf16;
-//   idx, w (nc, K, px); d_flat (R, C) f32, zeroed by the caller; d_w
-//   (nc, K, px) f32. Either output pointer may be null.
+//   idx, w (nc, K, px); d_flat (R, C) f32 and d_w (nc, K, px) f32, both
+//   zeroed by the caller. Either output pointer may be null.
 //
 // Replaces the TPU kernel lsnet_tpu/ops/pallas_grouped.py `_make_dv_kernel`
 // (the first pallas_call of `_gdc_bwd`), which writes the patch-tensor
@@ -22,27 +22,30 @@
 // Bound on the H100: bytes, as the forward (a c4 call reads its input map,
 // table and dout and writes an f32 d_flat of twice the map's bytes).
 // Design (deform_bwd.cuh, bwd_data_kernel<GROUPED>): block (x, y) owns 64
-// pixels and a share y of the cout tiles; each 64-wide cout tile covers
+// pixels and cout tile y through all K taps; each 64-wide cout tile covers
 // whole groups and maps to a disjoint 64-channel slice (Cg == outG,
-// checked by the wrapper), so columns of d_flat never collide between
-// tiles, only rows do. The B tile is built block-diagonal from the
-// compact weight. With one share per block d_w needs no atomics, but a c4
-// call has only 132 pixel tiles and a c5 call 33, one small block for
-// each SM or fewer; so the wrapper cuts the cout tiles into shares until
-// about four blocks sit on every SM, and d_w's partial sums are then added
-// with one atomic per (c, k, p) and share (measured on an H100: a c4 call
-// 3.6 ms with one share, see PERF.md for the split's time).
+// checked by the wrapper), so columns of d_flat never collide between the
+// blocks of one pixel tile, only rows do. A tap's operands are one 64-deep
+// chunk: the dout tile and W[k]'s 64 columns, transposed as they lie in
+// memory, of which each row loads only its own group's outG columns (the
+// other vectors are zeros: the block-diagonal B). They travel through
+// registers into one of two shared buffers while the tap before is being
+// multiplied and scattered. The grid is px / 64 x cout / 64 blocks (33 x 32
+// at c5), which fills the card without further splits; d_w's partial sums
+// are added with one atomic per (c, k, p) and channel tile, d_flat with
+// 16-byte vector atomics (a shared-memory window for them was measured
+// slower, PERF.md).
 
 #include "deform_bwd.cuh"
 
 // C entry; limits checked by the Python wrapper (outG divides 64,
-// cout % 64 == 0, 64 / outG * Cg == 64, 1 <= nc <= 4, aligned and
-// contiguous pointers). Launches on `stream`; returns cudaGetLastError().
+// cout % 64 == 0, 64 / outG * Cg == 64, outG * sizeof(T) % 16 == 0,
+// 1 <= nc <= 4, aligned and contiguous pointers). Launches on `stream`;
+// returns cudaGetLastError().
 extern "C" int lsnet_grouped_deform_contract_bwd_data(
     const void* flat, const void* idx, const void* w, const void* W,
     const void* dout, void* dflat, void* dw, int C, int Cg, int outG, int nc,
-    int K, int px, int cout, int tile_splits, int is_bf16, void* stream) {
+    int K, int px, int cout, int is_bf16, void* stream) {
   return lsnet::launch_bwd_data<true>(flat, idx, w, W, dout, dflat, dw, C, Cg,
-                                      outG, nc, K, px, cout, tile_splits,
-                                      is_bf16, stream);
+                                      outG, nc, K, px, cout, is_bf16, stream);
 }

@@ -157,14 +157,6 @@ def px_splits(flat: torch.Tensor, tiles: int, px: int) -> int:
     return max(1, min(-(-px // 64), -(-4 * sms // tiles)))
 
 
-def tile_splits(flat: torch.Tensor, tiles: int, px: int) -> int:
-    """Into how many shares a bwd-data launch cuts its ``tiles`` channel
-    tiles: one where the 64-px tiles alone give every SM about four
-    blocks, more where they do not (d_w is then summed with atomics)."""
-    sms = torch.cuda.get_device_properties(flat.device).multi_processor_count
-    return max(1, min(tiles, 4 * sms // max(1, -(-px // 64))))
-
-
 def launch(name: str, entry: str, flat: torch.Tensor, *args) -> None:
     """Call C entry ``entry`` of ``csrc/<name>.cu`` on flat's device and
     current stream (the stream is appended to ``args``); raise on a launch
@@ -221,7 +213,6 @@ def deform_gather_contract_bwd_data(flat, idx, w, weight, dout,
                weight.data_ptr(), dout.data_ptr(),
                d_flat.data_ptr() if need_flat else None,
                d_w.data_ptr() if need_w else None, C, nc, K, px, cout,
-               tile_splits(flat, -(-C // 64), px),
                int(flat.dtype == torch.bfloat16))
         deform_gather_contract_bwd_data.launches += 1
     return (d_flat.to(flat.dtype) if need_flat else None), d_w

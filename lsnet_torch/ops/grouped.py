@@ -42,7 +42,7 @@ import torch
 
 from .deform_gather import (ContractOps, GatherContract, check_dout,
                             gathered_rows, launch, px_splits,
-                            scatter_rows_ref, tile_splits)
+                            scatter_rows_ref)
 
 _ALIGN = 16
 TILE = 64          # the kernel's cout tile; outG must divide it
@@ -190,6 +190,11 @@ def deform_gather_grouped_contract_bwd_data(flat, idx, w, weight, dout,
     _check_bwd_limits(weight, groups)
     nc, K, px = idx.shape
     _, Cg, cout = weight.shape
+    vec = _ALIGN // flat.element_size()
+    if (cout // groups) % vec:
+        # the kernel loads a row's own group 16 bytes at a time
+        raise ValueError(f"bwd-data needs outG={cout // groups} to be a "
+                         f"multiple of {vec} for {flat.dtype}")
     dout = check_dout(dout, flat, px, cout)
     d_flat = (torch.zeros(flat.shape, dtype=torch.float32,
                           device=flat.device) if need_flat else None)
@@ -202,7 +207,6 @@ def deform_gather_grouped_contract_bwd_data(flat, idx, w, weight, dout,
                d_flat.data_ptr() if need_flat else None,
                d_w.data_ptr() if need_w else None, flat.shape[1], Cg,
                cout // groups, nc, K, px, cout,
-               tile_splits(flat, cout // TILE, px),
                int(flat.dtype == torch.bfloat16))
         deform_gather_grouped_contract_bwd_data.launches += 1
     return (d_flat.to(flat.dtype) if need_flat else None), d_w

@@ -195,6 +195,71 @@ def test_grouped_backward_kernels_match_plain_versions(cuda_device, dtype, nc,
         _close(got, ref, rel)
 
 
+def _adversarial_table(kind, nc, K, px, R):
+    """Corner tables that stress the bwd-data scatter: every corner on one
+    row (each add meets every other), every corner on a row of its own
+    (none meet), neighbouring pixels on the same few rows as a 3x3
+    deformable conv sends them, and rows at both ends of flat."""
+    rng = np.random.RandomState(len(kind))
+    if kind == "one_row":
+        idx = np.full((nc, K, px), R // 2)
+    elif kind == "distinct":
+        idx = np.arange(nc * K * px).reshape(nc, K, px) % R
+    elif kind == "neighbours":
+        idx = (np.arange(px)[None, None] // 3 + rng.randint(0, 4, (nc, K, px))
+               ) % R
+    else:
+        idx = rng.choice([0, R - 1], (nc, K, px))
+    return torch.from_numpy(idx.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("groups", [1, 32])
+@pytest.mark.parametrize("nc", [1, 4])
+@pytest.mark.parametrize("kind", ["one_row", "distinct", "neighbours",
+                                  "ends"])
+def test_bwd_data_kernels_on_adversarial_tables(cuda_device, dtype, rel,
+                                                groups, nc, kind):
+    """Both bwd-data kernels against their plain versions, both outputs
+    together and one at a time, ragged px (333), one launch counted each
+    time."""
+    rng = np.random.RandomState(30 + nc + groups)
+    C, px, R = 512, 333, 700
+    flat, _, w, wk, dout = _bwd_inputs(rng, cuda_device, dtype, nc, C,
+                                       C // groups, C, px, R=R)
+    idx = _adversarial_table(kind, nc, 9, px, R).to(cuda_device)
+    if groups == 1:
+        fn, ref, extra = (dg.deform_gather_contract_bwd_data,
+                          dg.deform_gather_contract_bwd_data_ref, ())
+    else:
+        fn, ref, extra = (gr.deform_gather_grouped_contract_bwd_data,
+                          gr.deform_gather_grouped_contract_bwd_data_ref,
+                          (groups,))
+    want = ref(flat, idx, w, wk, dout, *extra)
+    before = fn.launches
+    for need in ((True, True), (True, False), (False, True)):
+        got = fn(flat, idx, w, wk, dout, *extra, *need)
+        torch.cuda.synchronize()
+        for g_, r_, asked in zip(got, want, need):
+            assert (g_ is not None) == asked
+            if asked:
+                assert g_.dtype == r_.dtype and g_.shape == r_.shape
+                _close(g_, r_, rel)
+    assert fn.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_grouped_bwd_data_rejects_narrow_groups(cuda_device):
+    """outG = 4 in bf16: a 16-byte vector would straddle two groups."""
+    rng = np.random.RandomState(0)
+    flat, idx, w, wk, dout = _bwd_inputs(rng, cuda_device, torch.bfloat16, 1,
+                                         256, 4, 256, 70, R=90)
+    with pytest.raises(ValueError, match="outG"):
+        gr.deform_gather_grouped_contract_bwd_data(flat, idx, w, wk, dout, 64)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("groups", [1, 8])
 def test_functions_differentiate_on_the_card(cuda_device, groups):
