@@ -12,7 +12,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    refine calls, (b) ``deform_gather_grouped_contract`` at the three
    grouped DCN stages of X-101-64x4d (stride 1 and the stride-2 first
    block), (c) and (d) the bwd-data and bwd-weight kernels of each at the
-   same shapes, with the bwd-data kernels' split readings (both outputs,
+   same shapes; beside each, as a yardstick, one PyTorch einsum on the
+   already gathered patch tensor (for bwd-data: G alone); with the
+   bwd-data kernels' split readings (both outputs,
    one output at a time, a table without and with full contention, the
    memset and cast around the launch), (e) the four probe kernels at the
    probes' own inputs and tolerances, kernel, plain version and library
@@ -279,17 +281,26 @@ def check_kernel():
                 if not ok:
                     raise AssertionError(f"kernel disagrees: {row}")
                 if dtype == torch.bfloat16 and sampling == "bilinear":
+                    # yardstick: one PyTorch call on the already gathered
+                    # (K, px, C) patch tensor
+                    vals = dg.gathered_rows(*args[:3]).to(dtype)
+                    row["library_ms"] = cuda_ms(
+                        lambda: torch.einsum("kpc,kco->po", vals, args[3]),
+                        10)
+                    del vals
+                    log(f"kernel library {site}: einsum "
+                        f"{row['library_ms']:.4f} ms")
                     per_fwd[site] = row
                     max_err = max(max_err, err)
                 del args
             torch.cuda.empty_cache()
     # one forward = 6 tower calls + 2 refine contractions (bf16, bilinear)
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     fwd = {key: 6 * per_fwd["tower"][key] + 2 * per_fwd["refine"][key]
-           for key in ("ms", "plain_ms", "bound_ms")}
+           for key in keys}
     fwd["bound_by"] = max(per_fwd.values(),
                           key=lambda r: r["bound_ms"])["bound_by"]
-    fwd["per_call"] = {site: {key: row[key] for key in
-                              ("ms", "plain_ms", "bound_ms")}
+    fwd["per_call"] = {site: {key: row[key] for key in keys}
                        for site, row in per_fwd.items()}
     return fwd, max_err
 
@@ -401,13 +412,17 @@ def split_readings(data, flat, idx):
             "zero_and_cast": cuda_ms(zero_cast, 5)}
 
 
-def check_backward_call(label, args, groups, gen, splits=False):
+def check_backward_call(label, args, groups, gen, splits=False,
+                        library=False):
     """Both backward kernels of one call against their plain versions;
     returns the log row. Tolerance as the forward's, relative to
     max(1, max|ref|) of each gradient: the kernels sum with f32 atomics in
     an order that changes from run to run, and the bf16 route rounds the
     weighted rows and G's inputs to 8 bits of mantissa. With ``splits``
-    the row also gets the bwd-data kernel's split readings."""
+    the row also gets the bwd-data kernel's split readings; with
+    ``library`` (K1 only) the PyTorch calls on the already gathered (K, px,
+    C) patch tensor: d_weight, and G alone for bwd-data (no PyTorch call
+    gives its scatter and d_w)."""
     flat, idx, w, weight = args
     px, cout = idx.shape[2], weight.shape[2]
     dout = torch.randn(px, cout, device="cuda", generator=gen).to(flat.dtype)
@@ -468,6 +483,13 @@ def check_backward_call(label, args, groups, gen, splits=False):
         row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bound_ms(args, wk)
     if splits:
         row["data_split_ms"] = split_readings(data, flat, idx)
+    if library:
+        vals = dg.gathered_rows(flat, idx, w).to(flat.dtype)
+        row["weight_library_ms"] = cuda_ms(
+            lambda: torch.einsum("kpc,po->kco", vals, dout), 10)
+        del vals
+        row["data_einsum_g_only_ms"] = cuda_ms(
+            lambda: torch.einsum("po,kco->kpc", dout, weight), 10)
     log("backward " + json.dumps(row))
     if not ok:
         raise AssertionError(f"backward kernel disagrees: {row}")
@@ -503,7 +525,7 @@ def check_backward_kernels():
                 is_main = dtype == torch.bfloat16 and sampling == "bilinear"
                 row = check_backward_call(
                     dict(site=site, sampling=sampling), args, 0, cgen,
-                    splits=is_main)
+                    splits=is_main, library=is_main)
                 if is_main:
                     main[site] = row
                 del args
@@ -512,10 +534,18 @@ def check_backward_kernels():
     # one step = 6 tower calls + 2 refine contractions (bf16, bilinear)
     rows = [(6, main["tower"]), (2, main["refine"])]
     out = {kind: sum_rows(rows, kind) for kind in ("data", "weight")}
+    lib = {"weight": "weight_library_ms", "data": "data_einsum_g_only_ms"}
     for kind in out:
         out[kind]["per_call"] = {
             site: {key: row[f"{kind}_{key}"] for key in BWD_KEYS}
             for site, row in main.items()}
+        for site, row in main.items():
+            out[kind]["per_call"][site][lib[kind]] = row[lib[kind]]
+    out["weight"]["library_ms"] = sum(n * r["weight_library_ms"]
+                                      for n, r in rows)
+    out["data"]["library_ms"] = None
+    out["data"]["einsum_g_only_ms"] = sum(n * r["data_einsum_g_only_ms"]
+                                          for n, r in rows)
     log("backward per step " + json.dumps(out))
     return out
 
@@ -1167,6 +1197,7 @@ def main(argv=None):
             entry["einsum_g_only_ms"] = row["einsum_g_only_ms"]
         if "per_call" in row:
             entry["pose_bbox_ms"] = pose_bbox_ms(row["per_call"])
+            entry["per_call"] = row["per_call"]
         return entry
 
     kernels = [{
@@ -1177,8 +1208,9 @@ def main(argv=None):
         "max_abs_err": max_err,
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
-        "library_ms": None,
+        "library_ms": fwd["library_ms"],
         "pose_bbox_ms": pose_bbox_ms(fwd["per_call"]),
+        "per_call": fwd["per_call"],
         "launches_by_path": path_counts("deform_gather_contract")}, {
         "name": "deform_gather_grouped_contract", "route": "cuda",
         "source": "lsnet_torch/csrc/grouped_deform_contract.cu",

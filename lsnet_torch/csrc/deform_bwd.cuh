@@ -618,7 +618,8 @@ bwd_weight_kernel(const T* __restrict__ flat, const int* __restrict__ idx,
   }
 }
 
-// Launchers shared by the four C entries.
+// Launchers of the C entries (the bf16 route of K1 bwd-weight has its own
+// kernel, deform_gather_contract_bwd_weight.cu).
 template <bool GROUPED>
 inline int launch_bwd_data(const void* flat, const void* idx, const void* w,
                            const void* W, const void* dout, void* dflat,

@@ -10,94 +10,141 @@
 // Replaces the TPU kernel lsnet_tpu/ops/pallas_dma_gather.py
 // (dma_quad_contract / _dma_quad_contract_impl), whose job was to keep the
 // (K, px, C) patch tensor out of device memory. The same holds here: the
-// weighted corner rows are built in shared memory, one (64 px x BK ch)
-// tile at a time, and go straight into the contraction.
+// weighted corner rows are built in shared memory a chunk at a time and go
+// straight into the contraction. Like the TPU kernel, whose output block is
+// (TPX, cout), a block here owns all of cout (up to 256).
 //
-// Bound on the H100: at the head's shapes (K=9, C=cout=256) the function
-// does 2*K*C*cout = 1.18 MFLOP per output pixel against about K*nc*C*2
-// bytes of gathered rows, mostly served from L2, so it is bound by
-// tensor-core operations, not by device-memory bytes. The bf16 route
-// therefore contracts on the tensor cores (WMMA 16x16x16, f32 accumulate);
-// the f32 route, which exists for exact checks, uses f32 FMA. This first
-// design is simple: one block per 64 px x 64 cout tile, no multi-stage
-// pipeline, and the gather is redone for each cout tile. Those are the
-// levers for later work (wgmma, TMA/cp.async staging, wider cout tiles).
-// The tile sizes, the gather and the epilogues live in deform_tile.cuh,
-// shared with the grouped kernel.
+// Bound on the H100: at the head's shapes (K=9, C=cout=256) the product is
+// 2*K*C*cout = 1.18 MFLOP per output pixel, 52.8 GFLOP for a 44,800-px
+// tower call (0.05 ms at the bf16 peak); the corner rows it gathers, 4 x 9
+// x 512 B a pixel (826 MB), come mostly from L2 and set the time of a
+// design that reads them once. The bf16 route (dgc_bf16_wgmma, device code
+// in k1_wgmma.cuh) therefore gathers every corner row once for all 256
+// output columns (a block of 128 px x 256 cout, two warpgroups of 64 px),
+// contracts on the tensor cores with wgmma m64n256k16 (f32 accumulators in
+// registers), brings W's chunks in by TMA three stages deep and gathers the
+// next chunk while the current product runs. The earlier design it replaces
+// took a 64 x 64 output tile per block (the gather redone for each of the
+// four cout tiles) and staged each 32-deep chunk synchronously for WMMA.
+// The f32 route, which exists for exact checks, keeps that tile and uses
+// f32 FMA; its gather and epilogue live in deform_tile.cuh, shared with the
+// grouped kernel.
 
 #include "deform_tile.cuh"
+#include "k1_wgmma.cuh"
 
 namespace {
 
 using namespace lsnet;
 
 // ---------------------------------------------------------------- bf16
-__global__ void __launch_bounds__(128)
-dgc_bf16(const __nv_bfloat16* __restrict__ flat, const int* __restrict__ idx,
-         const float* __restrict__ w, const __nv_bfloat16* __restrict__ W,
-         __nv_bfloat16* __restrict__ out, int C, int nc, int K, int px,
-         int cout) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 As[BM * LDA16];
-  __shared__ __align__(32) __nv_bfloat16 Bs[BK16 * LDB16];
-  __shared__ __align__(32) float Cs[BM * LDC];
-  __shared__ int s_idx[MAXNC * BM];
-  __shared__ float s_w[MAXNC * BM];
+// Block (x, y): pixels 128 x .. 128 x + 127 (warpgroup g the 64 from
+// 128 x + 64 g), output columns 256 y .. 256 y + 255. Chunk i is tap
+// i / nch, channels 64 (i % nch) ..; B comes from the (cout, C, K) tensor
+// map of W in 64 x 64 boxes (boxes past cout are not loaded: their columns
+// are not written out).
+__global__ void __launch_bounds__(k1::THREADS, 1)
+dgc_bf16_wgmma(const __nv_bfloat16* __restrict__ flat,
+               const int* __restrict__ idx, const float* __restrict__ w,
+               __nv_bfloat16* __restrict__ out, int C, int nc, int K, int px,
+               int cout, const __grid_constant__ CUtensorMap wmap) {
+  using namespace k1;
+  constexpr int TBL_ROWS = WGS * ROWS;
+  using L = Layout<TBL_ROWS>;
+  using Tbl = Table<TBL_ROWS>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_base(smem_raw);
+  const uint32_t s0 = smem_u32(sm);
+  uint32_t* tbl = reinterpret_cast<uint32_t*>(sm + L::TBL_OFF);
+  const uint32_t bar0 = s0 + L::BAR_OFF;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int p0 = blockIdx.x * TBL_ROWS;
+  const int n0 = blockIdx.y * NT;
+  const int nch = (C + CHUNK - 1) / CHUNK;
+  const int n = K * nch;
+  const int boxes = min(NT / BOX, (cout - n0 + BOX - 1) / BOX);
 
-  const int p0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int warp = threadIdx.x / 32;          // 4 warps, each 32 x 32
-  const int wm = (warp / 2) * 32;
-  const int wn = (warp % 2) * 32;
+#define LSNET_LOAD_B(i, stage)                                           \
+  do {                                                                    \
+    const uint32_t bar_ = bar0 + 8 * (stage);                             \
+    mbar_expect(bar_, boxes * BOX_BYTES);                                 \
+    for (int q = 0; q < boxes; ++q)                                       \
+      tma_3d(s0 + L::B_OFF + (stage) * B_STAGE + q * BOX_BYTES, &wmap,    \
+             bar_, n0 + q * BOX, ((i) % nch) * CHUNK, (i) / nch);         \
+  } while (0)
+#define LSNET_GATHER(i)                                                   \
+  gather_tile(flat, C, nc, tbl + (((i) / nch) & 1) * Tbl::WORDS,          \
+              TBL_ROWS, ROWS * wg, ROWS, ((i) % nch) * CHUNK,             \
+              sm + L::A_OFF + ((i) % STAGES) * A_STAGE + wg * A_BYTES)
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k = 0; k < K; ++k) {
-    __syncthreads();
-    load_taps(idx, w, nc, K, px, k, p0, s_idx, s_w);
-    __syncthreads();
-    for (int c0 = 0; c0 < C; c0 += BK16) {
-      gather_tile_bf16(flat, C, c0, nc, s_idx, s_w, As);
-      // B tile: W[k, c0:c0+32, n0:n0+64]
-      for (int v = threadIdx.x; v < BK16 * BN / 8; v += blockDim.x) {
-        const int r = v / (BN / 8);
-        const int cv = (v % (BN / 8)) * 8;
-        const int n = n0 + cv;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (n < cout)
-          val = __ldg(reinterpret_cast<const uint4*>(
-              W + ((size_t)k * C + c0 + r) * cout + n));
-        *reinterpret_cast<uint4*>(&Bs[r * LDB16 + cv]) = val;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK16; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], As + (wm + 16 * i) * LDA16 + kk,
-                                 LDA16);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], Bs + kk * LDB16 + wn + 16 * j, LDB16);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  {
+    Tbl t;
+    t.load(idx, w, nc, K, px, 0, p0);
+    t.store(tbl);
+    if (nch == 1 && K > 1) {
+      t.load(idx, w, nc, K, px, 1, p0);
+      t.store(tbl + Tbl::WORDS);
     }
   }
-  store_tile_bf16(acc, Cs, wm, wn, p0, n0, px, cout, out);
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < min(STAGES, n); ++s) LSNET_LOAD_B(s, s);
+  LSNET_GATHER(0);
+  fence_async_smem();
+  __syncthreads();
+
+  float acc[128];
+#pragma unroll
+  for (int j = 0; j < 128; ++j) acc[j] = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(bar0 + 8 * s, (i / STAGES) & 1);
+    chunk_product<false>(acc, s0 + L::A_OFF + s * A_STAGE + wg * A_BYTES,
+                         s0 + L::B_OFF + s * B_STAGE);
+    // under the product: the next chunk's A tile and, when chunk i + 2
+    // starts a tap, that tap's corner table
+    const bool next_tap = i + 2 < n && (i + 2) % nch == 0;
+    Tbl t;
+    if (next_tap) t.load(idx, w, nc, K, px, (i + 2) / nch, p0);
+    if (i + 1 < n) LSNET_GATHER(i + 1);
+    if (next_tap) t.store(tbl + (((i + 2) / nch) & 1) * Tbl::WORDS);
+    wgmma_wait_all();
+    pin(acc);
+    fence_async_smem();
+    __syncthreads();
+    if (tid == 0 && i + STAGES < n) LSNET_LOAD_B(i + STAGES, s);
+  }
+#undef LSNET_LOAD_B
+#undef LSNET_GATHER
+
+  // epilogue: bf16 tile through the (now idle) B stages, 16-byte stores
+  __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(sm + L::B_OFF);
+#pragma unroll
+  for (int j = 0; j < 128; j += 2)
+    *reinterpret_cast<__nv_bfloat162*>(
+        cs + (ROWS * wg + acc_row(j)) * EPI_LD + acc_col(j)) =
+        __floats2bfloat162_rn(acc[j], acc[j + 1]);
+  __syncthreads();
+  for (int e = tid; e < TBL_ROWS * (NT / 8); e += THREADS) {
+    const int r = e / (NT / 8);
+    const int col = (e % (NT / 8)) * 8;
+    const int p = p0 + r;
+    const int nn = n0 + col;
+    if (p < px && nn < cout)
+      *reinterpret_cast<uint4*>(out + (size_t)p * cout + nn) =
+          *reinterpret_cast<const uint4*>(cs + r * EPI_LD + col);
+  }
 }
+
+// the bf16 epilogue tile fits in the B stages
+static_assert(k1::WGS * k1::ROWS * k1::EPI_LD * 2 <=
+                  k1::Layout<k1::WGS * k1::ROWS>::A_OFF,
+              "epilogue tile");
 
 // ---------------------------------------------------------------- f32
 __global__ void __launch_bounds__(256)
@@ -158,20 +205,32 @@ dgc_f32(const float* __restrict__ flat, const int* __restrict__ idx,
 
 // C entry. Shapes are checked by the Python wrapper: C % 32 == 0 (bf16) or
 // C % 16 == 0 (f32), cout % 8 == 0, 1 <= nc <= 4, every pointer 16-byte
-// aligned and contiguous. Launches on `stream`; returns cudaGetLastError().
+// aligned and contiguous. Launches on `stream`; returns the error of the
+// tensor map or of the shared-memory opt-in, or cudaGetLastError().
 extern "C" int lsnet_deform_gather_contract(const void* flat, const void* idx,
                                             const void* w, const void* W,
                                             void* out, int C, int nc, int K,
                                             int px, int cout, int is_bf16,
                                             void* stream) {
-  const dim3 grid((px + BM - 1) / BM, (cout + BN - 1) / BN);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    dgc_bf16<<<grid, 128, 0, s>>>(
+    using namespace k1;
+    constexpr int SMEM = Layout<WGS * ROWS>::ALLOC;
+    CUtensorMap wmap;
+    const cuuint64_t dims[3] = {(cuuint64_t)cout, (cuuint64_t)C,
+                                (cuuint64_t)K};
+    const cuuint64_t strides[2] = {(cuuint64_t)cout * 2,
+                                   (cuuint64_t)C * cout * 2};
+    int err = bf16_map(&wmap, W, 3, dims, strides);
+    if (err == 0) err = allow_smem(dgc_bf16_wgmma, SMEM);
+    if (err != 0) return err;
+    const dim3 grid((px + WGS * ROWS - 1) / (WGS * ROWS), (cout + NT - 1) / NT);
+    dgc_bf16_wgmma<<<grid, THREADS, SMEM, s>>>(
         static_cast<const __nv_bfloat16*>(flat), static_cast<const int*>(idx),
-        static_cast<const float*>(w), static_cast<const __nv_bfloat16*>(W),
-        static_cast<__nv_bfloat16*>(out), C, nc, K, px, cout);
+        static_cast<const float*>(w), static_cast<__nv_bfloat16*>(out), C, nc,
+        K, px, cout, wmap);
   } else {
+    const dim3 grid((px + BM - 1) / BM, (cout + BN - 1) / BN);
     dgc_f32<<<grid, 256, 0, s>>>(
         static_cast<const float*>(flat), static_cast<const int*>(idx),
         static_cast<const float*>(w), static_cast<const float*>(W),

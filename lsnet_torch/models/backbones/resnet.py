@@ -9,7 +9,11 @@ As in the JAX package, the first block of every stage has a projection
 shortcut. ``block_type="resnext"`` gives the bottleneck ``groups`` and
 ``base_width`` (conv2 width ``int(planes * base_width / 64) * groups``):
 conv2 is a grouped DCN in the DCN stages and a ``GroupedConv`` elsewhere.
-Res2Net comes with a later slice.
+``with_cp`` (the configs' activation checkpointing, ``remat`` in the JAX
+package) runs each residual block under ``torch.utils.checkpoint`` while
+training with gradients on: its activations are recomputed in the
+backward instead of kept; the numbers are the same. Res2Net comes with a
+later slice.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Mapping, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.flat_deform import TRAIN_SAMPLING
 from ..layers import FrozenBatchNorm, GroupedConv, ModulatedDeformConvPack
@@ -108,8 +113,9 @@ class ResNet(nn.Module):
                  stage_with_dcn: Sequence[bool] = (False, False, False,
                                                    False),
                  block_type: str = "resnet", groups: int = 1,
-                 base_width: int = 4):
+                 base_width: int = 4, with_cp: bool = False):
         super().__init__()
+        self.with_cp = with_cp
         if block_type not in ("resnet", "resnext"):
             raise NotImplementedError(f"block_type {block_type!r}")
         kind, stage_blocks = ARCH_SETTINGS[depth]
@@ -158,9 +164,12 @@ class ResNet(nn.Module):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         outs = []
+        remat = self.with_cp and self.training and torch.is_grad_enabled()
         for si, names in enumerate(self.stage_names):
             for n in names:
-                x = getattr(self, n)(x, sampling)
+                block = getattr(self, n)
+                x = (checkpoint(block, x, sampling, use_reentrant=False)
+                     if remat else block(x, sampling))
             if si in self.out_indices:
                 outs.append(x)
         return tuple(outs)

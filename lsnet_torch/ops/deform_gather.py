@@ -27,12 +27,16 @@ On CUDA tensors forward and backward launch the hand-written kernels
 ``csrc/deform_gather_contract_bwd_weight.cu`` (the counterparts of its XLA
 backward ``_bwd``) or raise; on CPU tensors they run the plain versions
 ``deform_gather_contract_ref`` / ``*_bwd_data_ref`` / ``*_bwd_weight_ref``.
+The bf16 routes of the forward and bwd-weight kernels take blocks of all
+256 output columns (``csrc/k1_wgmma.cuh``: wgmma products on chunks that
+TMA brings in); the f32 routes, kept for exact checks, 64 x 64 tiles.
 The backward kernels add into f32 buffers with atomics, so their sums'
 order, and the last bits, change from run to run.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -150,11 +154,35 @@ def check_dout(dout: torch.Tensor, flat: torch.Tensor, px: int,
     return dout.clone() if dout.data_ptr() % _ALIGN else dout
 
 
-def px_splits(flat: torch.Tensor, tiles: int, px: int) -> int:
-    """How many shares of the 64-px tiles a bwd-weight launch with
-    ``tiles`` output tiles takes to put about four blocks on every SM."""
-    sms = torch.cuda.get_device_properties(flat.device).multi_processor_count
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def px_splits(sms: int, tiles: int, px: int) -> int:
+    """How many shares of the 64-px tiles a bwd-weight launch of 64 x 64
+    output tiles (``tiles`` of them over all taps) takes to put about four
+    blocks on every one of ``sms`` SMs: the grouped kernel and the f32
+    route of K1."""
     return max(1, min(-(-px // 64), -(-4 * sms // tiles)))
+
+
+@functools.lru_cache(maxsize=256)
+def wave_px_splits(sms: int, tiles: int, px: int) -> int:
+    """nsplit of the bf16 K1 bwd-weight kernel, which runs one block of
+    ``tiles`` (tap, 128-channel, 256-cout) tiles x nsplit per SM: the split
+    with the fewest chunk times per SM, waves x (tiles per share + 2), the
+    2 for a block's start and its atomic epilogue; the smallest such split.
+    Splits up to 8 waves are tried."""
+    ntile = -(-px // 64)
+    best, best_cost = 1, None
+    for ns in range(1, min(ntile, 8 * -(-sms // tiles)) + 1):
+        per = -(-ntile // ns)
+        used = -(-ntile // per)              # shares that own a tile
+        cost = -(-tiles * used // sms) * (per + 2)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = ns, cost
+    return best
 
 
 def launch(name: str, entry: str, flat: torch.Tensor, *args) -> None:
@@ -234,13 +262,18 @@ def deform_gather_contract_bwd_weight(flat, idx, w, weight, dout):
     d_weight = torch.zeros((K, C, cout), dtype=torch.float32,
                            device=flat.device)
     if px:
-        tiles = -(-C // 64) * -(-cout // 64) * K
+        bf16 = flat.dtype == torch.bfloat16
+        if bf16:      # blocks of 128 channels x 256 cout, one per SM
+            nsplit = wave_px_splits(sm_count(flat.device),
+                                    -(-C // 128) * -(-cout // 256) * K, px)
+        else:         # 64 x 64 tiles, four blocks per SM
+            nsplit = px_splits(sm_count(flat.device),
+                               -(-C // 64) * -(-cout // 64) * K, px)
         launch("deform_gather_contract_bwd_weight",
                "lsnet_deform_gather_contract_bwd_weight", flat,
                flat.data_ptr(), idx.data_ptr(), w.data_ptr(),
                dout.data_ptr(), d_weight.data_ptr(), C, nc, K, px, cout,
-               px_splits(flat, tiles, px),
-               int(flat.dtype == torch.bfloat16))
+               nsplit, int(bf16))
         deform_gather_contract_bwd_weight.launches += 1
     return d_weight.to(flat.dtype)
 

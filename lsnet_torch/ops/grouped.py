@@ -42,7 +42,7 @@ import torch
 
 from .deform_gather import (ContractOps, GatherContract, check_dout,
                             gathered_rows, launch, px_splits,
-                            scatter_rows_ref)
+                            scatter_rows_ref, sm_count)
 
 _ALIGN = 16
 TILE = 64          # the kernel's cout tile; outG must divide it
@@ -236,7 +236,7 @@ def deform_gather_grouped_contract_bwd_weight(flat, idx, w, weight, dout,
                flat.data_ptr(), idx.data_ptr(), w.data_ptr(),
                dout.data_ptr(), d_weight.data_ptr(), flat.shape[1], Cg,
                cout // groups, nc, K, px, cout,
-               px_splits(flat, cout // TILE * K, px),
+               px_splits(sm_count(flat.device), cout // TILE * K, px),
                int(flat.dtype == torch.bfloat16))
         deform_gather_grouped_contract_bwd_weight.launches += 1
     return d_weight.to(flat.dtype)

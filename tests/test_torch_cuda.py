@@ -119,7 +119,7 @@ def _bwd_inputs(rng, dev, dtype, nc, C, Cg, cout, px, R=700, K=9):
     exactly 0 as clipped ones do."""
     flat = torch.from_numpy(rng.randn(R, C).astype(np.float32))
     idx = rng.randint(0, R, (nc, K, px)).astype(np.int32)
-    idx[:, :, 1] = idx[:, :, 0]
+    idx[:, :, 1:2] = idx[:, :, 0:1]
     w = rng.rand(nc, K, px).astype(np.float32)
     w[rng.rand(nc, K, px) < 0.1] = 0.0
     wk = torch.from_numpy((rng.randn(K, Cg, cout) / 12).astype(np.float32))
@@ -165,6 +165,54 @@ def test_backward_kernels_match_plain_versions(cuda_device, dtype, nc, rel):
     assert none is None and none2 is None
     _close(only_flat, want[0], rel)
     _close(only_w, want[1], rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", [1, 4])
+@pytest.mark.parametrize("C", [32, 96, 256])
+@pytest.mark.parametrize("cout", [8, 72, 256, 264])
+@pytest.mark.parametrize("px", [1, 63, 65, 44800])
+def test_k1_bf16_kernels_at_ragged_shapes(cuda_device, px, cout, C, nc):
+    """The bf16 routes of K1 forward and bwd-weight (wgmma, 128-px and
+    (tap, 128-channel) blocks of 256 cout): a lone pixel, ragged px, cout
+    below, at and past one 256-wide tile, channels that end half way into
+    a 64-deep chunk; one launch each, 2e-2 of max(1, max|ref|)."""
+    rng = np.random.RandomState(px + cout + C + nc)
+    flat, idx, w, wk, dout = _bwd_inputs(rng, cuda_device, torch.bfloat16,
+                                         nc, C, C, cout, px)
+    n_fwd = deform_gather_contract.launches
+    n_weight = dg.deform_gather_contract_bwd_weight.launches
+    out = deform_gather_contract(flat, idx, w, wk)
+    d_weight = dg.deform_gather_contract_bwd_weight(flat, idx, w, wk, dout)
+    torch.cuda.synchronize()
+    assert deform_gather_contract.launches == n_fwd + 1
+    assert dg.deform_gather_contract_bwd_weight.launches == n_weight + 1
+    _close(out, deform_gather_contract_ref(flat, idx, w, wk), 2e-2)
+    want = dg.deform_gather_contract_bwd_weight_ref(flat, idx, w, dout)
+    assert d_weight.dtype == want.dtype and d_weight.shape == want.shape
+    _close(d_weight, want, 2e-2)
+
+
+@pytest.mark.cuda
+def test_k1_bf16_kernels_propagate_a_nan_in_a_clipped_row(cuda_device):
+    """A clipped corner (weight 0) on a row that holds a NaN: the kernels
+    read it and multiply, so the NaN reaches the same outputs as in the
+    plain versions (and XLA); everything else matches."""
+    rng = np.random.RandomState(7)
+    flat, idx, w, wk, dout = _bwd_inputs(rng, cuda_device, torch.bfloat16,
+                                         4, 256, 256, 256, 333)
+    flat[5, 3] = float("nan")
+    idx[2, 1, 9] = 5
+    w[2, 1, 9] = 0.0
+    for got, want in (
+            (deform_gather_contract(flat, idx, w, wk),
+             deform_gather_contract_ref(flat, idx, w, wk)),
+            (dg.deform_gather_contract_bwd_weight(flat, idx, w, wk, dout),
+             dg.deform_gather_contract_bwd_weight_ref(flat, idx, w, dout))):
+        torch.cuda.synchronize()
+        nan = want.isnan()
+        assert nan.any() and torch.equal(got.isnan(), nan)
+        _close(got.float().nan_to_num(), want.float().nan_to_num(), 2e-2)
 
 
 @pytest.mark.cuda
