@@ -20,7 +20,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    probes' own inputs and tolerances, kernel, plain version and library
    call also by device time, each launch under a host-side time limit,
    ``probe_block_gather`` also at 147,456 random rows with its byte bound,
-   then the checks of ``lsnet_torch.tools.probe`` in-process with the
+   ``probe_subrow_dot`` also at P = 16,384 (1e-5 of max(1, max|ref|), two
+   launches equal bit for bit) beside ``torch.mm`` and its bound, then the
+   checks of ``lsnet_torch.tools.probe`` in-process with the
    probes' launch counts read around them;
 3. check the port on the card against the port on the CPU on small inputs
    (a narrow R50-shaped model, and a narrow ResNeXt-shaped model for each
@@ -45,7 +47,8 @@ It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 card's clocks, power draw and temperature are logged before and after
 phases 2c, 2d and the profiled train steps. ``python3 chip_smoke.py --only
 backward`` builds, runs phases 2c and 2d alone and prints no result line
-(for work on the backward kernels). With
+(for work on the backward kernels); ``--only probes`` does the same for
+phase 2e. With
 ``CHIP_SMOKE_LOG=<path>`` in the environment it also writes every line it
 prints to that file. It needs the repository
 around it and a CUDA device, and runs no JAX.
@@ -111,6 +114,9 @@ NUM_GT = 20
 NUM_VECTORS = {"bbox": 4, "segm": 36, "pose_bbox": 17, "pose_kbox": 17}
 PROBE_TIME_LIMIT = 30.0          # seconds a probe launch may take
 COPY_RATE_ROWS = 9 * 16384       # block gathers of the copy-rate timing
+LARGE_DOT_P = 16384              # pixels of the sub-row dot's large run
+PROFILE_TRIES = 4                # profiles that may lose their device records
+LOST_PROFILES = []               # host records of each profile that did
 
 
 LOG_PATH = os.environ.get("CHIP_SMOKE_LOG")    # optional copy of the log
@@ -147,17 +153,43 @@ def kernel_device_us(fn, kernel="", iters=10):
     """Mean device time per call of fn() of the kernels whose name contains
     ``kernel`` (all of fn's kernels by default), from the profiler: for
     work so short that CUDA events around the calls time the host's launch
-    rate instead."""
+    rate instead. Raises AssertionError when the profile holds device
+    records but none of ``kernel``, or when PROFILE_TRIES profiles in a row
+    lose every device record.
+
+    A profile can lose every device record while it keeps the host's (the
+    launches): on the H100 with PyTorch 2.11 / CUDA 12.8 it happened to a
+    probe kernel and to ``torch.mm`` alike, cluster launch or not, rarely
+    and sometimes for two profiles in a row, each time with an "Activity
+    Buffer Request" span (CUPTI asking the profiler for a new record
+    buffer) over the first launch. Such a profile is taken again and its
+    host records kept in LOST_PROFILES (``bench_probes`` reports them);
+    it is never read as 0."""
     from torch.profiler import ProfilerActivity, profile as tprofile
+    on_device = torch.autograd.DeviceType.CUDA
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    on_device = torch.autograd.DeviceType.CUDA
-    return sum(dev_us(e) for e in prof.key_averages()
-               if kernel in e.key and e.device_type == on_device) / iters
+    for _ in range(PROFILE_TRIES):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        events = [e for e in averages if e.device_type == on_device]
+        if events:
+            break
+        LOST_PROFILES.append([e.key for e in averages])
+        log(f"kernel_device_us: the profile of {kernel!r} lost its device "
+            f"records; host records {LOST_PROFILES[-1]}")
+    else:
+        raise AssertionError(f"kernel_device_us: {PROFILE_TRIES} profiles "
+                             f"of {kernel!r} in a row without a device "
+                             "record")
+    mine = [e for e in events if kernel in e.key]
+    if not mine:
+        raise AssertionError(f"kernel_device_us: no kernel {kernel!r} on "
+                             f"the device; saw {[e.key for e in events]}")
+    return sum(dev_us(e) for e in mine) / iters
 
 
 def card_state(label):
@@ -678,13 +710,54 @@ def probe_library_call(name, args):
     return lambda: torch.mm(a, b, out_dtype=torch.float32)
 
 
+def check_large_dot(gen):
+    """probe_subrow_dot at P = LARGE_DOT_P seeded normals (x 32 MB, w
+    256 KB, out 8 MB): the kernel against its plain version (1e-5 of
+    max(1, max|ref|), f32 sums in another order), two launches equal bit
+    for bit, and the kernel, plain version and torch.mm by device time
+    beside the bound."""
+    dev = torch.device("cuda")
+    args = [torch.randn(LARGE_DOT_P, probes.SUBROWS, probes.SUBROW,
+                        device=dev, generator=gen).to(torch.bfloat16),
+            (torch.randn(probes.SUBROWS, probes.SUBROW, 128, device=dev,
+                         generator=gen) / 16).to(torch.bfloat16)]
+    fn = probes.probe_subrow_dot
+
+    def ref():
+        return probes.probe_subrow_dot_ref(*args)
+
+    got = within_time_limit(lambda: fn(*args),
+                            f"probe_subrow_dot at P = {LARGE_DOT_P}")
+    want = ref()
+    err = (got - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    repeats = torch.equal(got, fn(*args))
+    bnd, by = probe_bound_ms("probe_subrow_dot", args)
+    library = probe_library_call("probe_subrow_dot", args)
+    large = {"P": LARGE_DOT_P, "max_abs_err": err, "tolerance": 1e-5 * scale,
+             "bit_repeat": repeats, "ms": cuda_ms(lambda: fn(*args), 20),
+             "plain_ms": cuda_ms(ref, 5), "library_ms": cuda_ms(library, 20),
+             "bound_ms": bnd, "bound_by": by,
+             "device_us": kernel_device_us(lambda: fn(*args),
+                                           "probe_subrow_dot_kernel"),
+             "plain_device_us": kernel_device_us(ref),
+             "library_device_us": kernel_device_us(library)}
+    log("probe_subrow_dot large P " + json.dumps(large))
+    if err > 1e-5 * scale or not repeats \
+            or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"probe_subrow_dot disagrees at P = "
+                             f"{LARGE_DOT_P}: {large}")
+    return large
+
+
 def check_probe_kernels():
     """Phase 2e: the four probe kernels against their plain versions at
     the JAX probes' inputs and tolerances, every first launch under the
     host-side time limit; the block gather's copy rate at COPY_RATE_ROWS
-    random rows of a 64 MB table; then the probe tool's own checks
-    in-process, with the probes' launch counts set to 0 just before and
-    read just after. Returns the probes' entries of the kernels line."""
+    random rows of a 64 MB table; the sub-row dot at LARGE_DOT_P; then the
+    probe tool's own checks in-process, with the probes' launch counts set
+    to 0 just before and read just after. Returns the probes' entries of
+    the kernels line."""
     dev = torch.device("cuda")
     replaces = {
         "probe_row_copy": "lsnet_tpu/ops/pallas_dma_gather.py:220",
@@ -760,6 +833,7 @@ def check_probe_kernels():
     log("probe_block_gather copy rate " + json.dumps(rate))
     entries["probe_block_gather"]["copy_rate"] = rate
     del table, rows, args
+    entries["probe_subrow_dot"]["large_p"] = check_large_dot(gen)
 
     # the entry point: lsnet_torch.tools.probe's checks, in-process
     for name in probes.PROBES:
@@ -1094,8 +1168,10 @@ def profile(label, run, batch_ms):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["backward"], default=None,
-                        help="run phases 2c and 2d alone; no result line")
+    parser.add_argument("--only", choices=["backward", "probes"],
+                        default=None,
+                        help="run phases 2c and 2d, or phase 2e, alone; "
+                        "no result line")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1123,6 +1199,11 @@ def main(argv=None):
         check_backward_kernels()
         check_grouped_backward_kernels()
         log(f"partial run (--only backward) passed in "
+            f"{time.perf_counter() - t_start:.1f}s; no result line")
+        return 0
+    if opts.only == "probes":
+        check_probe_kernels()
+        log(f"partial run (--only probes) passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
         return 0
 
@@ -1242,6 +1323,7 @@ def main(argv=None):
     log(json.dumps({"e2e_img_per_s": e2e, "batch": B,
                     "image": [H, W], "dtype": "bfloat16",
                     "peak_memory_bytes": peaks, "card": smi,
+                    "profiles_taken_again": len(LOST_PROFILES),
                     "seconds": time.perf_counter() - t_start}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

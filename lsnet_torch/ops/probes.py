@@ -7,7 +7,7 @@ gather + contraction is built from (counterparts of
 
 * :func:`probe_row_copy`: an engine-driven asynchronous copy of one row
   from device memory to shared memory (``cp.async.bulk`` completing on an
-  ``mbarrier``), a wait, and the row written out;
+  ``mbarrier``), a wait, and the row written back by the same engine;
 * :func:`probe_block_gather`: the same for whole 8-row blocks selected by
   an index the kernel reads from device memory (16-byte ``cp.async``
   copies, ``cp.async.wait_all``);

@@ -9,11 +9,12 @@ bf16 at the tower and refine calls of the main path (``chip_smoke.py``'s
 and nearest: CUDA events around 20 / 10 calls and the profiler's device
 time of the kernel, beside the error against the plain version.
 
-Each root is a directory holding ``lsnet_torch/`` and ``chip_smoke.py``
-(this checkout by default), timed in a process of its own, so that two
-versions compare inside one call on one card: unpack the parent with
-``git archive <commit> lsnet_torch chip_smoke.py | tar -x -C
-build/parent`` and give ``--roots build/parent . . build/parent``.
+Each root is a directory holding ``lsnet_torch/`` (this checkout by
+default), timed in a process of its own by this checkout's measuring code
+(``tools/bench_roots.py``), so that two versions compare inside one call
+on one card: unpack the parent with ``git archive <commit> lsnet_torch |
+tar -x -C build/parent`` and give ``--roots build/parent . .
+build/parent``.
 
 ``--split`` also times patched copies of this checkout, made under
 ``build/k1_split/<name>/``: ``no_gather`` (the A tiles built from zeros,
@@ -26,15 +27,12 @@ Prints one JSON line per root, the card's name and power limit, and last
 one JSON line with every root's rows.
 """
 
-import argparse
-import json
-import os
-import shutil
-import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-REPO = os.path.dirname(os.path.dirname(HERE))
+if __package__:
+    from lsnet_torch.tools import bench_roots
+else:   # the --one process of a root, run as a file so that the lsnet_torch
+    import bench_roots      # it imports is the root's
 
 K1_SOURCES = ("deform_gather_contract.cu",
               "deform_gather_contract_bwd_weight.cu")
@@ -57,31 +55,10 @@ SPLITS = {
 }
 
 
-def make_split(name):
-    """A copy of this checkout's port with the patches of ``name``."""
-    root = os.path.join(REPO, "build", "k1_split", name)
-    shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(os.path.join(REPO, "lsnet_torch"),
-                    os.path.join(root, "lsnet_torch"),
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    shutil.copy(os.path.join(REPO, "chip_smoke.py"), root)
-    for fname, old, new in SPLITS[name]:
-        path = os.path.join(root, "lsnet_torch", "csrc", fname)
-        with open(path) as f:
-            src = f.read()
-        if old not in src:
-            raise ValueError(f"split {name}: {fname} no longer holds "
-                             f"{old!r}")
-        with open(path, "w") as f:
-            f.write(src.replace(old, new))
-    return root
-
-
 def time_root(root):
     """The rows of one checkout (run in a process of its own)."""
-    sys.path.insert(0, os.path.abspath(root))
+    cs = bench_roots.import_root(root)
     import torch
-    import chip_smoke as cs
     from lsnet_torch import _build
     from lsnet_torch.ops import deform_gather as dg
 
@@ -127,35 +104,8 @@ def time_root(root):
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--roots", nargs="+", default=[REPO])
-    ap.add_argument("--split", action="store_true")
-    ap.add_argument("--one", help=argparse.SUPPRESS)
-    opts = ap.parse_args(argv)
-    if opts.one:
-        print(json.dumps(time_root(opts.one)), flush=True)
-        return 0
-    roots = [os.path.abspath(r) for r in opts.roots]
-    if opts.split:
-        roots += [make_split(name) for name in SPLITS]
-    results = []
-    for root in roots:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--one", root], capture_output=True,
-                              text=True)
-        if proc.returncode != 0:
-            sys.stderr.write(proc.stdout + proc.stderr)
-            raise SystemExit(f"bench_k1: {root} failed")
-        rows = json.loads(proc.stdout.strip().splitlines()[-1])
-        label = os.path.relpath(root, REPO)
-        print(json.dumps({"root": label, "rows": rows}), flush=True)
-        results.append({"root": label, "rows": rows})
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60, check=True).stdout.strip()
-    print(card, flush=True)
-    print(json.dumps({"card": card, "results": results}), flush=True)
-    return 0
+    return bench_roots.main(__file__, __doc__, time_root, SPLITS,
+                            "k1_split", argv)
 
 
 if __name__ == "__main__":

@@ -385,25 +385,33 @@ def test_probe_kernels_match_plain_versions(cuda_device, name):
 
 @pytest.mark.cuda
 def test_probe_kernels_at_other_sizes(cuda_device):
-    """Ragged pixel tiles of the sub-row kernels, many clamped indices of
-    the block gather, a wider row of the row copy."""
+    """Ragged pixel tiles of the sub-row kernels (the dot in both launch
+    shapes, one tile and many, a ragged last tile in each: two launches
+    equal bit for bit, no atomics), many clamped indices of the block
+    gather, the row copy from the smallest to the largest row its bulk
+    copies take."""
     rng = np.random.RandomState(0)
-    x = torch.from_numpy(rng.randn(37, 8, 128).astype(np.float32)).to(
-        cuda_device, torch.bfloat16)
     w = torch.from_numpy((rng.randn(8, 128, 128) / 16).astype(np.float32)
                          ).to(cuda_device, torch.bfloat16)
-    _close(probes.probe_subrow_sum(x), probes.probe_subrow_sum_ref(x), 1e-5)
-    _close(probes.probe_subrow_dot(x, w), probes.probe_subrow_dot_ref(x, w),
-           1e-5)
+    for P in (1, 16, 17, 37, 64, 129, 8449, 16384):   # 8449: large shape
+        x = torch.from_numpy(rng.randn(P, 8, 128).astype(np.float32)).to(
+            cuda_device, torch.bfloat16)
+        if P == 37:
+            _close(probes.probe_subrow_sum(x), probes.probe_subrow_sum_ref(x),
+                   1e-5)
+        got = probes.probe_subrow_dot(x, w)
+        _close(got, probes.probe_subrow_dot_ref(x, w), 1e-5)
+        assert torch.equal(got, probes.probe_subrow_dot(x, w)), P
     table = torch.from_numpy(rng.randn(64 * 8, 256).astype(np.float32)).to(
         cuda_device)                                  # 8 KB blocks, f32
     idx = torch.from_numpy(rng.randint(-5, 70, 1000).astype(np.int32)).to(
         cuda_device)
     assert torch.equal(probes.probe_block_gather(table, idx),
                        probes.probe_block_gather_ref(table, idx))
-    wide = torch.from_numpy(rng.randn(3, 4096).astype(np.float32)).to(
-        cuda_device)                                  # a 16 KB row
-    assert torch.equal(probes.probe_row_copy(wide), wide[:1])
+    for cols in (4, 128, 4096):                       # 16 B, 512 B, 16 KB
+        row = torch.from_numpy(rng.randn(3, cols).astype(np.float32)).to(
+            cuda_device)
+        assert torch.equal(probes.probe_row_copy(row), row[:1]), cols
     with pytest.raises(ValueError, match="bytes"):
         probes.probe_row_copy(torch.zeros(2, 6, device=cuda_device))
 
