@@ -11,8 +11,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    and time both: (a) ``deform_gather_contract`` at the head's tower and
    refine calls, (b) ``deform_gather_grouped_contract`` at the three
    grouped DCN stages of X-101-64x4d (stride 1 and the stride-2 first
-   block), (c) and (d) the bwd-data and bwd-weight kernels of each at the
-   same shapes; beside each, as a yardstick, one PyTorch einsum on the
+   block), with the bf16 kernel's device time per inference forward
+   (nearest) and per train step (bilinear) and ptxas's registers and
+   spills for it, (c) and (d) the bwd-data and bwd-weight kernels of each
+   at the same shapes; beside each, as a yardstick, one PyTorch einsum on the
    already gathered patch tensor (for bwd-data: G alone); with the
    bwd-data kernels' split readings (both outputs,
    one output at a time, a table without and with full contention, the
@@ -353,12 +355,39 @@ def grouped_inputs(gen, out_hw, C, stride):
     return fd.pack_levels([feat]), job, weight
 
 
-def check_grouped_kernel():
+def ptxas_summary(log, kernel):
+    """Registers, spill bytes and shared memory of each entry whose name
+    holds ``kernel``, from the ``-Xptxas -v`` output of one source."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = None
+            if kernel in line:
+                cur = {"entry": line.split("'")[1]}
+                out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            nums = [int(x) for x in line.replace(",", " ").split()
+                    if x.isdigit()]
+            cur["stack_bytes"], cur["spill_store_bytes"], \
+                cur["spill_load_bytes"] = nums[:3]
+        elif cur is not None and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            cur["registers"] = int(words[words.index("registers") - 1])
+            if "smem" in words:
+                cur["static_smem_bytes"] = int(words[words.index("smem") - 2])
+    return out
+
+
+def check_grouped_kernel(ptxas_log=""):
     """Phase 2b: deform_gather_grouped_contract vs its plain version at the
     X-101 stages, stride 1 and 2, nearest and bilinear, f32 and bf16; the
-    PyTorch grouped einsum on the same contraction as the yardstick."""
+    PyTorch grouped einsum on the same contraction as the yardstick; the
+    bf16 kernel's device time (profiler) per call, summed per inference
+    forward (nearest) and per train step (bilinear), beside ptxas's
+    registers and spills for it (from ``ptxas_log``)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     main = {}                    # (stage, stride) -> bf16 nearest row
+    device_us = {}               # (stage, stride, sampling) -> bf16 us
     library = {}
     max_err = 0.0
     for stage, out_hw, C, _ in X101_STAGES:
@@ -392,6 +421,11 @@ def check_grouped_kernel():
                     if not ok:
                         raise AssertionError(f"grouped kernel disagrees: "
                                              f"{row}")
+                    if dtype == torch.bfloat16:
+                        device_us[stage, stride, sampling] = \
+                            kernel_device_us(
+                                lambda: deform_gather_grouped_contract(
+                                    *args), "gdc_bf16", 10)
                     if dtype == torch.bfloat16 and sampling == "nearest":
                         main[stage, stride] = row
                         max_err = max(max_err, err)
@@ -418,6 +452,15 @@ def check_grouped_kernel():
     fwd["bound_by"] = max(main.values(),
                           key=lambda r: r["bound_ms"])["bound_by"]
     fwd["library_ms"] = sum(n * library[st] for st, _, _, n in X101_STAGES)
+    for key, sampling in (("device_ms", "nearest"),
+                          ("train_device_ms", "bilinear")):
+        fwd[key] = sum(device_us[st, 2, sampling]
+                       + (n - 1) * device_us[st, 1, sampling]
+                       for st, _, _, n in X101_STAGES) / 1e3
+    fwd["device_us_per_call"] = {f"{st} s{stride} {sampling}": us for
+                                 (st, stride, sampling), us in
+                                 device_us.items()}
+    fwd["ptxas_gdc_bf16"] = ptxas_summary(ptxas_log, "gdc_bf16")
     log("grouped per forward " + json.dumps(fwd))
     return fwd, max_err
 
@@ -1208,7 +1251,8 @@ def main(argv=None):
         return 0
 
     fwd, max_err = check_kernel()
-    gfwd, gmax_err = check_grouped_kernel()
+    gfwd, gmax_err = check_grouped_kernel(
+        logs.get("grouped_deform_contract", ""))
     bwd = check_backward_kernels()
     gbwd = check_grouped_backward_kernels()
     probe_entries = check_probe_kernels()
@@ -1295,13 +1339,16 @@ def main(argv=None):
         "launches_by_path": path_counts("deform_gather_contract")}, {
         "name": "deform_gather_grouped_contract", "route": "cuda",
         "source": "lsnet_torch/csrc/grouped_deform_contract.cu",
-        "replaces": "lsnet_tpu/ops/pallas_grouped.py:176",
+        "replaces": "lsnet_tpu/ops/pallas_grouped.py:98",
         "launches": launches["deform_gather_grouped_contract"],
         "max_abs_err": gmax_err,
         "ms": gfwd["ms"], "plain_ms": gfwd["plain_ms"],
         "bound_ms": gfwd["bound_ms"], "bound_by": gfwd["bound_by"],
         "library_ms": gfwd["library_ms"],
         "train_forward_ms": gbwd["forward_bilinear_ms"],
+        "device_ms": gfwd["device_ms"],
+        "train_device_ms": gfwd["train_device_ms"],
+        "ptxas": gfwd["ptxas_gdc_bf16"],
         "launches_by_path": path_counts("deform_gather_grouped_contract")},
         bwd_entry("deform_gather_contract_bwd_data",
                   "lsnet_torch/csrc/deform_gather_contract_bwd_data.cu",

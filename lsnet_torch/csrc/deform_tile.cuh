@@ -1,12 +1,12 @@
 // Device code shared by the fused deformable gather kernels
-// (deform_gather_contract.cu, grouped_deform_contract.cu): the tile sizes,
-// the per-tap corner table load, the gathered and weighted A tile, and the
-// epilogues.
+// (deform_gather_contract.cu, grouped_deform_contract.cu, deform_bwd.cuh):
+// the tile sizes, the per-tap corner table load, and the f32 routes'
+// gathered and weighted A tile and epilogue.
 //
 // A block owns one BM px x BN cout output tile. For each tap k it loads its
 // pixels' corner rows and weights (load_taps), then, chunk by chunk over
 // its channels, builds the weighted corner rows in shared memory
-// (gather_tile_*) and contracts them with a B tile of the weight.
+// (gather_tile_f32) and contracts them with a B tile of the weight.
 //
 // Clipped indices are always read, even when their weight is 0, exactly
 // like the XLA reference: a NaN in a clipped row propagates the same way.
@@ -24,11 +24,11 @@ constexpr int BM = 64;     // pixels per block
 constexpr int BN = 64;     // output channels per block
 constexpr int MAXNC = 4;   // corners per tap
 
-// bf16 route: 128 threads, 4 warps of 32 x 32 WMMA outputs
+// bf16 WMMA tiles of the backward kernels (deform_bwd.cuh)
 constexpr int BK16 = 32;
 constexpr int LDA16 = BK16 + 8;   // padded rows (elements), 80 bytes
 constexpr int LDB16 = BN + 8;     // 144 bytes
-constexpr int LDC = BN + 4;       // f32 epilogue tile
+constexpr int LDC = BN + 4;       // f32 tile of accumulators
 
 // f32 route: 256 threads, 4 px x 4 cout each
 constexpr int BK32 = 16;
@@ -48,39 +48,6 @@ __device__ __forceinline__ void load_taps(const int* __restrict__ idx,
     const size_t off = ((size_t)c * K + k) * (size_t)px + (size_t)(ok ? p : 0);
     s_idx[c * BM + r] = ok ? idx[off] : 0;
     s_w[c * BM + r] = ok ? w[off] : 0.f;
-  }
-}
-
-// bf16 A tile: As[r][0:BK16] = sum_c s_w[c][r] * flat[s_idx[c][r],
-// col0:col0+BK16], weighted in f32, stored as bf16 in 8-wide (16-byte)
-// vectors.
-__device__ __forceinline__ void gather_tile_bf16(
-    const __nv_bfloat16* __restrict__ flat, int C, int col0, int nc,
-    const int* s_idx, const float* s_w, __nv_bfloat16* As) {
-  for (int v = threadIdx.x; v < BM * BK16 / 8; v += blockDim.x) {
-    const int r = v / (BK16 / 8);
-    const int cv = (v % (BK16 / 8)) * 8;
-    float a[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) a[e] = 0.f;
-    for (int c = 0; c < nc; ++c) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-          flat + (size_t)s_idx[c * BM + r] * C + col0 + cv));
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float wt = s_w[c * BM + r];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h[e]);
-        a[2 * e] += wt * f.x;
-        a[2 * e + 1] += wt * f.y;
-      }
-    }
-    uint4 packed;
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      o[e] = __floats2bfloat162_rn(a[2 * e], a[2 * e + 1]);
-    *reinterpret_cast<uint4*>(&As[r * LDA16 + cv]) = packed;
   }
 }
 
@@ -105,31 +72,6 @@ __device__ __forceinline__ void gather_tile_f32(const float* __restrict__ flat,
   }
 #pragma unroll
   for (int e = 0; e < 4; ++e) As[cv + e][r] = a[e];
-}
-
-// bf16 epilogue: the warps' f32 accumulators through shared memory to the
-// (px, cout) output, rows past px and columns past cout dropped.
-__device__ __forceinline__ void store_tile_bf16(
-    nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
-        (&acc)[2][2],
-    float* Cs, int wm, int wn, int p0, int n0, int px, int cout,
-    __nv_bfloat16* __restrict__ out) {
-  using namespace nvcuda;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * LDC + wn + 16 * j,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int t = threadIdx.x; t < BM * BN; t += blockDim.x) {
-    const int r = t / BN;
-    const int c = t % BN;
-    const int p = p0 + r;
-    const int n = n0 + c;
-    if (p < px && n < cout)
-      out[(size_t)p * cout + n] = __float2bfloat16(Cs[r * LDC + c]);
-  }
 }
 
 // f32 epilogue: thread (ty, tx) holds pixels p0 + 4 ty + i, columns

@@ -123,7 +123,10 @@ def _check_kernel_limits(flat, idx, w, weight, groups):
     """The shapes the CUDA kernel takes: 1..4 corners, outG dividing the
     64-wide cout tile, cout a multiple of it, each tile's channel slice
     (64 / outG * Cg) a multiple of the kernel's channel chunk (32 bf16, 16
-    f32), every tensor on flat's device, contiguous and 16-byte aligned."""
+    f32), every tensor on flat's device, contiguous and 16-byte aligned.
+    The bf16 kernel's shared memory, which grows with nc x K, is checked by
+    its C entry: a table past the card's limit (nc x K above about 300)
+    makes the launch raise."""
     nc = idx.shape[0]
     _, Cg, cout = weight.shape
     outG = cout // groups

@@ -65,14 +65,20 @@ def test_wrapper_rejects_bad_input(cuda_device):
 @pytest.mark.parametrize("dtype,nc,rel", [
     (torch.float32, 4, 1e-4), (torch.float32, 1, 1e-4),
     (torch.bfloat16, 4, 2e-2), (torch.bfloat16, 1, 2e-2)])
-@pytest.mark.parametrize("G,Cg", [(64, 8), (32, 16), (16, 32)])
+@pytest.mark.parametrize("G,Cg,cout,px,R", [
+    (64, 8, 512, 333, 700), (32, 16, 512, 333, 700),
+    (16, 32, 512, 333, 700),
+    (32, 8, 512, 333, 700), (16, 32, 256, 333, 700),
+    (64, 16, 1024, 37, 700), (64, 16, 1024, 2100, 8400)])
 def test_grouped_kernel_matches_plain_version(cuda_device, dtype, nc, rel, G,
-                                              Cg):
+                                              Cg, cout, px, R):
     """Cg = outG = 8, 16, 32: the X-101 c3, c4 and c5 group widths, with a
-    ragged pixel tile."""
+    ragged pixel tile; channel slices of 32 (outG = 16, Cg = 8) and 128
+    (two slices, outG = 16, Cg = 32) a cout tile; px below one tile; a
+    table of stride-2 size (an input map of 4 px rows)."""
     rng = np.random.RandomState(nc + G)
-    K, R, px = 9, 700, 333
-    C = cout = G * Cg
+    K = 9
+    C = G * Cg
     flat = torch.from_numpy(rng.randn(R, C).astype(np.float32))
     idx = torch.from_numpy(rng.randint(0, R, (nc, K, px)).astype(np.int32))
     w = torch.from_numpy(rng.rand(nc, K, px).astype(np.float32))
@@ -86,6 +92,24 @@ def test_grouped_kernel_matches_plain_version(cuda_device, dtype, nc, rel, G,
     assert deform_gather_grouped_contract.launches == before + 1
     err = (got - want).abs().max().item()
     assert err <= rel * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_refuses_oversized_table(cuda_device):
+    """nc x K past a block's shared memory: the bf16 launch raises, and the
+    next call runs."""
+    flat = torch.zeros(10, 1024, device=cuda_device, dtype=torch.bfloat16)
+    weight = torch.zeros(200, 16, 1024, device=cuda_device,
+                         dtype=torch.bfloat16)
+    idx = torch.zeros(4, 200, 5, device=cuda_device, dtype=torch.int32)
+    w = torch.zeros(4, 200, 5, device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        deform_gather_grouped_contract(flat, idx, w, weight, 64)
+    got = deform_gather_grouped_contract(flat, idx[:, :9].contiguous(),
+                                         w[:, :9].contiguous(),
+                                         weight[:9].contiguous(), 64)
+    torch.cuda.synchronize()
+    assert got.shape == (5, 1024) and not got.float().abs().max().item()
 
 
 @pytest.mark.cuda
