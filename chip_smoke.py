@@ -15,7 +15,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    (nearest) and per train step (bilinear) and ptxas's registers and
    spills for it, (c) and (d) the bwd-data and bwd-weight kernels of each
    at the same shapes; beside each, as a yardstick, one PyTorch einsum on the
-   already gathered patch tensor (for bwd-data: G alone); with the
+   already gathered patch tensor (for bwd-data: G alone); for the bf16
+   grouped bwd-weight kernel its device time per call and per train step
+   and ptxas's registers and spills; with the
    bwd-data kernels' split readings (both outputs,
    one output at a time, a table without and with full contention, the
    memset and cast around the launch), (e) the four probe kernels at the
@@ -155,18 +157,21 @@ def kernel_device_us(fn, kernel="", iters=10):
     """Mean device time per call of fn() of the kernels whose name contains
     ``kernel`` (all of fn's kernels by default), from the profiler: for
     work so short that CUDA events around the calls time the host's launch
-    rate instead. Raises AssertionError when the profile holds device
-    records but none of ``kernel``, or when PROFILE_TRIES profiles in a row
-    lose every device record.
+    rate instead. Raises AssertionError when PROFILE_TRIES profiles in a
+    row lack ``kernel``'s device records, or hold a number of them that is
+    no whole multiple of ``iters``.
 
     A profile can lose every device record while it keeps the host's (the
     launches): on the H100 with PyTorch 2.11 / CUDA 12.8 it happened to a
     probe kernel and to ``torch.mm`` alike, cluster launch or not, rarely
     and sometimes for two profiles in a row, each time with an "Activity
     Buffer Request" span (CUPTI asking the profiler for a new record
-    buffer) over the first launch. Such a profile is taken again and its
-    host records kept in LOST_PROFILES (``bench_probes`` reports them);
-    it is never read as 0."""
+    buffer) over the first launch. A profile can also lose only some of
+    them: the named kernel's records missing beside those of other kernels,
+    or fewer of them than a whole number per call. Such a profile is taken
+    again and its records kept in LOST_PROFILES (``bench_probes`` and
+    ``bench_grouped`` report them); it is never read as 0 or as a part of
+    the calls."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     on_device = torch.autograd.DeviceType.CUDA
     fn()
@@ -178,19 +183,18 @@ def kernel_device_us(fn, kernel="", iters=10):
             torch.cuda.synchronize()
         averages = prof.key_averages()
         events = [e for e in averages if e.device_type == on_device]
-        if events:
+        mine = [e for e in events if kernel in e.key]
+        launches = sum(e.count for e in mine)
+        # each call launches the named kernel a whole number of times
+        if mine and (not kernel or launches % iters == 0):
             break
-        LOST_PROFILES.append([e.key for e in averages])
-        log(f"kernel_device_us: the profile of {kernel!r} lost its device "
-            f"records; host records {LOST_PROFILES[-1]}")
+        LOST_PROFILES.append([f"{e.key} x{e.count}" for e in averages])
+        log(f"kernel_device_us: the profile of {kernel!r} lost device "
+            f"records; records {LOST_PROFILES[-1]}")
     else:
         raise AssertionError(f"kernel_device_us: {PROFILE_TRIES} profiles "
-                             f"of {kernel!r} in a row without a device "
-                             "record")
-    mine = [e for e in events if kernel in e.key]
-    if not mine:
-        raise AssertionError(f"kernel_device_us: no kernel {kernel!r} on "
-                             f"the device; saw {[e.key for e in events]}")
+                             f"of {kernel!r} in a row without all its "
+                             "device records")
     return sum(dev_us(e) for e in mine) / iters
 
 
@@ -488,7 +492,7 @@ def split_readings(data, flat, idx):
 
 
 def check_backward_call(label, args, groups, gen, splits=False,
-                        library=False):
+                        library=False, weight_kernel=None):
     """Both backward kernels of one call against their plain versions;
     returns the log row. Tolerance as the forward's, relative to
     max(1, max|ref|) of each gradient: the kernels sum with f32 atomics in
@@ -497,7 +501,8 @@ def check_backward_call(label, args, groups, gen, splits=False,
     the row also gets the bwd-data kernel's split readings; with
     ``library`` (K1 only) the PyTorch calls on the already gathered (K, px,
     C) patch tensor: d_weight, and G alone for bwd-data (no PyTorch call
-    gives its scatter and d_w)."""
+    gives its scatter and d_w). With ``weight_kernel`` the row also gets
+    the profiler's device time of that bwd-weight kernel per call."""
     flat, idx, w, weight = args
     px, cout = idx.shape[2], weight.shape[2]
     dout = torch.randn(px, cout, device="cuda", generator=gen).to(flat.dtype)
@@ -556,6 +561,8 @@ def check_backward_call(label, args, groups, gen, splits=False,
         row[f"{key}_ms"] = cuda_ms(fn, 10)
         row[f"{key}_plain_ms"] = cuda_ms(ref, 2)
         row[f"{key}_bound_ms"], row[f"{key}_bound_by"] = bound_ms(args, wk)
+    if weight_kernel:
+        row["weight_device_us"] = kernel_device_us(wgt, weight_kernel, 10)
     if splits:
         row["data_split_ms"] = split_readings(data, flat, idx)
     if library:
@@ -625,11 +632,14 @@ def check_backward_kernels():
     return out
 
 
-def check_grouped_backward_kernels():
+def check_grouped_backward_kernels(ptxas_log=""):
     """Phase 2d: the two backward kernels of
     deform_gather_grouped_contract at the X-101 stages, stride 1 and 2;
     the PyTorch transposed einsums on an already gathered patch tensor as
-    the yardstick. Also the forward's bilinear (training) time."""
+    the yardstick. Also the forward's bilinear (training) time, and the
+    bf16 bwd-weight kernel's (``gdw_bf16``) device time (profiler) per
+    call and per train step beside ptxas's registers and spills for it
+    (from ``ptxas_log``)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     main = {}
     fwd_train = {}
@@ -647,7 +657,8 @@ def check_grouped_backward_kernels():
                                and sampling == "bilinear")
                     row = check_backward_call(
                         dict(stage=stage, stride=stride, sampling=sampling,
-                             C=C), args, GROUPS, gen, splits=is_main)
+                             C=C), args, GROUPS, gen, splits=is_main,
+                        weight_kernel="gdw_bf16" if is_main else None)
                     if is_main:
                         main[stage, stride] = row
                         fwd_train[stage, stride] = cuda_ms(
@@ -683,6 +694,12 @@ def check_grouped_backward_kernels():
     out["forward_bilinear_ms"] = sum(
         fwd_train[st, 2] + (n - 1) * fwd_train[st, 1]
         for st, _, _, n in X101_STAGES)
+    out["weight"]["device_ms"] = sum(
+        n * r["weight_device_us"] for n, r in rows) / 1e3
+    out["weight"]["device_us_per_call"] = {
+        f"{st} s{stride}": r["weight_device_us"]
+        for (st, stride), r in main.items()}
+    out["weight"]["ptxas"] = ptxas_summary(ptxas_log, "gdw_bf16")
     card_state("after phase 2d")
     log("grouped backward per step " + json.dumps(out))
     return out
@@ -1192,10 +1209,13 @@ def profile(label, run, batch_ms):
     gdc = sum(dev_us(e) for e in kernels if "gdc_" in e.key)
     bwd = {}
     for e in kernels:
-        for name in ("bwd_data_kernel", "bwd_weight_kernel"):
+        for name in ("bwd_data_kernel", "bwd_weight_kernel", "gdw_bf16"):
             if name in e.key:
-                grouped = "true>" in e.key or "(bool)1>" in e.key
-                key = ("grouped " if grouped else "") + name
+                # gdw_bf16: the bf16 grouped bwd-weight kernel
+                grouped = (name == "gdw_bf16" or "true>" in e.key
+                           or "(bool)1>" in e.key)
+                key = (("grouped " if grouped else "")
+                       + name.replace("gdw_bf16", "bwd_weight_kernel"))
                 bwd[key] = bwd.get(key, 0.0) + dev_us(e)
     log(f"{label} profile: device kernel time {total / 1e3:.3f} ms per "
         f"batch, deform_gather_contract {dgc / 1e3:.3f} ms, "
@@ -1240,7 +1260,8 @@ def main(argv=None):
 
     if opts.only == "backward":
         check_backward_kernels()
-        check_grouped_backward_kernels()
+        check_grouped_backward_kernels(
+            logs.get("grouped_deform_contract_bwd_weight", ""))
         log(f"partial run (--only backward) passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
         return 0
@@ -1254,7 +1275,8 @@ def main(argv=None):
     gfwd, gmax_err = check_grouped_kernel(
         logs.get("grouped_deform_contract", ""))
     bwd = check_backward_kernels()
-    gbwd = check_grouped_backward_kernels()
+    gbwd = check_grouped_backward_kernels(
+        logs.get("grouped_deform_contract_bwd_weight", ""))
     probe_entries = check_probe_kernels()
     check_small_against_cpu()
     for task in NUM_VECTORS:
@@ -1318,8 +1340,9 @@ def main(argv=None):
                  "bound_by": row["bound_by"],
                  "library_ms": row.get("library_ms"),
                  "launches_by_path": path_counts(name)}
-        if "einsum_g_only_ms" in row:
-            entry["einsum_g_only_ms"] = row["einsum_g_only_ms"]
+        for key in ("einsum_g_only_ms", "device_ms", "ptxas"):
+            if key in row:
+                entry[key] = row[key]
         if "per_call" in row:
             entry["pose_bbox_ms"] = pose_bbox_ms(row["per_call"])
             entry["per_call"] = row["per_call"]

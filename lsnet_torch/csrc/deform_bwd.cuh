@@ -618,8 +618,10 @@ bwd_weight_kernel(const T* __restrict__ flat, const int* __restrict__ idx,
   }
 }
 
-// Launchers of the C entries (the bf16 route of K1 bwd-weight has its own
-// kernel, deform_gather_contract_bwd_weight.cu).
+// Launchers of the C entries (the bf16 routes of K1 bwd-weight, and of the
+// grouped bwd-weight where Cg == outG is 8, 16 or 32, have kernels of their
+// own: deform_gather_contract_bwd_weight.cu,
+// grouped_deform_contract_bwd_weight.cu).
 template <bool GROUPED>
 inline int launch_bwd_data(const void* flat, const void* idx, const void* w,
                            const void* W, const void* dout, void* dflat,

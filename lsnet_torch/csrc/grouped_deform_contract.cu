@@ -81,6 +81,7 @@
 // 16-byte aligned and contiguous. The bf16 route's shared memory grows
 // with nc x K; past the card's limit its launch fails (bf16_plan).
 
+#include "async_mma.cuh"
 #include "deform_tile.cuh"
 
 namespace {
@@ -95,77 +96,10 @@ constexpr int LDS = BN + 8;     // weight rows and output tile: 144 bytes
 // blocks an SM bilinear
 constexpr int STAGES = 2;
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte corner-row and weight-row copies
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-// 4-byte table copies; zero fill where !ok
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, "
-               "[%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
-                                              const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, "
-               "[%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-               "{%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma16816(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
-                 "r"(b[1]));
-}
-
 // x / d for 0 <= x < 2^22, inv = 1.f / d: (x + 0.5) / d lies at least
 // 0.5 / d from an integer, far more than the product's rounding
 __device__ __forceinline__ int div_f(int x, float inv) {
   return static_cast<int>((static_cast<float>(x) + 0.5f) * inv);
-}
-
-// The 16-byte chunk j of ring row r lies at chunk swz(r, j) of the row:
-// the 8 rows that one ldmatrix matrix reads then fall in 8 different bank
-// groups (rows of 64 bytes pair up: SW = 32).
-template <int SW>
-__device__ __forceinline__ int swz(int r, int j) {
-  return j ^ ((SW == 64 ? r : r >> 1) & (SW / 8 - 1));
 }
 
 // keep the low / high bf16 of a pair

@@ -168,18 +168,23 @@ def px_splits(sms: int, tiles: int, px: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def wave_px_splits(sms: int, tiles: int, px: int) -> int:
-    """nsplit of the bf16 K1 bwd-weight kernel, which runs one block of
-    ``tiles`` (tap, 128-channel, 256-cout) tiles x nsplit per SM: the split
-    with the fewest chunk times per SM, waves x (tiles per share + 2), the
-    2 for a block's start and its atomic epilogue; the smallest such split.
-    Splits up to 8 waves are tried."""
+def wave_px_splits(sms: int, tiles: int, px: int, per_sm: int = 1,
+                   taps: int = 1) -> int:
+    """nsplit of a bwd-weight kernel that runs ``per_sm`` blocks an SM, of
+    ``tiles`` blocks x nsplit, each block ``taps`` steps per 64-px tile of
+    its share: the bf16 K1 kernel (one block an SM; a tile is a (tap,
+    128-channel, 256-cout) block) and the bf16 grouped kernel ``gdw_bf16``
+    (two blocks an SM; a tile is a (cout tile, group of taps) block). The
+    split with the fewest step times per block slot, waves x (steps per
+    share + 2), the 2 for a block's start and its atomic epilogue; the
+    smallest such split. Splits up to 8 waves are tried."""
     ntile = -(-px // 64)
+    slots = per_sm * sms
     best, best_cost = 1, None
-    for ns in range(1, min(ntile, 8 * -(-sms // tiles)) + 1):
+    for ns in range(1, min(ntile, 8 * -(-slots // tiles)) + 1):
         per = -(-ntile // ns)
         used = -(-ntile // per)              # shares that own a tile
-        cost = -(-tiles * used // sms) * (per + 2)
+        cost = -(-tiles * used // slots) * (per * taps + 2)
         if best_cost is None or cost < best_cost:
             best, best_cost = ns, cost
     return best

@@ -42,10 +42,14 @@ import torch
 
 from .deform_gather import (ContractOps, GatherContract, check_dout,
                             gathered_rows, launch, px_splits,
-                            scatter_rows_ref, sm_count)
+                            scatter_rows_ref, sm_count, wave_px_splits)
 
 _ALIGN = 16
 TILE = 64          # the kernel's cout tile; outG must divide it
+# the bf16 bwd-weight kernel gdw_bf16 takes Cg == outG of these widths, TAPS
+# taps a block (csrc/grouped_deform_contract_bwd_weight.cu)
+GDW_CG = (8, 16, 32)
+GDW_TAPS = 3
 
 
 def deform_gather_grouped_contract_ref(flat: torch.Tensor, idx: torch.Tensor,
@@ -215,11 +219,26 @@ def deform_gather_grouped_contract_bwd_data(flat, idx, w, weight, dout,
     return (d_flat.to(flat.dtype) if need_flat else None), d_w
 
 
+def bwd_weight_splits(dtype, sms, K, Cg, cout, px):
+    """nsplit of the bwd-weight launch: the px shares of ``gdw_bf16`` (bf16
+    with Cg == outG in GDW_CG, every X-101 stage: blocks of GDW_TAPS taps,
+    two an SM, ``wave_px_splits``); of the generic kernel (every other
+    shape, and f32: a block a tap, about four an SM, ``px_splits``)
+    otherwise. ``_check_bwd_limits`` has already asked Cg == outG."""
+    if dtype == torch.bfloat16 and Cg in GDW_CG:
+        # 2 blocks an SM: gdw_bf16 takes 88 KB of shared memory at nc = 4
+        return wave_px_splits(sms, cout // TILE * -(-K // GDW_TAPS), px,
+                              2, GDW_TAPS)
+    return px_splits(sms, cout // TILE * K, px)
+
+
 def deform_gather_grouped_contract_bwd_weight(flat, idx, w, weight, dout,
                                               groups):
     """d_weight (K, Cg, cout) in flat's dtype (``weight`` gives the shape;
-    its values are not read); the kernel on CUDA, the plain version on the
-    CPU."""
+    its values are not read); the kernel on CUDA (``gdw_bf16`` in bf16
+    where Cg == outG is 8, 16 or 32, the generic kernel for every other
+    shape and for f32, by the rule of ``bwd_weight_splits``), the plain
+    version on the CPU."""
     _check_shapes(flat, idx, w, weight, groups)
     if flat.device.type == "cpu":
         return deform_gather_grouped_contract_bwd_weight_ref(flat, idx, w,
@@ -239,7 +258,8 @@ def deform_gather_grouped_contract_bwd_weight(flat, idx, w, weight, dout,
                flat.data_ptr(), idx.data_ptr(), w.data_ptr(),
                dout.data_ptr(), d_weight.data_ptr(), flat.shape[1], Cg,
                cout // groups, nc, K, px, cout,
-               px_splits(sm_count(flat.device), cout // TILE * K, px),
+               bwd_weight_splits(flat.dtype, sm_count(flat.device), K, Cg,
+                                 cout, px),
                int(flat.dtype == torch.bfloat16))
         deform_gather_grouped_contract_bwd_weight.launches += 1
     return d_weight.to(flat.dtype)

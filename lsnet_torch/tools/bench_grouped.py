@@ -57,6 +57,7 @@ ROUNDS = 5
 FLUSH_BYTES = 256 << 20          # larger than the H100's 50 MB L2
 KERNEL = "gdc_bf16"
 GDC = "grouped_deform_contract.cu"
+ASYNC = "async_mma.cuh"            # cp.async, ldmatrix, mma of both kernels
 # name -> [(file under csrc/, text, replacement)]
 SPLITS = {
     "no_gather": [(GDC, "cp_async16(slot + cr * SW + swz<SW>(cr, j) * 8,\n"
@@ -68,7 +69,7 @@ SPLITS = {
     "no_b": [(GDC, "cp_async16(dst + q * LDS + j * 8,\n"
               "                 W + ((size_t)k * Cg + (wbase + q) % Cg) * cout"
               " + n0 + j * 8);", "(void)wbase;")],
-    "no_product": [(GDC, '  asm volatile("mma.sync.aligned.m16n8k16',
+    "no_product": [(ASYNC, '  asm volatile("mma.sync.aligned.m16n8k16',
                     '  if (false) asm volatile("mma.sync.aligned.m16n8k16')],
     "generic": [(GDC, "p.cg = Cg == outG && (Cg == 8 || Cg == 16 || Cg == 32)"
                  " ? Cg : 0;", "p.cg = 0;")],
@@ -77,7 +78,7 @@ SPLITS = {
                   "      *reinterpret_cast<uint4*>(out")],
     **{f"stages{n}": [(GDC, "constexpr int STAGES = 2;",
                         f"constexpr int STAGES = {n};")] for n in (3, 4)},
-    "cg": [(GDC, "cp.async.ca.shared.global [%0], [%1], 16;",
+    "cg": [(ASYNC, "cp.async.ca.shared.global [%0], [%1], 16;",
             "cp.async.cg.shared.global [%0], [%1], 16;")],
     "blocks5": [(GDC, "__global__ void __launch_bounds__(GT)\ngdc_bf16",
                  "__global__ void __launch_bounds__(GT, 5)\ngdc_bf16")],

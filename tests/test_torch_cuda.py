@@ -267,6 +267,66 @@ def test_grouped_backward_kernels_match_plain_versions(cuda_device, dtype, nc,
         _close(got, ref, rel)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", [1, 4])
+@pytest.mark.parametrize("Cg", [8, 16, 32])
+@pytest.mark.parametrize("px,K", [(1, 9), (37, 9), (333, 9), (8400, 9),
+                                  (200, 4)])
+def test_grouped_bf16_bwd_weight_at_x101_widths(cuda_device, px, K, Cg, nc):
+    """The bf16 grouped bwd-weight kernel (``gdw_bf16``) at the three X-101
+    group widths (G = 64, C = cout = 64 Cg): a lone pixel, px below one
+    tile, ragged px, a c4-sized px, a last group of one tap (K = 4); one
+    launch counted each call, 2e-2 of max(1, max|ref|)."""
+    rng = np.random.RandomState(px + K + Cg + nc)
+    C = 64 * Cg
+    flat, idx, w, wk, dout = _bwd_inputs(rng, cuda_device, torch.bfloat16,
+                                         nc, C, Cg, C, px, K=K)
+    before = gr.deform_gather_grouped_contract_bwd_weight.launches
+    got = gr.deform_gather_grouped_contract_bwd_weight(flat, idx, w, wk,
+                                                       dout, 64)
+    torch.cuda.synchronize()
+    assert gr.deform_gather_grouped_contract_bwd_weight.launches == before + 1
+    want = gr.deform_gather_grouped_contract_bwd_weight_ref(flat, idx, w,
+                                                            dout, 64)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    _close(got, want, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Cg", [8, 16, 32])
+def test_grouped_bf16_bwd_weight_nan_rows(cuda_device, Cg):
+    """A NaN in flat row 0, which no live corner reads, at a ragged px (the
+    padded pixels' table points at row 0): d_W finite and equal to the plain
+    version. Then a NaN in a clipped row (weight 0) that a live pixel reads:
+    NaN where the plain version has it, the rest equal."""
+    rng = np.random.RandomState(40 + Cg)
+    C = 64 * Cg
+    flat, idx, w, wk, dout = _bwd_inputs(rng, cuda_device, torch.bfloat16, 4,
+                                         C, Cg, C, 333)
+    idx.clamp_(min=1)
+    flat[0] = float("nan")
+
+    def both():
+        got = gr.deform_gather_grouped_contract_bwd_weight(flat, idx, w, wk,
+                                                           dout, 64)
+        want = gr.deform_gather_grouped_contract_bwd_weight_ref(
+            flat, idx, w, dout, 64)
+        torch.cuda.synchronize()
+        return got, want
+
+    got, want = both()
+    assert torch.isfinite(want).all() and torch.isfinite(got).all()
+    _close(got, want, 2e-2)
+    flat[5, 3] = float("nan")
+    idx[idx == 5] = 6
+    idx[2, 1, 9] = 5
+    w[2, 1, 9] = 0.0
+    got, want = both()
+    nan = want.isnan()
+    assert nan.any() and torch.equal(got.isnan(), nan)
+    _close(got.float().nan_to_num(), want.float().nan_to_num(), 2e-2)
+
+
 def _adversarial_table(kind, nc, K, px, R):
     """Corner tables that stress the bwd-data scatter: every corner on one
     row (each add meets every other), every corner on a row of its own
