@@ -44,7 +44,24 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    visibility), asserting the launch counts per step, a finite loss, that
    trainable parameters moved and frozen ones did not;
 5. profile one forward + decode of each, and one train step of each, for
-   the device time by kernel.
+   the device time by kernel;
+6. the runner: (a) the phase-3 ResNeXt-shaped bbox model through
+   ``train_detector`` (2 iterations, f32) and ``evaluate_detector`` on 4
+   procedural 128x160 images, on the card and on the CPU (losses to 1e-3
+   relative, metrics to 0.01 absolute); (b) the shipped
+   ``lsnet_bbox_x101_fpn_dconv_c3-c5_mstrain_2x_coco.py`` at full width
+   (``with_cp``, ``frozen_stages=1``, multi-scale train range, 3 classes)
+   through ``lsnet_torch.tools.train`` on 8 procedural images (6 landscape
+   768x1280, 2 portrait) for 2 epochs of 4 steps with an ``EvalHook`` each
+   epoch on 4 more (run A), ``lsnet_torch.tools.test`` on A's
+   ``step_8.pt``, and a run B resumed from A's ``step_4.pt``: asserting
+   the logged losses, ``grad_norm`` and learning rates, the six kernels'
+   launches on every step (the same each step) and K1 and the grouped
+   forward in each eval, the checkpoint bit for bit with its meta and
+   deploy sampling, the test's metrics within 1e-4 of the EvalHook's, and
+   B's steps 5 to 8; it prints the train seconds per iteration, eval
+   images per second, checkpoint bytes and save / restore seconds, the
+   metrics and peak memory beside the card's name and power limit.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (all ten kernels) and, last, ``{"ok": true, "device": {...}}``; the
@@ -60,6 +77,7 @@ around it and a CUDA device, and runs no JAX.
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -89,6 +107,15 @@ from lsnet_torch.ops.deform_gather import (  # noqa: E402
     deform_gather_contract, deform_gather_contract_ref)
 from lsnet_torch.ops.grouped import (  # noqa: E402
     deform_gather_grouped_contract, deform_gather_grouped_contract_ref)
+from lsnet_torch.tools import test as test_tool  # noqa: E402
+from lsnet_torch.tools import train as train_tool  # noqa: E402
+from lsnet_torch.tools.shapes import make_shapes_coco  # noqa: E402
+from lsnet_torch.train import checkpoint as ckpt  # noqa: E402
+from lsnet_torch.train import hooks as runner_hooks  # noqa: E402
+from lsnet_torch.train import loop as runner_loop  # noqa: E402
+from lsnet_torch.train import step as runner_step  # noqa: E402
+from lsnet_torch.train.optim import build_lr_schedule  # noqa: E402
+from lsnet_torch.utils.config import Config  # noqa: E402
 
 B, H, W = 2, 800, 1344
 LEVELS = [(100, 168), (50, 84), (25, 42), (13, 21), (7, 11)]
@@ -121,6 +148,16 @@ COPY_RATE_ROWS = 9 * 16384       # block gathers of the copy-rate timing
 LARGE_DOT_P = 16384              # pixels of the sub-row dot's large run
 PROFILE_TRIES = 4                # profiles that may lose their device records
 LOST_PROFILES = []               # host records of each profile that did
+# phase 6: the shipped X-101-64x4d-DCN bbox config through the runner, on
+# procedural sets of 768x1280 landscape and 1280x768 portrait images
+# (aspect 5:3, so the multi-scale range (1333, 480)-(1333, 960) keeps every
+# resize inside the config's (800, 1344) canvas)
+RUNNER_CONFIG = os.path.join(REPO, "configs", "lsnet",
+                             "lsnet_bbox_x101_fpn_dconv_c3-c5_mstrain_2x_coco.py")
+LAND, PORT = (768, 1280), (1280, 768)
+RUNNER_TRAIN_HW = [LAND, LAND, LAND, PORT] * 2          # 6 + 2 images
+RUNNER_VAL_HW = [LAND, LAND, LAND, PORT]
+RUNNER_EPOCHS, RUNNER_STEPS = 2, 4                      # steps per epoch
 
 
 LOG_PATH = os.environ.get("CHIP_SMOKE_LOG")    # optional copy of the log
@@ -1229,6 +1266,232 @@ def profile(label, run, batch_ms):
         log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
+@runner_hooks.HOOKS.register_module()
+class LaunchCountHook(runner_hooks.Hook):
+    """Phase 6: the kernels' launch counts, read after each train step and
+    after each epoch's evaluation (it runs after ``EvalHook``), each read
+    setting them to 0; set to 0 before the run."""
+    priority = 95
+    steps, evals = [], []
+
+    def before_train(self, ctx):
+        zero_launch_counts()
+
+    def after_iter(self, ctx):
+        LaunchCountHook.steps.append(launch_counts())
+        zero_launch_counts()
+
+    def after_epoch(self, ctx):
+        LaunchCountHook.evals.append(launch_counts())
+        zero_launch_counts()
+
+
+def f32_train_step(*args, **kwargs):
+    """The runner's ``make_train_step`` with ``mixed_precision=False``."""
+    return runner_step.make_train_step(*args, **{**kwargs,
+                                                 "mixed_precision": False})
+
+
+def narrow_runner_cfg(root):
+    """Phase 6a: the phase-3 ResNeXt-shaped bbox model (3 classes) in the
+    shipped R50 file's recipe, on 4 procedural images at 128x160."""
+    ann, img = make_shapes_coco(root, 4, seed=0, hw=(128, 160))
+    cfg = Config.fromfile(os.path.join(
+        REPO, "configs", "lsnet", "lsnet_bbox_r50_fpn_1x_coco.py")).to_dict()
+    cfg["model"] = narrow_task_cfg("bbox")
+    cfg["model"]["bbox_head"]["num_classes"] = 3
+    data = dict(ann_file=ann, img_prefix=img, img_scale=(160, 128))
+    cfg.update(data=dict(samples_per_gpu=2, train=data, val=data),
+               canvas_shape=(128, 160), log_interval=1,
+               lr_config=dict(warmup_iters=2, step=[8]),
+               test_cfg=dict(cfg["test_cfg"], score_thr=0.008))
+    return Config(cfg)
+
+
+def log_records(work_dir, mode):
+    import glob
+    (path,) = glob.glob(os.path.join(work_dir, "*.log.json"))
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r["mode"] == mode]
+
+
+def narrow_runner(device, root):
+    """``train_detector`` for 2 iterations (one epoch of 2 steps), f32,
+    then ``evaluate_detector``: the log's losses and the metrics."""
+    cfg = narrow_runner_cfg(os.path.join(root, "data"))
+    work = os.path.join(root, f"work_{device}")
+    saved = runner_loop.make_train_step
+    runner_loop.make_train_step = f32_train_step
+    try:
+        res = runner_loop.train_detector(cfg, work, total_epochs=1,
+                                         eval_interval=100, device=device)
+    finally:
+        runner_loop.make_train_step = saved
+    metrics = runner_loop.evaluate_detector(
+        cfg, res["model"], (128, 160), sampling=runner_loop.eval_sampling())
+    return [r["loss"] for r in log_records(work, "train")], metrics
+
+
+def check_narrow_runner(root):
+    """Phase 6a: the narrow runner on the card against the CPU: each
+    iteration's loss to 1e-3 relative, the metrics to 0.01 absolute."""
+    (loss_c, met_c), (loss_g, met_g) = (narrow_runner(d, root)
+                                        for d in ("cpu", "cuda"))
+    log(f"runner narrow, card vs CPU: losses {loss_g} vs {loss_c}; "
+        f"metrics {json.dumps(met_g)} vs {json.dumps(met_c)}")
+    if len(loss_g) != 2 or len(loss_c) != 2 or any(
+            abs(g - c) > 1e-3 * abs(c) for g, c in zip(loss_g, loss_c)):
+        raise AssertionError("runner narrow: card losses disagree")
+    if met_g.keys() != met_c.keys() or any(
+            abs(met_g[k] - met_c[k]) > 0.01 for k in met_c):
+        raise AssertionError("runner narrow: card metrics disagree")
+
+
+def runner_options(train_root, val_root, train_ann, val_ann):
+    """(--options of tools.test, and the more of tools.train): the
+    procedural sets, 3 classes, a score threshold under the focal prior
+    (0.01, where a model 8 steps from its init still scores), and for
+    training 2 images a step, a log record and an eval every epoch, and
+    the launch-count hook."""
+    test = [f"data.val.ann_file={val_ann}",
+            f"data.val.img_prefix={os.path.join(val_root, 'imgs')}",
+            "model.bbox_head.num_classes=3", "test_cfg.score_thr=0.005"]
+    return test, test + [
+        f"data.train.ann_file={train_ann}",
+        f"data.train.img_prefix={os.path.join(train_root, 'imgs')}",
+        "data.samples_per_gpu=2", "log_interval=1", "evaluation.interval=1",
+        "custom_hooks=[{'type': 'LaunchCountHook'}]"]
+
+
+def check_runner(root):
+    """Phase 6b: the shipped X-101-64x4d-DCN bbox config at full width
+    through ``lsnet_torch.tools.train`` (run A: 2 epochs of 4 steps; run B:
+    resumed from A's step_4.pt) and ``lsnet_torch.tools.test`` on A's
+    step_8.pt. Returns the numbers of the printed line and the launch
+    counts per train step and per eval batch."""
+    train_root, val_root = (os.path.join(root, n) for n in ("train", "val"))
+    train_ann, _ = make_shapes_coco(train_root, len(RUNNER_TRAIN_HW), seed=1,
+                                    hw=RUNNER_TRAIN_HW)
+    val_ann, _ = make_shapes_coco(val_root, len(RUNNER_VAL_HW), seed=2,
+                                  hw=RUNNER_VAL_HW)
+    test_opts, opts = runner_options(train_root, val_root, train_ann,
+                                     val_ann)
+    work_a, work_b = (os.path.join(root, n) for n in ("A", "B"))
+    torch.cuda.reset_peak_memory_stats()
+    LaunchCountHook.steps.clear()
+    LaunchCountHook.evals.clear()
+    res = train_tool.main([RUNNER_CONFIG, "--work-dir", work_a,
+                           "--total-epochs", str(RUNNER_EPOCHS),
+                           "--options", *opts])
+    steps, evals = list(LaunchCountHook.steps), list(LaunchCountHook.evals)
+    train = log_records(work_a, "train")
+    val = log_records(work_a, "val")
+    cfg = Config.fromfile(RUNNER_CONFIG)
+    schedule = build_lr_schedule(dict(cfg.lr_config), cfg.optimizer.lr,
+                                 RUNNER_STEPS, RUNNER_EPOCHS)
+    for r in train:
+        step = (r["epoch"] - 1) * RUNNER_STEPS + r["iter"]
+        log("runner A " + json.dumps(r))
+        if not all(math.isfinite(r[k]) for k in ("loss", "grad_norm")) or \
+                r["lr"] != round(schedule(step), 6):
+            raise AssertionError(f"runner A: bad record at step {step}: {r}")
+    if len(train) != RUNNER_EPOCHS * RUNNER_STEPS or len(val) != 2 \
+            or res["step"] != RUNNER_EPOCHS * RUNNER_STEPS:
+        raise AssertionError(f"runner A: {len(train)} train and {len(val)} "
+                             f"val records, step {res['step']}")
+    log(f"runner launches per train step {json.dumps(steps[0])}, per "
+        f"eval {json.dumps(evals[0])}")
+    if len(steps) != len(train) or any(s != steps[0] for s in steps) or \
+            min(steps[0].values()) < 1:
+        raise AssertionError(f"runner A: launches per step {steps}")
+    fwd = ("deform_gather_contract", "deform_gather_grouped_contract")
+    if len(evals) != RUNNER_EPOCHS or any(
+            e[k] < 1 for e in evals for k in fwd) or any(
+            e[k] for e in evals for k in e if k not in fwd):
+        raise AssertionError(f"runner A: launches per eval {evals}")
+
+    # the saved state, bit for bit, and its meta
+    path_a = os.path.join(work_a, "ckpts", f"step_{res['step']}.pt")
+    raw = ckpt.load_checkpoint(path_a)
+    model, opt = res["model"], res["optimizer"]
+    sd, osd = model.state_dict(), opt.state_dict()
+    if raw["step"] != res["step"] or raw["model"].keys() != sd.keys() or \
+            any(not torch.equal(raw["model"][k], v.cpu())
+                for k, v in sd.items()) or \
+            raw["optimizer"]["count"] != osd["count"] or any(
+                not torch.equal(a, b.cpu()) for a, b in
+                zip(raw["optimizer"]["momentum"], osd["momentum"])):
+        raise AssertionError("runner A: step_8.pt differs from the state")
+    if raw["meta"] != {"dcn_sampling_train": "bilinear"} or \
+            dict(ckpt.deploy_sampling(raw["meta"])) != \
+            dict(fd.INFERENCE_SAMPLING):
+        raise AssertionError(f"runner A: meta {raw['meta']}")
+    t0 = time.perf_counter()
+    path = ckpt.save_checkpoint(os.path.join(root, "timed"), model, opt,
+                                res["step"], raw["meta"])
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.restore_checkpoint(path, model, opt)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    ckpt_bytes = os.path.getsize(path_a)
+    del model, opt, res, sd, osd
+    torch.cuda.empty_cache()
+
+    # tools.test on A's step_8.pt, its evaluation timed
+    timed = []
+    evaluate = runner_loop.evaluate_detector
+
+    def timed_evaluate(*a, **k):
+        t0 = time.perf_counter()
+        out = evaluate(*a, **k)
+        timed.append(time.perf_counter() - t0)
+        return out
+    runner_loop.evaluate_detector = timed_evaluate
+    try:
+        metrics = test_tool.main([RUNNER_CONFIG, path_a, "--eval", "bbox",
+                                  "--options", *test_opts])
+    finally:
+        runner_loop.evaluate_detector = evaluate
+    hook_metrics = {k: v for k, v in val[-1].items()
+                    if k not in ("mode", "epoch")}
+    log(f"runner tools.test metrics {json.dumps(metrics)}; EvalHook epoch "
+        f"2 {json.dumps(hook_metrics)}")
+    if metrics.keys() != hook_metrics.keys() or len(metrics) != 12 or any(
+            not -1.0 <= v <= 1.0 or abs(v - hook_metrics[k]) > 1e-4
+            for k, v in metrics.items()):
+        raise AssertionError("runner: tools.test metrics disagree with "
+                             "the EvalHook's")
+
+    # run B, resumed from A's step_4.pt
+    path_4 = os.path.join(work_a, "ckpts", f"step_{RUNNER_STEPS}.pt")
+    res_b = train_tool.main([RUNNER_CONFIG, "--work-dir", work_b,
+                             "--total-epochs", str(RUNNER_EPOCHS),
+                             "--resume-from", path_4, "--options", *opts])
+    train_b = log_records(work_b, "train")
+    first = (train_b[0]["epoch"] - 1) * RUNNER_STEPS + train_b[0]["iter"]
+    if first != RUNNER_STEPS + 1 or len(train_b) != RUNNER_STEPS or any(
+            not math.isfinite(r["loss"]) for r in train_b) or \
+            not os.path.exists(os.path.join(
+                work_b, "ckpts", f"step_{res_b['step']}.pt")) or \
+            res_b["step"] != RUNNER_EPOCHS * RUNNER_STEPS:
+        raise AssertionError(f"runner B: first step {first}, records "
+                             f"{train_b}")
+    log(f"runner B resumed at step {first}: losses "
+        f"{[r['loss'] for r in train_b]}")
+    del res_b
+    n_val = len(RUNNER_VAL_HW)
+    numbers = {
+        "train_s_per_iter": sorted(r["time"] for r in train)[len(train) // 2],
+        "eval_img_per_s": n_val / timed[0],
+        "checkpoint_bytes": ckpt_bytes, "checkpoint_save_s": save_s,
+        "checkpoint_restore_s": restore_s, "metrics": metrics,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    eval_batches = 2                 # 3 landscape images, 1 portrait
+    return numbers, steps[0], {k: v // eval_batches
+                               for k, v in evals[0].items()}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["backward", "probes"],
@@ -1313,6 +1576,15 @@ def main(argv=None):
         by_path[label] = {k: v // TRAIN_STEPS for k, v in launches.items()}
         del run
         torch.cuda.empty_cache()
+    # phase 6: the runner
+    import tempfile
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        check_narrow_runner(os.path.join(root, "narrow"))
+        numbers, by_path["runner train"], by_path["runner eval"] = \
+            check_runner(os.path.join(root, "full"))
+        log(f"{smi}: runner X-101-64x4d-DCN bbox " + json.dumps(numbers)
+            + f" (phase 6 in {time.perf_counter() - t0:.1f}s)")
     for name, entry in probe_entries.items():
         by_path.setdefault("lsnet_torch.tools.probe", {})[name] = \
             entry["launches"]

@@ -8,8 +8,12 @@ the JAX entry points apply it with ``inference_sampling()``;
 ``train_detector_step`` builds the train step of a detector (loss,
 assigners, clip, SGD; ``tools/bench_train.py`` drives the JAX one). All
 three serve the four tasks: the task is the head's in the model config and
-the ``TestConfig``'s / ``LossConfig``'s at the call. Image loading and
-resizing are not ported yet.
+the ``TestConfig``'s / ``LossConfig``'s at the call. They take tensors;
+training and evaluating from a config file and COCO data (image loading,
+resizing, checkpoints, COCO metrics) is the runner's:
+``python3 -m lsnet_torch.tools.train`` / ``lsnet_torch.tools.test``
+(:mod:`lsnet_torch.train.loop`). ``inference_detector`` on an image file
+or a numpy image (resize, normalise, pad to a canvas) is not ported yet.
 """
 
 from __future__ import annotations

@@ -1,0 +1,1 @@
+"""Host-side numpy modules of the port (data)."""

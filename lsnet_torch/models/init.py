@@ -1,0 +1,103 @@
+"""The training init of the detector's parameters (the initializers of the
+JAX modules that ``model.init`` runs).
+
+Each parameter is drawn from the distribution its flax module gives it:
+
+* ``nn.Conv2d`` of the backbone and the neck (``GroupedConv`` included):
+  ``kaiming_init``, He normal over fan_out (``lsnet_tpu/models/layers.py:28``);
+* ``nn.Conv2d`` of the head: N(0, 0.01) (``normal_init``, ``:32``), the
+  classifier's bias at the focal prior ``bias_init_with_prob(0.01)``
+  (``:42``; ``ls_head.py:268-269``), every other bias 0;
+* ``conv_offset`` of a DCNv2 pack: 0 (``layers.py:146``), so every DCN
+  starts as a plain conv;
+* the DCNv2 weight: U(-s, s) with s = 1 / sqrt(cin_per_group * k * k), the
+  torch ``reset_parameters`` scale;
+* the pyramid (refine) deformable weights: He normal over fan_out;
+* GroupNorm and FrozenBatchNorm: scale 1 and bias 0; the statistics mean 0
+  and var 1.
+
+The draws come from an explicit ``torch.Generator`` (the runner seeds it
+with ``cfg.seed``); the numbers differ from JAX's, the distributions do
+not. A parameter that no rule covers raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Set
+
+import torch
+from torch import nn
+
+from .heads.ls_head import LSHead
+from .layers import (FrozenBatchNorm, ModulatedDeformConvPack,
+                     PairedPyramidDeformConv, PyramidDeformConv)
+
+PRIOR_PROB = 0.01
+
+
+def bias_init_with_prob(prior_prob: float) -> float:
+    """The focal-loss classifier's bias: sigmoid(bias) = prior_prob."""
+    return float(-math.log((1 - prior_prob) / prior_prob))
+
+
+def _normal_(p: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    p.copy_(std * torch.randn(p.shape, generator=gen))
+
+
+def _he_fan_out_(p: torch.Tensor, fan_out: int, gen: torch.Generator):
+    _normal_(p, math.sqrt(2.0 / fan_out), gen)
+
+
+@torch.no_grad()
+def init_weights_(model: nn.Module, generator: torch.Generator
+                  ) -> nn.Module:
+    """Draw every parameter of ``model`` (a detector or any of its parts)
+    from its JAX initializer, in place, in module order."""
+    head_modules: Set[int] = {
+        id(m) for h in model.modules() if isinstance(h, LSHead)
+        for m in h.modules()}
+    done: Set[int] = set()
+
+    def mark(*ps):
+        done.update(id(p) for p in ps if p is not None)
+
+    for name, m in model.named_modules():
+        if isinstance(m, (FrozenBatchNorm, nn.GroupNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            if isinstance(m, FrozenBatchNorm):
+                m.mean.zero_()
+                m.var.fill_(1.0)
+            mark(m.weight, m.bias)
+        elif isinstance(m, nn.Conv2d):
+            if name.endswith("conv_offset"):
+                m.weight.zero_()
+            elif id(m) in head_modules:
+                _normal_(m.weight, 0.01, generator)
+            else:                       # OIHW: fan_out = cout * k * k
+                cout, _, kh, kw = m.weight.shape
+                _he_fan_out_(m.weight, cout * kh * kw, generator)
+            if m.bias is not None:
+                m.bias.zero_()
+                if id(m) in head_modules and name.endswith("pts_cls_out"):
+                    m.bias.fill_(bias_init_with_prob(PRIOR_PROB))
+            mark(m.weight, m.bias)
+        elif isinstance(m, ModulatedDeformConvPack):
+            k, _, cin_g, _ = m.weight.shape
+            s = 1.0 / math.sqrt(cin_g * k * k)
+            m.weight.copy_(torch.rand(m.weight.shape, generator=generator)
+                           * (2 * s) - s)
+            if m.bias is not None:
+                m.bias.zero_()
+            mark(m.weight, m.bias)
+        elif isinstance(m, (PyramidDeformConv, PairedPyramidDeformConv)):
+            for p in m.parameters(recurse=False):   # HWIO
+                _he_fan_out_(p, p.shape[0] * p.shape[1] * p.shape[3],
+                             generator)
+                mark(p)
+    left = [n for n, p in model.named_parameters() if id(p) not in done]
+    if left:
+        raise NotImplementedError(f"init_weights_: no JAX initializer for "
+                                  f"{left[:5]}")
+    return model

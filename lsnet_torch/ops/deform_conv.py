@@ -28,6 +28,20 @@ def _pair(v) -> Tuple[int, int]:
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
 
 
+def tent(d: torch.Tensor, corner: int) -> torch.Tensor:
+    """The bilinear tent weight ``1 - |d|`` of corner 0 or 1 at distance
+    ``d = ys - floor(ys) - corner``: ``1 - d`` for corner 0 (d >= 0) and
+    ``1 + d`` for corner 1 (d < 0), the same values as ``1 - |d|``.
+
+    Written without ``abs``, its derivative at d = 0 is -1, as ``jnp.abs``
+    (derivative +1 at 0) gives it in the JAX package: at a sample on the
+    lattice (a zero offset, as every DCN starts from its zero-initialised
+    ``conv_offset``) the offset gradient is the one-sided difference toward
+    the next corner, the reference CUDA's. ``torch.abs``'s derivative at 0
+    is 0, which drops the sampled corner's term there."""
+    return 1.0 - d if corner == 0 else 1.0 + d
+
+
 def bilinear_gather(feat: torch.Tensor, ys: torch.Tensor,
                     xs: torch.Tensor) -> torch.Tensor:
     """Zero-padded bilinear sampling: feat (B,H,W,C), ys/xs (B,P) -> (B,P,C)."""
@@ -43,11 +57,11 @@ def bilinear_gather(feat: torch.Tensor, ys: torch.Tensor,
     out = None
     for dy in (0, 1):
         yi = y0i + dy
-        wy = 1.0 - (ys - y0 - dy).abs()
+        wy = tent(ys - y0 - dy, dy)
         yvalid = (yi >= 0) & (yi < H)
         for dx in (0, 1):
             xi = x0i + dx
-            wx = 1.0 - (xs - x0 - dx).abs()
+            wx = tent(xs - x0 - dx, dx)
             valid = yvalid & (xi >= 0) & (xi < W)
             flat = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1) + boffs
             wt = (wy * wx * valid).to(feat.dtype).unsqueeze(-1)

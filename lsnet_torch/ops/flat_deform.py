@@ -36,10 +36,11 @@ from __future__ import annotations
 
 import math
 from types import MappingProxyType
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from .deform_conv import tent
 from .deform_gather import deform_gather_contract
 from .grouped import deform_gather_grouped_contract
 
@@ -56,6 +57,43 @@ TRAIN_SAMPLING = MappingProxyType({s: "bilinear" for s in SITES})
 # per tap), bilinear at tower and refine.
 INFERENCE_SAMPLING = MappingProxyType(
     {"backbone": "nearest", "tower": "bilinear", "refine": "bilinear"})
+
+
+def _parse_spec(spec: Optional[str]) -> Tuple[str, dict]:
+    """(default mode, {listed site: mode}) of a JAX sampling spec string
+    (``lsnet_tpu/ops/flat_deform.py`` ``_parse_sampling``)."""
+    spec = (spec or DEFAULT_SAMPLING).strip()
+    if "=" not in spec:
+        return spec, {}
+    listed = {}
+    for part in spec.split(","):
+        site, _, mode = part.partition("=")
+        listed[site.strip()] = mode.strip() or "nearest"
+    return DEFAULT_SAMPLING, listed
+
+
+def sampling_from_spec(spec: Optional[str]) -> Mapping[str, str]:
+    """A spec string (``"nearest_ste"``, or ``"site=mode,..."`` with the
+    unlisted sites bilinear; None is bilinear) -> a read-only site->mode
+    mapping."""
+    default, listed = _parse_spec(spec)
+    modes = {**dict.fromkeys(SITES, default), **listed}
+    bad = {s: m for s, m in modes.items()
+           if s not in SITES or m not in SAMPLING_MODES}
+    if bad:
+        raise ValueError(f"sampling spec {spec!r}: unknown {bad}")
+    return MappingProxyType(modes)
+
+
+def sampling_spec(spec: Optional[str]) -> str:
+    """The string the JAX package records for a train spec
+    (``current_sampling_spec`` after ``set_sampling(spec)``): one mode, or
+    the listed ``site=mode`` entries sorted by site."""
+    sampling_from_spec(spec)            # validate
+    default, listed = _parse_spec(spec)
+    if not listed:
+        return default
+    return ",".join(f"{s}={m}" for s, m in sorted(listed.items()))
 
 
 class FlatLevels(NamedTuple):
@@ -140,11 +178,11 @@ def _corner_data(ys: torch.Tensor, xs: torch.Tensor, H: int, W: int,
     idxs, wts = [], []
     for dy in (0, 1):
         yi = y0i + dy
-        wy = 1.0 - (ys - y0 - dy).abs()
+        wy = tent(ys - y0 - dy, dy)
         yv = (yi >= 0) & (yi < H)
         for dx in (0, 1):
             xi = x0i + dx
-            wx = 1.0 - (xs - x0 - dx).abs()
+            wx = tent(xs - x0 - dx, dx)
             v = yv & (xi >= 0) & (xi < W)
             idxs.append((yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1))
                         + base_row)

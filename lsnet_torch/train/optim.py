@@ -1,5 +1,6 @@
-"""Optimizer and LR schedule (counterpart of ``lsnet_tpu/train/optim.py``
-``step_lr_schedule`` and ``build_optimizer``): the reference recipe.
+"""Optimizer and LR schedules (counterpart of ``lsnet_tpu/train/optim.py``
+``step_lr_schedule``, ``cosine_lr_schedule``, ``poly_lr_schedule``,
+``build_lr_schedule`` and ``build_optimizer``): the reference recipe.
 
 SGD with momentum 0.9 and weight decay 1e-4 (the decay is added to the
 gradient before the momentum, as ``torch.optim.SGD`` and the optax chain
@@ -13,7 +14,9 @@ decay, like the JAX package's ``make_frozen_mask``.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+import math
+from typing import (Any, Callable, Dict, Iterable, List, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -27,12 +30,76 @@ def step_lr_schedule(base_lr: float, steps_per_epoch: int,
 
     def schedule(step: int) -> float:
         regular = base_lr * gamma ** sum(step >= b for b in boundaries)
-        if step >= warmup_iters:
-            return regular
-        frac = min(step / max(warmup_iters, 1), 1.0)
-        return regular * (1.0 - (1.0 - frac) * (1.0 - warmup_ratio))
+        return _warmup(regular, step, warmup_iters, warmup_ratio)
 
     return schedule
+
+
+def _warmup(regular: float, step: int, warmup_iters: int,
+            warmup_ratio: float) -> float:
+    if step >= warmup_iters:
+        return regular
+    frac = min(step / max(warmup_iters, 1), 1.0)
+    return regular * (1.0 - (1.0 - frac) * (1.0 - warmup_ratio))
+
+
+def cosine_lr_schedule(base_lr: float, total_steps: int, *,
+                       min_lr_ratio: float = 0.0, warmup_iters: int = 500,
+                       warmup_ratio: float = 0.001) -> Callable[[int], float]:
+    """The 'CosineAnnealing' LR policy with linear warm-up."""
+
+    def schedule(step: int) -> float:
+        prog = min(max(step / max(total_steps, 1), 0.0), 1.0)
+        target = base_lr * min_lr_ratio
+        regular = target + 0.5 * (base_lr - target) * (
+            1.0 + math.cos(math.pi * prog))
+        return _warmup(regular, step, warmup_iters, warmup_ratio)
+
+    return schedule
+
+
+def poly_lr_schedule(base_lr: float, total_steps: int, *, power: float = 1.0,
+                     min_lr: float = 0.0, warmup_iters: int = 500,
+                     warmup_ratio: float = 0.001) -> Callable[[int], float]:
+    """The 'poly' LR policy with linear warm-up."""
+
+    def schedule(step: int) -> float:
+        prog = min(max(step / max(total_steps, 1), 0.0), 1.0)
+        regular = (base_lr - min_lr) * (1.0 - prog) ** power + min_lr
+        return _warmup(regular, step, warmup_iters, warmup_ratio)
+
+    return schedule
+
+
+def build_lr_schedule(lr_config: Dict[str, Any], base_lr: float,
+                      steps_per_epoch: int,
+                      total_epochs: int) -> Callable[[int], float]:
+    """The schedule of a config's ``lr_config.policy``: 'step' (default),
+    'CosineAnnealing' (or 'cosine') or 'poly'."""
+    policy = lr_config.get("policy", "step")
+    warmup_iters = lr_config.get("warmup_iters", 500)
+    warmup_ratio = lr_config.get("warmup_ratio", 0.001)
+    if policy == "step":
+        return step_lr_schedule(base_lr, steps_per_epoch,
+                                lr_config.get("step", [8, 11]),
+                                gamma=lr_config.get("gamma", 0.1),
+                                warmup_iters=warmup_iters,
+                                warmup_ratio=warmup_ratio)
+    total = steps_per_epoch * total_epochs
+    if policy in ("CosineAnnealing", "cosine"):
+        min_lr = lr_config.get("min_lr")
+        ratio = (min_lr / base_lr if min_lr is not None
+                 else lr_config.get("min_lr_ratio", 0.0))
+        return cosine_lr_schedule(base_lr, total, min_lr_ratio=ratio,
+                                  warmup_iters=warmup_iters,
+                                  warmup_ratio=warmup_ratio)
+    if policy == "poly":
+        return poly_lr_schedule(base_lr, total,
+                                power=lr_config.get("power", 1.0),
+                                min_lr=lr_config.get("min_lr", 0.0),
+                                warmup_iters=warmup_iters,
+                                warmup_ratio=warmup_ratio)
+    raise ValueError(f"unknown lr policy {policy!r}")
 
 
 class ClippedSGD:
@@ -66,6 +133,27 @@ class ClippedSGD:
         self.sgd.zero_grad(set_to_none=True)
         self.count += 1
         return norm
+
+    def state_dict(self) -> Dict[str, Any]:
+        """``count`` and the momentum buffer of each parameter, in order
+        (None before the first update)."""
+        return {"count": self.count,
+                "momentum": [self.sgd.state.get(p, {}).get("momentum_buffer")
+                             for p in self.params]}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        if len(state["momentum"]) != len(self.params):
+            raise ValueError(
+                f"optimizer state holds {len(state['momentum'])} momentum "
+                f"buffers for {len(self.params)} parameters")
+        self.count = int(state["count"])
+        for p, buf in zip(self.params, state["momentum"]):
+            if buf is None:
+                self.sgd.state.pop(p, None)
+            else:
+                self.sgd.state[p]["momentum_buffer"] = buf.to(
+                    device=p.device, dtype=p.dtype).clone()
 
 
 def build_optimizer(params: Iterable[torch.nn.Parameter], base_lr: float,

@@ -7,7 +7,10 @@ differentiated call the parameters and the FrozenBatchNorm statistics are
 cast to bf16 (so the gradients arrive in f32 at the masters through the
 cast) and the image is bf16; the head outputs are cast back to f32 before
 assignment and the losses. This is not ``torch.autocast``, which rounds at
-other places. The update is in place (JAX returns a new state).
+other places. The bf16 copies stand in for the masters until the gradients
+are taken: a ``with_cp`` backbone recomputes its blocks in the backward and
+must see the same copies there. The update is in place (JAX returns a new
+state).
 
 ``grad_norm`` is the global norm before the clip over the trainable
 parameters, the norm the clip sees; the JAX step's metric also counts the
@@ -16,9 +19,11 @@ gradients of the frozen stage, which the port never computes.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Mapping
 
 import torch
+from torch.nn.utils.stateless import _reparametrize_module
 
 from ..core.loss import LossConfig, lsnet_loss
 from ..ops.flat_deform import TRAIN_SAMPLING
@@ -42,21 +47,25 @@ def make_train_step(model: torch.nn.Module, optimizer: ClippedSGD,
         raise ValueError("the optimizer does not hold the model's trainable "
                          "parameters in order")
 
-    def forward(image: torch.Tensor):
+    def compute_copies():
+        """The model's tensors in the compute dtype, for the forward and
+        the backward."""
         if not mixed_precision:
-            return model(image, sampling)
+            return contextlib.nullcontext()
         cast = {n: t.to(torch.bfloat16) if t.is_floating_point() else t
                 for n, t in (*model.named_parameters(),
                              *model.named_buffers())}
-        return torch.func.functional_call(
-            model, cast, (image.to(torch.bfloat16), sampling))
+        return _reparametrize_module(model, cast)
 
     def step(batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        outs = forward(batch["image"])
-        # assignment and losses in f32
-        outs = {k: [m.float() for m in v] for k, v in outs.items()}
-        total, losses = lsnet_loss(outs, batch, loss_cfg)
-        grads = torch.autograd.grad(total, optimizer.params)
+        image = batch["image"]
+        with compute_copies():
+            outs = model(image.to(torch.bfloat16) if mixed_precision
+                         else image, sampling)
+            # assignment and losses in f32
+            outs = {k: [m.float() for m in v] for k, v in outs.items()}
+            total, losses = lsnet_loss(outs, batch, loss_cfg)
+            grads = torch.autograd.grad(total, optimizer.params)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
         metrics["grad_norm"] = optimizer.step(grads)

@@ -1,8 +1,14 @@
-"""The shipped LSNet configs through the port's builders.
+"""The shipped LSNet configs through the port's config loader and
+``build_detector``.
 
-Every ``configs/lsnet/*.py`` file is read with the JAX package's config
-loader (``lsnet_tpu.utils.config.Config``: the test may import it, the
-port may not) and its ``model`` dict goes to the port's ``build_detector``
+Every ``configs/lsnet/*.py`` file is read with the port's own
+``lsnet_torch.utils.config.Config``, whose ``to_dict()`` must equal the JAX
+package's loader's (the test may import that one, the port may not); the
+runner's ``loss_cfg_from`` / ``test_cfg_from`` equal the JAX ones field by
+field for every LSHead file, and ``build_lr_schedule`` (step, cosine and
+poly, with warm-up) equals the JAX schedule at every step of a short run
+(1e-7 absolute; the JAX one computes in f32). The ``model`` dict goes to
+the port's ``build_detector``
 on the ``meta`` device (no weights are allocated). The R50 and X-101
 files build, ``with_cp=True`` included; the Res2Net backbone and the CPV
 detector are not ported yet and raise ``NotImplementedError`` naming them.
@@ -22,8 +28,13 @@ import numpy as np
 import pytest
 import torch
 
+from lsnet_tpu.train import loop as jloop
+from lsnet_tpu.train import optim as joptim
 from lsnet_tpu.utils.config import Config
 from lsnet_torch.models import build_detector
+from lsnet_torch.train import loop as ploop
+from lsnet_torch.train import optim as poptim
+from lsnet_torch.utils.config import Config as PConfig
 from lsnet_torch.models.backbones.resnet import ResNet
 from lsnet_torch.ops.flat_deform import TRAIN_SAMPLING
 
@@ -35,6 +46,62 @@ CONFIGS = sorted(os.path.basename(p) for p in glob.glob(
 def _model_cfg(name):
     return Config.fromfile(os.path.join(REPO, "configs", "lsnet",
                                         name)).to_dict()["model"]
+
+
+def _path(name):
+    return os.path.join(REPO, "configs", "lsnet", name)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_port_config_loader_reads_the_same(name):
+    want = Config.fromfile(_path(name)).to_dict()
+    got = PConfig.fromfile(_path(name)).to_dict()
+    assert got == want and "model" in got
+
+
+def test_port_config_overrides():
+    cfg = PConfig.fromfile(_path("lsnet_bbox_x101_fpn_dconv_c3-c5_mstrain_2x_coco.py"))
+    assert cfg.model.backbone.with_cp and cfg.model.backbone.type == "ResNeXt"
+    assert cfg.data.train.img_scale == [(1333, 480), (1333, 960)]
+    cfg.merge_from_dict({"model.bbox_head.num_classes": 3,
+                         "data.samples_per_gpu": 4})
+    assert cfg.model.bbox_head.num_classes == 3
+    assert cfg.data.samples_per_gpu == 4 and cfg.total_epochs == 24
+
+
+@pytest.mark.parametrize("name", [n for n in CONFIGS if "cpv" not in n])
+def test_loss_and_test_configs_match_the_jax_runner(name):
+    """The segm and pose_kbox files turn the bbox losses off with None,
+    on which the JAX ``loss_cfg_from`` raises ``AttributeError``; the JAX
+    function is read there on the file with those None entries left out,
+    which is what the port does with them."""
+    jcfg, pcfg = Config.fromfile(_path(name)), PConfig.fromfile(_path(name))
+    head = jcfg.model.bbox_head
+    for k in [k for k, v in head.items() if v is None]:
+        del head[k]
+    canvas = (800, 1344)
+    want = jloop.loss_cfg_from(jcfg, canvas)
+    got = ploop.loss_cfg_from(pcfg, canvas)
+    assert got.__dataclass_fields__.keys() <= want.__dataclass_fields__.keys()
+    for f in got.__dataclass_fields__:
+        assert getattr(got, f) == getattr(want, f), f
+    want = jloop.test_cfg_from(jcfg, canvas)
+    got = ploop.test_cfg_from(pcfg, canvas)
+    for f in got.__dataclass_fields__:
+        assert getattr(got, f) == getattr(want, f), f
+
+
+@pytest.mark.parametrize("lr_config", [
+    dict(policy="step", step=[1, 2], warmup_iters=5, warmup_ratio=0.1),
+    dict(policy="CosineAnnealing", min_lr_ratio=0.05, warmup_iters=4),
+    dict(policy="cosine", min_lr=1e-4, warmup_iters=0),
+    dict(policy="poly", power=0.9, min_lr=1e-4, warmup_iters=3,
+         warmup_ratio=0.01)])
+def test_lr_schedules_match_the_jax_ones(lr_config):
+    want = joptim.build_lr_schedule(dict(lr_config), 0.02, 4, 3)
+    got = poptim.build_lr_schedule(dict(lr_config), 0.02, 4, 3)
+    for step in range(14):
+        assert abs(got(step) - float(want(step))) <= 1e-7, step
 
 
 def test_every_lsnet_config_is_listed():
@@ -121,3 +188,42 @@ def test_with_cp_is_off_without_gradients_or_training():
     model.eval()
     model(image)[-1].sum().backward()
     assert len(calls) == 2          # once per forward, no recompute
+
+
+def test_with_cp_under_the_mixed_precision_train_step():
+    """bf16 compute over f32 masters (the runner's default) with
+    ``with_cp``: the blocks recomputed in the backward see the same bf16
+    copies as the forward (they saw the f32 masters before, and the first
+    convolution raised on the bf16 input), so one update equals the update
+    without ``with_cp``."""
+    from lsnet_torch.apis import init_detector, train_detector_step
+    from lsnet_torch.configs import x101_flagship_cfg
+    from lsnet_torch.core.loss import LossConfig
+
+    rng = np.random.RandomState(0)
+    H, W = 64, 96
+    xy = rng.rand(2, 3, 2) * 40
+    batch = {
+        "image": torch.from_numpy(rng.randn(2, H, W, 3).astype(np.float32)),
+        "pad_shape": torch.tensor([[H, W]] * 2, dtype=torch.int32),
+        "gt_bboxes": torch.from_numpy(np.concatenate(
+            [xy, xy + 12 + rng.rand(2, 3, 2) * 30], -1).astype(np.float32)),
+        "gt_labels": torch.from_numpy(rng.randint(0, 3, (2, 3))),
+        "gt_valid": torch.ones(2, 3, dtype=torch.bool)}
+    out = []
+    for with_cp in (False, True):
+        cfg = x101_flagship_cfg(feat=32, stacked=1)
+        cfg["backbone"].update(depth=50, groups=8, with_cp=with_cp)
+        cfg["bbox_head"]["num_classes"] = 3
+        model = init_detector(cfg, device="cpu", seed=0, train=True)
+        step = train_detector_step(
+            model, LossConfig(image_shape=(H, W), num_classes=3),
+            steps_per_epoch=1)
+        metrics = step(batch)
+        out.append((metrics["loss"].item(),
+                    {n: p.detach().clone()
+                     for n, p in model.named_parameters()}))
+    (loss, want), (loss_cp, got) = out
+    assert loss_cp == loss
+    for n, w in want.items():
+        assert torch.equal(got[n], w), n

@@ -534,3 +534,34 @@ def test_task_forward_on_the_card(cuda_device, task):
     for key, maps in outs["cpu"].items():
         for got, want in zip(outs["cuda"][key], maps):
             _close(got.cpu(), want, 1e-3)
+
+
+@pytest.mark.cuda
+def test_runner_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """chip_smoke.py's phase 6a: the narrow ResNeXt-shaped bbox model
+    through ``train_detector`` for 2 iterations (f32) and
+    ``evaluate_detector`` on the card and on the CPU: the losses to 1e-3
+    relative, the metrics to 0.01 absolute."""
+    import chip_smoke
+    torch.backends.cudnn.allow_tf32 = False
+    chip_smoke.check_narrow_runner(str(tmp_path))
+
+
+@pytest.mark.cuda
+def test_batch_to_device_on_the_card(cuda_device, tmp_path):
+    from lsnet_torch.data import coco
+    from lsnet_torch.tools.shapes import make_shapes_coco
+    ann, img = make_shapes_coco(str(tmp_path), 2, seed=0)
+    ds = coco.CocoDataset(coco.DatasetConfig(ann_file=ann, img_prefix=img,
+                                             img_scale=(160, 128)))
+    batch = next(coco.DataLoader(ds, 2, prefetch=0).epoch(0))
+    moved = coco.batch_to_device(batch, cuda_device)
+    assert list(moved) == list(batch)
+    assert isinstance(moved["img_id"], np.ndarray)
+    for k, v in batch.items():
+        if k != "img_id":
+            assert moved[k].device.type == "cuda"
+            np.testing.assert_array_equal(moved[k].cpu().numpy(), v)
+            assert moved[k].cpu().numpy().dtype == v.dtype, k
+    with pytest.raises(RuntimeError):
+        coco.batch_to_device(batch, f"cuda:{torch.cuda.device_count()}")
