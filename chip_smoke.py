@@ -61,7 +61,20 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    deploy sampling, the test's metrics within 1e-4 of the EvalHook's, and
    B's steps 5 to 8; it prints the train seconds per iteration, eval
    images per second, checkpoint bytes and save / restore seconds, the
-   metrics and peak memory beside the card's name and power limit.
+   metrics and peak memory beside the card's name and power limit. Run
+   A starts from ``model.pretrained``: the same file's backbone, drawn
+   from another seed and written in the reference's (mmdet) key names by
+   chip_smoke's own writer, which must be the backbone A starts from,
+   tensor for tensor (the grouped G = 64 DCN weights included);
+7. a short ``lsnet_torch.tools.accuracy_run``: --task bbox --dcn (R50,
+   DCN in c3-c5 and in the head towers) for 2 epochs of 10 steps (80
+   procedural 128x160 images, batch 8), then --eval-only at
+   ``backbone=nearest`` on its last checkpoint: both logged losses finite
+   and the last below the first, COCO metric keys, and K1's launches
+   (forward, bwd-data, bwd-weight) 19 a train step (13 backbone DCN
+   blocks, 4 tower blocks, 2 refine contractions) and 19 forward an eval
+   batch, no other kernel; the eval-only metrics equal the run's own
+   last evaluation (the same sampling) within 0.01.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (all ten kernels) and, last, ``{"ok": true, "device": {...}}``; the
@@ -69,7 +82,7 @@ card's clocks, power draw and temperature are logged before and after
 phases 2c, 2d and the profiled train steps. ``python3 chip_smoke.py --only
 backward`` builds, runs phases 2c and 2d alone and prints no result line
 (for work on the backward kernels); ``--only probes`` does the same for
-phase 2e. With
+phase 2e, ``--only accuracy`` for phase 7. With
 ``CHIP_SMOKE_LOG=<path>`` in the environment it also writes every line it
 prints to that file. It needs the repository
 around it and a CUDA device, and runs no JAX.
@@ -79,6 +92,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -96,12 +110,18 @@ from lsnet_torch.configs import (flagship_r50_cfg,  # noqa: E402
                                  x101_flagship_cfg)
 from lsnet_torch.core.decode import TestConfig, lsnet_decode  # noqa: E402
 from lsnet_torch.core.loss import LossConfig, lsnet_loss  # noqa: E402
-from lsnet_torch.models.heads.ls_head import branch_pyramid_jobs  # noqa: E402
-from lsnet_torch.models.layers import FrozenBatchNorm  # noqa: E402
+from lsnet_torch.models import build_backbone  # noqa: E402
+from lsnet_torch.models.backbones.resnet import ARCH_SETTINGS  # noqa: E402
+from lsnet_torch.models.heads.ls_head import (  # noqa: E402
+    TASK_BRANCHES, branch_pyramid_jobs)
+from lsnet_torch.models.init import init_weights_  # noqa: E402
+from lsnet_torch.models.layers import (  # noqa: E402
+    FrozenBatchNorm, ModulatedDeformConvPack)
 from lsnet_torch.ops import deform_gather as dg  # noqa: E402
 from lsnet_torch.ops import flat_deform as fd  # noqa: E402
 from lsnet_torch.ops import grouped as gr  # noqa: E402
 from lsnet_torch.ops import probes  # noqa: E402
+from lsnet_torch.tools import accuracy_run as accuracy_tool  # noqa: E402
 from lsnet_torch.tools import probe as probe_tool  # noqa: E402
 from lsnet_torch.ops.deform_gather import (  # noqa: E402
     deform_gather_contract, deform_gather_contract_ref)
@@ -158,6 +178,14 @@ LAND, PORT = (768, 1280), (1280, 768)
 RUNNER_TRAIN_HW = [LAND, LAND, LAND, PORT] * 2          # 6 + 2 images
 RUNNER_VAL_HW = [LAND, LAND, LAND, PORT]
 RUNNER_EPOCHS, RUNNER_STEPS = 2, 4                      # steps per epoch
+PRETRAINED_SEED = 1          # the runner's own init draws from seed 0
+# phase 7: a short accuracy_run, R50-DCN bbox, 10 steps an epoch (the
+# tool logs a loss record every 10 iterations of an epoch)
+ACC_EPOCHS, ACC_TRAIN, ACC_VAL, ACC_BATCH = 2, 80, 16, 8
+# K1 launches a train step (forward, and each backward kernel): the 13
+# DCN blocks of R50's c3-c5 (4 + 6 + 3), 2 DCN tower blocks for each of
+# the 2 branches, the 2 contractions of the paired refine gather
+ACC_K1_PER_STEP = 13 + 2 * 2 + 2
 
 
 LOG_PATH = os.environ.get("CHIP_SMOKE_LOG")    # optional copy of the log
@@ -1270,11 +1298,16 @@ def profile(label, run, batch_ms):
 class LaunchCountHook(runner_hooks.Hook):
     """Phase 6: the kernels' launch counts, read after each train step and
     after each epoch's evaluation (it runs after ``EvalHook``), each read
-    setting them to 0; set to 0 before the run."""
+    setting them to 0; set to 0 before the run, when the backbone the run
+    starts from is copied too."""
     priority = 95
     steps, evals = [], []
+    start_backbone = {}
 
     def before_train(self, ctx):
+        LaunchCountHook.start_backbone = {
+            k: v.detach().cpu().clone()
+            for k, v in ctx.model.backbone.state_dict().items()}
         zero_launch_counts()
 
     def after_iter(self, ctx):
@@ -1347,6 +1380,49 @@ def check_narrow_runner(root):
         raise AssertionError("runner narrow: card metrics disagree")
 
 
+def reference_backbone_state(backbone):
+    """Phase 6b: a port backbone's state dict in the reference's (mmdet)
+    key names: ``backbone.layerS.B.*``, ``downsample.{0,1}``,
+    ``running_mean`` / ``running_var``, a DCN weight as (cout, cin/G, kh,
+    kw). chip_smoke's own writer, apart from the loader it checks."""
+    dcn = {n for n, m in backbone.named_modules()
+           if isinstance(m, ModulatedDeformConvPack)}
+    out = {}
+    for key, t in backbone.state_dict().items():
+        mod, leaf = key.rsplit(".", 1)
+        if mod in dcn and leaf == "weight":
+            t = t.permute(3, 2, 0, 1)
+        leaf = {"mean": "running_mean", "var": "running_var"}.get(leaf, leaf)
+        mod = re.sub(r"^layer(\d+)_(\d+)", r"layer\1.\2", mod)
+        mod = mod.replace("downsample_conv", "downsample.0").replace(
+            "downsample_bn", "downsample.1")
+        out[f"backbone.{mod}.{leaf}"] = t.contiguous().clone()
+    return out
+
+
+def pretrained_backbone_file(path):
+    """Phase 6b: the runner file's X-101-64x4d-DCN backbone at full width,
+    drawn by the training init from ``PRETRAINED_SEED``, with seeded
+    FrozenBatchNorm statistics and DCN offset convs (which the init
+    leaves at 0), saved as a reference checkpoint ``{"state_dict": ...}``.
+    Returns its state dict in the port's names."""
+    backbone = build_backbone(Config.fromfile(RUNNER_CONFIG)
+                              .model.backbone.to_dict())
+    gen = torch.Generator().manual_seed(PRETRAINED_SEED)
+    init_weights_(backbone, gen)
+    with torch.no_grad():
+        for name, m in backbone.named_modules():
+            if isinstance(m, FrozenBatchNorm):
+                m.mean.copy_(0.01 * torch.randn(m.mean.shape, generator=gen))
+                m.var.copy_(1.0 + 0.05 * torch.randn(
+                    m.var.shape, generator=gen).abs())
+            elif name.endswith("conv_offset"):
+                m.weight.copy_(1e-3 * torch.randn(m.weight.shape,
+                                                  generator=gen))
+    torch.save({"state_dict": reference_backbone_state(backbone)}, path)
+    return {k: v.clone() for k, v in backbone.state_dict().items()}
+
+
 def runner_options(train_root, val_root, train_ann, val_ann):
     """(--options of tools.test, and the more of tools.train): the
     procedural sets, 3 classes, a score threshold under the focal prior
@@ -1376,14 +1452,32 @@ def check_runner(root):
                                   hw=RUNNER_VAL_HW)
     test_opts, opts = runner_options(train_root, val_root, train_ann,
                                      val_ann)
+    # run A starts from a reference-keyed backbone file (model.pretrained)
+    pretrained = os.path.join(root, "x101_dcn_backbone.pth")
+    t0 = time.perf_counter()
+    want = pretrained_backbone_file(pretrained)
+    write_s = time.perf_counter() - t0
     work_a, work_b = (os.path.join(root, n) for n in ("A", "B"))
     torch.cuda.reset_peak_memory_stats()
     LaunchCountHook.steps.clear()
     LaunchCountHook.evals.clear()
     res = train_tool.main([RUNNER_CONFIG, "--work-dir", work_a,
                            "--total-epochs", str(RUNNER_EPOCHS),
-                           "--options", *opts])
+                           "--options", *opts,
+                           f"model.pretrained={pretrained}"])
     steps, evals = list(LaunchCountHook.steps), list(LaunchCountHook.evals)
+    got = LaunchCountHook.start_backbone
+    n_dcn = sum(k.endswith("conv_offset.weight") for k in want)
+    if got.keys() != want.keys() or any(
+            not torch.equal(got[k], v) for k, v in want.items()):
+        raise AssertionError("runner A: the backbone it started from is "
+                             "not the model.pretrained file")
+    log(f"runner A started from model.pretrained: {len(want)} tensors "
+        f"({n_dcn} DCN packs, G = {GROUPS}), "
+        f"{os.path.getsize(pretrained)} bytes written in {write_s:.1f}s, "
+        "equal tensor for tensor")
+    del want, got
+    LaunchCountHook.start_backbone = {}
     train = log_records(work_a, "train")
     val = log_records(work_a, "val")
     cfg = Config.fromfile(RUNNER_CONFIG)
@@ -1492,12 +1586,99 @@ def check_runner(root):
                                for k, v in evals[0].items()}
 
 
+def accuracy_k1_per_step(cfg):
+    """K1 launches a train step of an ``accuracy_run`` config (forward,
+    and each backward kernel): one per DCN block of the backbone, one per
+    DCN tower block (its levels in one launch), two for the paired refine
+    gather and one more for pose_bbox's own."""
+    bb, head = cfg.model.backbone, cfg.model.bbox_head
+    _, blocks = ARCH_SETTINGS[bb.depth]
+    n = sum(b for b, dcn in zip(blocks, bb.stage_with_dcn) if dcn)
+    if head.conv_module_type == "dcn":
+        n += head.stacked_convs * len(TASK_BRANCHES[head.task])
+    return n + 2 + (head.task == "pose_bbox")
+
+
+def check_accuracy_run(root):
+    """Phase 7: ``lsnet_torch.tools.accuracy_run`` --task bbox --dcn for
+    ``ACC_EPOCHS`` epochs on ``ACC_TRAIN`` images, then --eval-only at
+    ``backbone=nearest`` on its last checkpoint: finite, falling losses,
+    COCO metric keys, the K1 launches of every step and eval batch.
+    Returns the launches per train step and the phase's numbers."""
+    flags = ["--task", "bbox", "--dcn", "--train", str(ACC_TRAIN),
+             "--val", str(ACC_VAL), "--batch", str(ACC_BATCH)]
+    out = os.path.join(root, "bbox")
+    args = accuracy_tool.parse_args(flags + ["--epochs", str(ACC_EPOCHS)])
+    per_step = accuracy_k1_per_step(accuracy_tool.accuracy_cfg(
+        args, "", "", "", ""))
+    if per_step != ACC_K1_PER_STEP:
+        raise AssertionError(f"accuracy_run: the config gives {per_step} "
+                             f"K1 launches a step, not {ACC_K1_PER_STEP}")
+    steps = ACC_EPOCHS * -(-ACC_TRAIN // ACC_BATCH)
+    eval_batches = -(-ACC_VAL // ACC_BATCH)          # all landscape
+
+    def expect(train_steps):
+        k1_fwd = ACC_K1_PER_STEP * (train_steps + eval_batches)
+        k1_bwd = ACC_K1_PER_STEP * train_steps
+        return {**{k: 0 for k in launch_counts()},
+                "deform_gather_contract": k1_fwd,
+                "deform_gather_contract_bwd_data": k1_bwd,
+                "deform_gather_contract_bwd_weight": k1_bwd}
+
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    res = accuracy_tool.main(flags + ["--epochs", str(ACC_EPOCHS),
+                                      "--out", out])
+    train_s = time.perf_counter() - t0
+    counts = launch_counts()
+    losses, metrics = res["losses"], res["metrics"]
+    log(f"accuracy_run bbox --dcn, {ACC_EPOCHS} epochs of {steps // ACC_EPOCHS}"
+        f" steps: losses {losses}, metrics {json.dumps(metrics)}, "
+        f"launches {json.dumps(counts)} in {train_s:.1f}s")
+    if counts != expect(steps):
+        raise AssertionError(f"accuracy_run: launches {counts}, want "
+                             f"{expect(steps)}")
+    if len(losses) != ACC_EPOCHS or not all(map(math.isfinite, losses)) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"accuracy_run: losses {losses}")
+    if "bbox_mAP" not in metrics or any(
+            not k.startswith("bbox_") for k in metrics):
+        raise AssertionError(f"accuracy_run: metrics {metrics}")
+
+    ckpt_path = os.path.join(out, "ckpts", f"step_{steps}.pt")
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    near = accuracy_tool.main(flags + [
+        "--out", os.path.join(root, "near"), "--eval-only", ckpt_path,
+        "--sampling", "backbone=nearest"])
+    eval_s = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"accuracy_run --eval-only backbone=nearest: metrics "
+        f"{json.dumps(near['metrics'])}, launches {json.dumps(counts)} in "
+        f"{eval_s:.1f}s")
+    if counts != expect(0) or near["sampling"] != "backbone=nearest":
+        raise AssertionError(f"accuracy_run --eval-only: launches {counts},"
+                             f" sampling {near['sampling']}")
+    # the run's own last evaluation is at the same (shipped) sampling
+    if near["metrics"].keys() != metrics.keys() or any(
+            abs(near["metrics"][k] - v) > 0.01 for k, v in metrics.items()):
+        raise AssertionError("accuracy_run --eval-only: metrics differ from "
+                             "the run's own evaluation")
+    per = dict.fromkeys(("deform_gather_contract",
+                         "deform_gather_contract_bwd_data",
+                         "deform_gather_contract_bwd_weight"),
+                        ACC_K1_PER_STEP)
+    return per, {"train_and_eval_s": train_s, "eval_only_s": eval_s,
+                 "losses": losses, "metrics": metrics,
+                 "card": res["card"]}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["backward", "probes"],
+    parser.add_argument("--only", choices=["backward", "probes", "accuracy"],
                         default=None,
-                        help="run phases 2c and 2d, or phase 2e, alone; "
-                        "no result line")
+                        help="run phases 2c and 2d, phase 2e, or phase 7 "
+                        "alone; no result line")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1531,6 +1712,14 @@ def main(argv=None):
     if opts.only == "probes":
         check_probe_kernels()
         log(f"partial run (--only probes) passed in "
+            f"{time.perf_counter() - t_start:.1f}s; no result line")
+        return 0
+    if opts.only == "accuracy":
+        import tempfile
+        with tempfile.TemporaryDirectory() as root:
+            _, acc = check_accuracy_run(root)
+        log(f"{smi}: accuracy_run R50-DCN bbox " + json.dumps(acc))
+        log(f"partial run (--only accuracy) passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
         return 0
 
@@ -1585,6 +1774,12 @@ def main(argv=None):
             check_runner(os.path.join(root, "full"))
         log(f"{smi}: runner X-101-64x4d-DCN bbox " + json.dumps(numbers)
             + f" (phase 6 in {time.perf_counter() - t0:.1f}s)")
+        # phase 7: a short accuracy run
+        t0 = time.perf_counter()
+        by_path["accuracy_run train"], acc = check_accuracy_run(
+            os.path.join(root, "accuracy"))
+        log(f"{smi}: accuracy_run R50-DCN bbox " + json.dumps(acc)
+            + f" (phase 7 in {time.perf_counter() - t0:.1f}s)")
     for name, entry in probe_entries.items():
         by_path.setdefault("lsnet_torch.tools.probe", {})[name] = \
             entry["launches"]

@@ -2,13 +2,24 @@
 ``train_meta``, ``save_checkpoint``, ``restore_checkpoint``,
 ``restore_eval_state``, ``latest_checkpoint``, and of the deploy policy of
 ``lsnet_tpu/ops/flat_deform.py`` ``deploy_sampling_spec`` /
-``arm_deploy_policy``).
+``arm_deploy_policy``), and the loader of reference weights (the
+counterpart of ``convert_torch_backbone``, ``convert_torch_neck``,
+``convert_torch_lshead`` and ``load_pretrained_backbone``).
 
 One file per save, ``step_{N}.pt``, readable by
 ``torch.load(weights_only=True)``. It holds the step, the model's state
 dict (the f32 master parameters and the FrozenBatchNorm statistics), the
 ``ClippedSGD`` state (momentum buffers and ``count``) and the train meta,
 all in the one file: pruning a checkpoint removes its meta with it.
+
+Reference weights are ``state_dict``s in the key space of torchvision and
+mmdet (``layer1.0.downsample.0.weight``, ``bn1.running_mean``,
+``bbox_head.pts_bbox_refine_conv.weight``). The ``convert_torch_*``
+functions turn one into a ``state_dict`` fragment in the port's names
+(``layer1_0.downsample_conv.weight``, ``bn1.mean``,
+``pts_bbox_cls_pair.weight_a``), keyed from the backbone, neck or head
+module, ready for its ``load_state_dict``. A key they do not recognise
+raises: a partial load never passes silently.
 
 The meta records the train sampling as the JAX spec string
 (``dcn_sampling_train``: ``"bilinear"`` or sorted ``site=mode,...``), so
@@ -22,11 +33,15 @@ from __future__ import annotations
 
 import os
 import re
+from collections import OrderedDict
 from types import MappingProxyType
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..models.heads.ls_head import MAIN_BRANCH
+from ..models.layers import ModulatedDeformConvPack
 from ..ops.flat_deform import (INFERENCE_SAMPLING, SITES, sampling_from_spec,
                                sampling_spec)
 from .optim import ClippedSGD
@@ -128,3 +143,245 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     """The path of the highest ``step_{N}.pt`` in ``ckpt_dir``, or None."""
     steps = checkpoint_steps(ckpt_dir)
     return os.path.join(ckpt_dir, f"step_{steps[-1]}.pt") if steps else None
+
+
+# ------------------------------------------------------- reference weights
+
+RES2NET = "Res2Net: ROADMAP Queue 1 item 9"
+
+
+def _tensor(val) -> torch.Tensor:
+    """A ``state_dict`` value (tensor or array) as a contiguous f32 CPU
+    tensor of its own."""
+    if isinstance(val, torch.Tensor):
+        t = val.detach().to("cpu")
+    else:
+        t = torch.from_numpy(np.array(val))
+    return t.to(torch.float32).clone().contiguous()
+
+
+def _dcn_layout(oihw: torch.Tensor) -> torch.Tensor:
+    """A deformable weight (cout, cin/G, kh, kw) -> the port's
+    (kh, kw, cin/G, cout) (group-major cout, as the reference)."""
+    return oihw.permute(2, 3, 1, 0).contiguous()
+
+
+def _strip_module(key: str) -> str:
+    return key[len("module."):] if key.startswith("module.") else key
+
+
+def _refuse(unknown: List[str], what: str) -> None:
+    if unknown:
+        raise ValueError(f"{what} keys not recognized (partial load "
+                         f"refused): {sorted(unknown)[:20]}")
+
+
+def reference_module_name(port_name: str) -> str:
+    """A backbone module's port name -> its reference name
+    (``layer2_0.conv2`` -> ``layer2.0.conv2``)."""
+    return re.sub(r"^layer(\d+)_(\d+)", r"layer\1.\2", port_name)
+
+
+def convert_torch_backbone(state_dict: Mapping[str, Any],
+                           dcn_convs: Iterable[str] = ()
+                           ) -> "OrderedDict[str, torch.Tensor]":
+    """A reference backbone ``state_dict`` -> the port's ``ResNet`` keys.
+
+    The key spaces of ``lsnet_tpu/train/checkpoint.py``
+    ``convert_torch_backbone``: torchvision ``layerS.B.convN`` /
+    ``downsample.{0,1}`` names; mmdet full-detector dicts, whose
+    ``backbone.`` keys are taken and neck and head keys skipped; a
+    ``module.`` prefix; DCNv2 packs, a ``convN.weight`` beside
+    ``convN.conv_offset.*``, whose weight goes to the port's compact
+    (k, k, cin/G, cout) layout. ``dcn_convs`` names (in the reference's
+    names) more convolutions to load as DCN packs: an ImageNet file has
+    no ``conv_offset`` for the DCN stages of the model it starts. The
+    downsample's conv and norm are told apart by rank, not index (an
+    avg-down Sequential puts them at 1 and 2). ``num_batches_tracked``
+    and ``fc.*`` are skipped; Res2Net keys (``convs.i``, ``bns.i``,
+    ``stem.*``) raise ``NotImplementedError``, any other unknown key
+    ``ValueError``."""
+    has_prefix = any(_strip_module(k).startswith("backbone.")
+                     for k in state_dict)
+    items = OrderedDict()
+    for key, val in state_dict.items():
+        k = _strip_module(key)
+        if has_prefix:
+            if not k.startswith("backbone."):
+                continue                      # neck., bbox_head., ...
+            k = k[len("backbone."):]
+        items[k] = val
+    dcn = {k.rsplit(".conv_offset.", 1)[0] for k in items
+           if ".conv_offset." in k} | set(dcn_convs)
+
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    unknown, res2net = [], []
+    for key, val in items.items():
+        if key.endswith("num_batches_tracked") or key.startswith("fc."):
+            continue
+        parts = key.split(".")
+        t = _tensor(val)
+        if parts[0] == "stem" or (len(parts) > 2
+                                  and parts[2] in ("convs", "bns")):
+            res2net.append(key)
+            continue
+        m = re.fullmatch(r"layer(\d+)", parts[0])
+        if parts[0] in ("conv1", "bn1") and len(parts) == 2:
+            path = parts[:1]
+        elif m and len(parts) >= 4:
+            path = [f"layer{m.group(1)}_{parts[1]}"] + parts[2:-1]
+            if path[1] == "downsample":
+                path = path[:1] + ["downsample_conv" if t.dim() == 4
+                                   else "downsample_bn"] + path[3:]
+        else:
+            unknown.append(key)
+            continue
+        leaf = parts[-1]
+        src = key.rsplit(".", 1)[0]
+        if leaf == "weight" and t.dim() == 4:
+            if src in dcn:
+                t = _dcn_layout(t)
+        elif leaf in ("running_mean", "running_var"):
+            leaf = leaf[len("running_"):]
+        elif not (leaf == "bias" or (leaf == "weight" and t.dim() == 1)):
+            unknown.append(key)
+            continue
+        out[".".join(path + [leaf])] = t
+    if res2net:
+        raise NotImplementedError(
+            f"{RES2NET}; its keys {sorted(res2net)[:5]} cannot be loaded")
+    _refuse(unknown, "backbone")
+    return out
+
+
+def convert_torch_neck(state_dict: Mapping[str, Any]
+                       ) -> "OrderedDict[str, torch.Tensor]":
+    """A reference FPN ``state_dict`` (mmdet ``necks/fpn.py`` names) -> the
+    port's ``FPN`` keys: ``lateral_convs.i`` -> ``lateral_i``,
+    ``fpn_convs.j`` -> ``fpn_j`` below the lateral count and
+    ``extra_{j - n}`` from it (the reference appends its extra convs to
+    ``fpn_convs``), a ConvModule's ``gn`` / ``bn`` -> ``norm``. A
+    ``neck.`` prefix is taken off; backbone and head keys are skipped."""
+    items = OrderedDict()
+    for key, val in state_dict.items():
+        k = _strip_module(key)
+        if k.startswith("neck."):
+            k = k[len("neck."):]
+        elif k.startswith(("backbone.", "bbox_head.", "roi_head.")):
+            continue
+        items[k] = val
+    n_lat = len({k.split(".")[1] for k in items
+                 if k.startswith("lateral_convs.")})
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    unknown = []
+    for key, val in items.items():
+        parts = key.split(".")
+        if len(parts) != 4 or not parts[1].isdigit() or \
+                parts[0] not in ("lateral_convs", "fpn_convs"):
+            unknown.append(key)
+            continue
+        j = int(parts[1])
+        mod = (f"lateral_{j}" if parts[0] == "lateral_convs"
+               else f"fpn_{j}" if j < n_lat else f"extra_{j - n_lat}")
+        sub, leaf = parts[2], parts[3]
+        if leaf == "num_batches_tracked":
+            continue
+        if sub in ("gn", "bn"):
+            sub = "norm"
+        if sub not in ("conv", "norm") or leaf not in ("weight", "bias"):
+            unknown.append(key)
+            continue
+        out[f"{mod}.{sub}.{leaf}"] = _tensor(val)
+    _refuse(unknown, "neck")
+    return out
+
+
+_HEAD_BRANCH = r"(cls|bbox|segm|pose)"
+
+
+def convert_torch_lshead(state_dict: Mapping[str, Any], task: str = "bbox"
+                         ) -> "OrderedDict[str, torch.Tensor]":
+    """A reference LSHead ``state_dict`` (``lsnet_head.py`` names) -> the
+    port's ``LSHead`` keys, the norm-conv towers:
+
+    * ``{b}_convs.i.conv`` / ``.gn`` -> ``{b}_convs_i.conv`` / ``.norm``;
+    * ``{b}_GN``, ``pts_{t}_init_conv`` / ``_init_out`` / ``_refine_out``,
+      ``{b}_feat_conv``, ``pts_cls_out``: the same names;
+    * ``{b}_af_dcn_conv.0`` (a Sequential with its ReLU) ->
+      ``{b}_af_dcn_conv``;
+    * ``pts_{main}_refine_conv.weight`` + ``pts_cls_conv.weight`` -> the
+      fused ``pts_{main}_cls_pair.weight_a`` / ``weight_b``, and another
+      ``pts_{t}_refine_conv.weight`` (pose_bbox's bbox branch) -> its own,
+      all in the (k, k, cin, cout) layout of the deformable layers.
+
+    ``bbox_head.`` and ``module.`` prefixes are taken off;
+    ``dcn_base_offset`` and ``num_batches_tracked`` are skipped; any other
+    key raises (the DCN-tower keys too: ROADMAP Queue 1 item 2)."""
+    main = MAIN_BRANCH[task]
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    unknown = []
+    for key, val in state_dict.items():
+        k = _strip_module(key)
+        if k.startswith("bbox_head."):
+            k = k[len("bbox_head."):]
+        if k == "dcn_base_offset" or k.endswith("num_batches_tracked"):
+            continue
+        t = _tensor(val)
+        m = re.fullmatch(_HEAD_BRANCH + r"_convs\.(\d+)\.(conv|gn)\."
+                         r"(weight|bias)", k)
+        if m:
+            b, i, sub, leaf = m.groups()
+            out[f"{b}_convs_{i}.{'conv' if sub == 'conv' else 'norm'}."
+                f"{leaf}"] = t
+            continue
+        m = re.fullmatch(r"pts_(bbox|segm|pose)_refine_conv\.weight", k)
+        if m:
+            name = (f"pts_{main}_cls_pair.weight_a" if m.group(1) == main
+                    else f"pts_{m.group(1)}_refine_conv.weight")
+            out[name] = _dcn_layout(t)
+            continue
+        if k == "pts_cls_conv.weight":
+            out[f"pts_{main}_cls_pair.weight_b"] = _dcn_layout(t)
+            continue
+        m = re.fullmatch(_HEAD_BRANCH + r"_af_dcn_conv\.0\.(weight|bias)",
+                         k)
+        if m:
+            out[f"{m.group(1)}_af_dcn_conv.{m.group(2)}"] = t
+            continue
+        if re.fullmatch(r"(pts_(bbox|segm|pose)_(init_conv|init_out|"
+                        r"refine_out)|pts_cls_out|" + _HEAD_BRANCH +
+                        r"_(feat_conv|GN))\.(weight|bias)", k):
+            out[k] = t
+            continue
+        unknown.append(k)
+    _refuse(unknown, "LSHead")
+    return out
+
+
+def load_pretrained_backbone(model: torch.nn.Module, path: str
+                             ) -> List[str]:
+    """Load a reference backbone checkpoint (a torchvision or mmdet
+    ``state_dict``, or a dict holding one under ``state_dict``) into
+    ``model.backbone`` in place; return the loaded keys. Every key the
+    file fills must exist in the model with the same shape, else it
+    raises; the model's entries the file does not fill (the
+    ``conv_offset`` of DCN stages, for an ImageNet file) keep their
+    values."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    backbone = model.backbone
+    dcn = [reference_module_name(n) for n, m in backbone.named_modules()
+           if isinstance(m, ModulatedDeformConvPack)]
+    frag = convert_torch_backbone(sd, dcn_convs=dcn)
+    own = backbone.state_dict()
+    for k, v in frag.items():
+        if k not in own:
+            raise KeyError(f"missing leaf backbone.{k} in the model")
+        if own[k].shape != v.shape:
+            raise ValueError(f"shape mismatch at backbone.{k}: "
+                             f"{tuple(own[k].shape)} vs {tuple(v.shape)}")
+    with torch.no_grad():
+        for k, v in frag.items():
+            own[k].copy_(v)
+    return list(frag)

@@ -5,11 +5,12 @@
 
 ``train_detector`` runs the epoch loop of the reference runner: a COCO
 dataset and an orientation-grouped loader, the training init from
-``cfg.seed``, the config's LR policy, SGD with clipping, one train step
-per canvas (bf16 compute over f32 masters), and the hooks: logging,
-a checkpoint per epoch, COCO eval. ``evaluate_detector`` runs the val set
-through the f32 masters, decodes, and scores with the package's own COCO
-evaluation.
+``cfg.seed`` (then ``cfg.model.pretrained``, where that file exists,
+through ``load_pretrained_backbone``), the config's LR policy, SGD with
+clipping, one train step per canvas (bf16 compute over f32 masters), and
+the hooks: logging, a checkpoint per epoch, COCO eval.
+``evaluate_detector`` runs the val set through the f32 masters, decodes,
+and scores with the package's own COCO evaluation.
 
 Sampling is an explicit mapping everywhere. Training runs
 ``cfg.train_cfg.dcn_sampling`` (bilinear by default) and records it in each
@@ -41,7 +42,8 @@ from ..models.init import init_weights_
 from ..ops.flat_deform import (INFERENCE_SAMPLING, TRAIN_SAMPLING,
                                sampling_from_spec)
 from ..utils.logging import JsonLogger, collect_env
-from .checkpoint import deploy_sampling, restore_checkpoint, train_meta
+from .checkpoint import (deploy_sampling, load_pretrained_backbone,
+                         restore_checkpoint, train_meta)
 from .hooks import RunnerContext, build_hooks, call_hooks
 from .optim import build_lr_schedule, build_optimizer
 from .step import make_train_step
@@ -201,9 +203,7 @@ def train_detector(cfg, work_dir: str, *, total_epochs: Optional[int] = None,
     init_weights_(model, torch.Generator().manual_seed(cfg.get("seed", 0)))
     pretrained = cfg.model.get("pretrained")
     if pretrained and os.path.exists(str(pretrained)):
-        raise NotImplementedError(
-            f"pretrained weights {pretrained}: the loader of a reference "
-            "state_dict is not ported yet (ROADMAP Queue 1)")
+        load_pretrained_backbone(model, str(pretrained))
     model.to(device).train()
 
     epochs = total_epochs or cfg.get("total_epochs", 12)
