@@ -8,16 +8,21 @@
 #           checkpoint at bilinear, backbone=nearest and
 #           backbone=nearest,refine=nearest;
 #   more    bbox --dcn --epochs 36 at seed 1, segm --epochs 48 --train 320,
-#           pose_kbox --epochs 36.
+#           pose_kbox --epochs 36;
+#   again   bbox --dcn --epochs 36 at seeds 0 and 1 once more, each with
+#           the three --eval-only deploys on its last checkpoint (a run's
+#           own evaluation is at the deployed backbone=nearest only; the
+#           backward kernels add with atomics, so a run does not repeat
+#           bit for bit).
 #
-#   bash docs/accuracy_torch/run.sh bbox|more [OUT]
+#   bash docs/accuracy_torch/run.sh bbox|more|again [OUT]
 #
 # Work dirs (data, checkpoints) go to $WORK (default work/accuracy_torch);
 # OUT (default chiprun_out/accuracy_torch) receives each run's console
 # log, *.log.json and result.json, and the card's name and power limit.
 # While a run trains, every checkpoint but its newest is deleted.
 set -euo pipefail
-part=${1:?bbox or more}
+part=${1:?bbox, more or again}
 OUT=${2:-chiprun_out/accuracy_torch}
 WORK=${WORK:-work/accuracy_torch}
 mkdir -p "$OUT" "$WORK"
@@ -47,17 +52,30 @@ run() {
     tail -n 2 "$OUT/$name.console.log"
 }
 
+# the three deploy policies on the last checkpoint of run $1, named $2*
+deploys() {
+    local ckpt
+    ckpt=$(ls -1 "$WORK/$1/ckpts" | grep -E '^step_[0-9]+\.pt$' \
+        | sort -t_ -k2 -n | tail -n 1)
+    for s in bilinear backbone=nearest backbone=nearest,refine=nearest; do
+        run "$2${s//[=,]/_}" --task bbox --dcn --eval-only \
+            "$WORK/$1/ckpts/$ckpt" --sampling "$s"
+    done
+}
+
 case $part in
 bbox)
     python3 chip_smoke.py --only accuracy > "$OUT/phase7.log" 2>&1 \
         || { tail -n 40 "$OUT/phase7.log"; exit 1; }
     tail -n 3 "$OUT/phase7.log"
     run bbox_dcn36_s0 --task bbox --dcn --epochs 36 --seed 0
-    ckpt=$(ls -1 "$WORK/bbox_dcn36_s0/ckpts" | grep -E '^step_[0-9]+\.pt$' \
-        | sort -t_ -k2 -n | tail -n 1)
-    for s in bilinear backbone=nearest backbone=nearest,refine=nearest; do
-        run "ev_${s//[=,]/_}" --task bbox --dcn --eval-only \
-            "$WORK/bbox_dcn36_s0/ckpts/$ckpt" --sampling "$s"
+    deploys bbox_dcn36_s0 ev_
+    ;;
+again)
+    for seed in 0 1; do
+        run "bbox_dcn36_s${seed}b" --task bbox --dcn --epochs 36 \
+            --seed "$seed"
+        deploys "bbox_dcn36_s${seed}b" "ev_s${seed}b_"
     done
     ;;
 more)
