@@ -18,12 +18,12 @@
 #   bash docs/accuracy_torch/run.sh bbox|more|again [OUT]
 #
 # Work dirs (data, checkpoints) go to $WORK (default work/accuracy_torch);
-# OUT (default chiprun_out/accuracy_torch) receives each run's console
+# OUT (default work/accuracy_torch_results) receives each run's console
 # log, *.log.json and result.json, and the card's name and power limit.
 # While a run trains, every checkpoint but its newest is deleted.
 set -euo pipefail
 part=${1:?bbox, more or again}
-OUT=${2:-chiprun_out/accuracy_torch}
+OUT=${2:-work/accuracy_torch_results}
 WORK=${WORK:-work/accuracy_torch}
 mkdir -p "$OUT" "$WORK"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader \

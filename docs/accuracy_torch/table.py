@@ -95,7 +95,8 @@ def main():
     jax_row = [metric(os.path.join(JAX, JAX_DEPLOY[d]), "bbox_mAP")
                for d in DEPLOYS]
     rows = {"JAX dcn36b": jax_row}
-    for prefix, run in (("ev_", "bbox_dcn36_s0"), ("ev_s0b_", "bbox_dcn36_s0b"),
+    for prefix, run in (("ev_", "bbox_dcn36_s0"),
+                        ("ev_s0b_", "bbox_dcn36_s0b"),
                         ("ev_s1b_", "bbox_dcn36_s1b")):
         paths = [os.path.join(HERE, prefix + d, "result.json")
                  for d in DEPLOYS]

@@ -147,9 +147,6 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 
 # ------------------------------------------------------- reference weights
 
-RES2NET = "Res2Net: ROADMAP Queue 1 item 9"
-
-
 def _tensor(val) -> torch.Tensor:
     """A ``state_dict`` value (tensor or array) as a contiguous f32 CPU
     tensor of its own."""
@@ -174,12 +171,6 @@ def _refuse(unknown: List[str], what: str) -> None:
     if unknown:
         raise ValueError(f"{what} keys not recognized (partial load "
                          f"refused): {sorted(unknown)[:20]}")
-
-
-def reference_module_name(port_name: str) -> str:
-    """A backbone module's port name -> its reference name
-    (``layer2_0.conv2`` -> ``layer2.0.conv2``)."""
-    return re.sub(r"^layer(\d+)_(\d+)", r"layer\1.\2", port_name)
 
 
 def convert_torch_backbone(state_dict: Mapping[str, Any],
@@ -249,7 +240,8 @@ def convert_torch_backbone(state_dict: Mapping[str, Any],
         out[".".join(path + [leaf])] = t
     if res2net:
         raise NotImplementedError(
-            f"{RES2NET}; its keys {sorted(res2net)[:5]} cannot be loaded")
+            "Res2Net: ROADMAP Queue 1 item 9; its keys "
+            f"{sorted(res2net)[:5]} cannot be loaded")
     _refuse(unknown, "backbone")
     return out
 
@@ -371,7 +363,10 @@ def load_pretrained_backbone(model: torch.nn.Module, path: str
     if "state_dict" in sd:
         sd = sd["state_dict"]
     backbone = model.backbone
-    dcn = [reference_module_name(n) for n, m in backbone.named_modules()
+    # the DCN packs in the reference's names (layer2_0.conv2 ->
+    # layer2.0.conv2)
+    dcn = [re.sub(r"^layer(\d+)_(\d+)", r"layer\1.\2", n)
+           for n, m in backbone.named_modules()
            if isinstance(m, ModulatedDeformConvPack)]
     frag = convert_torch_backbone(sd, dcn_convs=dcn)
     own = backbone.state_dict()
