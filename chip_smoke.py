@@ -71,10 +71,15 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    procedural 128x160 images, batch 8), then --eval-only at
    ``backbone=nearest`` on its last checkpoint: both logged losses finite
    and the last below the first, COCO metric keys, and K1's launches
-   (forward, bwd-data, bwd-weight) 19 a train step (13 backbone DCN
-   blocks, 4 tower blocks, 2 refine contractions) and 19 forward an eval
-   batch, no other kernel; the eval-only metrics equal the run's own
-   last evaluation (the same sampling) within 0.01.
+   (forward, bwd-data, bwd-weight) 19 on every train step (13 backbone
+   DCN blocks, 4 tower blocks, 2 refine contractions; read after each
+   step by a hook) and 19 forward an eval batch, no other kernel; the
+   eval-only metrics equal the run's own last evaluation (the same
+   sampling) within 0.01. The arguments of every K1 call of the first
+   train step (bf16: R50's c3-c5 DCN at 128-512 channels, the stride-2
+   first blocks, the 64-channel towers and refine) and of the first eval
+   batch (f32) are kept, and each call's kernel is held against its plain
+   version on them at phase 2's tolerance.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (all ten kernels) and, last, ``{"ok": true, "device": {...}}``; the
@@ -1584,59 +1589,156 @@ def check_runner(root):
                                for k, v in evals[0].items()}
 
 
+def capture_k1_calls(limit):
+    """Phase 7: put in place of ``deform_gather``'s ops functions that keep
+    a clone of the arguments of the first ``limit`` calls of each K1
+    wrapper (forward, bwd-data, bwd-weight) and then call it. Returns the
+    calls by wrapper and a function that puts the wrappers back."""
+    calls = {name: [] for name in dg.ContractOps._fields}
+    saved = dg._OPS
+
+    def keep(name, fn):
+        def call(*args):
+            if len(calls[name]) < limit:
+                calls[name].append(tuple(
+                    a.detach().clone() if torch.is_tensor(a) else a
+                    for a in args))
+            return fn(*args)
+        return call
+
+    dg._OPS = dg.ContractOps(*(keep(name, fn) for name, fn in
+                               zip(dg.ContractOps._fields, saved)))
+
+    def undo():
+        dg._OPS = saved
+    return calls, undo
+
+
+K1_CALLS = {       # wrapper -> (its kernel, its plain version) on the args
+    "forward": (lambda a: (dg._forward(*a),),
+                lambda a: (deform_gather_contract_ref(*a),)),
+    "bwd_data": (lambda a: dg.deform_gather_contract_bwd_data(*a),
+                 lambda a: dg.deform_gather_contract_bwd_data_ref(*a)),
+    "bwd_weight": (lambda a: (dg.deform_gather_contract_bwd_weight(*a),),
+                   lambda a: (dg.deform_gather_contract_bwd_weight_ref(
+                       *a[:3], a[4]),))}
+
+
+def check_k1_calls(label, calls):
+    """Phase 7: each captured K1 call's kernel against its plain version
+    on the same card tensors, at phase 2's tolerance (TOL of the call's
+    dtype x max(1, max|ref|) for every output). Returns the log rows."""
+    rows = {}
+    for name, args_list in calls.items():
+        if not args_list:
+            continue
+        kernel, plain = K1_CALLS[name]
+        worst, ratio, shapes, ok = 0.0, 0.0, set(), True
+        for args in args_list:
+            flat, idx, weight = args[0], args[1], args[3]
+            shapes.add((flat.shape[1], weight.shape[2], idx.shape[2]))
+            for got, want in zip(kernel(args), plain(args)):
+                if got is None:
+                    continue
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                lim = TOL[flat.dtype] * max(
+                    1.0, want.float().abs().max().item())
+                ok = ok and bool(torch.isfinite(got).all()) and err <= lim
+                worst, ratio = max(worst, err), max(ratio, err / lim)
+        rows[name] = dict(calls=len(args_list),
+                          dtype=str(args_list[0][0].dtype).split(".")[-1],
+                          max_abs_err=worst, max_err_over_limit=ratio,
+                          c_cout_px=sorted(shapes))
+        log(f"accuracy_run {label} K1 {name} " + json.dumps(rows[name]))
+        if not ok:
+            raise AssertionError(f"accuracy_run {label}: K1 {name} "
+                                 f"disagrees: {rows[name]}")
+    return rows
+
+
 def check_accuracy_run(root):
     """Phase 7: ``lsnet_torch.tools.accuracy_run`` --task bbox --dcn for
     ``ACC_EPOCHS`` epochs on ``ACC_TRAIN`` images, then --eval-only at
     ``backbone=nearest`` on its last checkpoint: finite, falling losses,
-    COCO metric keys, the K1 launches of every step and eval batch.
-    Returns the launches per train step and the phase's numbers."""
+    COCO metric keys, the K1 launches of every step (``LaunchCountHook``)
+    and of the eval-only run; the K1 calls of the first train step (bf16)
+    and of the first eval batch (f32) held against their plain versions.
+    Returns the launches per train step and per eval batch, and the
+    phase's numbers."""
     flags = ["--task", "bbox", "--dcn", "--train", str(ACC_TRAIN),
              "--val", str(ACC_VAL), "--batch", str(ACC_BATCH)]
     out = os.path.join(root, "bbox")
     steps = ACC_EPOCHS * -(-ACC_TRAIN // ACC_BATCH)
     eval_batches = -(-ACC_VAL // ACC_BATCH)          # all landscape
+    none = {k: 0 for k in launch_counts()}
+    per_step = {**none, "deform_gather_contract": ACC_K1_PER_STEP,
+                "deform_gather_contract_bwd_data": ACC_K1_PER_STEP,
+                "deform_gather_contract_bwd_weight": ACC_K1_PER_STEP}
+    per_eval = {**none, "deform_gather_contract":
+                ACC_K1_PER_STEP * eval_batches}
 
-    def expect(train_steps):
-        k1_fwd = ACC_K1_PER_STEP * (train_steps + eval_batches)
-        k1_bwd = ACC_K1_PER_STEP * train_steps
-        return {**{k: 0 for k in launch_counts()},
-                "deform_gather_contract": k1_fwd,
-                "deform_gather_contract_bwd_data": k1_bwd,
-                "deform_gather_contract_bwd_weight": k1_bwd}
+    real_train = runner_loop.train_detector
 
-    zero_launch_counts()
-    t0 = time.perf_counter()
-    res = accuracy_tool.main(flags + ["--epochs", str(ACC_EPOCHS),
-                                      "--out", out])
-    train_s = time.perf_counter() - t0
-    counts = launch_counts()
+    def train_counted(cfg, *args, **kwargs):
+        cfg.custom_hooks = [dict(type="LaunchCountHook")]
+        return real_train(cfg, *args, **kwargs)
+
+    LaunchCountHook.steps.clear()
+    LaunchCountHook.evals.clear()
+    runner_loop.train_detector = train_counted
+    calls, undo = capture_k1_calls(ACC_K1_PER_STEP)
+    try:
+        t0 = time.perf_counter()
+        res = accuracy_tool.main(flags + ["--epochs", str(ACC_EPOCHS),
+                                          "--out", out])
+        train_s = time.perf_counter() - t0
+        # the hook read and zeroed the counts after every step and epoch:
+        # what is left is the closing evaluation's
+        step_counts = list(LaunchCountHook.steps)
+        epoch_counts = list(LaunchCountHook.evals)
+        closing = launch_counts()
+    finally:
+        runner_loop.train_detector = real_train
+        undo()
+        LaunchCountHook.start_backbone = {}
     losses, metrics = res["losses"], res["metrics"]
     log(f"accuracy_run bbox --dcn, {ACC_EPOCHS} epochs of "
         f"{steps // ACC_EPOCHS} steps: losses {losses}, metrics "
-        f"{json.dumps(metrics)}, launches {json.dumps(counts)} in "
-        f"{train_s:.1f}s")
-    if counts != expect(steps):
-        raise AssertionError(f"accuracy_run: launches {counts}, want "
-                             f"{expect(steps)}")
+        f"{json.dumps(metrics)}, launches a step "
+        f"{json.dumps(step_counts[0] if step_counts else None)}, closing "
+        f"evaluation {json.dumps(closing)} in {train_s:.1f}s")
+    if len(step_counts) != steps or any(c != per_step for c in step_counts):
+        raise AssertionError(f"accuracy_run: launches a step {step_counts},"
+                             f" want {steps} x {per_step}")
+    if any(c != none for c in epoch_counts) or closing != per_eval:
+        raise AssertionError(f"accuracy_run: launches after the epochs "
+                             f"{epoch_counts}, in the closing evaluation "
+                             f"{closing}, want {per_eval}")
     if len(losses) != ACC_EPOCHS or not all(map(math.isfinite, losses)) \
             or not losses[-1] < losses[0]:
         raise AssertionError(f"accuracy_run: losses {losses}")
     if "bbox_mAP" not in metrics or any(
             not k.startswith("bbox_") for k in metrics):
         raise AssertionError(f"accuracy_run: metrics {metrics}")
+    train_calls = check_k1_calls("train step 1", calls)
 
     ckpt_path = os.path.join(out, "ckpts", f"step_{steps}.pt")
+    calls, undo = capture_k1_calls(ACC_K1_PER_STEP)
     zero_launch_counts()
-    t0 = time.perf_counter()
-    near = accuracy_tool.main(flags + [
-        "--out", os.path.join(root, "near"), "--eval-only", ckpt_path,
-        "--sampling", "backbone=nearest"])
-    eval_s = time.perf_counter() - t0
-    counts = launch_counts()
+    try:
+        t0 = time.perf_counter()
+        near = accuracy_tool.main(flags + [
+            "--out", os.path.join(root, "near"), "--eval-only", ckpt_path,
+            "--sampling", "backbone=nearest"])
+        eval_s = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        undo()
     log(f"accuracy_run --eval-only backbone=nearest: metrics "
         f"{json.dumps(near['metrics'])}, launches {json.dumps(counts)} in "
         f"{eval_s:.1f}s")
-    if counts != expect(0) or near["sampling"] != "backbone=nearest":
+    if counts != per_eval or near["sampling"] != "backbone=nearest":
         raise AssertionError(f"accuracy_run --eval-only: launches {counts},"
                              f" sampling {near['sampling']}")
     # the run's own last evaluation is at the same (shipped) sampling
@@ -1644,13 +1746,12 @@ def check_accuracy_run(root):
             abs(near["metrics"][k] - v) > 0.01 for k, v in metrics.items()):
         raise AssertionError("accuracy_run --eval-only: metrics differ from "
                              "the run's own evaluation")
-    per = dict.fromkeys(("deform_gather_contract",
-                         "deform_gather_contract_bwd_data",
-                         "deform_gather_contract_bwd_weight"),
-                        ACC_K1_PER_STEP)
-    return per, {"train_and_eval_s": train_s, "eval_only_s": eval_s,
-                 "losses": losses, "metrics": metrics,
-                 "card": res["card"]}
+    eval_calls = check_k1_calls("eval batch 1", calls)
+    return step_counts[0], {k: v // eval_batches for k, v in counts.items()}, {
+        "train_and_eval_s": train_s, "eval_only_s": eval_s,
+        "losses": losses, "metrics": metrics, "card": res["card"],
+        "k1_calls_checked": {"train step 1": train_calls,
+                             "eval batch 1": eval_calls}}
 
 
 def main(argv=None):
@@ -1697,7 +1798,7 @@ def main(argv=None):
     if opts.only == "accuracy":
         import tempfile
         with tempfile.TemporaryDirectory() as root:
-            _, acc = check_accuracy_run(root)
+            *_, acc = check_accuracy_run(root)
         log(f"{smi}: accuracy_run R50-DCN bbox " + json.dumps(acc))
         log(f"partial run (--only accuracy) passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
@@ -1756,8 +1857,8 @@ def main(argv=None):
             + f" (phase 6 in {time.perf_counter() - t0:.1f}s)")
         # phase 7: a short accuracy run
         t0 = time.perf_counter()
-        by_path["accuracy_run train"], acc = check_accuracy_run(
-            os.path.join(root, "accuracy"))
+        (by_path["accuracy_run train"], by_path["accuracy_run eval"],
+         acc) = check_accuracy_run(os.path.join(root, "accuracy"))
         log(f"{smi}: accuracy_run R50-DCN bbox " + json.dumps(acc)
             + f" (phase 7 in {time.perf_counter() - t0:.1f}s)")
     for name, entry in probe_entries.items():

@@ -1,31 +1,45 @@
 """The port's accuracy runs beside the JAX records: each run's COCO
-metric, its tolerance and verdict, the logged loss at fixed iterations
-beside the JAX log's, and the run's seconds.
+metric, the logged loss at fixed iterations beside the JAX log's, the
+run's seconds, and each number's verdict against the tolerance of
+``PERF.md`` section 6 (PR 13), whose values are written below.
 
     python3 docs/accuracy_torch/table.py
 
 Reads ``docs/accuracy_torch/<run>/result.json`` and ``*.log.json`` (what
 ``run.sh`` brings back from the card) and the JAX records
-``docs/accuracy/r5/*.json`` and ``train_*.log``. Prints markdown.
+``docs/accuracy/r5/*.json`` and ``train_*.log``. Prints markdown. A run
+that is not there is left out.
 """
 
 import glob
 import json
 import os
 import re
+import statistics
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 JAX = os.path.join(HERE, "..", "accuracy", "r5")
 ITERS = (10, 240, 480, 720)
+# the tolerance, as written before the first full run
+EACH_RUN, MEAN = 2.5, 1.5          # bbox bilinear mAP from JAX's
+CONVERGED = 60.0                   # bbox mAP at least
+DELTA = 0.5                        # deploy deltas from JAX's, same sign
+SEGM, KBOX = 2.5, 0.05             # segm mAP, pose_kbox OKS AP
+# bbox R50-DCN 36e runs: run dir, prefix of its --eval-only dirs (None:
+# none made), seed, train dtype, run.sh part (one chip call each)
+BBOX = [("bbox_dcn36_s0", "ev_", 0, "bf16", "bbox"),
+        ("bbox_dcn36_s1", None, 1, "bf16", "more"),
+        ("bbox_dcn36_s0b", "ev_s0b_", 0, "bf16", "again"),
+        ("bbox_dcn36_s1b", "ev_s1b_", 1, "bf16", "again"),
+        ("bbox_dcn36_s0c", "ev_s0c_", 0, "bf16", "trace"),
+        ("bbox_dcn36_s0d", "ev_s0d_", 0, "bf16", "trace"),
+        ("bbox_dcn36_s0e", "ev_s0e_", 0, "bf16", "trace"),
+        ("bbox_dcn36_s0_f32", "ev_s0_f32_", 0, "f32", "trace")]
 # run dir -> (metric, JAX record at the same sampling, JAX train log)
-RUNS = {
-    "bbox_dcn36_s0": ("bbox_mAP", "ev2_b_near.json", "train_dcn36b.log"),
-    "bbox_dcn36_s1": ("bbox_mAP", "ev2_b_near.json", "train_dcn36b.log"),
-    "bbox_dcn36_s0b": ("bbox_mAP", "ev2_b_near.json", "train_dcn36b.log"),
-    "bbox_dcn36_s1b": ("bbox_mAP", "ev2_b_near.json", "train_dcn36b.log"),
-    "segm48": ("segm_mAP", "segm48.json", "train_segm48.log"),
-    "kbox36": ("keypoints_AP", "kbox36.json", "train_kbox36.log"),
-}
+RUNS = {**{run: ("bbox_mAP", "ev2_b_near.json", "train_dcn36b.log")
+           for run, *_ in BBOX},
+        "segm48": ("segm_mAP", "segm48.json", "train_segm48.log"),
+        "kbox36": ("keypoints_AP", "kbox36.json", "train_kbox36.log")}
 DEPLOYS = ("bilinear", "backbone_nearest", "backbone_nearest_refine_nearest")
 JAX_DEPLOY = {"bilinear": "ev2_bilinear.json",
               "backbone_nearest": "ev2_b_near.json",
@@ -69,11 +83,30 @@ def fmt(v, key):
     return f"{v:.4f}" if key == "keypoints_AP" else f"{v:.2f}"
 
 
+def verdict(ok):
+    return "within" if ok else "**missed**"
+
+
+def deploy_rows():
+    """{run: (seed, dtype, part, [mAP at each of DEPLOYS])} of the bbox
+    runs with all three eval-only deploys."""
+    rows = {}
+    for run, prefix, seed, dtype, part in BBOX:
+        if prefix is None:
+            continue
+        paths = [os.path.join(HERE, prefix + d, "result.json")
+                 for d in DEPLOYS]
+        if all(map(os.path.exists, paths)):
+            rows[run] = (seed, dtype, part,
+                         [metric(p, "bbox_mAP") for p in paths])
+    return rows
+
+
 def main():
-    print("| run | metric (deployed sampling) | JAX | card | train s |"
-          " loss at " + " / ".join(map(str, ITERS)) + " and the last "
-          "iteration (JAX) |")
-    print("|---|---|---|---|---|---|")
+    print("| run | metric (deployed sampling) | JAX | verdict | card |"
+          " train s | loss at " + " / ".join(map(str, ITERS))
+          + " and the last iteration (JAX) |")
+    print("|---|---|---|---|---|---|---|")
     for run, (key, jrec, jlog) in RUNS.items():
         res = os.path.join(HERE, run, "result.json")
         if not os.path.exists(res):
@@ -84,28 +117,59 @@ def main():
         losses = " / ".join(f"{pl.get(i, float('nan')):.4f} "
                             f"({jl.get(i, float('nan')):.4f})"
                             for i in its)
-        print(f"| {run} | {fmt(metric(res, key), key)} {r['sampling']} | "
-              f"{fmt(metric(os.path.join(JAX, jrec), key), key)} | "
-              f"{r['card']} | "
+        got = metric(res, key)
+        want = metric(os.path.join(JAX, jrec), key)
+        ok = {"bbox_mAP": got >= CONVERGED,
+              "segm_mAP": abs(got - want) <= SEGM,
+              "keypoints_AP": abs(got - want) <= KBOX}[key]
+        what = ("converged" if key == "bbox_mAP" else
+                f"{got - want:+.4g}") + f", {verdict(ok)}"
+        print(f"| {run} | {fmt(got, key)} {r['sampling']} | "
+              f"{fmt(want, key)} | {what} | {r['card']} | "
               f"{r['seconds']['train']:.1f} | {losses} |")
-    print()
-    print("| checkpoint | " + " | ".join(DEPLOYS) + " | deltas from "
-          "bilinear |")
-    print("|---|---|---|---|---|")
+
     jax_row = [metric(os.path.join(JAX, JAX_DEPLOY[d]), "bbox_mAP")
                for d in DEPLOYS]
-    rows = {"JAX dcn36b": jax_row}
-    for prefix, run in (("ev_", "bbox_dcn36_s0"),
-                        ("ev_s0b_", "bbox_dcn36_s0b"),
-                        ("ev_s1b_", "bbox_dcn36_s1b")):
-        paths = [os.path.join(HERE, prefix + d, "result.json")
-                 for d in DEPLOYS]
-        if all(map(os.path.exists, paths)):
-            rows[run] = [metric(p, "bbox_mAP") for p in paths]
-    for name, vals in rows.items():
-        deltas = ", ".join(f"{v - vals[0]:+.2f}" for v in vals[1:])
-        print(f"| {name} | " + " | ".join(f"{v:.2f}" for v in vals)
-              + f" | {deltas} |")
+    jax_deltas = [v - jax_row[0] for v in jax_row[1:]]
+    print()
+    print("| checkpoint | seed | train | run.sh part | " + " | ".join(DEPLOYS)
+          + " | bilinear from JAX (each within 2.5) | deltas from "
+          "bilinear (JAX's sign, within 0.5 of JAX's) |")
+    print("|---|---|---|---|---|---|---|---|---|")
+    print("| JAX dcn36b | 0 | bf16 | — | " + " | ".join(
+        f"{v:.2f}" for v in jax_row) + " | — | " + ", ".join(
+        f"{d:+.2f}" for d in jax_deltas) + " |")
+    rows = deploy_rows()
+    for run, (seed, dtype, part, vals) in rows.items():
+        off = vals[0] - jax_row[0]
+        deltas = [v - vals[0] for v in vals[1:]]
+        dv = ", ".join(
+            f"{d:+.2f} {verdict(d * j > 0 and abs(d - j) <= DELTA)}"
+            for d, j in zip(deltas, jax_deltas))
+        print(f"| {run} | {seed} | {dtype} | {part} | "
+              + " | ".join(f"{v:.2f}" for v in vals)
+              + f" | {off:+.2f} {verdict(abs(off) <= EACH_RUN)} | {dv} |")
+
+    print()
+    print("Means of the bilinear mAP (tolerance: within 1.5 of JAX's "
+          f"{jax_row[0]:.2f}); every bf16 run that has a bilinear eval, "
+          "none left out:")
+    print()
+    groups = {"all bf16 runs": [v[3][0] for v in rows.values()
+                                if v[1] == "bf16"]}
+    for seed in sorted({v[0] for v in rows.values()}):
+        groups[f"seed {seed}, bf16"] = [v[3][0] for v in rows.values()
+                                        if v[1] == "bf16" and v[0] == seed]
+    for name, vals in groups.items():
+        if not vals:
+            continue
+        mean = statistics.fmean(vals)
+        spread = (f", sample std {statistics.stdev(vals):.2f}"
+                  if len(vals) > 1 else "")
+        print(f"- {name}: n = {len(vals)}, mean {mean:.2f} "
+              f"({mean - jax_row[0]:+.2f}, "
+              f"{verdict(abs(mean - jax_row[0]) <= MEAN)}), range "
+              f"{min(vals):.2f}-{max(vals):.2f}{spread}")
 
 
 if __name__ == "__main__":

@@ -35,13 +35,12 @@ import os
 import re
 from collections import OrderedDict
 from types import MappingProxyType
-from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.heads.ls_head import MAIN_BRANCH
-from ..models.layers import ModulatedDeformConvPack
 from ..ops.flat_deform import (INFERENCE_SAMPLING, SITES, sampling_from_spec,
                                sampling_spec)
 from .optim import ClippedSGD
@@ -173,8 +172,7 @@ def _refuse(unknown: List[str], what: str) -> None:
                          f"refused): {sorted(unknown)[:20]}")
 
 
-def convert_torch_backbone(state_dict: Mapping[str, Any],
-                           dcn_convs: Iterable[str] = ()
+def convert_torch_backbone(state_dict: Mapping[str, Any]
                            ) -> "OrderedDict[str, torch.Tensor]":
     """A reference backbone ``state_dict`` -> the port's ``ResNet`` keys.
 
@@ -184,9 +182,7 @@ def convert_torch_backbone(state_dict: Mapping[str, Any],
     ``backbone.`` keys are taken and neck and head keys skipped; a
     ``module.`` prefix; DCNv2 packs, a ``convN.weight`` beside
     ``convN.conv_offset.*``, whose weight goes to the port's compact
-    (k, k, cin/G, cout) layout. ``dcn_convs`` names (in the reference's
-    names) more convolutions to load as DCN packs: an ImageNet file has
-    no ``conv_offset`` for the DCN stages of the model it starts. The
+    (k, k, cin/G, cout) layout. The
     downsample's conv and norm are told apart by rank, not index (an
     avg-down Sequential puts them at 1 and 2). ``num_batches_tracked``
     and ``fc.*`` are skipped; Res2Net keys (``convs.i``, ``bns.i``,
@@ -203,7 +199,7 @@ def convert_torch_backbone(state_dict: Mapping[str, Any],
             k = k[len("backbone."):]
         items[k] = val
     dcn = {k.rsplit(".conv_offset.", 1)[0] for k in items
-           if ".conv_offset." in k} | set(dcn_convs)
+           if ".conv_offset." in k}
 
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     unknown, res2net = [], []
@@ -356,19 +352,16 @@ def load_pretrained_backbone(model: torch.nn.Module, path: str
     ``state_dict``, or a dict holding one under ``state_dict``) into
     ``model.backbone`` in place; return the loaded keys. Every key the
     file fills must exist in the model with the same shape, else it
-    raises; the model's entries the file does not fill (the
-    ``conv_offset`` of DCN stages, for an ImageNet file) keep their
-    values."""
+    raises; the model's entries the file does not fill keep their values.
+    A DCN pack's weight loads only beside its ``conv_offset``: a file
+    without it (an ImageNet file for a model with DCN stages) meets the
+    pack's compact weight with an OIHW one and raises, as the JAX
+    loader does."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if "state_dict" in sd:
         sd = sd["state_dict"]
     backbone = model.backbone
-    # the DCN packs in the reference's names (layer2_0.conv2 ->
-    # layer2.0.conv2)
-    dcn = [re.sub(r"^layer(\d+)_(\d+)", r"layer\1.\2", n)
-           for n, m in backbone.named_modules()
-           if isinstance(m, ModulatedDeformConvPack)]
-    frag = convert_torch_backbone(sd, dcn_convs=dcn)
+    frag = convert_torch_backbone(sd)
     own = backbone.state_dict()
     for k, v in frag.items():
         if k not in own:

@@ -153,9 +153,9 @@ def test_refused(tmp_path, case):
 
 def test_imagenet_file_into_dcn_stages(tmp_path):
     """An ImageNet file has no ``conv_offset`` for the DCN stages of the
-    model it starts: ``load_pretrained_backbone`` loads each such
-    ``convN.weight`` into the DCN pack's compact layout and leaves the
-    offset convs as they were."""
+    model it starts. As in the JAX loader, such a ``convN.weight`` is not
+    taken for a DCN pack's weight: ``load_pretrained_backbone`` raises
+    and leaves the model as it was (no partial load)."""
     plain = mint_module_(ResNet(depth=50, block_type="resnext", groups=4,
                                 base_width=4), seed=3)
     sd = {**reference_state_dict(plain), "fc.weight": torch.zeros(10, 2048),
@@ -163,18 +163,12 @@ def test_imagenet_file_into_dcn_stages(tmp_path):
           "bn1.num_batches_tracked": torch.tensor(5)}
     dcn = _backbone("ResNeXt-G4-DCN")
     before = {k: v.clone() for k, v in dcn.state_dict().items()}
-    keys = pckpt.load_pretrained_backbone(_Detector(dcn),
-                                          _save(tmp_path, {"state_dict": sd}))
-    got, want = dcn.state_dict(), plain.state_dict()
-    assert set(keys) == set(want)
-    for k, v in got.items():
-        if "conv_offset" in k:
-            assert torch.equal(v, before[k]), k
-        elif k.endswith("conv2.weight") and v.dim() == 4 and \
-                v.shape != want[k].shape:           # a DCN pack
-            assert torch.equal(v, want[k].permute(2, 3, 1, 0)), k
-        else:
-            assert torch.equal(v, want[k]), k
+    with pytest.raises(ValueError, match="shape mismatch at backbone.layer"
+                       r"\d+_\d+\.conv2\.weight"):
+        pckpt.load_pretrained_backbone(_Detector(dcn),
+                                       _save(tmp_path, {"state_dict": sd}))
+    for k, v in dcn.state_dict().items():
+        assert torch.equal(v, before[k]), k
 
 
 @phooks.HOOKS.register_module()
