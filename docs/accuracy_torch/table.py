@@ -160,6 +160,13 @@ def main():
     for seed in sorted({v[0] for v in rows.values()}):
         groups[f"seed {seed}, bf16"] = [v[3][0] for v in rows.values()
                                         if v[1] == "bf16" and v[0] == seed]
+    bf16 = [v[3] for v in rows.values() if v[1] == "bf16"]
+    if bf16:
+        means = [statistics.fmean(r[i] - r[0] for r in bf16)
+                 for i in (1, 2)]
+        print("- deploy deltas of the bf16 runs, mean: " + ", ".join(
+            f"{d} {m:+.3f} (JAX {j:+.2f})"
+            for d, m, j in zip(DEPLOYS[1:], means, jax_deltas)))
     for name, vals in groups.items():
         if not vals:
             continue

@@ -14,14 +14,17 @@ the reference run moved it from the init (the whole model and the
 ``conv_offset`` tensors apart). Pairs: card f32 against the CPU (the
 kernels), card f32 against itself (the atomics' order), bf16 against f32
 on the card (the precision), bf16 against itself. All of it goes to
-``OUT/trace.json`` too.
+``OUT/trace.json`` too. f32 is full f32: TF32 is off in cuDNN's
+convolutions and in matmuls, unless ``--tf32`` leaves PyTorch's default
+(TF32 in cuDNN's convolutions).
 
     python3 docs/accuracy_torch/trace.py steps [--steps 20] [--out DIR]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--tf32]
     python3 docs/accuracy_torch/trace.py f32 ACCURACY_RUN_ARGS...
 
 ``f32`` runs ``lsnet_torch.tools.accuracy_run`` with its arguments and
-the train step in f32 (no bf16 autocast), and adds ``"train_dtype":
+the train step in f32 (no bf16 casts; PyTorch's default TF32 in
+cuDNN's convolutions), and adds ``"train_dtype":
 "float32"`` to its ``result.json``. With ``--device cpu`` the card's runs
 run on the CPU too (a check of the script, not a trace).
 """
@@ -100,8 +103,11 @@ def steps_main(argv):
     ap.add_argument("--out", default="work/accuracy_trace")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--train", type=int, default=160)
+    ap.add_argument("--tf32", action="store_true")
     opts = ap.parse_args(argv)
     card = runner_loop.runner_device(opts.device)
+    torch.backends.cudnn.allow_tf32 = opts.tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
     os.makedirs(opts.out, exist_ok=True)
     ann, img = make_shapes_coco(os.path.join(opts.out, "data_train"),
                                 opts.train, seed=0)
@@ -131,7 +137,7 @@ def steps_main(argv):
              "card_bf16 vs card_f32": ("card_bf16", "card_f32"),
              "card_bf16_again vs card_bf16": ("card_bf16_again",
                                               "card_bf16")}
-    report = {"steps": opts.steps, "device": str(card),
+    report = {"steps": opts.steps, "device": str(card), "tf32": opts.tf32,
               "card": accuracy_run.card_name(card),
               "records": {n: g[1] for n, g in got.items()}, "pairs": {}}
     for label, (a, b) in pairs.items():
