@@ -33,7 +33,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    of the four tasks, f32): (a) the head outputs, (b) the training loss
    and every parameter's gradient (ResNeXt-shaped, each task);
 4. drive the main paths, each with the kernels' launch counts set to 0
-   just before and read just after: (a) ``inference_detector`` (forward +
+   just before and read just after: (a) ``detect`` (forward +
    decode + NMS, the shipped inference sampling) on a batch of two
    800x1344 images, seeded random bf16 weights, for the full-width
    LSNet-R50 flagship and the full-width LSNet X-101-64x4d-DCN in the
@@ -79,7 +79,33 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    train step (bf16: R50's c3-c5 DCN at 128-512 channels, the stride-2
    first blocks, the 64-channel towers and refine) and of the first eval
    batch (f32) are kept, and each call's kernel is held against its plain
-   version on them at phase 2's tolerance.
+   version on them at phase 2's tolerance;
+8. the image-level API (``lsnet_torch.apis``): (a) a narrow
+   Res2Net-50-DCN segm model (``base_channels=16, base_width=13``: 3x3
+   widths 26 / 52 / 104 in c3-c5) through ``init_detector`` (config and
+   checkpoint) and ``inference_detector`` on a 480x640 image, f32, on the
+   card and on the CPU: the same detections and labels, boxes and
+   landmarks within 1e-3 of the image size; (b) the shipped
+   Res2Net-101-DCN segm file at full width from a checkpoint written by
+   ``save_checkpoint``: ``inference_detector`` on a numpy image and on a
+   PNG path (equal), every K1 call of one forward (98: 90 backbone at
+   C = 52 / 104 / 208, 8 head) held against its plain version in f32 and
+   in bf16, ``fuse_conv_bn=True`` giving the unfused detections,
+   ``aug_test`` at (1333, 800) and (1666, 1000) with flip, its vote on the
+   card against the numpy oracle on the same per-augmentation
+   detections, ``async_inference_detector`` equal to the sync call,
+   ``show_result`` writing a file; it prints img/s (host clock, image in
+   to numpy out, median of 5), aug_test seconds per image, the device
+   kernel time and idle share, peak memory and the launches per path;
+   (c) ``aug_test_simple`` on the shipped X-101-64x4d-DCN bbox file, one
+   scale with flip. Phase 2a also holds K1 at Res2Net's C = cout = 52,
+   104 and 208 (nearest and bilinear, stride 1 and 2, f32 and bf16),
+   where the wrapper pads C and cout to the kernel's multiples, and
+   times the padding copy apart. The seeded weights of phase 8 spread the
+   classifier (x30) so that no two kept scores tie, and zero the backbone
+   ``conv_offset`` kernels so that no nearest sample sits near a rounding
+   tie: card against CPU and fused against unfused then compare
+   detections, not rounding flips.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (all ten kernels) and, last, ``{"ok": true, "device": {...}}``; the
@@ -87,7 +113,8 @@ card's clocks, power draw and temperature are logged before and after
 phases 2c, 2d and the profiled train steps. ``python3 chip_smoke.py --only
 backward`` builds, runs phases 2c and 2d alone and prints no result line
 (for work on the backward kernels); ``--only probes`` does the same for
-phase 2e, ``--only accuracy`` for phase 7. With
+phase 2e, ``--only accuracy`` for phase 7, ``--only api`` for the Res2Net
+K1 cases of phase 2a and phase 8. With
 ``CHIP_SMOKE_LOG=<path>`` in the environment it also writes every line it
 prints to that file. It needs the repository
 around it and a CUDA device, and runs no JAX.
@@ -102,20 +129,23 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from lsnet_torch import _build  # noqa: E402
-from lsnet_torch.apis import (inference_detector, init_detector,  # noqa: E402
+from lsnet_torch import apis  # noqa: E402
+from lsnet_torch.apis import (detect, init_model,  # noqa: E402
                               train_detector_step)
 from lsnet_torch import configs  # noqa: E402
 from lsnet_torch.configs import (flagship_r50_cfg,  # noqa: E402
                                  x101_flagship_cfg)
 from lsnet_torch.core.decode import TestConfig, lsnet_decode  # noqa: E402
 from lsnet_torch.core.loss import LossConfig, lsnet_loss  # noqa: E402
-from lsnet_torch.models import build_backbone  # noqa: E402
+from lsnet_torch.evalkit import tta  # noqa: E402
+from lsnet_torch.models import build_backbone, build_detector  # noqa: E402
 from lsnet_torch.models.heads.ls_head import branch_pyramid_jobs  # noqa: E402
 from lsnet_torch.models.init import init_weights_  # noqa: E402
 from lsnet_torch.models.layers import (  # noqa: E402
@@ -137,7 +167,8 @@ from lsnet_torch.train import checkpoint as ckpt  # noqa: E402
 from lsnet_torch.train import hooks as runner_hooks  # noqa: E402
 from lsnet_torch.train import loop as runner_loop  # noqa: E402
 from lsnet_torch.train import step as runner_step  # noqa: E402
-from lsnet_torch.train.optim import build_lr_schedule  # noqa: E402
+from lsnet_torch.train.optim import (build_lr_schedule,  # noqa: E402
+                                     build_optimizer)
 from lsnet_torch.utils.config import Config  # noqa: E402
 
 B, H, W = 2, 800, 1344
@@ -189,6 +220,21 @@ ACC_EPOCHS, ACC_TRAIN, ACC_VAL, ACC_BATCH = 2, 80, 16, 8
 # DCN blocks of R50's c3-c5 (4 + 6 + 3), 2 DCN tower blocks for each of
 # the 2 branches, the 2 contractions of the paired refine gather
 ACC_K1_PER_STEP = 13 + 2 * 2 + 2
+# phase 8: the image-level API. Res2Net-101's DCN stages at the 800x1344
+# canvas, B=1: output map, 3x3 width C = cout (floor(planes * 26 / 64)),
+# blocks (each block three K1 calls on channel slices; the first samples
+# at stride 2 from a map twice the size)
+RES2_STAGES = [("c3", (100, 168), 52, 4), ("c4", (50, 84), 104, 23),
+               ("c5", (25, 42), 208, 3)]
+RES2_K1_PER_FORWARD = (3 * sum(n for *_, n in RES2_STAGES)
+                       + K1_PER_FORWARD["segm"])               # 90 + 8
+RES2_CONFIG = os.path.join(
+    REPO, "configs", "lsnet",
+    "lsnet_segm_res2_101_fpn_dconv_c3-c5_mstrain_30e_coco.py")
+API_IMAGE_HW = (480, 640)
+API_SCALES = [(1333, 800), (1666, 1000)]         # aug_test, each with flip
+API_RUNS = 5                     # timed inference_detector calls (median)
+CLS_SPREAD = 30.0                # the classifier's weights x this (below)
 
 
 LOG_PATH = os.environ.get("CHIP_SMOKE_LOG")    # optional copy of the log
@@ -1012,8 +1058,8 @@ def check_small_against_cpu():
         cases.append((f"ResNeXt-shaped {task}", narrow_task_cfg(task)))
     for label, cfg in cases:
         cfg["bbox_head"]["num_classes"] = 8
-        cpu = unit_bn_scales_(init_detector(cfg, device="cpu", seed=1))
-        gpu = unit_bn_scales_(init_detector(cfg, device="cuda", seed=1))
+        cpu = unit_bn_scales_(init_model(cfg, device="cpu", seed=1))
+        gpu = unit_bn_scales_(init_model(cfg, device="cuda", seed=1))
         images = torch.randn(2, 96, 128, 3,
                              generator=torch.Generator().manual_seed(1))
         with torch.inference_mode():
@@ -1033,7 +1079,7 @@ def drive_main_path(label, cfg, grouped_per_forward, task="bbox"):
     """Phase 4: a full-width model end to end, B=2 at 800x1344, bf16, with
     the task's own test settings."""
     t0 = time.perf_counter()
-    model = init_detector(cfg, device="cuda", seed=0, dtype=torch.bfloat16)
+    model = init_model(cfg, device="cuda", seed=0, dtype=torch.bfloat16)
     gen = torch.Generator().manual_seed(0)
     images = torch.randn(B, H, W, 3, generator=gen).to(
         "cuda", torch.bfloat16)
@@ -1043,7 +1089,7 @@ def drive_main_path(label, cfg, grouped_per_forward, task="bbox"):
     log(f"{label} model built in {time.perf_counter() - t0:.1f}s")
 
     def run():
-        return inference_detector(model, images, img_shapes, sfs, tcfg)
+        return detect(model, images, img_shapes, sfs, tcfg)
 
     for _ in range(2):                      # warm-up
         run()
@@ -1146,8 +1192,8 @@ def check_small_gradients(task):
     lcfg = loss_config(task, hw, 8)
     grads = {}
     for device in ("cpu", "cuda"):
-        model = unit_bn_scales_(init_detector(cfg, device=device, seed=1,
-                                              train=True))
+        model = unit_bn_scales_(init_model(cfg, device=device, seed=1,
+                                           train=True))
         batch = synthetic_batch(2, hw, 4, 8, 1, device)
         outs = model(batch["image"], fd.TRAIN_SAMPLING)
         total, _ = lsnet_loss(outs, batch, lcfg)
@@ -1203,7 +1249,7 @@ def drive_train_path(task, cfg):
     label = f"X-101 {task} train"
     num_classes = cfg["bbox_head"]["num_classes"]
     t0 = time.perf_counter()
-    model = init_detector(cfg, device="cuda", seed=0, train=True)
+    model = init_model(cfg, device="cuda", seed=0, train=True)
     step = train_detector_step(
         model, loss_config(task, (H, W), num_classes), base_lr=0.01)
     batch = synthetic_batch(B, (H, W), NUM_GT, num_classes, 0, "cuda")
@@ -1650,10 +1696,10 @@ def check_k1_calls(label, calls):
                           dtype=str(args_list[0][0].dtype).split(".")[-1],
                           max_abs_err=worst, max_err_over_limit=ratio,
                           c_cout_px=sorted(shapes))
-        log(f"accuracy_run {label} K1 {name} " + json.dumps(rows[name]))
+        log(f"{label} K1 {name} " + json.dumps(rows[name]))
         if not ok:
-            raise AssertionError(f"accuracy_run {label}: K1 {name} "
-                                 f"disagrees: {rows[name]}")
+            raise AssertionError(f"{label}: K1 {name} disagrees: "
+                                 f"{rows[name]}")
     return rows
 
 
@@ -1721,7 +1767,7 @@ def check_accuracy_run(root):
     if "bbox_mAP" not in metrics or any(
             not k.startswith("bbox_") for k in metrics):
         raise AssertionError(f"accuracy_run: metrics {metrics}")
-    train_calls = check_k1_calls("train step 1", calls)
+    train_calls = check_k1_calls("accuracy_run train step 1", calls)
 
     ckpt_path = os.path.join(out, "ckpts", f"step_{steps}.pt")
     calls, undo = capture_k1_calls(ACC_K1_PER_STEP)
@@ -1746,20 +1792,383 @@ def check_accuracy_run(root):
             abs(near["metrics"][k] - v) > 0.01 for k, v in metrics.items()):
         raise AssertionError("accuracy_run --eval-only: metrics differ from "
                              "the run's own evaluation")
-    eval_calls = check_k1_calls("eval batch 1", calls)
+    eval_calls = check_k1_calls("accuracy_run eval batch 1", calls)
     return step_counts[0], {k: v // eval_batches for k, v in counts.items()}, {
         "train_and_eval_s": train_s, "eval_only_s": eval_s,
         "losses": losses, "metrics": metrics, "card": res["card"],
         "k1_calls_checked": {"train step 1": train_calls,
                              "eval batch 1": eval_calls}}
 
+def res2net_k1_inputs(gen, out_hw, C, stride, sampling, dtype):
+    """(flat, idx, w, weight) of one Res2Net DCN call, B=1: a random input
+    map of C channels (twice the output size at stride 2), random offsets
+    and masks through the port's index code, a (K, C, C) weight."""
+    dev = torch.device("cuda")
+    h, w = out_hw
+    feat = torch.randn(1, h * stride, w * stride, C, generator=gen)
+    levels = fd.pack_levels([feat.to(dev, dtype)])
+    job = fd.SampleJob(
+        0, (2.0 * torch.randn(1, h, w, 2 * K, generator=gen)).to(dev),
+        torch.rand(1, h, w, K, generator=gen).to(dev), (1.0, 1.0),
+        (stride, stride), (1, 1), (1, 1))
+    idx, wts = fd._gather_indices_tap(levels, [job], K, sampling)
+    weight = (0.05 * torch.randn(K, C, C, generator=gen)).to(dev, dtype)
+    return levels.flat.contiguous(), idx, wts, weight
+
+
+def check_res2net_kernel():
+    """Phase 2a, Res2Net: deform_gather_contract vs its plain version at
+    C = cout = 52, 104, 208 (c3-c5 of Res2Net-101), stride 1 and the
+    stage's stride-2 first block, nearest and bilinear, f32 and bf16. The
+    wrapper pads C and cout to the kernel's multiples: its time includes
+    that copy, which is also timed alone (``pad_ms``). For bf16 nearest
+    (the shipped inference sampling) the einsum on the gathered patch
+    tensor is the yardstick, and the calls sum to K1's time per forward.
+    Returns (rows of bf16 nearest by stage and stride, per-forward sums,
+    max error)."""
+    gen = torch.Generator().manual_seed(8)
+    rows, max_err = {}, 0.0
+    for stage, out_hw, C, _ in RES2_STAGES:
+        for stride in (1, 2):
+            for dtype in (torch.float32, torch.bfloat16):
+                for sampling in ("nearest", "bilinear"):
+                    args = res2net_k1_inputs(gen, out_hw, C, stride,
+                                             sampling, dtype)
+                    got = deform_gather_contract(*args).float()
+                    want = deform_gather_contract_ref(*args).float()
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    lim = TOL[dtype] * max(1.0, want.abs().max().item())
+                    ok = (bool(torch.isfinite(got).all()) and err <= lim
+                          and got.shape == want.shape)
+                    del got, want
+                    bnd, by = bound_ms(args)
+                    row = dict(
+                        stage=stage, stride=stride, C=C, cout=C,
+                        dtype=str(dtype).split(".")[-1], sampling=sampling,
+                        px=args[1].shape[2], nc=args[1].shape[0],
+                        max_abs_err=err, limit=lim,
+                        ms=cuda_ms(lambda: deform_gather_contract(*args),
+                                   20),
+                        pad_ms=cuda_ms(lambda: dg.pad_channels(
+                            args[0], args[3]), 20),
+                        plain_ms=cuda_ms(
+                            lambda: deform_gather_contract_ref(*args), 3),
+                        bound_ms=bnd, bound_by=by)
+                    # the kernel alone, by the profiler: the events above
+                    # also time the wrapper's host work and the padding
+                    row["device_us"] = kernel_device_us(
+                        lambda: deform_gather_contract(*args), "dgc_")
+                    if dtype == torch.bfloat16 and sampling == "nearest":
+                        vals = dg.gathered_rows(*args[:3]).to(dtype)
+                        row["library_ms"] = cuda_ms(
+                            lambda: torch.einsum("kpc,kco->po", vals,
+                                                 args[3]), 10)
+                        del vals
+                        rows[(stage, stride)] = row
+                    log("kernel res2net " + json.dumps(row))
+                    if not ok:
+                        raise AssertionError(f"kernel disagrees: {row}")
+                    max_err = max(max_err, err)
+                    del args
+    keys = ("ms", "device_us", "pad_ms", "plain_ms", "bound_ms",
+            "library_ms")
+    fwd = {key: sum(3 * (rows[(st, 2)][key] + (n - 1) * rows[(st, 1)][key])
+                    for st, _, _, n in RES2_STAGES) for key in keys}
+    log("kernel res2net bf16 nearest per Res2Net-101 forward (90 calls) "
+        + json.dumps(fwd))
+    return rows, fwd, max_err
+
+
+def api_weights_(model, seed):
+    """Phase 8's seeded weights, in place: ``random_weights_``, then the
+    classifier ``pts_cls_out`` x CLS_SPREAD (the kept scores then lie far
+    apart: no two of them tie within the card's ~1e-6 differences) and
+    the backbone ``conv_offset`` kernels 0 (each backbone sample within a
+    bias of a lattice point, far from a nearest-rounding tie)."""
+    apis.random_weights_(model, seed)
+    with torch.no_grad():
+        model.head.pts_cls_out.weight.mul_(CLS_SPREAD)
+        for name, m in model.backbone.named_modules():
+            if name.endswith("conv_offset"):
+                m.weight.zero_()
+    return model
+
+
+def seeded_checkpoint(cfg, ckpt_dir, seed=0):
+    """A runner checkpoint (``save_checkpoint``, step 0, the train meta of
+    a bilinear run) of ``cfg``'s model with phase 8's seeded weights."""
+    model = api_weights_(build_detector(cfg.model.to_dict()), seed)
+    optimizer, _ = build_optimizer(model.parameters(), 0.01, 1, (8, 11))
+    return ckpt.save_checkpoint(ckpt_dir, model, optimizer, 0,
+                                ckpt.train_meta())
+
+
+def api_image(seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.rand(*API_IMAGE_HW, 3, generator=gen) * 255).to(
+        torch.uint8).numpy()
+
+
+def same_detections(label, got, want, vec="landmarks", atol=None):
+    """Same count and labels; each label's detections paired one to one
+    (least largest difference, ``linear_sum_assignment``) with boxes and
+    vectors within ``atol`` (1e-3 of the image size by default) and scores
+    within 1e-4. Returns the largest box / vector error."""
+    from scipy.optimize import linear_sum_assignment
+    atol = 1e-3 * max(API_IMAGE_HW) if atol is None else atol
+    n = len(want["scores"])
+    if len(got["scores"]) != n or not n or not np.array_equal(
+            np.sort(got["labels"]), np.sort(want["labels"])):
+        raise AssertionError(f"{label}: {len(got['scores'])} detections, "
+                             f"want {n} (> 0) with the same labels")
+    err = serr = 0.0
+    for lab in np.unique(want["labels"]):
+        g, w_ = (np.concatenate([r["bboxes"], r[vec]], 1)[r["labels"] == lab]
+                 for r in (got, want))
+        cost = np.abs(g[:, None] - w_[None]).max(-1)
+        rows, cols = linear_sum_assignment(cost)
+        err = max(err, float(cost[rows, cols].max()))
+        serr = max(serr, float(np.abs(
+            got["scores"][got["labels"] == lab][rows]
+            - want["scores"][want["labels"] == lab][cols]).max()))
+    if err > atol or serr > 1e-4:
+        raise AssertionError(f"{label}: detections differ (box / vector "
+                             f"{err:.3g} > {atol:.3g} or score {serr:.3g} "
+                             "> 1e-4)")
+    return err
+
+
+def narrow_res2net_cfg():
+    """Phase 8a: the Res2Net segm file cut to Res2Net-50 at
+    ``base_channels=16, base_width=13`` (3x3 widths 13 / 26 / 52 / 104:
+    every DCN width not a multiple of 8 or of 32), FPN and head at 64
+    channels, test scale (640, 384)."""
+    cfg = Config.fromfile(RES2_CONFIG)
+    cfg.model.backbone.update(depth=50, base_channels=16, base_width=13)
+    cfg.model.neck.update(out_channels=64)
+    cfg.model.bbox_head.update(in_channels=64, feat_channels=64,
+                               point_feat_channels=64)
+    cfg.data.test.img_scale = (640, 384)
+    return cfg
+
+
+def check_api_narrow(root):
+    """Phase 8a: the narrow Res2Net-DCN through init_detector (config and
+    checkpoint) + inference_detector, f32, card against CPU."""
+    cfg = narrow_res2net_cfg()
+    path = seeded_checkpoint(cfg, os.path.join(root, "narrow"))
+    img = api_image(1)
+    res = {dev: apis.inference_detector(
+        apis.init_detector(cfg, path, device=dev), img)
+        for dev in ("cpu", "cuda")}
+    err = same_detections("narrow Res2Net card vs CPU", res["cuda"],
+                          res["cpu"])
+    log(f"api narrow Res2Net-50-DCN segm (widths 26/52/104), card vs CPU: "
+        f"{len(res['cpu']['scores'])} detections, labels equal, max box / "
+        f"contour error {err:.3g} px")
+
+
+def capture_forward_k1(bundle, img, want_calls):
+    """Every K1 call of one ``inference_detector`` call, each held against
+    its plain version (``check_k1_calls``)."""
+    calls, undo = capture_k1_calls(10 * want_calls)
+    try:
+        apis.inference_detector(bundle, img)
+    finally:
+        undo()
+    n = len(calls["forward"])
+    if n != want_calls or calls["bwd_data"] or calls["bwd_weight"]:
+        raise AssertionError(f"captured {n} K1 forward calls, want "
+                             f"{want_calls}")
+    return check_k1_calls(f"api Res2Net-101 {bundle.dtype}",
+                          calls)["forward"]
+
+
+def check_api_full(root):
+    """Phase 8b and 8c. Returns (numbers, launches by path)."""
+    import asyncio
+    import statistics
+    from PIL import Image as PILImage
+    cfg = Config.fromfile(RES2_CONFIG)
+    t0 = time.perf_counter()
+    path = seeded_checkpoint(cfg, os.path.join(root, "res2"))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bundle = apis.init_detector(RES2_CONFIG, path)
+    init_s = time.perf_counter() - t0
+    if dict(bundle.sampling) != dict(fd.INFERENCE_SAMPLING):
+        raise AssertionError(f"deploy sampling {dict(bundle.sampling)}")
+    img = api_image(0)
+    png = os.path.join(root, "image.png")
+    PILImage.fromarray(img).save(png)
+    by_path, numbers = {}, {"checkpoint_write_s": write_s,
+                            "init_detector_s": init_s}
+
+    # (b) inference_detector: warm-up, then counted and timed calls
+    for _ in range(2):
+        res = apis.inference_detector(bundle, img)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    res = apis.inference_detector(bundle, img)
+    by_path["api inference_detector"] = launch_counts()
+    want = {**dict.fromkeys(launch_counts(), 0),
+            "deform_gather_contract": RES2_K1_PER_FORWARD}
+    if by_path["api inference_detector"] != want:
+        raise AssertionError(f"inference_detector launches "
+                             f"{by_path['api inference_detector']}")
+    times = []
+    for _ in range(API_RUNS):
+        t0 = time.perf_counter()
+        res = apis.inference_detector(bundle, img)
+        times.append(time.perf_counter() - t0)
+    numbers["inference_detector_s"] = times
+    numbers["img_per_s"] = 1.0 / statistics.median(times)
+    numbers["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    n = len(res["scores"])
+    if not n or res["landmarks"].shape != (n, 72) or not all(
+            bool(np.isfinite(v).all()) for v in res.values()):
+        raise AssertionError(f"inference_detector result: {n} detections")
+    from_png = apis.inference_detector(bundle, png)
+    same_detections("PNG path vs array", from_png, res, atol=0.0)
+    log(f"api Res2Net-101-DCN segm inference_detector: {n} detections, "
+        f"{numbers['img_per_s']:.3f} img/s (host clock, median of "
+        f"{API_RUNS}: {[round(t * 1e3, 2) for t in times]} ms), peak "
+        f"memory {numbers['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
+    profile("api Res2Net-101-DCN segm inference_detector",
+            lambda: apis.inference_detector(bundle, img),
+            1e3 / numbers["img_per_s"])
+
+    # every K1 call of one forward, f32 and bf16
+    numbers["k1_calls_checked"] = {"float32": capture_forward_k1(
+        bundle, img, RES2_K1_PER_FORWARD)}
+    bf16 = apis.init_detector(RES2_CONFIG, path, dtype=torch.bfloat16)
+    numbers["k1_calls_checked"]["bfloat16"] = capture_forward_k1(
+        bf16, img, RES2_K1_PER_FORWARD)
+    times = []
+    for _ in range(API_RUNS):
+        t0 = time.perf_counter()
+        apis.inference_detector(bf16, img)
+        times.append(time.perf_counter() - t0)
+    numbers["bf16_img_per_s"] = 1.0 / statistics.median(times)
+    log(f"api Res2Net-101-DCN segm inference_detector in bf16: "
+        f"{numbers['bf16_img_per_s']:.3f} img/s (host clock, median of "
+        f"{API_RUNS})")
+    profile("api Res2Net-101-DCN segm inference_detector bf16",
+            lambda: apis.inference_detector(bf16, img),
+            1e3 / numbers["bf16_img_per_s"])
+    del bf16
+
+    # fused FrozenBatchNorm: the unfused detections
+    fused = apis.init_detector(RES2_CONFIG, path, fuse_conv_bn=True)
+    err = same_detections("fuse_conv_bn", apis.inference_detector(fused, img),
+                          res)
+    log(f"api fuse_conv_bn=True: the unfused {n} detections, max box / "
+        f"contour error {err:.3g} px")
+    del fused
+
+    # aug_test: 2 scales x flip on two canvases; its vote against the
+    # numpy oracle on the same per-augmentation detections
+    votes = []
+    real_vote = tta.aug_test_vote
+
+    def keep_vote(*args, **kwargs):
+        votes.append((args, kwargs))
+        return real_vote(*args, **kwargs)
+
+    tta.aug_test_vote = keep_vote
+    try:
+        apis.aug_test(bundle, img, scales=API_SCALES, flip=True)  # warm-up
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        merged = apis.aug_test(bundle, img, scales=API_SCALES, flip=True)
+        numbers["aug_test_s_per_image"] = time.perf_counter() - t0
+        by_path["api aug_test"] = launch_counts()
+    finally:
+        tta.aug_test_vote = real_vote
+    if by_path["api aug_test"]["deform_gather_contract"] != \
+            4 * RES2_K1_PER_FORWARD:
+        raise AssertionError(f"aug_test launches {by_path['api aug_test']}")
+    args, kwargs = votes[-1]
+    oracle = real_vote(*args, **{**kwargs, "use_device": False})
+    err = same_detections("aug_test vote card vs numpy oracle", merged,
+                          oracle, vec="vectors", atol=1e-3)
+    log(f"api aug_test {API_SCALES} x flip: {len(merged['scores'])} voted "
+        f"detections from {sum(len(r['scores']) for r in args[0])}, "
+        f"{numbers['aug_test_s_per_image']:.3f} s per image; the card's "
+        f"vote equals the numpy oracle (max error {err:.3g} px)")
+    # the same first augmentation twice, the copy's boxes shifted by 8 %
+    # of their size (IoU 0.73 with the original): every detection meets a
+    # partner, so the vote merges and re-emits soft detections
+    first = args[0][0]
+    b = first["bboxes"]
+    wh = np.tile(b[:, 2:] - b[:, :2], 2)
+    jit = dict(first, bboxes=b + 0.08 * wh, scores=first["scores"] * 0.9)
+    pair = ([first, jit], [args[1][0]] * 2, [(0, 10000)])
+    card = real_vote(*pair, **kwargs)
+    err = same_detections("vote of jittered pairs, card vs numpy oracle",
+                          card, real_vote(*pair, **{**kwargs,
+                                                    "use_device": False}),
+                          vec="vectors", atol=1e-3)
+    if not len(card["scores"]) > len(first["scores"]):
+        raise AssertionError("the jittered pairs made no soft detection")
+    log(f"api vote of {len(first['scores'])} detections and their jittered "
+        f"copies: {len(card['scores'])} merged and soft detections, card "
+        f"equals the numpy oracle (max error {err:.3g} px)")
+
+    # async_inference_detector and show_result
+    async def gather():
+        return await asyncio.gather(*[
+            apis.async_inference_detector(bundle, img) for _ in range(3)])
+    for a in asyncio.run(gather()):
+        same_detections("async vs sync", a, res, atol=0.0)
+    out_file = os.path.join(root, "show.png")
+    shown = apis.show_result(img, res, "segm", score_thr=0.0,
+                             out_file=out_file)
+    if shown.shape != img.shape or not os.path.getsize(out_file):
+        raise AssertionError("show_result wrote no image")
+    del bundle
+    torch.cuda.empty_cache()
+
+    # (c) aug_test_simple on the X-101-64x4d-DCN bbox file
+    x101 = apis.init_detector(RUNNER_CONFIG)
+    api_weights_(x101.model, 0)
+    apis.aug_test_simple(x101, img, scales=[(1333, 800)], flip=True)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    simple = apis.aug_test_simple(x101, img, scales=[(1333, 800)],
+                                  flip=True)
+    numbers["aug_test_simple_s_per_image"] = time.perf_counter() - t0
+    by_path["api aug_test_simple"] = launch_counts()
+    want = {**dict.fromkeys(launch_counts(), 0),
+            "deform_gather_contract": 2 * K1_PER_FORWARD["bbox"],
+            "deform_gather_grouped_contract": 2 * GROUPED_PER_FORWARD}
+    n = len(simple["scores"])
+    if by_path["api aug_test_simple"] != want or not n \
+            or simple["landmarks"].shape != (n, 8):
+        raise AssertionError(f"aug_test_simple: {n} detections, launches "
+                             f"{by_path['api aug_test_simple']}")
+    log(f"api aug_test_simple X-101-64x4d-DCN bbox (1333, 800) x flip: {n} "
+        f"detections, {numbers['aug_test_simple_s_per_image']:.3f} s per "
+        "image")
+    return numbers, by_path
+
+
+def check_api(root):
+    """Phase 8."""
+    check_api_narrow(root)
+    return check_api_full(root)
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["backward", "probes", "accuracy"],
+    parser.add_argument("--only", choices=["backward", "probes", "accuracy",
+                                           "api"],
                         default=None,
-                        help="run phases 2c and 2d, phase 2e, or phase 7 "
-                        "alone; no result line")
+                        help="run phases 2c and 2d, phase 2e, phase 7, or "
+                        "phase 2a's Res2Net cases and phase 8 alone; no "
+                        "result line")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1803,8 +2212,19 @@ def main(argv=None):
         log(f"partial run (--only accuracy) passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
         return 0
+    if opts.only == "api":
+        import tempfile
+        check_res2net_kernel()
+        with tempfile.TemporaryDirectory() as root:
+            numbers, by_path = check_api(root)
+        log(f"{smi}: api " + json.dumps(numbers))
+        log("launches per call " + json.dumps(by_path))
+        log(f"partial run (--only api) passed in "
+            f"{time.perf_counter() - t_start:.1f}s; no result line")
+        return 0
 
     fwd, max_err = check_kernel()
+    res2_rows, res2_fwd, res2_err = check_res2net_kernel()
     gfwd, gmax_err = check_grouped_kernel(
         logs.get("grouped_deform_contract", ""))
     bwd = check_backward_kernels()
@@ -1861,6 +2281,12 @@ def main(argv=None):
          acc) = check_accuracy_run(os.path.join(root, "accuracy"))
         log(f"{smi}: accuracy_run R50-DCN bbox " + json.dumps(acc)
             + f" (phase 7 in {time.perf_counter() - t0:.1f}s)")
+        # phase 8: the image-level API
+        t0 = time.perf_counter()
+        api_numbers, api_paths = check_api(os.path.join(root, "api"))
+        by_path.update(api_paths)
+        log(f"{smi}: api Res2Net-101-DCN segm " + json.dumps(api_numbers)
+            + f" (phase 8 in {time.perf_counter() - t0:.1f}s)")
     for name, entry in probe_entries.items():
         by_path.setdefault("lsnet_torch.tools.probe", {})[name] = \
             entry["launches"]
@@ -1907,6 +2333,14 @@ def main(argv=None):
         "library_ms": fwd["library_ms"],
         "pose_bbox_ms": pose_bbox_ms(fwd["per_call"]),
         "per_call": fwd["per_call"],
+        "res2net_max_abs_err": res2_err,
+        "res2net_forward_ms": res2_fwd,
+        "res2net_per_call": {
+            f"{st} C={row['C']} stride {stride}": {
+                k: row[k] for k in ("px", "ms", "device_us", "pad_ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}
+            for (st, stride), row in res2_rows.items()},
         "launches_by_path": path_counts("deform_gather_contract")}, {
         "name": "deform_gather_grouped_contract", "route": "cuda",
         "source": "lsnet_torch/csrc/grouped_deform_contract.cu",

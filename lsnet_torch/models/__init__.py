@@ -1,6 +1,6 @@
 """Model builders (counterpart of ``lsnet_tpu/models/__init__.py``): config
 dicts with a ``type`` key -> ``nn.Module``s. The port builds ResNet,
-ResNeXt, FPN, LSHead (all four tasks) and LSDetector."""
+ResNeXt, Res2Net, FPN, LSHead (all four tasks) and LSDetector."""
 
 from __future__ import annotations
 
@@ -15,9 +15,13 @@ from .necks.fpn import FPN
 def build_backbone(cfg: Dict[str, Any]) -> ResNet:
     cfg = dict(cfg)
     kind = cfg.pop("type")
-    block_type = {"ResNet": "resnet", "ResNeXt": "resnext"}.get(kind)
+    block_type = {"ResNet": "resnet", "ResNeXt": "resnext",
+                  "Res2Net": "res2net"}.get(kind)
     if block_type is None:
         raise NotImplementedError(f"backbone {kind}")
+    if kind == "Res2Net":
+        cfg.setdefault("base_width", 26)
+        cfg.setdefault("deep_stem", True)   # res2net101_v1d pretrain layout
     for k in ("pretrained", "norm_cfg", "norm_eval", "style",
               "zero_init_residual"):
         cfg.pop(k, None)     # BN is always FrozenBatchNorm; pytorch style
@@ -56,6 +60,9 @@ def build_detector(cfg: Dict[str, Any]) -> LSDetector:
     """Build the detector from a full ``model`` config dict."""
     cfg = dict(cfg)
     kind = cfg.pop("type")
+    if kind == "LSCPVDetector":
+        raise NotImplementedError("LSCPVDetector (CPV): ROADMAP Queue 1 "
+                                  "item 10")
     if kind != "LSDetector":
         raise NotImplementedError(f"detector {kind}")
     backbone = build_backbone(cfg.pop("backbone"))

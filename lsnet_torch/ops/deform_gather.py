@@ -32,6 +32,14 @@ The bf16 routes of the forward and bwd-weight kernels take blocks of all
 TMA brings in); the f32 routes, kept for exact checks, 64 x 64 tiles.
 The backward kernels add into f32 buffers with atomics, so their sums'
 order, and the last bits, change from run to run.
+
+The kernels take C in multiples of 32 (bf16) or 16 (f32) and cout in
+multiples of 8 (16-byte rows for ``cp.async`` and the TMA strides). The
+forward wrapper takes any C and cout: it zero-pads ``flat``'s rows and
+the weight to those multiples (:func:`pad_channels`, a copy of ``flat``
+per call: Res2Net's 52 / 104 / 208 channels become 64 / 128 / 224) and
+slices the output. The backward wrappers do not pad: they raise on such
+shapes (training Res2Net on the card is still to come).
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import functools
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 
@@ -55,7 +64,30 @@ def deform_gather_contract_ref(flat: torch.Tensor, idx: torch.Tensor,
     return out.to(flat.dtype)
 
 
-def _check(flat, idx, w, weight):
+def channel_multiples(dtype: torch.dtype) -> Tuple[int, int]:
+    """(C, cout) multiples the kernels take for ``dtype``."""
+    return (32 if dtype == torch.bfloat16 else 16), 8
+
+
+def pad_channels(flat: torch.Tensor, weight: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flat`` (R, C) and ``weight`` (K, C, cout) zero-padded to C and
+    cout multiples of :func:`channel_multiples` (the inputs themselves
+    where they are already): the zero channels add nothing to the sums,
+    the zero columns give output columns that are sliced away."""
+    mc, mo = channel_multiples(flat.dtype)
+    C, cout = flat.shape[1], weight.shape[2]
+    pc, po = -C % mc, -cout % mo
+    if pc:
+        flat = F.pad(flat, (0, pc))
+    if pc or po:
+        weight = F.pad(weight, (0, po, 0, pc))
+    return flat, weight
+
+
+def _check(flat, idx, w, weight, channels=True):
+    """Raise unless the kernels take these operands; ``channels=False``
+    leaves out the rule on C and cout (for the padding forward)."""
     if flat.dim() != 2 or idx.dim() != 3 or w.shape != idx.shape \
             or weight.dim() != 3:
         raise ValueError(
@@ -75,10 +107,10 @@ def _check(flat, idx, w, weight):
         raise TypeError(f"weight dtype {weight.dtype} != flat {flat.dtype}")
     if idx.dtype != torch.int32 or w.dtype != torch.float32:
         raise TypeError(f"idx {idx.dtype} / w {w.dtype}: want int32 / float32")
-    chunk = 32 if flat.dtype == torch.bfloat16 else 16
-    if C % chunk or weight.shape[2] % 8:
+    chunk, mo = channel_multiples(flat.dtype)
+    if channels and (C % chunk or weight.shape[2] % mo):
         raise ValueError(f"C={C} must be a multiple of {chunk} and "
-                         f"cout={weight.shape[2]} of 8")
+                         f"cout={weight.shape[2]} of {mo}")
     for name, t in (("flat", flat), ("idx", idx), ("w", w),
                     ("weight", weight)):
         if t.device != flat.device:
@@ -207,19 +239,20 @@ def _forward(flat, idx, w, weight):
         return deform_gather_contract_ref(flat, idx, w, weight)
     if flat.device.type != "cuda":
         raise ValueError(f"no kernel for device {flat.device}")
-    _check(flat, idx, w, weight)
-    nc, K, px = idx.shape
-    C = flat.shape[1]
+    _check(flat, idx, w, weight, channels=False)
     cout = weight.shape[2]
-    out = torch.empty((px, cout), dtype=flat.dtype, device=flat.device)
+    flat, weight = pad_channels(flat, weight)
+    nc, K, px = idx.shape
+    C, cpad = flat.shape[1], weight.shape[2]
+    out = torch.empty((px, cpad), dtype=flat.dtype, device=flat.device)
     if px == 0:
-        return out
+        return out[:, :cout]
     launch("deform_gather_contract", "lsnet_deform_gather_contract", flat,
            flat.data_ptr(), idx.data_ptr(), w.data_ptr(), weight.data_ptr(),
-           out.data_ptr(), C, nc, K, px, cout,
+           out.data_ptr(), C, nc, K, px, cpad,
            int(flat.dtype == torch.bfloat16))
     deform_gather_contract.launches += 1
-    return out
+    return out if cpad == cout else out[:, :cout].contiguous()
 
 
 def deform_gather_contract_bwd_data(flat, idx, w, weight, dout,

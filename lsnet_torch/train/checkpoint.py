@@ -172,6 +172,13 @@ def _refuse(unknown: List[str], what: str) -> None:
                          f"refused): {sorted(unknown)[:20]}")
 
 
+# the mmdet deep stem's Sequential(conv, norm, relu) x 3 -> the port's
+# names (JAX ``_DEEP_STEM_MAP``)
+_DEEP_STEM_MAP = {"0": "stem_conv1", "1": "stem_bn1",
+                  "3": "stem_conv2", "4": "stem_bn2",
+                  "6": "stem_conv3", "7": "stem_bn3"}
+
+
 def convert_torch_backbone(state_dict: Mapping[str, Any]
                            ) -> "OrderedDict[str, torch.Tensor]":
     """A reference backbone ``state_dict`` -> the port's ``ResNet`` keys.
@@ -182,11 +189,12 @@ def convert_torch_backbone(state_dict: Mapping[str, Any]
     ``backbone.`` keys are taken and neck and head keys skipped; a
     ``module.`` prefix; DCNv2 packs, a ``convN.weight`` beside
     ``convN.conv_offset.*``, whose weight goes to the port's compact
-    (k, k, cin/G, cout) layout. The
-    downsample's conv and norm are told apart by rank, not index (an
-    avg-down Sequential puts them at 1 and 2). ``num_batches_tracked``
-    and ``fc.*`` are skipped; Res2Net keys (``convs.i``, ``bns.i``,
-    ``stem.*``) raise ``NotImplementedError``, any other unknown key
+    (k, k, cin/G, cout) layout; Res2Net v1d: the scale branches
+    ``convs.i`` / ``bns.i`` -> ``conv2_i`` / ``bn2_i`` (DCN packs among
+    them), the deep stem ``stem.{0..7}`` -> ``stem_conv{1,2,3}`` /
+    ``stem_bn{1,2,3}``. The downsample's conv and norm are told apart by
+    rank, not index (the avg-down Sequential puts them at 1 and 2).
+    ``num_batches_tracked`` and ``fc.*`` are skipped; any other key raises
     ``ValueError``."""
     has_prefix = any(_strip_module(k).startswith("backbone.")
                      for k in state_dict)
@@ -202,25 +210,28 @@ def convert_torch_backbone(state_dict: Mapping[str, Any]
            if ".conv_offset." in k}
 
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    unknown, res2net = [], []
+    unknown = []
     for key, val in items.items():
         if key.endswith("num_batches_tracked") or key.startswith("fc."):
             continue
         parts = key.split(".")
         t = _tensor(val)
-        if parts[0] == "stem" or (len(parts) > 2
-                                  and parts[2] in ("convs", "bns")):
-            res2net.append(key)
-            continue
         m = re.fullmatch(r"layer(\d+)", parts[0])
+        path = None
         if parts[0] in ("conv1", "bn1") and len(parts) == 2:
             path = parts[:1]
+        elif parts[0] == "stem" and len(parts) == 3 \
+                and parts[1] in _DEEP_STEM_MAP:
+            path = [_DEEP_STEM_MAP[parts[1]]]
         elif m and len(parts) >= 4:
             path = [f"layer{m.group(1)}_{parts[1]}"] + parts[2:-1]
             if path[1] == "downsample":
                 path = path[:1] + ["downsample_conv" if t.dim() == 4
                                    else "downsample_bn"] + path[3:]
-        else:
+            elif path[1] in ("convs", "bns") and len(path) >= 3:
+                base = "conv2" if path[1] == "convs" else "bn2"
+                path = path[:1] + [f"{base}_{path[2]}"] + path[3:]
+        if path is None:
             unknown.append(key)
             continue
         leaf = parts[-1]
@@ -234,10 +245,6 @@ def convert_torch_backbone(state_dict: Mapping[str, Any]
             unknown.append(key)
             continue
         out[".".join(path + [leaf])] = t
-    if res2net:
-        raise NotImplementedError(
-            "Res2Net: ROADMAP Queue 1 item 9; its keys "
-            f"{sorted(res2net)[:5]} cannot be loaded")
     _refuse(unknown, "backbone")
     return out
 

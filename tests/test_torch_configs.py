@@ -9,9 +9,9 @@ field for every LSHead file, and ``build_lr_schedule`` (step, cosine and
 poly, with warm-up) equals the JAX schedule at every step of a short run
 (1e-7 absolute; the JAX one computes in f32). The ``model`` dict goes to
 the port's ``build_detector``
-on the ``meta`` device (no weights are allocated). The R50 and X-101
-files build, ``with_cp=True`` included; the Res2Net backbone and the CPV
-detector are not ported yet and raise ``NotImplementedError`` naming them.
+on the ``meta`` device (no weights are allocated). The R50, X-101 and
+Res2Net-101 files build, ``with_cp=True`` included; the CPV detector is not
+ported yet and raises ``NotImplementedError`` naming it.
 
 ``with_cp`` runs each residual block under ``torch.utils.checkpoint``
 (``remat`` in the JAX package): a narrow ResNeXt with DCN stages gives the
@@ -116,12 +116,7 @@ def test_every_lsnet_config_is_listed():
 @pytest.mark.parametrize("name", CONFIGS)
 def test_config_builds_or_names_what_is_missing(name):
     cfg = _model_cfg(name)
-    if "cpv" in name:
-        missing = "LSCPVDetector"
-    elif "res2" in name:
-        missing = "Res2Net"
-    else:
-        missing = None
+    missing = "LSCPVDetector" if "cpv" in name else None
     if missing:
         with pytest.raises(NotImplementedError, match=missing):
             with torch.device("meta"):
@@ -132,7 +127,8 @@ def test_config_builds_or_names_what_is_missing(name):
     backbone = cfg["backbone"]
     assert model.backbone.with_cp == bool(backbone.get("with_cp", False))
     if "dconv" in name:
-        assert backbone["with_cp"] and backbone["type"] == "ResNeXt"
+        assert backbone["with_cp"] and backbone["type"] in ("ResNeXt",
+                                                            "Res2Net")
     assert sum(p.numel() for p in model.head.parameters()) > 0
 
 
@@ -196,7 +192,7 @@ def test_with_cp_under_the_mixed_precision_train_step():
     copies as the forward (they saw the f32 masters before, and the first
     convolution raised on the bf16 input), so one update equals the update
     without ``with_cp``."""
-    from lsnet_torch.apis import init_detector, train_detector_step
+    from lsnet_torch.apis import init_model, train_detector_step
     from lsnet_torch.configs import x101_flagship_cfg
     from lsnet_torch.core.loss import LossConfig
 
@@ -215,7 +211,7 @@ def test_with_cp_under_the_mixed_precision_train_step():
         cfg = x101_flagship_cfg(feat=32, stacked=1)
         cfg["backbone"].update(depth=50, groups=8, with_cp=with_cp)
         cfg["bbox_head"]["num_classes"] = 3
-        model = init_detector(cfg, device="cpu", seed=0, train=True)
+        model = init_model(cfg, device="cpu", seed=0, train=True)
         step = train_detector_step(
             model, LossConfig(image_shape=(H, W), num_classes=3),
             steps_per_epoch=1)

@@ -53,12 +53,46 @@ def test_kernel_matches_plain_version(cuda_device, dtype, nc, rel):
 
 @pytest.mark.cuda
 def test_wrapper_rejects_bad_input(cuda_device):
-    flat = torch.zeros(10, 20, device=cuda_device)           # C % 16 != 0
+    """C % 16 != 0: the forward pads it, the backward wrappers raise; a
+    strided flat raises in the forward too."""
+    flat = torch.zeros(10, 20, device=cuda_device)
     idx = torch.zeros(4, 9, 5, dtype=torch.int32, device=cuda_device)
     w = torch.zeros(4, 9, 5, device=cuda_device)
+    weight = torch.zeros(9, 20, 8, device=cuda_device)
+    dout = torch.zeros(5, 8, device=cuda_device)
     with pytest.raises(ValueError):
-        deform_gather_contract(flat, idx, w,
-                               torch.zeros(9, 20, 8, device=cuda_device))
+        dg.deform_gather_contract_bwd_data(flat, idx, w, weight, dout)
+    with pytest.raises(ValueError):
+        dg.deform_gather_contract_bwd_weight(flat, idx, w, weight, dout)
+    with pytest.raises(ValueError):
+        deform_gather_contract(torch.zeros(10, 40, device=cuda_device)[:, :20],
+                               idx, w, weight)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("nc", [1, 4])
+@pytest.mark.parametrize("C", [52, 104, 208])
+def test_kernel_pads_res2net_channels(cuda_device, dtype, rel, nc, C):
+    """Res2Net's 3x3 widths (C = cout = 52, 104, 208): the forward pads
+    C and cout to the kernel's multiples and agrees with the plain
+    version on the unpadded operands."""
+    rng = np.random.RandomState(C + nc)
+    K, R, px = 9, 700, 333
+    args = [torch.from_numpy(rng.randn(R, C).astype(np.float32)).to(
+                cuda_device, dtype),
+            torch.from_numpy(rng.randint(0, R, (nc, K, px)).astype(
+                np.int32)).to(cuda_device),
+            torch.from_numpy(rng.rand(nc, K, px).astype(np.float32)).to(
+                cuda_device),
+            torch.from_numpy((rng.randn(K, C, C) / 48).astype(
+                np.float32)).to(cuda_device, dtype)]
+    got = deform_gather_contract(*args)
+    want = deform_gather_contract_ref(*args).float()
+    assert got.shape == (px, C) and got.is_contiguous()
+    err = (got.float() - want).abs().max().item()
+    assert err <= rel * max(1.0, want.abs().max().item()), err
 
 
 @pytest.mark.cuda
@@ -515,7 +549,7 @@ def test_task_forward_on_the_card(cuda_device, task):
     forward (2 or 3 towers of one block, the paired refine's two
     contractions, pose_bbox's own bbox refine)."""
     from lsnet_torch import configs
-    from lsnet_torch.apis import init_detector
+    from lsnet_torch.apis import init_model
     torch.backends.cudnn.allow_tf32 = False
     cfg = getattr(configs, f"x101_{task}_cfg")(feat=64, stacked=1)
     cfg["backbone"].update(depth=50, groups=8)
@@ -524,7 +558,7 @@ def test_task_forward_on_the_card(cuda_device, task):
                          generator=torch.Generator().manual_seed(1))
     outs = {}
     for device in ("cpu", "cuda"):
-        model = init_detector(cfg, device=device, seed=1)
+        model = init_model(cfg, device=device, seed=1)
         deform_gather_contract.launches = 0
         with torch.inference_mode():
             outs[device] = model(images.to(device))

@@ -22,7 +22,7 @@ from __graft_entry__ import _flagship_cfg
 from lsnet_tpu.core.decode import TestConfig as JTestConfig
 from lsnet_tpu.core.decode import lsnet_decode as j_decode
 from lsnet_tpu.models import build_detector as j_build
-from lsnet_torch.apis import inference_detector, init_detector
+from lsnet_torch.apis import detect, init_model
 from lsnet_torch.configs import flagship_r50_cfg
 from lsnet_torch.core.decode import TestConfig, lsnet_decode
 from lsnet_torch.models import build_detector
@@ -88,10 +88,10 @@ def test_decode_nms_matches_jax(pair):
 
 def test_inference_detector_on_cpu():
     cfg = _narrow(flagship_r50_cfg(feat=32, stacked=1))
-    model = init_detector(cfg, device="cpu", seed=0)
+    model = init_model(cfg, device="cpu", seed=0)
     images = torch.randn(B, H, W, 3, generator=torch.Generator().manual_seed(0))
-    det = inference_detector(model, images, torch.tensor([[H, W]] * B),
-                             torch.ones(B, 4), TestConfig((H, W), 4))
+    det = detect(model, images, torch.tensor([[H, W]] * B),
+                 torch.ones(B, 4), TestConfig((H, W), 4))
     assert det.bboxes.shape == (B, 100, 4)
     assert bool(det.valid.any(dim=1).all())
     assert bool(torch.isfinite(det.bboxes).all())
@@ -100,7 +100,7 @@ def test_inference_detector_on_cpu():
 def test_init_detector_needs_cuda_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        init_detector(flagship_r50_cfg(feat=32, stacked=1))
+        init_model(flagship_r50_cfg(feat=32, stacked=1))
 
 
 def test_weights_load_is_strict(pair):

@@ -10,7 +10,7 @@
   ResNeXt (G = 4) with DCN in c3-c5, the FPN, and the norm-tower LSHead of
   the four tasks.
 * What must raise: an unknown backbone, neck or head key, a shape
-  mismatch, a key of a module the model lacks, a Res2Net key.
+  mismatch, a key of a module the model lacks (a Res2Net key into R50).
 * The runner with ``model.pretrained`` a minted torchvision-keyed file:
   the backbone it starts from equals JAX's ``load_pretrained_backbone``
   on the same file, carried across by ``weights.from_jax_variables``.
@@ -41,6 +41,10 @@ DCN_C3_C5 = (False, True, True, True)
 def _backbone(kind):
     if kind == "R50":
         return ResNet(depth=50)
+    if kind == "Res2Net-v1d-DCN":
+        return ResNet(depth=50, block_type="res2net", base_channels=16,
+                      base_width=8, deep_stem=True,
+                      stage_with_dcn=DCN_C3_C5)
     return ResNet(depth=50, block_type="resnext", groups=4, base_width=4,
                   stage_with_dcn=DCN_C3_C5)
 
@@ -59,7 +63,7 @@ def _assert_same(got, want):
 
 
 MODULES = [("backbone", "R50"), ("backbone", "ResNeXt-G4-DCN"),
-           ("neck", "FPN")] + [("head", t) for t in sorted(NV)]
+           ("backbone", "Res2Net-v1d-DCN"), ("neck", "FPN")] + [("head", t) for t in sorted(NV)]
 
 
 @pytest.mark.parametrize("part,kind", MODULES,
@@ -143,12 +147,17 @@ def test_refused(tmp_path, case):
             pckpt.load_pretrained_backbone(
                 _Detector(ResNet(depth=50, num_stages=3)), path)
     else:
+        # Res2Net keys load (tests/test_torch_res2net.py), but not into a
+        # model without those modules
         sd = {**_reference_r50(),
               "layer1.0.convs.0.weight": torch.zeros(26, 26, 3, 3),
               "stem.0.weight": torch.zeros(32, 3, 3, 3)}
-        with pytest.raises(NotImplementedError,
-                           match="Res2Net: ROADMAP Queue 1 item 9"):
-            pckpt.convert_torch_backbone(sd)
+        frag = pckpt.convert_torch_backbone(sd)
+        assert frag["layer1_0.conv2_0.weight"].shape == (26, 26, 3, 3)
+        assert frag["stem_conv1.weight"].shape == (32, 3, 3, 3)
+        with pytest.raises(KeyError, match="layer1_0.conv2_0.weight"):
+            pckpt.load_pretrained_backbone(_Detector(ResNet(depth=50)),
+                                           _save(tmp_path, sd))
 
 
 def test_imagenet_file_into_dcn_stages(tmp_path):

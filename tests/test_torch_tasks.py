@@ -37,7 +37,7 @@ from lsnet_tpu.models.heads.ls_head import LSHead as JLSHead
 from lsnet_tpu.ops import flat_deform as jfd
 from lsnet_tpu.train.checkpoint import convert_torch_lshead
 from lsnet_torch import configs
-from lsnet_torch.apis import inference_detector
+from lsnet_torch.apis import detect
 from lsnet_torch.core.decode import (TestConfig, lsnet_decode,
                                      lsnet_decode_candidates)
 from lsnet_torch.models import build_detector
@@ -225,8 +225,8 @@ def test_detector_matches_jax_inference_sampling(detector_pair):
     for key in jouts:
         for g, w_ in zip(touts[key], jouts[key]):
             np.testing.assert_allclose(g.numpy(), w_, rtol=1e-4, atol=1e-4)
-    det = inference_detector(tmodel, t(images), t(shapes), t(sfs),
-                             TestConfig(**_decode_kw(task)))
+    det = detect(tmodel, t(images), t(shapes), t(sfs),
+                 TestConfig(**_decode_kw(task)))
     valid = np.asarray(jdet.valid)
     assert valid.sum(axis=1).min() >= 1
     np.testing.assert_array_equal(det.valid.numpy(), valid)

@@ -42,7 +42,7 @@ from lsnet_tpu.ops import flat_deform as jfd
 from lsnet_tpu.train import optim as joptim
 from lsnet_tpu.train.step import create_train_state
 from lsnet_tpu.train.step import make_train_step as j_make_train_step
-from lsnet_torch.apis import init_detector, train_detector_step
+from lsnet_torch.apis import init_model, train_detector_step
 from lsnet_torch.configs import flagship_r50_cfg, x101_flagship_cfg
 from lsnet_torch.core.loss import LossConfig, lsnet_loss
 from lsnet_torch.models import build_detector
@@ -242,7 +242,7 @@ def test_bf16_step_is_finite_and_updates_f32_masters():
     cfg = x101_flagship_cfg(feat=32, stacked=1)
     cfg["backbone"].update(depth=50, groups=8)
     cfg["bbox_head"]["num_classes"] = C
-    model = init_detector(cfg, device="cpu", seed=2, train=True)
+    model = init_model(cfg, device="cpu", seed=2, train=True)
     assert model.training
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     # nearest-aware training at the head sites, bilinear in the backbone

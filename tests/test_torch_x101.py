@@ -16,7 +16,7 @@ not see the DCN.
 
 The detector runs the shipped inference sampling in both packages: JAX
 ``with inference_sampling(): apply`` (``backbone=nearest``), the port's
-``inference_detector`` (``INFERENCE_SAMPLING``). Nearest sampling is
+``detect`` (``INFERENCE_SAMPLING``). Nearest sampling is
 discontinuous in the offsets, and the two frameworks predict offsets that
 differ by ~1e-6; so the backbone ``conv_offset`` kernels are zeroed in the
 variables both load, which leaves every backbone sample within a bias
@@ -40,7 +40,7 @@ from lsnet_tpu.models import build_detector as j_build
 from lsnet_tpu.models import layers as jl
 from lsnet_tpu.models.backbones.resnet import ResNet as JResNet
 from lsnet_tpu.ops import flat_deform as jfd
-from lsnet_torch.apis import inference_detector, init_detector
+from lsnet_torch.apis import detect, init_model
 from lsnet_torch.configs import x101_flagship_cfg
 from lsnet_torch.core.decode import TestConfig
 from lsnet_torch.models import build_detector
@@ -173,8 +173,8 @@ def test_forward_matches_jax_inference_sampling(pair):
 
 def test_inference_detector_matches_jax(pair):
     _, jdet, tmodel, images, shapes, sfs = pair
-    det = inference_detector(tmodel, t(images), t(shapes), t(sfs),
-                             TestConfig(**DECODE))
+    det = detect(tmodel, t(images), t(shapes), t(sfs),
+                 TestConfig(**DECODE))
     valid = np.asarray(jdet.valid)
     assert valid.sum(axis=1).min() >= 1
     np.testing.assert_array_equal(det.valid.numpy(), valid)
@@ -218,10 +218,10 @@ def test_config_copy_matches_graft_entry():
 def test_init_detector_needs_cuda_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        init_detector(x101_flagship_cfg())
-    model = init_detector(_narrow(x101_flagship_cfg(feat=32, stacked=1)),
-                          device="cpu", seed=0)
-    det = inference_detector(model, torch.randn(
+        init_model(x101_flagship_cfg())
+    model = init_model(_narrow(x101_flagship_cfg(feat=32, stacked=1)),
+                       device="cpu", seed=0)
+    det = detect(model, torch.randn(
         B, H, W, 3, generator=torch.Generator().manual_seed(0)),
         torch.tensor([[H, W]] * B), torch.ones(B, 4), TestConfig((H, W), 4))
     assert det.bboxes.shape == (B, 100, 4)

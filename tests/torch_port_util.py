@@ -66,14 +66,24 @@ def mint_module_(module, seed=0):
 
 
 def _reference_backbone_key(module, key):
+    """torchvision / mmdet names; Res2Net v1d's as mmdet's ``res2net.py``
+    writes them: ``convs.i`` / ``bns.i``, the deep stem ``stem.{0..7}``,
+    the avg-down shortcut ``downsample.{1,2}`` (an ``AvgPool2d`` at 0)."""
     import re
+    from lsnet_torch.models.backbones.resnet import Res2Bottleneck
     from lsnet_torch.models.layers import ModulatedDeformConvPack
     mod, leaf = key.rsplit(".", 1)
     flip = isinstance(module.get_submodule(mod), ModulatedDeformConvPack)
     leaf = {"mean": "running_mean", "var": "running_var"}.get(leaf, leaf)
+    res2 = isinstance(module.get_submodule(mod.split(".")[0]),
+                      Res2Bottleneck)
+    mod = re.sub(r"^stem_(conv|bn)(\d)", lambda m: "stem.%d" % (
+        3 * (int(m.group(2)) - 1) + (m.group(1) == "bn")), mod)
     mod = re.sub(r"^layer(\d+)_(\d+)", r"layer\1.\2", mod)
-    mod = mod.replace("downsample_conv", "downsample.0").replace(
-        "downsample_bn", "downsample.1")
+    mod = re.sub(r"\.conv2_(\d+)", r".convs.\1", mod)
+    mod = re.sub(r"\.bn2_(\d+)", r".bns.\1", mod)
+    mod = mod.replace("downsample_conv", "downsample.%d" % res2).replace(
+        "downsample_bn", "downsample.%d" % (1 + res2))
     return f"{mod}.{leaf}", flip and leaf == "weight"
 
 
