@@ -105,7 +105,34 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    classifier (x30) so that no two kept scores tie, and zero the backbone
    ``conv_offset`` kernels so that no nearest sample sits near a rounding
    tie: card against CPU and fused against unfused then compare
-   detections, not rounding flips.
+   detections, not rounding flips;
+9. LSNet-CPV, and Res2Net training: (a) a narrow ResNeXt-shaped CPV
+   model (DCN towers, f32) on the card against the CPU: the six head
+   outputs, then the loss, its six terms and every parameter's gradient,
+   at phase 3's tolerances; (b) K1's forward, bwd-data and bwd-weight
+   against their plain versions at the CPV refine call (C = 262, cout =
+   256, the five-level cross-level job at B=2, 800x1344) and Res2Net's
+   C = cout = 52 / 104 / 208 (stride 1 and 2), f32 and bf16, nearest and
+   bilinear, at phase 2's tolerances: the wrappers pad C and cout to the
+   kernels' multiples; for bf16 bilinear each kernel's device time, the
+   padding copies' device time, the einsum yardsticks, and at the CPV
+   shape the two places for the padding (saved from the forward, or
+   again in each backward wrapper) by time and memory; (c) the shipped
+   X-101-64x4d-DCN CPV file at full width, 80 classes: ``init_detector``
+   from a ``save_checkpoint`` file and ``inference_detector`` twice on a
+   seeded 480x640 image (equal detections, 9 K1 and 30 grouped
+   launches), ``detect`` at B=2 800x1344 bf16 (9 K1, 30 grouped a
+   forward), ``CPV_TRAIN_STEPS`` train steps (bilinear, 20 instances an
+   image; 9 / 30 launches each way a step, finite loss, trainable
+   parameters moved and frozen ones not), each profiled, then
+   ``lsnet_torch.tools.bench_cpv``; (d) the shipped Res2Net-101-DCN CPV
+   file at full width through ``lsnet_torch.tools.train`` (1 epoch of 2
+   steps on 4 procedural 768x1280 images, an EvalHook on 2 more) and
+   ``lsnet_torch.tools.test`` on its checkpoint (metrics within 1e-4 of
+   the hook's), 189 K1 forward launches a step (90 backbone calls twice
+   under ``with_cp``, 9 head), 99 of each backward kernel, 99 forward an
+   eval batch; every K1 call of the first train step held against its
+   plain version.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (all ten kernels) and, last, ``{"ok": true, "device": {...}}``; the
@@ -114,7 +141,7 @@ phases 2c, 2d and the profiled train steps. ``python3 chip_smoke.py --only
 backward`` builds, runs phases 2c and 2d alone and prints no result line
 (for work on the backward kernels); ``--only probes`` does the same for
 phase 2e, ``--only accuracy`` for phase 7, ``--only api`` for the Res2Net
-K1 cases of phase 2a and phase 8. With
+K1 cases of phase 2a and phase 8, ``--only cpv`` for phase 9. With
 ``CHIP_SMOKE_LOG=<path>`` in the environment it also writes every line it
 prints to that file. It needs the repository
 around it and a CUDA device, and runs no JAX.
@@ -142,8 +169,10 @@ from lsnet_torch.apis import (detect, init_model,  # noqa: E402
 from lsnet_torch import configs  # noqa: E402
 from lsnet_torch.configs import (flagship_r50_cfg,  # noqa: E402
                                  x101_flagship_cfg)
-from lsnet_torch.core.decode import TestConfig, lsnet_decode  # noqa: E402
-from lsnet_torch.core.loss import LossConfig, lsnet_loss  # noqa: E402
+from lsnet_torch.core import cpv  # noqa: E402
+from lsnet_torch.core.cpv import CPVLossConfig  # noqa: E402
+from lsnet_torch.core.decode import TestConfig  # noqa: E402
+from lsnet_torch.core.loss import LossConfig  # noqa: E402
 from lsnet_torch.evalkit import tta  # noqa: E402
 from lsnet_torch.models import build_backbone, build_detector  # noqa: E402
 from lsnet_torch.models.heads.ls_head import branch_pyramid_jobs  # noqa: E402
@@ -231,6 +260,30 @@ RES2_K1_PER_FORWARD = (3 * sum(n for *_, n in RES2_STAGES)
 RES2_CONFIG = os.path.join(
     REPO, "configs", "lsnet",
     "lsnet_segm_res2_101_fpn_dconv_c3-c5_mstrain_30e_coco.py")
+# phase 9: LSNet-CPV. K1 launches a forward of the CPV head: 3 DCN blocks
+# in each of the cls and bbox towers, the shared DCN block on the bbox
+# tower's output, the 2 contractions of the paired refine / cls gather
+# (C = 256 + 6 corner channels)
+CPV_K1_PER_FORWARD = 2 * 3 + 1 + 2
+CPV_C = FEAT + 6
+CPV_X101_CONFIG = os.path.join(
+    REPO, "configs", "lsnet",
+    "lsnet_bbox_cpv_x101_fpn_dconv_c3-c5_mstrain_2x_coco.py")
+CPV_RES2_CONFIG = os.path.join(
+    REPO, "configs", "lsnet",
+    "lsnet_bbox_cpv_res2_101_fpn_dconv_c3-c5_mstrain_2x_coco.py")
+CPV_TRAIN_STEPS = 2              # counted train steps of phase 9c
+# a Res2Net-101-CPV train step (with_cp): the 90 backbone K1 calls run in
+# the forward and again in the backward's recompute, the 9 head calls
+# once; each backward kernel once per call
+RES2_CPV_K1_CALLS = 3 * sum(n for *_, n in RES2_STAGES) + CPV_K1_PER_FORWARD
+RES2_CPV_PER_STEP = {
+    "deform_gather_contract": 3 * sum(n for *_, n in RES2_STAGES)
+    + RES2_CPV_K1_CALLS,                                          # 189
+    "deform_gather_contract_bwd_data": RES2_CPV_K1_CALLS,          # 99
+    "deform_gather_contract_bwd_weight": RES2_CPV_K1_CALLS}        # 99
+RES2_CPV_TRAIN_HW = [LAND] * 4   # 2 steps of 2 images, aspect 5:3
+RES2_CPV_VAL_HW = [LAND] * 2     # one eval batch
 API_IMAGE_HW = (480, 640)
 API_SCALES = [(1333, 800), (1666, 1000)]         # aug_test, each with flip
 API_RUNS = 5                     # timed inference_detector calls (median)
@@ -1057,27 +1110,37 @@ def check_small_against_cpu():
     for task in NUM_VECTORS:
         cases.append((f"ResNeXt-shaped {task}", narrow_task_cfg(task)))
     for label, cfg in cases:
-        cfg["bbox_head"]["num_classes"] = 8
-        cpu = unit_bn_scales_(init_model(cfg, device="cpu", seed=1))
-        gpu = unit_bn_scales_(init_model(cfg, device="cuda", seed=1))
-        images = torch.randn(2, 96, 128, 3,
-                             generator=torch.Generator().manual_seed(1))
-        with torch.inference_mode():
-            want = cpu(images)
-            got = gpu(images.cuda())
-        worst = 0.0
-        for key in want:
-            for g, w_ in zip(got[key], want[key]):
-                err = (g.float().cpu() - w_).abs().max().item()
-                worst = max(worst, err / max(1.0, w_.abs().max().item()))
-        log(f"small {label} model, card vs CPU: max rel err {worst:.3g}")
-        if worst > 1e-3:
-            raise AssertionError(f"{label}: card disagrees with CPU: {worst}")
+        outputs_card_vs_cpu(label, cfg)
 
 
-def drive_main_path(label, cfg, grouped_per_forward, task="bbox"):
+def outputs_card_vs_cpu(label, cfg):
+    """Phase 3a for one model: the head outputs of ``cfg`` (8 classes)
+    on the card against the CPU, 1e-3 of max(1, max|ref|)."""
+    cfg["bbox_head"]["num_classes"] = 8
+    cpu = unit_bn_scales_(init_model(cfg, device="cpu", seed=1))
+    gpu = unit_bn_scales_(init_model(cfg, device="cuda", seed=1))
+    images = torch.randn(2, 96, 128, 3,
+                         generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        want = cpu(images)
+        got = gpu(images.cuda())
+    worst = 0.0
+    for key in want:
+        for g, w_ in zip(got[key], want[key]):
+            err = (g.float().cpu() - w_).abs().max().item()
+            worst = max(worst, err / max(1.0, w_.abs().max().item()))
+    log(f"small {label} model, card vs CPU: {sorted(want)} max rel err "
+        f"{worst:.3g}")
+    if worst > 1e-3:
+        raise AssertionError(f"{label}: card disagrees with CPU: {worst}")
+
+
+def drive_main_path(label, cfg, grouped_per_forward, task="bbox", k1=None):
     """Phase 4: a full-width model end to end, B=2 at 800x1344, bf16, with
-    the task's own test settings."""
+    the task's own test settings and decode (``lscpv_decode`` for the CPV
+    head); ``k1`` K1 launches a forward (K1_PER_FORWARD[task] unless
+    given)."""
+    k1 = K1_PER_FORWARD[task] if k1 is None else k1
     t0 = time.perf_counter()
     model = init_model(cfg, device="cuda", seed=0, dtype=torch.bfloat16)
     gen = torch.Generator().manual_seed(0)
@@ -1110,7 +1173,7 @@ def drive_main_path(label, cfg, grouped_per_forward, task="bbox"):
         f"{launches} over {ITERS} runs, valid {n_valid}")
     want = dict.fromkeys(launches, 0)
     want.update({
-        "deform_gather_contract": K1_PER_FORWARD[task] * ITERS,
+        "deform_gather_contract": k1 * ITERS,
         "deform_gather_grouped_contract": grouped_per_forward * ITERS})
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
@@ -1130,9 +1193,10 @@ def drive_main_path(label, cfg, grouped_per_forward, task="bbox"):
             outs = model(images, fd.INFERENCE_SAMPLING)
         torch.cuda.synchronize()
         fwd_ms = (time.perf_counter() - t0) / ITERS * 1e3
+        decode = runner_loop.decode_for(model)
         t0 = time.perf_counter()
         for _ in range(ITERS):
-            lsnet_decode(outs, img_shapes, sfs, tcfg)
+            decode(outs, img_shapes, sfs, tcfg)
         torch.cuda.synchronize()
         dec_ms = (time.perf_counter() - t0) / ITERS * 1e3
     log(f"{label} split per batch: forward {fwd_ms:.2f} ms, decode+NMS "
@@ -1186,23 +1250,31 @@ def check_small_gradients(task):
     TF32 off. Tolerance 2e-3 of each gradient's largest entry (floored at
     1e-3 of the largest gradient of all): the convolutions and the
     kernels' atomics sum in another order than the CPU."""
-    cfg = narrow_task_cfg(task)
-    cfg["bbox_head"]["num_classes"] = 8
     hw = (96, 128)
-    lcfg = loss_config(task, hw, 8)
+    gradients_card_vs_cpu(f"ResNeXt-shaped {task}", narrow_task_cfg(task),
+                          loss_config(task, hw, 8), hw)
+
+
+def gradients_card_vs_cpu(label, cfg, lcfg, hw):
+    """Phase 3b for one model: the loss (``runner_step.LOSSES`` of the
+    config's type), each of its terms and every parameter's gradient of
+    ``cfg`` (8 classes) on the card against the CPU, f32."""
+    cfg["bbox_head"]["num_classes"] = 8
+    loss_fn = runner_step.LOSSES[type(lcfg)]
     grads = {}
     for device in ("cpu", "cuda"):
         model = unit_bn_scales_(init_model(cfg, device=device, seed=1,
                                            train=True))
         batch = synthetic_batch(2, hw, 4, 8, 1, device)
         outs = model(batch["image"], fd.TRAIN_SAMPLING)
-        total, _ = lsnet_loss(outs, batch, lcfg)
+        total, terms = loss_fn(outs, batch, lcfg)
         names = [n for n, p in model.named_parameters() if p.requires_grad]
         got = torch.autograd.grad(
             total, [p for p in model.parameters() if p.requires_grad])
         grads[device] = (total.item(),
-                         {n: g.cpu() for n, g in zip(names, got)})
-    (loss_c, g_c), (loss_g, g_g) = grads["cpu"], grads["cuda"]
+                         {n: g.cpu() for n, g in zip(names, got)},
+                         {k: v.item() for k, v in terms.items()})
+    (loss_c, g_c, t_c), (loss_g, g_g, t_g) = grads["cpu"], grads["cuda"]
     top = max(g.abs().max().item() for g in g_c.values())
     worst, worst_name = 0.0, ""
     for n, ref in g_c.items():
@@ -1210,12 +1282,16 @@ def check_small_gradients(task):
                / max(ref.abs().max().item(), 1e-3 * top))
         if rel > worst:
             worst, worst_name = rel, n
-    log(f"small ResNeXt-shaped {task} model gradients, card vs CPU: loss "
-        f"{loss_g:.6f} vs {loss_c:.6f}, {len(g_c)} gradients, max rel err "
+    log(f"small {label} model gradients, card vs CPU: loss "
+        f"{loss_g:.6f} vs {loss_c:.6f}, terms {json.dumps(t_g)} vs "
+        f"{json.dumps(t_c)}, {len(g_c)} gradients, max rel err "
         f"{worst:.3g} ({worst_name})")
-    if abs(loss_g - loss_c) > 1e-4 * abs(loss_c) or worst > 2e-3:
-        raise AssertionError(f"{task}: card gradients disagree with the "
-                             "CPU")
+    if abs(loss_g - loss_c) > 1e-4 * abs(loss_c) or worst > 2e-3 or \
+            t_g.keys() != t_c.keys() or any(
+                abs(t_g[k] - v) > 1e-4 * max(abs(v), 1e-3 * abs(loss_c))
+                for k, v in t_c.items()):
+        raise AssertionError(f"{label}: card loss or gradients disagree "
+                             "with the CPU")
 
 
 def launch_counts():
@@ -1243,15 +1319,22 @@ def zero_launch_counts():
         fn.launches = 0
 
 
-def drive_train_path(task, cfg):
+def drive_train_path(task, cfg, lcfg=None, k1=None, steps=None,
+                     **optim_kwargs):
     """Phase 4b: train steps of the full-width X-101-64x4d-DCN in
-    ``task``, B=2 at 800x1344, bf16 compute over f32 master weights."""
+    ``task``, B=2 at 800x1344, bf16 compute over f32 master weights; the
+    loss config ``lcfg`` (the task's unless given), ``k1`` K1 launches a
+    forward (K1_PER_FORWARD[task] unless given), ``steps`` counted steps
+    (TRAIN_STEPS unless given), ``optim_kwargs`` to the optimizer."""
     label = f"X-101 {task} train"
     num_classes = cfg["bbox_head"]["num_classes"]
+    k1 = K1_PER_FORWARD[task] if k1 is None else k1
+    steps = steps or TRAIN_STEPS
     t0 = time.perf_counter()
     model = init_model(cfg, device="cuda", seed=0, train=True)
     step = train_detector_step(
-        model, loss_config(task, (H, W), num_classes), base_lr=0.01)
+        model, lcfg or loss_config(task, (H, W), num_classes), base_lr=0.01,
+        **optim_kwargs)
     batch = synthetic_batch(B, (H, W), NUM_GT, num_classes, 0, "cuda")
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     log(f"{label}er built in {time.perf_counter() - t0:.1f}s")
@@ -1261,26 +1344,26 @@ def drive_train_path(task, cfg):
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
     t0 = time.perf_counter()
-    history = [step(batch) for _ in range(TRAIN_STEPS)]
+    history = [step(batch) for _ in range(steps)]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     history = [{k: v.item() for k, v in m.items()} for m in history]
-    img_s = B * TRAIN_STEPS / dt
-    log(f"{label}: {img_s:.3f} img/s ({dt / TRAIN_STEPS * 1e3:.2f} ms "
+    img_s = B * steps / dt
+    log(f"{label}: {img_s:.3f} img/s ({dt / steps * 1e3:.2f} ms "
         f"per step of {B}), peak memory {peak / 2 ** 30:.2f} GiB, launches "
-        f"{launches} over {TRAIN_STEPS} steps")
+        f"{launches} over {steps} steps")
     for m in history:
         log("  step " + json.dumps(m))
     want = {
-        "deform_gather_contract": K1_PER_FORWARD[task],
-        "deform_gather_contract_bwd_data": K1_PER_FORWARD[task],
-        "deform_gather_contract_bwd_weight": K1_PER_FORWARD[task],
+        "deform_gather_contract": k1,
+        "deform_gather_contract_bwd_data": k1,
+        "deform_gather_contract_bwd_weight": k1,
         "deform_gather_grouped_contract": GROUPED_PER_FORWARD,
         "deform_gather_grouped_contract_bwd_data": GROUPED_PER_FORWARD,
         "deform_gather_grouped_contract_bwd_weight": GROUPED_PER_FORWARD}
-    want = {k: v * TRAIN_STEPS for k, v in want.items()}
+    want = {k: v * steps for k, v in want.items()}
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
     for m in history:
@@ -1638,14 +1721,17 @@ def check_runner(root):
 def capture_k1_calls(limit):
     """Phase 7: put in place of ``deform_gather``'s ops functions that keep
     a clone of the arguments of the first ``limit`` calls of each K1
-    wrapper (forward, bwd-data, bwd-weight) and then call it. Returns the
-    calls by wrapper and a function that puts the wrappers back."""
+    wrapper (forward, bwd-data, bwd-weight; ``limit`` may be a dict of
+    each wrapper's) and then call it. Returns the calls by wrapper and a
+    function that puts the wrappers back."""
     calls = {name: [] for name in dg.ContractOps._fields}
+    limits = (limit if isinstance(limit, dict)
+              else dict.fromkeys(calls, limit))
     saved = dg._OPS
 
     def keep(name, fn):
         def call(*args):
-            if len(calls[name]) < limit:
+            if len(calls[name]) < limits[name]:
                 calls[name].append(tuple(
                     a.detach().clone() if torch.is_tensor(a) else a
                     for a in args))
@@ -2161,14 +2247,342 @@ def check_api(root):
     return check_api_full(root)
 
 
+# ------------------------------------------------------------ phase 9: CPV
+
+def narrow_cpv_cfg():
+    """Phase 9a: LSNet-CPV on the narrow ResNeXt-shaped model of phase 3
+    (ResNeXt-50, G=8, DCN c3-c5, feat 64, two stacked DCN blocks)."""
+    cfg = configs.x101_cpv_cfg(feat=64, stacked=2)
+    cfg["backbone"].update(depth=50, groups=8)
+    return cfg
+
+
+def check_cpv_small():
+    """Phase 9a: the narrow CPV model on the card against the CPU: the six
+    head outputs, then the loss, its six terms and every parameter's
+    gradient, at phase 3's tolerances."""
+    outputs_card_vs_cpu("ResNeXt-shaped CPV", narrow_cpv_cfg())
+    hw = (96, 128)
+    gradients_card_vs_cpu("ResNeXt-shaped CPV", narrow_cpv_cfg(),
+                          CPVLossConfig(base=loss_config("bbox", hw, 8)), hw)
+
+
+def cpv_refine_inputs(dtype, gen, sampling):
+    """(flat, idx, w, weight) of the CPV head's paired refine contraction
+    at B=2, 800x1344: five level maps of 262 channels, the five-level
+    cross-level jobs, a (K, 262, 256) weight."""
+    dev = torch.device("cuda")
+    feats = [torch.randn(B, h, w, CPV_C, generator=gen).to(dev, dtype)
+             for h, w in LEVELS]
+    levels = fd.pack_levels(feats)
+    offs = [(2.0 * torch.randn(B, h, w, 2 * K, generator=gen)).to(dev)
+            for h, w in LEVELS]
+    idx, w = fd._gather_indices_tap(levels, branch_pyramid_jobs(
+        LEVELS, offs, 3), K, sampling)
+    weight = (0.02 * torch.randn(K, CPV_C, FEAT, generator=gen)).to(
+        dev, dtype)
+    return levels.flat.contiguous(), idx, w, weight
+
+
+def pad_device_us(args, dout):
+    """Device time of the padding copies of one K1 call (flat and the
+    weight, and dout for the backward), 0 where nothing is padded."""
+    flat, _, _, weight = args
+    mc, mo = dg.channel_multiples(flat.dtype)
+    if flat.shape[1] % mc == 0 and weight.shape[2] % mo == 0:
+        return 0.0
+
+    def pad():
+        fp, wp = dg.pad_channels(flat, weight)
+        return dg.pad_dout(dout, wp.shape[2])
+    return kernel_device_us(pad, "", 10)
+
+
+def padding_options(args, gen):
+    """The two places for the padding of an autograd K1 call, timed and
+    weighed on one call (forward + backward, bf16): "saved" (the public
+    ``deform_gather_contract`` pads once and the function saves the
+    padded operands) and "again" (``GatherContract`` on the unpadded
+    operands: the forward wrapper pads, and each backward wrapper pads
+    once more). flat is a non-leaf, as in the model, so the unpadded copy
+    dies after the forward where only the padded one is saved."""
+    src, idx, w, weight = args
+    src = src.detach().clone().requires_grad_()
+    wk = weight.detach().clone().requires_grad_()
+    wt = w.detach().clone().requires_grad_()
+    dout = torch.randn(idx.shape[2], weight.shape[2], device="cuda",
+                       generator=gen).to(src.dtype)
+
+    def saved():
+        out = deform_gather_contract(src * 1, idx, wt, wk)
+        torch.autograd.backward(out, dout)
+
+    def again():
+        out = dg.GatherContract.apply(dg._OPS, src * 1, idx, wt, wk, None,
+                                      None)
+        torch.autograd.backward(out, dout)
+
+    out = {}
+    for name, fn in (("saved", saved), ("again", again)):
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        out[name] = {"ms": cuda_ms(fn, 10),
+                     "peak_extra_bytes":
+                         torch.cuda.max_memory_allocated() - base}
+        src.grad = wk.grad = wt.grad = None
+    return out
+
+
+def check_cpv_kernels():
+    """Phase 9b: K1's forward, bwd-data and bwd-weight against their plain
+    versions at the CPV refine call (C = 262, cout = 256) and Res2Net's
+    C = cout = 52 / 104 / 208 (stride 1 and 2), f32 (TF32 off) and bf16,
+    nearest and bilinear, phase 2's tolerances; the wrappers pad C and
+    cout. For bf16 bilinear (the train step's) the device time of each
+    kernel and of the padding copies, the einsum yardsticks, and (CPV)
+    the two places for the padding. Returns the rows by shape."""
+    gen = torch.Generator().manual_seed(9)
+    cgen = torch.Generator(device="cuda").manual_seed(9)
+    shapes = [("CPV refine", None, CPV_C, 1)] + [
+        (f"Res2Net {st} stride {stride}", out_hw, C, stride)
+        for st, out_hw, C, _ in RES2_STAGES for stride in (1, 2)]
+    rows = {}
+    for label, out_hw, C, stride in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            for sampling in ("nearest", "bilinear"):
+                args = (cpv_refine_inputs(dtype, gen, sampling)
+                        if out_hw is None else
+                        res2net_k1_inputs(gen, out_hw, C, stride, sampling,
+                                          dtype))
+                main = dtype == torch.bfloat16 and sampling == "bilinear"
+                got = deform_gather_contract(*args).float()
+                want = deform_gather_contract_ref(*args).float()
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                lim = TOL[dtype] * max(1.0, want.abs().max().item())
+                if not (bool(torch.isfinite(got).all()) and err <= lim
+                        and got.shape == want.shape):
+                    raise AssertionError(f"{label} {dtype} {sampling}: K1 "
+                                         f"forward err {err} > {lim}")
+                del got, want
+                row = check_backward_call(
+                    dict(shape=label, C=C, cout=args[3].shape[2],
+                         sampling=sampling), args, 0, cgen, library=main)
+                row.update(fwd_err=err, fwd_limit=lim,
+                           fwd_ms=cuda_ms(
+                               lambda: deform_gather_contract(*args), 10),
+                           fwd_plain_ms=cuda_ms(
+                               lambda: deform_gather_contract_ref(*args), 2))
+                row["fwd_bound_ms"], row["fwd_bound_by"] = bound_ms(args)
+                if main:
+                    dout = torch.randn(args[1].shape[2], args[3].shape[2],
+                                       device="cuda", generator=cgen).to(
+                                           dtype)
+                    # each kernel on operands padded beforehand, the
+                    # padding copies apart: a profile holds fewer records
+                    # (one with many, at 134,400 px, lost some in a row)
+                    fp, wp = dg.pad_channels(args[0], args[3])
+                    padded = (fp, args[1], args[2], wp)
+                    dp = dg.pad_dout(dout, wp.shape[2])
+                    row["device_us"] = {
+                        "forward": kernel_device_us(
+                            lambda: dg._forward(*padded), "dgc_", 5),
+                        "bwd_data": kernel_device_us(
+                            lambda: dg.deform_gather_contract_bwd_data(
+                                *padded, dp), "bwd_data_kernel", 5),
+                        "bwd_weight": kernel_device_us(
+                            lambda: dg.deform_gather_contract_bwd_weight(
+                                *padded, dp), "bwd_weight_kernel", 5),
+                        "padding": pad_device_us(args, dout)}
+                    del fp, wp, padded, dp
+                    vals = dg.gathered_rows(*args[:3]).to(dtype)
+                    row["fwd_library_ms"] = cuda_ms(
+                        lambda: torch.einsum("kpc,kco->po", vals, args[3]),
+                        10)
+                    del vals
+                    if out_hw is None:
+                        row["padding_options"] = padding_options(args, cgen)
+                    rows[label] = row
+                    log("cpv kernels " + json.dumps(row))
+                del args
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_cpv_x101(root):
+    """Phase 9c: the shipped X-101-64x4d-DCN CPV file at full width (80
+    classes, seeded weights): ``init_detector`` from a ``save_checkpoint``
+    file, ``inference_detector`` twice on a seeded 480x640 image (the same
+    detections), ``detect`` at B=2 800x1344 bf16 (9 K1 and 30 grouped a
+    forward), train steps at B=2 bf16 (bilinear, 20 instances an image),
+    each profiled, then ``lsnet_torch.tools.bench_cpv``. Returns
+    (numbers, launches by path)."""
+    from lsnet_torch.tools import bench_cpv
+    by_path, numbers = {}, {}
+    cfg = Config.fromfile(CPV_X101_CONFIG)
+    path = seeded_checkpoint(cfg, os.path.join(root, "cpv"))
+    bundle = apis.init_detector(CPV_X101_CONFIG, path)
+    if runner_loop.decode_for(bundle.model) is not cpv.lscpv_decode:
+        raise AssertionError("the CPV bundle does not decode with "
+                             "lscpv_decode")
+    img = api_image(2)
+    first = apis.inference_detector(bundle, img)
+    zero_launch_counts()
+    again = apis.inference_detector(bundle, img)
+    by_path["cpv inference_detector"] = launch_counts()
+    want = {**dict.fromkeys(launch_counts(), 0),
+            "deform_gather_contract": CPV_K1_PER_FORWARD,
+            "deform_gather_grouped_contract": GROUPED_PER_FORWARD}
+    n = len(again["scores"])
+    if by_path["cpv inference_detector"] != want or not n or \
+            again["landmarks"].shape != (n, 8):
+        raise AssertionError(f"CPV inference_detector: {n} detections, "
+                             f"launches {by_path['cpv inference_detector']}")
+    same_detections("CPV inference_detector, second call", again, first,
+                    atol=0.0)
+    log(f"cpv X-101 inference_detector: {n} detections, equal on a second "
+        "call")
+    del bundle
+    torch.cuda.empty_cache()
+
+    label = "X-101-64x4d-DCN CPV"
+    run, img_s, launches, peak = drive_main_path(
+        label, configs.x101_cpv_cfg(), GROUPED_PER_FORWARD, "bbox",
+        k1=CPV_K1_PER_FORWARD)
+    profile(label, run, B / img_s * 1e3)
+    numbers["img_per_s"], numbers["peak_memory_bytes"] = img_s, peak
+    by_path[label] = {k: v // ITERS for k, v in launches.items()}
+    del run
+    torch.cuda.empty_cache()
+    # no warm-up: at the random weights the CPV loss's gradient norm is
+    # about 1,400 (the bbox model's 157), so the clip scales every
+    # gradient by 0.024, and at the warm-up's first rate (1e-5) the
+    # updates of some parameters fall under their f32 spacing: they would
+    # not move although their gradient is right (phase 9a)
+    run, img_s, launches, peak = drive_train_path(
+        "cpv", configs.x101_cpv_cfg(),
+        CPVLossConfig(base=loss_config("bbox", (H, W), 80)),
+        k1=CPV_K1_PER_FORWARD, steps=CPV_TRAIN_STEPS, warmup_iters=0)
+    card_state("before the profiled CPV train step")
+    profile(f"{label} train step", run, B / img_s * 1e3)
+    numbers["train_img_per_s"] = img_s
+    numbers["train_peak_memory_bytes"] = peak
+    by_path[f"{label} train"] = {k: v // CPV_TRAIN_STEPS
+                                 for k, v in launches.items()}
+    del run
+    torch.cuda.empty_cache()
+    numbers["bench_cpv"] = bench_cpv.main([])
+    return numbers, by_path
+
+
+def check_cpv_res2_runner(root):
+    """Phase 9d: the shipped Res2Net-101-DCN CPV file at full width through
+    ``lsnet_torch.tools.train`` (1 epoch of 2 steps on 4 procedural 5:3
+    images, an EvalHook on 2 more) and ``lsnet_torch.tools.test`` on its
+    checkpoint (metrics within 1e-4 of the hook's); the launches of every
+    step (RES2_CPV_PER_STEP) and of the eval; every K1 call of the first
+    train step (forward, bwd-data, bwd-weight, at 52 / 104 / 208 and 262
+    channels, which reach the kernels padded) held against its plain
+    version. Returns (numbers, launches per step, per eval batch)."""
+    train_root, val_root = (os.path.join(root, n) for n in ("train", "val"))
+    train_ann, _ = make_shapes_coco(train_root, len(RES2_CPV_TRAIN_HW),
+                                    seed=3, hw=RES2_CPV_TRAIN_HW)
+    val_ann, _ = make_shapes_coco(val_root, len(RES2_CPV_VAL_HW), seed=4,
+                                  hw=RES2_CPV_VAL_HW)
+    test_opts, opts = runner_options(train_root, val_root, train_ann,
+                                     val_ann)
+    work = os.path.join(root, "work")
+    LaunchCountHook.steps.clear()
+    LaunchCountHook.evals.clear()
+    calls, undo = capture_k1_calls({
+        "forward": RES2_CPV_PER_STEP["deform_gather_contract"],
+        "bwd_data": RES2_CPV_K1_CALLS, "bwd_weight": RES2_CPV_K1_CALLS})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res = train_tool.main([CPV_RES2_CONFIG, "--work-dir", work,
+                               "--total-epochs", "1", "--options", *opts])
+    finally:
+        undo()
+        LaunchCountHook.start_backbone = {}
+    train_s = time.perf_counter() - t0
+    steps, evals = list(LaunchCountHook.steps), list(LaunchCountHook.evals)
+    train = log_records(work, "train")
+    val = log_records(work, "val")
+    for r in train:
+        log("runner Res2Net-101-CPV " + json.dumps(r))
+    want = {**dict.fromkeys(launch_counts(), 0), **RES2_CPV_PER_STEP}
+    if len(train) != 2 or res["step"] != 2 or len(val) != 1 or any(
+            not math.isfinite(r[k]) for r in train
+            for k in ("loss", "grad_norm", "loss_heatmap", "loss_sem")):
+        raise AssertionError(f"runner Res2Net-101-CPV: records {train}, "
+                             f"{val}")
+    if steps != [want] * 2:
+        raise AssertionError(f"runner Res2Net-101-CPV: launches per step "
+                             f"{steps}, want {want}")
+    want_eval = {**dict.fromkeys(launch_counts(), 0),
+                 "deform_gather_contract": RES2_CPV_K1_CALLS}
+    if evals != [want_eval]:
+        raise AssertionError(f"runner Res2Net-101-CPV: launches per eval "
+                             f"{evals}, want {want_eval}")
+    widths = {name: sorted({(a[0].shape[1], a[3].shape[2]) for a in v})
+              for name, v in calls.items()}
+    log(f"runner Res2Net-101-CPV step 1 K1 calls (C, cout as the kernels "
+        f"get them): {json.dumps(widths)}")
+    checked = check_k1_calls("runner Res2Net-101-CPV train step 1", calls)
+    del calls
+    torch.cuda.empty_cache()
+    path = os.path.join(work, "ckpts", "step_2.pt")
+    metrics = test_tool.main([CPV_RES2_CONFIG, path, "--eval", "bbox",
+                              "--options", *test_opts])
+    hook_metrics = {k: v for k, v in val[-1].items()
+                    if k not in ("mode", "epoch")}
+    log(f"runner Res2Net-101-CPV tools.test metrics {json.dumps(metrics)}; "
+        f"EvalHook {json.dumps(hook_metrics)}")
+    if metrics.keys() != hook_metrics.keys() or len(metrics) != 12 or any(
+            not -1.0 <= v <= 1.0 or abs(v - hook_metrics[k]) > 1e-4
+            for k, v in metrics.items()):
+        raise AssertionError("runner Res2Net-101-CPV: tools.test metrics "
+                             "disagree with the EvalHook's")
+    numbers = {"train_and_eval_s": train_s,
+               "train_s_per_iter": [r["time"] for r in train],
+               "losses": [r["loss"] for r in train], "metrics": metrics,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "k1_calls_checked": checked}
+    return numbers, steps[0], evals[0]
+
+
+def check_cpv(root):
+    """Phase 9 (a to d). Returns (numbers, kernel rows, launches by
+    path)."""
+    t0 = time.perf_counter()
+    check_cpv_small()
+    seconds = {"a": time.perf_counter() - t0}
+    rows = check_cpv_kernels()
+    seconds["b"] = time.perf_counter() - t0 - sum(seconds.values())
+    numbers, by_path = check_cpv_x101(os.path.join(root, "x101"))
+    seconds["c"] = time.perf_counter() - t0 - sum(seconds.values())
+    (numbers["runner_res2net"], by_path["runner Res2Net-101-CPV train"],
+     by_path["runner Res2Net-101-CPV eval"]) = check_cpv_res2_runner(
+        os.path.join(root, "res2"))
+    seconds["d"] = time.perf_counter() - t0 - sum(seconds.values())
+    log(f"phase 9 seconds by part {json.dumps(seconds)}")
+    numbers["seconds"] = time.perf_counter() - t0
+    return numbers, rows, by_path
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["backward", "probes", "accuracy",
-                                           "api"],
+                                           "api", "cpv"],
                         default=None,
-                        help="run phases 2c and 2d, phase 2e, phase 7, or "
-                        "phase 2a's Res2Net cases and phase 8 alone; no "
-                        "result line")
+                        help="run phases 2c and 2d, phase 2e, phase 7, "
+                        "phase 2a's Res2Net cases and phase 8, or phase 9 "
+                        "alone; no result line")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2220,6 +2634,16 @@ def main(argv=None):
         log(f"{smi}: api " + json.dumps(numbers))
         log("launches per call " + json.dumps(by_path))
         log(f"partial run (--only api) passed in "
+            f"{time.perf_counter() - t_start:.1f}s; no result line")
+        return 0
+    if opts.only == "cpv":
+        import tempfile
+        with tempfile.TemporaryDirectory() as root:
+            numbers, rows, by_path = check_cpv(root)
+        log(f"{smi}: cpv " + json.dumps(numbers))
+        log("cpv kernel rows " + json.dumps(rows))
+        log("launches per call or step " + json.dumps(by_path))
+        log(f"partial run (--only cpv) passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
         return 0
 
@@ -2287,6 +2711,14 @@ def main(argv=None):
         by_path.update(api_paths)
         log(f"{smi}: api Res2Net-101-DCN segm " + json.dumps(api_numbers)
             + f" (phase 8 in {time.perf_counter() - t0:.1f}s)")
+        # phase 9: LSNet-CPV, and Res2Net training
+        cpv_numbers, cpv_rows, cpv_paths = check_cpv(os.path.join(root,
+                                                                  "cpv"))
+        by_path.update(cpv_paths)
+        e2e["X-101-64x4d-DCN CPV"] = cpv_numbers["img_per_s"]
+        e2e["X-101-64x4d-DCN CPV train"] = cpv_numbers["train_img_per_s"]
+        log(f"{smi}: cpv " + json.dumps(cpv_numbers)
+            + f" (phase 9 in {cpv_numbers['seconds']:.1f}s)")
     for name, entry in probe_entries.items():
         by_path.setdefault("lsnet_torch.tools.probe", {})[name] = \
             entry["launches"]
@@ -2306,6 +2738,23 @@ def main(argv=None):
     def pose_bbox_ms(per_call):
         return 9 * per_call["tower"]["ms"] + 3 * per_call["refine"]["ms"]
 
+    def cpv_entry(kind):
+        """Phase 9b's bf16 bilinear rows of one K1 kernel (kind forward,
+        data or weight) by shape: events ms, device us, padding us, plain
+        ms, bound, library ms."""
+        lib = {"fwd": "fwd_library_ms", "data": "data_einsum_g_only_ms",
+               "weight": "weight_library_ms"}[kind]
+        dev = {"fwd": "forward", "data": "bwd_data",
+               "weight": "bwd_weight"}[kind]
+        return {label: {
+            "C": row["C"], "cout": row["cout"], "px": row["px"],
+            "ms": row[f"{kind}_ms"], "device_us": row["device_us"][dev],
+            "padding_device_us": row["device_us"]["padding"],
+            "plain_ms": row[f"{kind}_plain_ms"],
+            "bound_ms": row[f"{kind}_bound_ms"],
+            "bound_by": row[f"{kind}_bound_by"], "library_ms": row[lib]}
+            for label, row in cpv_rows.items()}
+
     def bwd_entry(name, source, replaces, row):
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[name],
@@ -2317,6 +2766,9 @@ def main(argv=None):
         for key in ("einsum_g_only_ms", "device_ms", "ptxas"):
             if key in row:
                 entry[key] = row[key]
+        if name.startswith("deform_gather_contract_bwd"):
+            entry["cpv_res2net_per_call"] = cpv_entry(
+                name.rsplit("_", 1)[1])
         if "per_call" in row:
             entry["pose_bbox_ms"] = pose_bbox_ms(row["per_call"])
             entry["per_call"] = row["per_call"]
@@ -2341,6 +2793,7 @@ def main(argv=None):
                                     "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")}
             for (st, stride), row in res2_rows.items()},
+        "cpv_res2net_per_call": cpv_entry("fwd"),
         "launches_by_path": path_counts("deform_gather_contract")}, {
         "name": "deform_gather_grouped_contract", "route": "cuda",
         "source": "lsnet_torch/csrc/grouped_deform_contract.cu",

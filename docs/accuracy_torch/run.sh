@@ -14,13 +14,20 @@
 #           own evaluation is at the deployed backbone=nearest only; the
 #           backward kernels add with atomics, so a run does not repeat
 #           bit for bit);
+#   cpv     cpv at the tool's defaults (R18, norm towers, 12 epochs on
+#           160 images, seed 0; deployed at backbone=nearest), then
+#           --eval-only on its last checkpoint at bilinear; the JAX
+#           package's run of the same command on the CPU is
+#           docs/accuracy_torch/jax_cpu/cpv/;
+#   cpvmore cpv at seed 1, and at seed 0 with the train step in f32
+#           (trace.py f32), for the spread of the cpv runs;
 #   trace   phase 7 of chip_smoke.py, then docs/accuracy_torch/trace.py's
 #           first 20 steps of the bbox --dcn config (CPU f32, card f32
 #           twice, card bf16 twice), then bbox --dcn --epochs 36 at seed 0
 #           three more times and once with the train step in f32, each
 #           with the three --eval-only deploys.
 #
-#   bash docs/accuracy_torch/run.sh bbox|more|again|trace [OUT]
+#   bash docs/accuracy_torch/run.sh bbox|more|again|trace|cpv|cpvmore [OUT]
 #
 # Work dirs (data, checkpoints) go to $WORK (default work/accuracy_torch);
 # OUT (default work/accuracy_torch_results) receives each run's console
@@ -29,7 +36,7 @@
 # folder's scripts) as the part found them.
 # While a run trains, every checkpoint but its newest is deleted.
 set -euo pipefail
-part=${1:?bbox, more, again or trace}
+part=${1:?bbox, more, again, trace, cpv or cpvmore}
 OUT=${2:-work/accuracy_torch_results}
 WORK=${WORK:-work/accuracy_torch}
 mkdir -p "$OUT" "$WORK"
@@ -109,6 +116,18 @@ trace)
     run bbox_dcn36_s0_f32 --task bbox --dcn --epochs 36 --seed 0
     TOOL=(python3 -m lsnet_torch.tools.accuracy_run)
     deploys bbox_dcn36_s0_f32 ev_s0_f32_
+    ;;
+cpv)
+    run cpv12 --task cpv
+    ckpt=$(ls -1 "$WORK/cpv12/ckpts" | grep -E '^step_[0-9]+\.pt$' \
+        | sort -t_ -k2 -n | tail -n 1)
+    run cpv12_ev_bilinear --task cpv --eval-only "$WORK/cpv12/ckpts/$ckpt" \
+        --sampling bilinear
+    ;;
+cpvmore)
+    run cpv12_s1 --task cpv --seed 1
+    TOOL=(python3 docs/accuracy_torch/trace.py f32)
+    run cpv12_f32 --task cpv
     ;;
 more)
     run bbox_dcn36_s1 --task bbox --dcn --epochs 36 --seed 1

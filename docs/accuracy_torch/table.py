@@ -7,7 +7,9 @@ run's seconds, and each number's verdict against the tolerance of
 
 Reads ``docs/accuracy_torch/<run>/result.json`` and ``*.log.json`` (what
 ``run.sh`` brings back from the card) and the JAX records
-``docs/accuracy/r5/*.json`` and ``train_*.log``. Prints markdown. A run
+``docs/accuracy/r5/*.json`` and ``train_*.log``; for LSNet-CPV the JAX
+package's CPU run of the same command, ``jax_cpu/cpv/result.json``, with
+the tolerance of ``PERF.md`` section 6 written for it. Prints markdown. A run
 that is not there is left out.
 """
 
@@ -40,6 +42,15 @@ RUNS = {**{run: ("bbox_mAP", "ev2_b_near.json", "train_dcn36b.log")
            for run, *_ in BBOX},
         "segm48": ("segm_mAP", "segm48.json", "train_segm48.log"),
         "kbox36": ("keypoints_AP", "kbox36.json", "train_kbox36.log")}
+# LSNet-CPV: the port's run and its bilinear --eval-only beside
+# the JAX CPU run; mAP within CPV_RUN, the two deploys within CPV_DEPLOY
+CPV_RUN, CPV_DEPLOY = 2.5, 0.01
+CPV_JAX = os.path.join(HERE, "jax_cpu", "cpv", "result.json")
+# the port's cpv runs (run.sh parts cpv and cpvmore on the card; the tool
+# on the CPU with --device cpu, bf16 over f32 masters as on the card)
+CPV_RUNS = [("cpv12", "seed 0 bf16"), ("cpv12_s1", "seed 1 bf16"),
+            ("cpv12_f32", "seed 0 f32 step"),
+            ("port_cpu/cpv12", "seed 0 bf16 on the CPU")]
 DEPLOYS = ("bilinear", "backbone_nearest", "backbone_nearest_refine_nearest")
 JAX_DEPLOY = {"bilinear": "ev2_bilinear.json",
               "backbone_nearest": "ev2_b_near.json",
@@ -100,6 +111,51 @@ def deploy_rows():
             rows[run] = (seed, dtype, part,
                          [metric(p, "bbox_mAP") for p in paths])
     return rows
+
+
+def cpv_rows():
+    """LSNet-CPV: each port run beside the JAX CPU run: mAP (within
+    CPV_RUN), the first and last logged loss (each must fall), and the
+    bilinear --eval-only against the deployed run (within CPV_DEPLOY)."""
+    if not os.path.exists(CPV_JAX):
+        return
+    j = load(CPV_JAX)
+    want = 100 * j["metrics"]["bbox_mAP"]
+    print()
+    print("| LSNet-CPV run | bbox mAP | loss first / last | card | train s |")
+    print("|---|---|---|---|---|")
+    jfalls = j["losses"][-1] < j["losses"][0]
+    print(f"| JAX, CPU, bf16 over f32 masters, seed 0 | {want:.2f} | "
+          f"{j['losses'][0]:.4f} / {j['losses'][-1]:.4f} "
+          f"({verdict(jfalls)}) | cpu | — |")
+    card = []
+    for run, what in CPV_RUNS:
+        path = os.path.join(HERE, run, "result.json")
+        if not os.path.exists(path):
+            continue
+        r = load(path)
+        got = 100 * r["metrics"]["bbox_mAP"]
+        if r["card"] != "cpu":
+            card.append(got)
+        falls = r["losses"][-1] < r["losses"][0]
+        print(f"| port, {what}, {r['sampling']} | {got:.2f} "
+              f"({got - want:+.2f}, {verdict(abs(got - want) <= CPV_RUN)}) |"
+              f" {r['losses'][0]:.4f} / {r['losses'][-1]:.4f} "
+              f"({verdict(falls)}) | {r['card']} | "
+              f"{r['seconds']['train']:.1f} |")
+    ev = os.path.join(HERE, "cpv12_ev_bilinear", "result.json")
+    base = os.path.join(HERE, "cpv12", "result.json")
+    if os.path.exists(ev) and os.path.exists(base):
+        e = 100 * load(ev)["metrics"]["bbox_mAP"]
+        d = e - 100 * load(base)["metrics"]["bbox_mAP"]
+        print(f"| port, seed 0 bf16, --eval-only bilinear | {e:.2f} "
+              f"({d:+.2f} from the deployed, {verdict(abs(d) <= CPV_DEPLOY)})"
+              f" | — | {load(ev)['card']} | — |")
+    if card:
+        print()
+        print(f"Mean of the {len(card)} card runs: "
+              f"{statistics.fmean(card):.2f} "
+              f"({statistics.fmean(card) - want:+.2f} from JAX's one run).")
 
 
 def main():
@@ -177,6 +233,7 @@ def main():
               f"({mean - jax_row[0]:+.2f}, "
               f"{verdict(abs(mean - jax_row[0]) <= MEAN)}), range "
               f"{min(vals):.2f}-{max(vals):.2f}{spread}")
+    cpv_rows()
 
 
 if __name__ == "__main__":

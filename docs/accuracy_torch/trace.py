@@ -3,7 +3,8 @@ of ``lsnet_torch.tools.accuracy_run``'s R50-DCN bbox config (seed 0, 160
 train images, B=8, the 36-epoch schedule) from one init and one batch
 order, run
 
-* on the CPU in f32 (every K1 call through its plain version),
+* on the CPU in f32 (every K1 call through its plain version), and in
+  bf16 over f32 masters (the same step's casts, plain versions),
 * on the card in f32 (the kernels), twice,
 * on the card in bf16 over f32 masters (the shipped step), twice.
 
@@ -12,14 +13,16 @@ loss relative to a reference run's, and after the last step, for each
 pair, the largest differences of a parameter tensor as a share of how far
 the reference run moved it from the init (the whole model and the
 ``conv_offset`` tensors apart). Pairs: card f32 against the CPU (the
-kernels), card f32 against itself (the atomics' order), bf16 against f32
-on the card (the precision), bf16 against itself. All of it goes to
+kernels), card bf16 against CPU bf16 (the kernels in bf16), card f32
+against itself (the atomics' order), bf16 against f32 on the card (the
+precision), bf16 against itself. ``--task cpv`` traces the cpv task's
+config (R18, norm towers) instead of the bbox one. All of it goes to
 ``OUT/trace.json`` too. f32 is full f32: TF32 is off in cuDNN's
 convolutions and in matmuls, unless ``--tf32`` leaves PyTorch's default
 (TF32 in cuDNN's convolutions).
 
     python3 docs/accuracy_torch/trace.py steps [--steps 20] [--out DIR]
-        [--device cuda|cpu] [--tf32]
+        [--device cuda|cpu] [--tf32] [--task bbox|cpv]
     python3 docs/accuracy_torch/trace.py f32 ACCURACY_RUN_ARGS...
 
 ``f32`` runs ``lsnet_torch.tools.accuracy_run`` with its arguments and
@@ -89,7 +92,9 @@ def first_steps(cfg, work, device, mixed_precision, steps):
 
 def drift(got, ref, init, keys, top=6):
     """max|got - ref| / max|ref - init| of each tensor of ``keys``: the
-    largest ``top`` and the largest of all."""
+    largest ``top`` and the largest of all (None without keys)."""
+    if not keys:
+        return None
     named = sorted((((got[k] - ref[k]).abs().max()
                      / (ref[k] - init[k]).abs().max().clamp(min=1e-30)
                      ).item(), k) for k in keys)
@@ -104,6 +109,9 @@ def steps_main(argv):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--train", type=int, default=160)
     ap.add_argument("--tf32", action="store_true")
+    ap.add_argument("--task", default="bbox", choices=["bbox", "cpv"],
+                    help="bbox: the R50-DCN bbox config (--dcn, 36 "
+                    "epochs); cpv: the cpv task at the tool's defaults")
     opts = ap.parse_args(argv)
     card = runner_loop.runner_device(opts.device)
     torch.backends.cudnn.allow_tf32 = opts.tf32
@@ -111,11 +119,12 @@ def steps_main(argv):
     os.makedirs(opts.out, exist_ok=True)
     ann, img = make_shapes_coco(os.path.join(opts.out, "data_train"),
                                 opts.train, seed=0)
-    args = accuracy_run.parse_args(["--task", "bbox", "--dcn", "--epochs",
-                                    "36", "--train", str(opts.train)])
-    runs = {"cpu_f32": ("cpu", False), "card_f32": (card, False),
-            "card_f32_again": (card, False), "card_bf16": (card, True),
-            "card_bf16_again": (card, True)}
+    flags = (["--task", "bbox", "--dcn", "--epochs", "36"]
+             if opts.task == "bbox" else ["--task", "cpv"])
+    args = accuracy_run.parse_args(flags + ["--train", str(opts.train)])
+    runs = {"cpu_f32": ("cpu", False), "cpu_bf16": ("cpu", True),
+            "card_f32": (card, False), "card_f32_again": (card, False),
+            "card_bf16": (card, True), "card_bf16_again": (card, True)}
     got = {}
     for name, (device, mixed) in runs.items():
         cfg = accuracy_run.accuracy_cfg(args, ann, img, ann, img)
@@ -133,11 +142,13 @@ def steps_main(argv):
             and not k.endswith(("mean", "var"))]
     offsets = [k for k in keys if "conv_offset" in k]
     pairs = {"card_f32 vs cpu_f32": ("card_f32", "cpu_f32"),
+             "card_bf16 vs cpu_bf16": ("card_bf16", "cpu_bf16"),
              "card_f32_again vs card_f32": ("card_f32_again", "card_f32"),
              "card_bf16 vs card_f32": ("card_bf16", "card_f32"),
              "card_bf16_again vs card_bf16": ("card_bf16_again",
                                               "card_bf16")}
-    report = {"steps": opts.steps, "device": str(card), "tf32": opts.tf32,
+    report = {"task": opts.task, "steps": opts.steps, "device": str(card),
+              "tf32": opts.tf32,
               "card": accuracy_run.card_name(card),
               "records": {n: g[1] for n, g in got.items()}, "pairs": {}}
     for label, (a, b) in pairs.items():

@@ -1,5 +1,8 @@
 """User entry points (counterpart of ``lsnet_tpu/apis.py``, the reference's
-``mmdet.apis``), for the ``LSDetector`` / ``LSHead`` configs.
+``mmdet.apis``), for the ``LSDetector`` / ``LSHead`` and ``LSCPVDetector``
+configs. A CPV detector decodes with ``lscpv_decode`` (its corner snap),
+except in ``aug_test_simple``, which takes LSNet's candidates as JAX's
+does.
 
 The image-level API:
 
@@ -36,8 +39,9 @@ from typing import (Any, Callable, Dict, Mapping, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 
-from .core.decode import (Detections, TestConfig, lsnet_decode,
-                          lsnet_decode_candidates, nms_candidates)
+from .core.cpv import CPVLossConfig
+from .core.decode import (Detections, TestConfig, lsnet_decode_candidates,
+                          nms_candidates)
 from .core.loss import LossConfig
 from .data.transforms import (canvas_for_scale, normalize_image,
                               pad_to_shape, rescale_size, resize_image)
@@ -48,8 +52,8 @@ from .models.layers import FrozenBatchNorm
 from .ops.flat_deform import (INFERENCE_SAMPLING, TRAIN_SAMPLING,
                               sampling_from_spec)
 from .train.checkpoint import deploy_sampling, restore_eval_state
-from .train.loop import (evaluate_detector, runner_device,  # noqa: F401
-                         test_cfg_from, train_detector)
+from .train.loop import (decode_for, evaluate_detector,  # noqa: F401
+                         runner_device, test_cfg_from, train_detector)
 from .train.optim import build_optimizer
 from .train.step import make_train_step
 from .utils.config import Config
@@ -87,7 +91,8 @@ def init_model(cfg: Dict[str, Any], device: str = "cuda", seed: int = 0,
     return model.to(device=device, dtype=dtype).train(train)
 
 
-def train_detector_step(model: LSDetector, loss_cfg: LossConfig, *,
+def train_detector_step(model: LSDetector,
+                        loss_cfg: Union[LossConfig, CPVLossConfig], *,
                         base_lr: float = 0.01, steps_per_epoch: int = 1000,
                         decay_epochs: Sequence[int] = (8, 11),
                         mixed_precision: bool = True,
@@ -98,8 +103,8 @@ def train_detector_step(model: LSDetector, loss_cfg: LossConfig, *,
     """``step(batch) -> metrics`` for ``model`` (f32 master weights, from
     ``init_model(..., train=True)``): the reference recipe (SGD 0.9,
     weight decay 1e-4, clip 35, warm-up + step schedule) on the loss of
-    ``loss_cfg.task``,
-    bf16 compute unless ``mixed_precision=False``. ``optim_kwargs`` go to
+    ``loss_cfg.task`` (``lscpv_loss`` for a ``CPVLossConfig``), bf16
+    compute unless ``mixed_precision=False``. ``optim_kwargs`` go to
     :func:`lsnet_torch.train.optim.build_optimizer`."""
     optimizer, _ = build_optimizer(model.parameters(), base_lr,
                                    steps_per_epoch, decay_epochs,
@@ -115,10 +120,10 @@ def detect(model: LSDetector, images: torch.Tensor,
     """images (B, H, W, 3) NHWC in the model's dtype; img_shapes (B, 2)
     [h, w]; scale_factors (B, 4); ``sampling`` maps each sampling site to
     its mode (``flat_deform.TRAIN_SAMPLING`` for bilinear everywhere).
-    Returns padded Detections."""
+    Returns padded Detections (``lscpv_decode``'s for a CPV detector)."""
     with torch.inference_mode():
         outs = model(images, sampling)
-        return lsnet_decode(outs, img_shapes, scale_factors, test_cfg)
+        return decode_for(model)(outs, img_shapes, scale_factors, test_cfg)
 
 
 # ------------------------------------------------------------ image level

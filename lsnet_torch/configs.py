@@ -20,6 +20,9 @@ one class, boxes from the annotation) and
 visible keypoints). ``TEST_SETTINGS`` and ``LOSS_WEIGHTS`` hold each
 task's ``test_cfg`` and loss weights from the same files, as keyword
 arguments of ``core.decode.TestConfig`` and ``core.loss.LossConfig``.
+
+``x101_cpv_cfg`` is LSNet-CPV on the same backbone and neck, the head of
+``configs/lsnet/lsnet_bbox_cpv_x101_fpn_dconv_c3-c5_mstrain_2x_coco.py``.
 """
 
 from __future__ import annotations
@@ -73,6 +76,23 @@ def x101_pose_bbox_cfg(feat: int = 256, stacked: int = 3) -> dict:
 
 def x101_pose_kbox_cfg(feat: int = 256, stacked: int = 3) -> dict:
     return _x101_task_cfg("pose_kbox", 17, 1, feat, stacked)
+
+
+def x101_cpv_cfg(feat: int = 256, stacked: int = 3) -> dict:
+    """LSNet-CPV X-101-64x4d-DCN: the head of
+    ``configs/lsnet/lsnet_bbox_cpv_x101_fpn_dconv_c3-c5_mstrain_2x_coco.py``
+    (DCN towers, one shared DCN block, corner pools of 64 channels) on the
+    X-101 flagship's backbone and neck."""
+    cfg = x101_flagship_cfg(feat=feat, stacked=stacked)
+    cfg["type"] = "LSCPVDetector"
+    cfg["bbox_head"] = dict(
+        type="LSCPVHead", num_classes=80, in_channels=feat,
+        feat_channels=feat, point_feat_channels=feat, stacked_convs=stacked,
+        shared_stacked_convs=1, first_kernel_size=3, kernel_size=1,
+        corner_dim=64, num_points=9, gradient_mul=0.1,
+        point_strides=[8, 16, 32, 64, 128], point_base_scale=4,
+        norm_cfg=dict(type="GN", num_groups=32), conv_module_type="dcn")
+    return cfg
 
 
 _DET_TEST = dict(nms_pre=1000, score_thr=0.05, nms_iou=0.6, max_per_img=100)

@@ -1,14 +1,18 @@
 """Model builders (counterpart of ``lsnet_tpu/models/__init__.py``): config
 dicts with a ``type`` key -> ``nn.Module``s. The port builds ResNet,
-ResNeXt, Res2Net, FPN, LSHead (all four tasks) and LSDetector."""
+ResNeXt, Res2Net, FPN, LSHead (all four tasks), LSCPVHead, and
+LSDetector / LSCPVDetector (an LSDetector with the CPV head)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Sequence, Union
+
+from torch import nn
 
 from .backbones.resnet import ResNet
 from .detectors.lsnet import LSDetector
 from .heads.ls_head import LSHead
+from .heads.lscpv_head import LSCPVHead
 from .necks.fpn import FPN
 
 
@@ -39,10 +43,10 @@ def build_neck(cfg: Dict[str, Any], in_channels: Sequence[int]) -> FPN:
     return FPN(in_channels=list(in_channels), **cfg)
 
 
-def build_head(cfg: Dict[str, Any]) -> LSHead:
+def build_head(cfg: Dict[str, Any]) -> Union[LSHead, LSCPVHead]:
     cfg = dict(cfg)
     kind = cfg.pop("type")
-    if kind != "LSHead":
+    if kind not in ("LSHead", "LSCPVHead"):
         raise NotImplementedError(f"head {kind}")
     # losses and the point layout are read by training and decode
     for k in [k for k in cfg if k.startswith("loss_")] + [
@@ -53,19 +57,27 @@ def build_head(cfg: Dict[str, Any]) -> LSHead:
         cfg["norm_groups"] = norm_cfg.get("num_groups", 32)
     if cfg.pop("fuse_towers", False):
         raise NotImplementedError("fuse_towers is a TPU layout option")
-    return LSHead(**cfg)
+    if kind == "LSHead":
+        return LSHead(**cfg)
+    for k in ("use_grid_points", "center_init"):
+        cfg.pop(k, None)
+    if "num_points" in cfg:
+        cfg["num_kernel_points"] = cfg.pop("num_points")
+    return LSCPVHead(**cfg)
 
 
 def build_detector(cfg: Dict[str, Any]) -> LSDetector:
     """Build the detector from a full ``model`` config dict."""
     cfg = dict(cfg)
     kind = cfg.pop("type")
-    if kind == "LSCPVDetector":
-        raise NotImplementedError("LSCPVDetector (CPV): ROADMAP Queue 1 "
-                                  "item 10")
-    if kind != "LSDetector":
+    if kind not in ("LSDetector", "LSCPVDetector"):
         raise NotImplementedError(f"detector {kind}")
     backbone = build_backbone(cfg.pop("backbone"))
     neck = build_neck(cfg.pop("neck"), backbone.out_channels)
     head = build_head(cfg.pop("bbox_head"))
     return LSDetector(backbone, neck, head)
+
+
+def is_cpv(model: nn.Module) -> bool:
+    """Whether the detector carries the CPV head."""
+    return isinstance(getattr(model, "head", None), LSCPVHead)

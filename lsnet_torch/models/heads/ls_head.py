@@ -16,8 +16,9 @@ A landmark field has 4 slots per point (``num_vectors`` points and the
 centre): bbox 4 extremes, segm 36 contour points, pose 17 keypoints.
 
 The reference quirk the JAX package keeps as ``offset_scale_compat=True``
-is reproduced: the offset field is scaled in place across the 3-level
-loop, so the scale compounds (published checkpoints were trained so).
+(the default here too) is reproduced: the offset field is scaled in place
+across the 3-level loop, so the scale compounds (published checkpoints
+were trained so); ``offset_scale_compat=False`` scales each job once.
 Channel layout per landmark point: ``[y-, y+, x-, x+]``. Modules run in
 NCHW; the returned maps are NHWC like the JAX head's.
 """
@@ -57,10 +58,14 @@ def level_list(lvl: int, num_levels: int) -> List[int]:
 
 def branch_pyramid_jobs(feat_shapes: Sequence[Tuple[int, int]],
                         dcn_offs: Sequence[torch.Tensor],
-                        dcn_kernel: int) -> List[SampleJob]:
+                        dcn_kernel: int,
+                        offset_scale_compat: bool = True
+                        ) -> List[SampleJob]:
     """All cross-level jobs of a refine branch in (out_lvl, src) order, 3
-    per output level, the offset scale compounding across them.
-    feat_shapes: per-level (H, W); dcn_offs NHWC."""
+    per output level. With ``offset_scale_compat`` the offset scale
+    compounds across them (the reference's in-place scaling); without it
+    each job scales the level's own offsets once. feat_shapes: per-level
+    (H, W); dcn_offs NHWC."""
     num_levels = len(feat_shapes)
     pad = (dcn_kernel - 1) // 2
     jobs = []
@@ -71,10 +76,14 @@ def branch_pyramid_jobs(feat_shapes: Sequence[Tuple[int, int]],
             cur_h, cur_w = feat_shapes[level]
             scale_h = cur_h / base_h
             scale_w = cur_w / base_w
-            o2 = off.reshape(*off.shape[:-1], -1, 2)
-            off = (o2 * torch.tensor([scale_h, scale_w], dtype=off.dtype,
-                                     device=off.device)).reshape(off.shape)
-            jobs.append(SampleJob(level, off, None, (scale_h, scale_w),
+            src = off if offset_scale_compat else dcn_offs[lvl]
+            o2 = src.reshape(*src.shape[:-1], -1, 2)
+            scaled = (o2 * torch.tensor([scale_h, scale_w], dtype=src.dtype,
+                                        device=src.device)
+                      ).reshape(src.shape)
+            if offset_scale_compat:
+                off = scaled
+            jobs.append(SampleJob(level, scaled, None, (scale_h, scale_w),
                                   (1, 1), (pad, pad), (1, 1)))
     return jobs
 
@@ -141,7 +150,7 @@ class LSHead(nn.Module):
                  stacked_convs: int = 3, num_kernel_points: int = 9,
                  gradient_mul: float = 0.1, task: str = "bbox",
                  num_vectors: int = 4, conv_module_type: str = "norm",
-                 norm_groups: int = 32):
+                 norm_groups: int = 32, offset_scale_compat: bool = True):
         super().__init__()
         if task not in TASK_BRANCHES:
             raise ValueError(f"LSHead task {task!r}: want one of "
@@ -153,6 +162,7 @@ class LSHead(nn.Module):
         self.num_vectors = num_vectors
         self.num_kernel_points = num_kernel_points
         self.gradient_mul = gradient_mul
+        self.offset_scale_compat = offset_scale_compat
         self.dcn_kernel = math.isqrt(num_kernel_points)
         self.stacked_convs = stacked_convs
         pf = point_feat_channels
@@ -279,7 +289,8 @@ class LSHead(nn.Module):
             pairs = [self._init_branch(key, f) for f in towers[key]]
             init_sps[key] = [p[0] for p in pairs]
             jobs[key] = branch_pyramid_jobs(shapes, [p[1] for p in pairs],
-                                            self.dcn_kernel)
+                                            self.dcn_kernel,
+                                            self.offset_scale_compat)
         # the main branch and cls share one offset field: one corner
         # table, two contractions
         main = self.main

@@ -7,12 +7,18 @@ Each parameter is drawn from the distribution its flax module gives it:
   ``kaiming_init``, He normal over fan_out (``lsnet_tpu/models/layers.py:28``);
 * ``nn.Conv2d`` of the head: N(0, 0.01) (``normal_init``, ``:32``), the
   classifier's bias at the focal prior ``bias_init_with_prob(0.01)``
-  (``:42``; ``ls_head.py:268-269``), every other bias 0;
+  (``:42``; ``ls_head.py:268-269``; in LSCPVHead also the corner-heatmap
+  and semantic scores, ``lscpv_head.py:135-170``), every other bias 0;
+* LSCPVHead's modules that keep the flax defaults
+  (``lsnet_tpu/models/heads/lscpv_head.py``): the ConvModules of its
+  corner-pool packs and ``sem_embedding`` ``kaiming_init``, the packs'
+  bare ``p_conv1`` / ``conv1`` LeCun normal (truncated at 2 std, fan_in);
 * ``conv_offset`` of a DCNv2 pack: 0 (``layers.py:146``), so every DCN
   starts as a plain conv;
 * the DCNv2 weight: U(-s, s) with s = 1 / sqrt(cin_per_group * k * k), the
   torch ``reset_parameters`` scale;
-* the pyramid (refine) deformable weights: He normal over fan_out;
+* the pyramid (refine) deformable weights: He normal over fan_out in
+  LSHead, N(0, 0.01) in LSCPVHead;
 * GroupNorm and FrozenBatchNorm: scale 1 and bias 0; the statistics mean 0
   and var 1.
 
@@ -30,10 +36,21 @@ import torch
 from torch import nn
 
 from .heads.ls_head import LSHead
+from .heads.lscpv_head import LSCPVHead
 from .layers import (FrozenBatchNorm, ModulatedDeformConvPack,
                      PairedPyramidDeformConv, PyramidDeformConv)
 
 PRIOR_PROB = 0.01
+# head convolutions whose bias starts at the focal prior
+PRIOR_BIASED = ("pts_cls_out", "hem_tl_score_out", "hem_br_score_out",
+                "sem_out")
+# LSCPVHead convolutions (name ends) with the flax defaults: ConvModule's
+# kaiming_init, nn.Conv's lecun_normal
+CPV_KAIMING = ("p1_conv1.conv", "p2_conv1.conv", "conv2.conv",
+               "sem_embedding.conv")
+CPV_LECUN = ("p_conv1", "hem_tl.conv1", "hem_br.conv1")
+# flax's truncated normal: the std of N(0, 1) truncated to [-2, 2]
+TRUNC_STD = 0.87962566103423978
 
 
 def bias_init_with_prob(prior_prob: float) -> float:
@@ -55,7 +72,10 @@ def init_weights_(model: nn.Module, generator: torch.Generator
     """Draw every parameter of ``model`` (a detector or any of its parts)
     from its JAX initializer, in place, in module order."""
     head_modules: Set[int] = {
-        id(m) for h in model.modules() if isinstance(h, LSHead)
+        id(m) for h in model.modules() if isinstance(h, (LSHead, LSCPVHead))
+        for m in h.modules()}
+    cpv_modules: Set[int] = {
+        id(m) for h in model.modules() if isinstance(h, LSCPVHead)
         for m in h.modules()}
     done: Set[int] = set()
 
@@ -71,16 +91,22 @@ def init_weights_(model: nn.Module, generator: torch.Generator
                 m.var.fill_(1.0)
             mark(m.weight, m.bias)
         elif isinstance(m, nn.Conv2d):
+            cpv = id(m) in cpv_modules
+            cout, cin, kh, kw = m.weight.shape          # OIHW
             if name.endswith("conv_offset"):
                 m.weight.zero_()
-            elif id(m) in head_modules:
+            elif cpv and name.endswith(CPV_LECUN):
+                std = math.sqrt(1.0 / (cin * kh * kw)) / TRUNC_STD
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std,
+                                      2 * std, generator=generator)
+            elif id(m) in head_modules and not (
+                    cpv and name.endswith(CPV_KAIMING)):
                 _normal_(m.weight, 0.01, generator)
-            else:                       # OIHW: fan_out = cout * k * k
-                cout, _, kh, kw = m.weight.shape
+            else:
                 _he_fan_out_(m.weight, cout * kh * kw, generator)
             if m.bias is not None:
                 m.bias.zero_()
-                if id(m) in head_modules and name.endswith("pts_cls_out"):
+                if id(m) in head_modules and name.endswith(PRIOR_BIASED):
                     m.bias.fill_(bias_init_with_prob(PRIOR_PROB))
             mark(m.weight, m.bias)
         elif isinstance(m, ModulatedDeformConvPack):
@@ -93,8 +119,11 @@ def init_weights_(model: nn.Module, generator: torch.Generator
             mark(m.weight, m.bias)
         elif isinstance(m, (PyramidDeformConv, PairedPyramidDeformConv)):
             for p in m.parameters(recurse=False):   # HWIO
-                _he_fan_out_(p, p.shape[0] * p.shape[1] * p.shape[3],
-                             generator)
+                if id(m) in cpv_modules:
+                    _normal_(p, 0.01, generator)
+                else:
+                    _he_fan_out_(p, p.shape[0] * p.shape[1] * p.shape[3],
+                                 generator)
                 mark(p)
     left = [n for n, p in model.named_parameters() if id(p) not in done]
     if left:

@@ -35,11 +35,15 @@ order, and the last bits, change from run to run.
 
 The kernels take C in multiples of 32 (bf16) or 16 (f32) and cout in
 multiples of 8 (16-byte rows for ``cp.async`` and the TMA strides). The
-forward wrapper takes any C and cout: it zero-pads ``flat``'s rows and
-the weight to those multiples (:func:`pad_channels`, a copy of ``flat``
-per call: Res2Net's 52 / 104 / 208 channels become 64 / 128 / 224) and
-slices the output. The backward wrappers do not pad: they raise on such
-shapes (training Res2Net on the card is still to come).
+three wrappers take any C and cout: they zero-pad ``flat``'s rows and the
+weight to those multiples (:func:`pad_channels`, a copy of ``flat`` per
+call: Res2Net's 52 / 104 / 208 channels become 64 / 128 / 224 in bf16,
+CPV's 262-channel refine 288), the backward ones ``dout``'s columns too,
+and slice the outputs. :func:`deform_gather_contract` pads once, before
+the autograd function, on CUDA tensors: the function then saves the
+padded operands for its backward, whose wrappers find nothing left to
+pad, and autograd slices the gradients of the padding away (the padded
+``dout`` comes from the backward of the output's slice).
 """
 
 from __future__ import annotations
@@ -85,9 +89,16 @@ def pad_channels(flat: torch.Tensor, weight: torch.Tensor
     return flat, weight
 
 
+def pad_dout(dout: torch.Tensor, cout: int) -> torch.Tensor:
+    """``dout`` (px, cout') zero-padded to ``cout`` columns (itself where
+    it has them)."""
+    return dout if dout.shape[1] == cout else F.pad(
+        dout, (0, cout - dout.shape[1]))
+
+
 def _check(flat, idx, w, weight, channels=True):
     """Raise unless the kernels take these operands; ``channels=False``
-    leaves out the rule on C and cout (for the padding forward)."""
+    leaves out the rule on C and cout (for the padding wrappers)."""
     if flat.dim() != 2 or idx.dim() != 3 or w.shape != idx.shape \
             or weight.dim() != 3:
         raise ValueError(
@@ -264,11 +275,13 @@ def deform_gather_contract_bwd_data(flat, idx, w, weight, dout,
                                                    dout, need_flat, need_w)
     if flat.device.type != "cuda":
         raise ValueError(f"no kernel for device {flat.device}")
-    _check(flat, idx, w, weight)
+    _check(flat, idx, w, weight, channels=False)
     nc, K, px = idx.shape
     C = flat.shape[1]
-    cout = weight.shape[2]
-    dout = check_dout(dout, flat, px, cout)
+    dout = check_dout(dout, flat, px, weight.shape[2])
+    flat, weight = pad_channels(flat, weight)
+    cpad = weight.shape[2]
+    dout = pad_dout(dout, cpad)
     d_flat = (torch.zeros(flat.shape, dtype=torch.float32,
                           device=flat.device) if need_flat else None)
     d_w = torch.zeros_like(w) if need_w else None
@@ -278,10 +291,10 @@ def deform_gather_contract_bwd_data(flat, idx, w, weight, dout,
                flat.data_ptr(), idx.data_ptr(), w.data_ptr(),
                weight.data_ptr(), dout.data_ptr(),
                d_flat.data_ptr() if need_flat else None,
-               d_w.data_ptr() if need_w else None, C, nc, K, px, cout,
-               int(flat.dtype == torch.bfloat16))
+               d_w.data_ptr() if need_w else None, flat.shape[1], nc, K,
+               px, cpad, int(flat.dtype == torch.bfloat16))
         deform_gather_contract_bwd_data.launches += 1
-    return (d_flat.to(flat.dtype) if need_flat else None), d_w
+    return (d_flat[:, :C].to(flat.dtype) if need_flat else None), d_w
 
 
 def deform_gather_contract_bwd_weight(flat, idx, w, weight, dout):
@@ -292,11 +305,13 @@ def deform_gather_contract_bwd_weight(flat, idx, w, weight, dout):
         return deform_gather_contract_bwd_weight_ref(flat, idx, w, dout)
     if flat.device.type != "cuda":
         raise ValueError(f"no kernel for device {flat.device}")
-    _check(flat, idx, w, weight)
+    _check(flat, idx, w, weight, channels=False)
+    C0, cout0 = flat.shape[1], weight.shape[2]
     nc, K, px = idx.shape
-    C = flat.shape[1]
-    cout = weight.shape[2]
-    dout = check_dout(dout, flat, px, cout)
+    dout = check_dout(dout, flat, px, cout0)
+    flat, weight = pad_channels(flat, weight)
+    C, cout = flat.shape[1], weight.shape[2]
+    dout = pad_dout(dout, cout)
     d_weight = torch.zeros((K, C, cout), dtype=torch.float32,
                            device=flat.device)
     if px:
@@ -313,7 +328,7 @@ def deform_gather_contract_bwd_weight(flat, idx, w, weight, dout):
                dout.data_ptr(), d_weight.data_ptr(), C, nc, K, px, cout,
                nsplit, int(bf16))
         deform_gather_contract_bwd_weight.launches += 1
-    return d_weight.to(flat.dtype)
+    return d_weight[:, :C0, :cout0].to(flat.dtype)
 
 
 class ContractOps(NamedTuple):
@@ -372,7 +387,11 @@ def deform_gather_contract(flat: torch.Tensor, idx: torch.Tensor,
     whose ``w`` takes its gradient straight through (see
     :class:`GatherContract`)."""
     ste_idx, ste_w = ste if ste is not None else (None, None)
-    return GatherContract.apply(_OPS, flat, idx, w, weight, ste_idx, ste_w)
+    cout = weight.shape[2]
+    if flat.is_cuda:
+        flat, weight = pad_channels(flat, weight)
+    out = GatherContract.apply(_OPS, flat, idx, w, weight, ste_idx, ste_w)
+    return out if out.shape[1] == cout else out[:, :cout].contiguous()
 
 
 # launches of each CUDA kernel since its count was last set to 0

@@ -5,7 +5,8 @@
 COCO evaluation. The recipe is the reference one (SGD, warm-up, step
 decay, clip 35) scaled to the run, key for key the JAX tool's.
 
-    python3 -m lsnet_torch.tools.accuracy_run [--task bbox|segm|pose|pose_kbox]
+    python3 -m lsnet_torch.tools.accuracy_run
+        [--task bbox|segm|pose|pose_kbox|cpv]
         [--out DIR] [--epochs 12] [--train 160] [--val 40] [--batch 8]
         [--dcn] [--seed 0] [--device cuda|cpu]
     python3 -m lsnet_torch.tools.accuracy_run --eval-only DIR/ckpts/step_N.pt
@@ -49,8 +50,9 @@ TASK_HEADS = {
                  num_classes=1),
     "pose_kbox": dict(type="LSHead", task="pose_kbox", num_vectors=17,
                       num_classes=1),
+    "cpv": dict(type="LSCPVHead", num_classes=3, num_points=9,
+                shared_stacked_convs=1, corner_dim=16),
 }
-CPV = "LSCPVDetector (CPV): ROADMAP Queue 1 item 10"
 
 
 def accuracy_cfg(args, train_ann: str, train_dir: str, val_ann: str,
@@ -60,12 +62,10 @@ def accuracy_cfg(args, train_ann: str, train_dir: str, val_ann: str,
     ``train`` and ``seed``."""
     from ..utils.config import Config
 
-    if args.task == "cpv":
-        raise NotImplementedError(CPV)
     pose = args.task in ("pose", "pose_kbox")
     return Config(dict(
         model=dict(
-            type="LSDetector",
+            type="LSCPVDetector" if args.task == "cpv" else "LSDetector",
             # --dcn uses R50: a BasicBlock (R18) carries no DCN
             backbone=dict(type="ResNet", depth=50 if args.dcn else 18,
                           num_stages=4,
@@ -166,8 +166,6 @@ def parse_args(argv=None):
                     help="the sampling of an --eval-only run")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.task == "cpv":
-        raise NotImplementedError(CPV)
     if args.sampling is not None and args.eval_only is None:
         raise ValueError("--sampling is for an --eval-only run; a training "
                          "run samples as its config's "

@@ -19,25 +19,32 @@ run's own train sampling where the config chose one (``EvalHook``), the
 checkpoint's deployed sampling (``tools.test``), or ``INFERENCE_SAMPLING``:
 the order of the JAX package's ``inference_sampling()``.
 
-Left out, as the TPU's own or not LSHead: the compile cache, the chunk
+The head family sets the loss and the decode, as in the JAX runner:
+LSHead trains on ``lsnet_loss`` and decodes with ``lsnet_decode``;
+LSCPVHead (``LSCPVDetector``) on ``lscpv_loss``, whose config reads only
+the base (LSHead) loss settings from the file, as JAX's does, and decodes
+with ``lscpv_decode``.
+
+Left out, as the TPU's own or not LSNet: the compile cache, the chunk
 budget, the device mesh (one card; ``num_hosts`` 1 until ROADMAP Queue 1
-item 11), and the two-stage, dense, RepPoints and CPV branches.
+item 11), and the two-stage, dense and RepPoints branches.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
+from ..core.cpv import CPVLossConfig, lscpv_decode
 from ..core.decode import TestConfig, lsnet_decode
 from ..core.loss import LossConfig
 from ..data.coco import (CocoDataset, DataLoader, DatasetConfig,
                          batch_to_device, collate_batch)
 from ..evalkit.evaluator import (coco_gt_from_annotations, detections_to_coco,
                                  evaluate_coco)
-from ..models import build_detector
+from ..models import build_detector, is_cpv
 from ..models.init import init_weights_
 from ..ops.flat_deform import (INFERENCE_SAMPLING, TRAIN_SAMPLING,
                                sampling_from_spec)
@@ -90,6 +97,22 @@ def loss_cfg_from(cfg, image_shape) -> LossConfig:
     )
 
 
+def train_loss_cfg(cfg, image_shape) -> Union[LossConfig, CPVLossConfig]:
+    """The train step's loss config: ``CPVLossConfig`` around the base
+    config for the CPV head (its heatmap, offset and semantic terms keep
+    their defaults, as in the JAX runner), else ``loss_cfg_from``."""
+    base = loss_cfg_from(cfg, image_shape)
+    if cfg.model.bbox_head.get("type") == "LSCPVHead":
+        return CPVLossConfig(base=base)
+    return base
+
+
+def decode_for(model: torch.nn.Module) -> Callable[..., Any]:
+    """The detector's decode: ``lscpv_decode`` for the CPV head, else
+    ``lsnet_decode``; ``fn(outs, img_shapes, scale_factors, test_cfg)``."""
+    return lscpv_decode if is_cpv(model) else lsnet_decode
+
+
 def test_cfg_from(cfg, image_shape) -> TestConfig:
     head = cfg.model.bbox_head
     tc = cfg.test_cfg
@@ -109,25 +132,17 @@ def test_cfg_from(cfg, image_shape) -> TestConfig:
     )
 
 
-def check_runnable(cfg, train_device: Optional[torch.device] = None
-                   ) -> None:
+def check_runnable(cfg) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of a model or
-    dataset the port cannot run yet (with ``train_device``, also what it
-    cannot train there)."""
+    dataset the port cannot run yet."""
     model = cfg.model
-    if model.type == "LSCPVDetector":
-        raise NotImplementedError("LSCPVDetector (CPV): ROADMAP Queue 1 "
-                                  "item 10")
-    if model.type != "LSDetector" or \
-            model.get("bbox_head", {}).get("type") != "LSHead":
+    head = {"LSDetector": "LSHead", "LSCPVDetector": "LSCPVHead"}.get(
+        model.type)
+    if head is None or model.get("bbox_head", {}).get("type") != head:
         raise NotImplementedError(f"{model.type}: the port runs LSDetector "
-                                  "with LSHead; the zoo is ROADMAP Queue 1 "
+                                  "with LSHead and LSCPVDetector with "
+                                  "LSCPVHead; the zoo is ROADMAP Queue 1 "
                                   "item 12")
-    if model.backbone.type == "Res2Net" and train_device is not None \
-            and train_device.type == "cuda":
-        raise NotImplementedError(
-            "Res2Net training on the card: the K1 backward kernels take no "
-            "52 / 104 / 208-channel call yet (ROADMAP Queue 1 item 9)")
     for split in ("train", "val"):
         kind = cfg.data.get(split, {}).get("type", "CocoDataset")
         if kind != "CocoDataset":
@@ -178,7 +193,7 @@ def train_detector(cfg, work_dir: str, *, total_epochs: Optional[int] = None,
     """A training run from a ``Config``. Returns the model, its optimizer,
     the step reached and the work dir."""
     device = runner_device(device)
-    check_runnable(cfg, device)
+    check_runnable(cfg)
     os.makedirs(work_dir, exist_ok=True)
     logger = JsonLogger(work_dir, interval=cfg.get("log_interval", 50))
     print("environment:", dict(collect_env()), flush=True)
@@ -244,7 +259,7 @@ def train_detector(cfg, work_dir: str, *, total_epochs: Optional[int] = None,
     def step_for(canvas_hw):
         if canvas_hw not in step_fns:
             step_fns[canvas_hw] = make_train_step(
-                model, optimizer, loss_cfg_from(cfg, canvas_hw),
+                model, optimizer, train_loss_cfg(cfg, canvas_hw),
                 sampling=sampling)
         return step_fns[canvas_hw]
 
@@ -301,6 +316,7 @@ def evaluate_detector(cfg, model: torch.nn.Module, canvas, *,
     img_sizes = {info["id"]: (info["height"], info["width"])
                  for info in ds.coco.img_infos}
     label_to_cat = {v: k for k, v in ds.coco.cat_to_label.items()}
+    decode = decode_for(model)
     land, port = tuple(canvas), (canvas[1], canvas[0])
     groups = {land: [], port: []}
     for i in range(n):
@@ -321,7 +337,7 @@ def evaluate_detector(cfg, model: torch.nn.Module, canvas, *,
                     param.device, param.dtype)
                 with torch.inference_mode():
                     outs = model(image, sampling)
-                    det = lsnet_decode(
+                    det = decode(
                         outs,
                         torch.from_numpy(batch["img_shape"]).to(param.device),
                         torch.from_numpy(batch["scale_factor"]).to(

@@ -20,27 +20,34 @@ gradients of the frozen stage, which the port never computes.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Union
 
 import torch
 from torch.nn.utils.stateless import _reparametrize_module
 
+from ..core.cpv import CPVLossConfig, lscpv_loss
 from ..core.loss import LossConfig, lsnet_loss
 from ..ops.flat_deform import TRAIN_SAMPLING
 from .optim import ClippedSGD
 
+# the loss of each head family, by its config's type
+LOSSES = {LossConfig: lsnet_loss, CPVLossConfig: lscpv_loss}
+
 
 def make_train_step(model: torch.nn.Module, optimizer: ClippedSGD,
-                    loss_cfg: LossConfig, mixed_precision: bool = True,
+                    loss_cfg: Union[LossConfig, CPVLossConfig],
+                    mixed_precision: bool = True,
                     sampling: Mapping[str, str] = TRAIN_SAMPLING
                     ) -> Callable[[Mapping[str, torch.Tensor]],
                                   Dict[str, torch.Tensor]]:
     """``step(batch) -> metrics``: one update of ``model`` in place.
 
-    batch: ``image`` (B, H, W, 3) NHWC and the keys of
-    :func:`lsnet_torch.core.loss.lsnet_loss`, on the model's device.
+    The loss is ``lsnet_loss`` for a ``LossConfig``, ``lscpv_loss`` for a
+    ``CPVLossConfig`` (the CPV head). batch: ``image`` (B, H, W, 3) NHWC
+    and the keys of the loss, on the model's device.
     metrics: ``loss``, the loss terms and the pre-clip ``grad_norm``, as
     tensors on the device (no synchronisation)."""
+    loss_fn = LOSSES[type(loss_cfg)]
     names = [n for n, p in model.named_parameters() if p.requires_grad]
     masters = dict(model.named_parameters())
     if [id(masters[n]) for n in names] != [id(p) for p in optimizer.params]:
@@ -64,7 +71,7 @@ def make_train_step(model: torch.nn.Module, optimizer: ClippedSGD,
                          else image, sampling)
             # assignment and losses in f32
             outs = {k: [m.float() for m in v] for k, v in outs.items()}
-            total, losses = lsnet_loss(outs, batch, loss_cfg)
+            total, losses = loss_fn(outs, batch, loss_cfg)
             grads = torch.autograd.grad(total, optimizer.params)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()

@@ -2,15 +2,15 @@
 ``tools/accuracy_run.py``.
 
 * ``accuracy_cfg`` equals the config the JAX tool builds, key for key, for
-  the four tasks with and without ``--dcn``: the JAX tool's own config
-  expression is read from its source and evaluated with the same
-  arguments (its file is not changed).
+  the five tasks (LSNet-CPV's ``cpv`` with its ``LSCPVDetector`` and
+  ``heatmap`` assigner among them) with and without ``--dcn``: the JAX
+  tool's own config expression is read from its source and evaluated with
+  the same arguments (its file is not changed).
 * A CPU run of 10 iterations (the tool logs a loss record every 10
   iterations of an epoch) writes ``result.json`` with finite losses and
   COCO metric keys; an ``--eval-only`` run of its checkpoint records the
   sampling it was given.
-* ``--task cpv`` raises and names ROADMAP Queue 1 item 10; ``--sampling``
-  without ``--eval-only`` raises.
+* ``--sampling`` without ``--eval-only`` raises.
 """
 
 import argparse
@@ -54,7 +54,8 @@ def _plain(tree):
     return json.loads(json.dumps(tree))
 
 
-CASES = [(task, dcn, run) for task in ("bbox", "segm", "pose", "pose_kbox")
+CASES = [(task, dcn, run)
+         for task in ("bbox", "segm", "pose", "pose_kbox", "cpv")
          for dcn in (False, True)
          for run in ((36, 160, 8),)] + [("bbox", True, (48, 320, 8)),
                                           ("segm", False, (1, 4, 2))]
@@ -99,15 +100,22 @@ def test_cpu_run_and_eval_only(tmp_path):
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--task", "cpv"], NotImplementedError, "ROADMAP Queue 1 item 10"),
     (["--sampling", "bilinear"], ValueError, "--eval-only")])
 def test_refused(argv, err, match):
     with pytest.raises(err, match=match):
         accuracy_run.main(argv + ["--device", "cpu"])
-    args = argparse.Namespace(task="cpv", dcn=False, epochs=1, train=4,
-                              batch=2, seed=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        accuracy_run.accuracy_cfg(args, *PATHS.values())
+
+
+def test_cpv_config_is_the_jax_tools():
+    """The cpv task's config at the tool's defaults, the run that
+    ``docs/accuracy_torch/run.sh cpv`` makes on the card."""
+    args = argparse.Namespace(task="cpv", dcn=False, epochs=12, train=160,
+                              batch=8, seed=0)
+    ours = accuracy_run.accuracy_cfg(args, *PATHS.values())
+    assert ours.model.type == "LSCPVDetector"
+    assert ours.model.bbox_head.type == "LSCPVHead"
+    assert "heatmap" in ours.train_cfg
+    assert _plain(ours.to_dict()) == _plain(_jax_tool_cfg(args))
 
 
 @pytest.mark.slow

@@ -10,8 +10,10 @@ poly, with warm-up) equals the JAX schedule at every step of a short run
 (1e-7 absolute; the JAX one computes in f32). The ``model`` dict goes to
 the port's ``build_detector``
 on the ``meta`` device (no weights are allocated). The R50, X-101 and
-Res2Net-101 files build, ``with_cp=True`` included; the CPV detector is not
-ported yet and raises ``NotImplementedError`` naming it.
+Res2Net-101 files build, ``with_cp=True`` included, the two CPV files with
+the CPV head (``LSCPVDetector``: an LSDetector with ``LSCPVHead``); the
+runner's loss config of a CPV file is ``CPVLossConfig`` around the base
+one, as the JAX runner's ``make_loss_for`` builds it.
 
 ``with_cp`` runs each residual block under ``torch.utils.checkpoint``
 (``remat`` in the JAX package): a narrow ResNeXt with DCN stages gives the
@@ -31,7 +33,7 @@ import torch
 from lsnet_tpu.train import loop as jloop
 from lsnet_tpu.train import optim as joptim
 from lsnet_tpu.utils.config import Config
-from lsnet_torch.models import build_detector
+from lsnet_torch.models import build_detector, is_cpv
 from lsnet_torch.train import loop as ploop
 from lsnet_torch.train import optim as poptim
 from lsnet_torch.utils.config import Config as PConfig
@@ -69,7 +71,7 @@ def test_port_config_overrides():
     assert cfg.data.samples_per_gpu == 4 and cfg.total_epochs == 24
 
 
-@pytest.mark.parametrize("name", [n for n in CONFIGS if "cpv" not in n])
+@pytest.mark.parametrize("name", CONFIGS)
 def test_loss_and_test_configs_match_the_jax_runner(name):
     """The segm and pose_kbox files turn the bbox losses off with None,
     on which the JAX ``loss_cfg_from`` raises ``AttributeError``; the JAX
@@ -89,6 +91,12 @@ def test_loss_and_test_configs_match_the_jax_runner(name):
     got = ploop.test_cfg_from(pcfg, canvas)
     for f in got.__dataclass_fields__:
         assert getattr(got, f) == getattr(want, f), f
+    train = ploop.train_loss_cfg(pcfg, canvas)
+    if "cpv" in name:
+        from lsnet_torch.core.cpv import CPVLossConfig
+        assert train == CPVLossConfig(base=ploop.loss_cfg_from(pcfg, canvas))
+    else:
+        assert train == ploop.loss_cfg_from(pcfg, canvas)
 
 
 @pytest.mark.parametrize("lr_config", [
@@ -116,14 +124,14 @@ def test_every_lsnet_config_is_listed():
 @pytest.mark.parametrize("name", CONFIGS)
 def test_config_builds_or_names_what_is_missing(name):
     cfg = _model_cfg(name)
-    missing = "LSCPVDetector" if "cpv" in name else None
-    if missing:
-        with pytest.raises(NotImplementedError, match=missing):
-            with torch.device("meta"):
-                build_detector(cfg)
-        return
     with torch.device("meta"):
         model = build_detector(cfg)
+    assert is_cpv(model) == ("cpv" in name)
+    if "cpv" in name:
+        assert cfg["type"] == "LSCPVDetector"
+        # the 6 corner channels widen the paired gather: C = 256 + 6
+        assert model.head.pts_bbox_cls_pair.weight_a.shape == (3, 3, 262,
+                                                               256)
     backbone = cfg["backbone"]
     assert model.backbone.with_cp == bool(backbone.get("with_cp", False))
     if "dconv" in name:

@@ -53,20 +53,26 @@ def test_kernel_matches_plain_version(cuda_device, dtype, nc, rel):
 
 @pytest.mark.cuda
 def test_wrapper_rejects_bad_input(cuda_device):
-    """C % 16 != 0: the forward pads it, the backward wrappers raise; a
-    strided flat raises in the forward too."""
+    """C % 16 != 0: all three wrappers pad it; a strided flat, or a dout
+    of the wrong shape, raises."""
     flat = torch.zeros(10, 20, device=cuda_device)
     idx = torch.zeros(4, 9, 5, dtype=torch.int32, device=cuda_device)
     w = torch.zeros(4, 9, 5, device=cuda_device)
     weight = torch.zeros(9, 20, 8, device=cuda_device)
     dout = torch.zeros(5, 8, device=cuda_device)
+    d_flat, d_w = dg.deform_gather_contract_bwd_data(flat, idx, w, weight,
+                                                     dout)
+    assert d_flat.shape == (10, 20) and d_w.shape == (4, 9, 5)
+    assert dg.deform_gather_contract_bwd_weight(
+        flat, idx, w, weight, dout).shape == (9, 20, 8)
+    strided = torch.zeros(10, 40, device=cuda_device)[:, :20]
     with pytest.raises(ValueError):
-        dg.deform_gather_contract_bwd_data(flat, idx, w, weight, dout)
+        deform_gather_contract(strided, idx, w, weight)
     with pytest.raises(ValueError):
-        dg.deform_gather_contract_bwd_weight(flat, idx, w, weight, dout)
+        dg.deform_gather_contract_bwd_data(strided, idx, w, weight, dout)
     with pytest.raises(ValueError):
-        deform_gather_contract(torch.zeros(10, 40, device=cuda_device)[:, :20],
-                               idx, w, weight)
+        dg.deform_gather_contract_bwd_weight(flat, idx, w, weight,
+                                             dout[:, :4])
 
 
 @pytest.mark.cuda
@@ -223,6 +229,64 @@ def test_backward_kernels_match_plain_versions(cuda_device, dtype, nc, rel):
     assert none is None and none2 is None
     _close(only_flat, want[0], rel)
     _close(only_w, want[1], rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("nc", [1, 4])
+@pytest.mark.parametrize("C,cout", [(262, 256), (52, 52), (104, 104),
+                                    (208, 208)])
+def test_backward_kernels_pad_channels(cuda_device, dtype, rel, nc, C,
+                                       cout):
+    """CPV's 262-channel refine and Res2Net's 3x3 widths: the backward
+    wrappers pad C and cout to the kernels' multiples (288 / 272 and 256;
+    64 / 64 and 56, ...) and agree with the plain versions on the
+    unpadded operands; so does the autograd route, which pads once before
+    the function and saves the padded operands."""
+    rng = np.random.RandomState(C + nc)
+    flat, idx, w, wk, dout = _bwd_inputs(rng, cuda_device, dtype, nc, C, C,
+                                         cout, 333)
+    d_flat, d_w = dg.deform_gather_contract_bwd_data(flat, idx, w, wk, dout)
+    d_weight = dg.deform_gather_contract_bwd_weight(flat, idx, w, wk, dout)
+    want = dg.deform_gather_contract_bwd_ref(flat, idx, w, wk, dout)
+    for got, ref in zip((d_flat, d_w, d_weight), want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        _close(got, ref, rel)
+
+    def grads(f, wt, weight):
+        leaves = [x.clone().requires_grad_() for x in (f, wt, weight)]
+        out = deform_gather_contract(leaves[0], idx, leaves[1], leaves[2])
+        (out.float() * dout.float()).sum().backward()
+        return [x.grad for x in leaves]
+
+    on_cpu = grads(*(x.cpu() for x in (flat, w, wk)))
+    for got, ref in zip(grads(flat, w, wk), on_cpu):
+        assert got.shape == ref.shape
+        _close(got.cpu(), ref, rel)
+
+
+@pytest.mark.cuda
+def test_cpv_head_on_the_card_matches_the_cpu(cuda_device):
+    """A narrow LSCPVHead (DCN towers, f32, bilinear): every output map
+    on the card within 1e-4 of the CPU's, and its launches: 3 tower
+    blocks (cls, bbox, shared) and the paired gather's 2 contractions."""
+    from lsnet_torch.apis import random_weights_
+    from lsnet_torch.models.heads.lscpv_head import LSCPVHead
+    head = random_weights_(LSCPVHead(4, 32, 32, 32, stacked_convs=1,
+                                     corner_dim=16, conv_module_type="dcn",
+                                     norm_groups=8), 0).eval()
+    gen = torch.Generator().manual_seed(0)
+    feats = [torch.randn(2, 32, h, h, generator=gen) for h in (16, 8, 4, 2,
+                                                               1)]
+    with torch.no_grad():
+        want = head(feats)
+        before = deform_gather_contract.launches
+        got = head.to(cuda_device)([f.to(cuda_device) for f in feats])
+    assert deform_gather_contract.launches == before + 5
+    for key, maps in want.items():
+        for g, w_ in zip(got[key], maps):
+            _close(g.cpu(), w_, 1e-4)
 
 
 @pytest.mark.cuda
