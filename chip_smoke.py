@@ -23,11 +23,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    memset and cast around the launch), (e) the four probe kernels at the
    probes' own inputs and tolerances, kernel, plain version and library
    call also by device time, each launch under a host-side time limit,
-   ``probe_block_gather`` also at 147,456 random rows with its byte bound,
-   ``probe_subrow_dot`` also at P = 16,384 (1e-5 of max(1, max|ref|), two
-   launches equal bit for bit) beside ``torch.mm`` and its bound, then the
-   checks of ``lsnet_torch.tools.probe`` in-process with the
-   probes' launch counts read around them;
+   ``probe_block_gather`` also at 147,456 random rows of a 64 MB table
+   with its byte bound beside ``torch.index_select``, warm and with the L2
+   cold before each call (lines kept by evict_last policies reset, 256 MB
+   written), ``probe_subrow_sum`` also at P = 65,536
+   beside ``torch.sum`` and ``probe_subrow_dot`` at P = 16,384 beside
+   ``torch.mm`` (each 1e-5 of max(1, max|ref|), two launches equal bit for
+   bit) with their bounds, then the checks of ``lsnet_torch.tools.probe``
+   in-process with the probes' launch counts read around them;
 3. check the port on the card against the port on the CPU on small inputs
    (a narrow R50-shaped model, and a narrow ResNeXt-shaped model for each
    of the four tasks, f32): (a) the head outputs, (b) the training loss
@@ -229,7 +232,10 @@ NUM_VECTORS = {"bbox": 4, "segm": 36, "pose_bbox": 17, "pose_kbox": 17}
 PROBE_TIME_LIMIT = 30.0          # seconds a probe launch may take
 COPY_RATE_ROWS = 9 * 16384       # block gathers of the copy-rate timing
 LARGE_DOT_P = 16384              # pixels of the sub-row dot's large run
-PROFILE_TRIES = 4                # profiles that may lose their device records
+LARGE_SUM_P = 65536              # pixels of the sub-row sum's large run:
+#                                  x 128 MB and out 32 MB pass the 50 MB L2
+L2_FLUSH_BYTES = 256 << 20       # written before each call of a cold timing
+PROFILE_TRIES = 8                # profiles that may lose their device records
 LOST_PROFILES = []               # host records of each profile that did
 # phase 6: the shipped X-101-64x4d-DCN bbox config through the runner, on
 # procedural sets of 768x1280 landscape and 1280x768 portrait images
@@ -320,9 +326,10 @@ def dev_us(event):
                    getattr(event, "cuda_time_total", 0.0))
 
 
-def kernel_device_us(fn, kernel="", iters=10):
+def kernel_device_us(fn, kernel="", iters=10, skip=()):
     """Mean device time per call of fn() of the kernels whose name contains
-    ``kernel`` (all of fn's kernels by default), from the profiler: for
+    ``kernel`` (all of fn's kernels by default) and is none of ``skip``,
+    from the profiler: for
     work so short that CUDA events around the calls time the host's launch
     rate instead. Raises AssertionError when PROFILE_TRIES profiles in a
     row lack ``kernel``'s device records, or hold a number of them that is
@@ -331,7 +338,8 @@ def kernel_device_us(fn, kernel="", iters=10):
     A profile can lose every device record while it keeps the host's (the
     launches): on the H100 with PyTorch 2.11 / CUDA 12.8 it happened to a
     probe kernel and to ``torch.mm`` alike, cluster launch or not, rarely
-    and sometimes for two profiles in a row, each time with an "Activity
+    and sometimes for two profiles in a row (four in a row once, for K1 in
+    phase 9b), each time with an "Activity
     Buffer Request" span (CUPTI asking the profiler for a new record
     buffer) over the first launch. A profile can also lose only some of
     them: the named kernel's records missing beside those of other kernels,
@@ -350,7 +358,7 @@ def kernel_device_us(fn, kernel="", iters=10):
             torch.cuda.synchronize()
         averages = prof.key_averages()
         events = [e for e in averages if e.device_type == on_device]
-        mine = [e for e in events if kernel in e.key]
+        mine = [e for e in events if kernel in e.key and e.key not in skip]
         launches = sum(e.count for e in mine)
         # each call launches the named kernel a whole number of times
         if mine and (not kernel or launches % iters == 0):
@@ -363,6 +371,45 @@ def kernel_device_us(fn, kernel="", iters=10):
                              f"of {kernel!r} in a row without all its "
                              "device records")
     return sum(dev_us(e) for e in mine) / iters
+
+
+def reset_persisting_l2():
+    """Return every L2 line that an evict_last (persisting) policy keeps to
+    normal, through libcuda's cuCtxResetPersistingL2Cache: such lines
+    outlive a write of L2_FLUSH_BYTES, and the block gather's table lines
+    would otherwise flatter the next call of any function that reads the
+    same table."""
+    import ctypes
+    rc = ctypes.CDLL("libcuda.so.1").cuCtxResetPersistingL2Cache()
+    if rc != 0:
+        raise RuntimeError(f"cuCtxResetPersistingL2Cache: CUDA error {rc}")
+
+
+def cold_device_us(fn, kernel="", iters=10):
+    """kernel_device_us of fn() with the L2 cold: before each call the
+    persisting lines reset (reset_persisting_l2) and a write of
+    L2_FLUSH_BYTES, whose own device records (their names read from a
+    profile of the write alone) are left out."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    for _ in range(PROFILE_TRIES):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush.zero_()
+            torch.cuda.synchronize()
+        flush_keys = {e.key for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA}
+        if flush_keys:
+            break
+    else:
+        raise AssertionError("cold_device_us: no device record of the L2 "
+                             "flush")
+
+    def call():
+        reset_persisting_l2()
+        flush.zero_()
+        return fn()
+
+    return kernel_device_us(call, kernel, iters, skip=flush_keys)
 
 
 def card_state(label):
@@ -937,43 +984,64 @@ def probe_library_call(name, args):
     return lambda: torch.mm(a, b, out_dtype=torch.float32)
 
 
-def check_large_dot(gen):
-    """probe_subrow_dot at P = LARGE_DOT_P seeded normals (x 32 MB, w
-    256 KB, out 8 MB): the kernel against its plain version (1e-5 of
-    max(1, max|ref|), f32 sums in another order), two launches equal bit
-    for bit, and the kernel, plain version and torch.mm by device time
-    beside the bound."""
+def copy_rate_inputs(gen):
+    """The block gather's copy-rate inputs: COPY_RATE_ROWS random indices
+    of the 2,048-byte blocks of a 64 MB bf16 table (larger than the 50 MB
+    L2)."""
     dev = torch.device("cuda")
-    args = [torch.randn(LARGE_DOT_P, probes.SUBROWS, probes.SUBROW,
-                        device=dev, generator=gen).to(torch.bfloat16),
-            (torch.randn(probes.SUBROWS, probes.SUBROW, 128, device=dev,
-                         generator=gen) / 16).to(torch.bfloat16)]
-    fn = probes.probe_subrow_dot
+    table = torch.randn(32768 * probes.BLOCK_ROWS, 128, device=dev,
+                        generator=gen).to(torch.bfloat16)
+    rows = torch.randint(0, 32768, (COPY_RATE_ROWS,), device=dev,
+                         generator=gen, dtype=torch.int32)
+    return [table, rows]
+
+
+def large_probe_inputs(name, P, gen):
+    """Seeded normals for a sub-row probe at P pixels: x (P, 8, 128) bf16,
+    and for the dot w (8, 128, 128) bf16 / 16."""
+    dev = torch.device("cuda")
+    args = [torch.randn(P, probes.SUBROWS, probes.SUBROW, device=dev,
+                        generator=gen).to(torch.bfloat16)]
+    if name == "probe_subrow_dot":
+        args.append((torch.randn(probes.SUBROWS, probes.SUBROW, 128,
+                                 device=dev, generator=gen) / 16).to(
+                                     torch.bfloat16))
+    return args
+
+
+def check_large(name, P, gen):
+    """A sub-row probe at P seeded normals (the sum at LARGE_SUM_P: x
+    128 MB, out 32 MB; the dot at LARGE_DOT_P: x 32 MB, w 256 KB, out
+    8 MB): the kernel against its plain version (1e-5 of max(1, max|ref|),
+    f32 sums in another order), two launches equal bit for bit, and the
+    kernel, plain version and library call by device time beside the
+    bound."""
+    args = large_probe_inputs(name, P, gen)
+    fn = getattr(probes, name)
 
     def ref():
-        return probes.probe_subrow_dot_ref(*args)
+        return getattr(probes, name + "_ref")(*args)
 
-    got = within_time_limit(lambda: fn(*args),
-                            f"probe_subrow_dot at P = {LARGE_DOT_P}")
+    got = within_time_limit(lambda: fn(*args), f"{name} at P = {P}")
     want = ref()
     err = (got - want).abs().max().item()
     scale = max(1.0, want.abs().max().item())
     repeats = torch.equal(got, fn(*args))
-    bnd, by = probe_bound_ms("probe_subrow_dot", args)
-    library = probe_library_call("probe_subrow_dot", args)
-    large = {"P": LARGE_DOT_P, "max_abs_err": err, "tolerance": 1e-5 * scale,
+    finite = bool(torch.isfinite(got).all())
+    del got, want
+    bnd, by = probe_bound_ms(name, args)
+    library = probe_library_call(name, args)
+    large = {"P": P, "max_abs_err": err, "tolerance": 1e-5 * scale,
              "bit_repeat": repeats, "ms": cuda_ms(lambda: fn(*args), 20),
              "plain_ms": cuda_ms(ref, 5), "library_ms": cuda_ms(library, 20),
              "bound_ms": bnd, "bound_by": by,
              "device_us": kernel_device_us(lambda: fn(*args),
-                                           "probe_subrow_dot_kernel"),
+                                           f"{name}_kernel"),
              "plain_device_us": kernel_device_us(ref),
              "library_device_us": kernel_device_us(library)}
-    log("probe_subrow_dot large P " + json.dumps(large))
-    if err > 1e-5 * scale or not repeats \
-            or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"probe_subrow_dot disagrees at P = "
-                             f"{LARGE_DOT_P}: {large}")
+    log(f"{name} large P " + json.dumps(large))
+    if err > 1e-5 * scale or not repeats or not finite:
+        raise AssertionError(f"{name} disagrees at P = {P}: {large}")
     return large
 
 
@@ -981,7 +1049,8 @@ def check_probe_kernels():
     """Phase 2e: the four probe kernels against their plain versions at
     the JAX probes' inputs and tolerances, every first launch under the
     host-side time limit; the block gather's copy rate at COPY_RATE_ROWS
-    random rows of a 64 MB table; the sub-row dot at LARGE_DOT_P; then the
+    random rows of a 64 MB table, warm and cold; the sub-row sum at
+    LARGE_SUM_P and the sub-row dot at LARGE_DOT_P; then the
     probe tool's own checks in-process, with the probes' launch counts set
     to 0 just before and read just after. Returns the probes' entries of
     the kernels line."""
@@ -1029,14 +1098,8 @@ def check_probe_kernels():
             raise AssertionError(f"probe kernel disagrees: {entry}")
         entries[name] = entry
 
-    # the copy-only rate of the gather: random 2,048-byte blocks of a
-    # 64 MB table (larger than the 50 MB L2)
     gen = torch.Generator(device="cuda").manual_seed(4)
-    table = torch.randn(32768 * probes.BLOCK_ROWS, 128, device=dev,
-                        generator=gen).to(torch.bfloat16)
-    rows = torch.randint(0, 32768, (COPY_RATE_ROWS,), device=dev,
-                         generator=gen, dtype=torch.int32)
-    args = [table, rows]
+    args = copy_rate_inputs(gen)
     got = within_time_limit(lambda: probes.probe_block_gather(*args),
                             "probe_block_gather at many rows")
     if not torch.equal(got, probes.probe_block_gather_ref(*args)):
@@ -1045,22 +1108,32 @@ def check_probe_kernels():
     del got
     ms = cuda_ms(lambda: probes.probe_block_gather(*args), 20)
     bnd, by = probe_bound_ms("probe_block_gather", args)
+    library = probe_library_call("probe_block_gather", args)
     rate = {"rows": COPY_RATE_ROWS, "ms": ms,
             "plain_ms": cuda_ms(
                 lambda: probes.probe_block_gather_ref(*args), 5),
-            "library_ms": cuda_ms(
-                probe_library_call("probe_block_gather", args), 10),
             "bound_ms": bnd, "bound_by": by,
             "device_us": kernel_device_us(
                 lambda: probes.probe_block_gather(*args),
-                "probe_block_gather_kernel"),
-            "library_device_us": kernel_device_us(
-                probe_library_call("probe_block_gather", args)),
-            "gathered_gbytes_s": COPY_RATE_ROWS * 2048 / ms / 1e6}
+                "probe_block_gather_kernel")}
+    # the library call warm in its own right: not on the table lines the
+    # kernel's evict_last loads leave behind
+    reset_persisting_l2()
+    rate["library_ms"] = cuda_ms(library, 10)
+    rate["library_device_us"] = kernel_device_us(library)
+    rate.update({
+        "cold_device_us": cold_device_us(
+            lambda: probes.probe_block_gather(*args),
+            "probe_block_gather_kernel"),
+        "library_cold_device_us": cold_device_us(library),
+        "gathered_gbytes_s": COPY_RATE_ROWS * 2048 / ms / 1e6})
     log("probe_block_gather copy rate " + json.dumps(rate))
     entries["probe_block_gather"]["copy_rate"] = rate
-    del table, rows, args
-    entries["probe_subrow_dot"]["large_p"] = check_large_dot(gen)
+    del args
+    entries["probe_subrow_dot"]["large_p"] = check_large(
+        "probe_subrow_dot", LARGE_DOT_P, gen)
+    entries["probe_subrow_sum"]["large_p"] = check_large(
+        "probe_subrow_sum", LARGE_SUM_P, gen)
 
     # the entry point: lsnet_torch.tools.probe's checks, in-process
     for name in probes.PROBES:
@@ -1077,6 +1150,7 @@ def check_probe_kernels():
     if deform_gather_contract.launches != 1:
         raise AssertionError("the probe tool's full-kernel check launched "
                              f"{deform_gather_contract.launches} times")
+    reset_persisting_l2()           # no table lines kept for later phases
     return entries
 
 

@@ -9,10 +9,11 @@ gather + contraction is built from (counterparts of
   from device memory to shared memory (``cp.async.bulk`` completing on an
   ``mbarrier``), a wait, and the row written back by the same engine;
 * :func:`probe_block_gather`: the same for whole 8-row blocks selected by
-  an index the kernel reads from device memory (16-byte ``cp.async``
-  copies, ``cp.async.wait_all``);
+  an index the kernel reads from device memory (a persistent ring of
+  bulk copies, the indices read a chunk ahead);
 * :func:`probe_subrow_sum`: the f32 sum over the sub-row views
-  ``x[:, j, :]`` of a (P, 8, 128) bf16 tile resident in shared memory;
+  ``x[:, j, :]`` of a (P, 8, 128) bf16 tile resident in shared memory
+  (a persistent ring of whole tiles, each one bulk copy);
 * :func:`probe_subrow_dot`: ``sum_j x[:, j, :] @ w[j]`` on the tensor cores
   straight from those views, f32 accumulation.
 

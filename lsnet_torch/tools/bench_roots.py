@@ -12,7 +12,8 @@ A tool gives its docstring, a ``time_root(root)`` that returns the rows of
 one checkout as a JSON-able dict, its split table (name -> [(file under
 ``lsnet_torch/csrc/``, text, replacement)]) and the directory under
 ``build/`` that holds the patched copies. ``main`` takes ``--roots DIR
-...`` (this checkout by default) and ``--split``, prints one JSON line per
+...`` (this checkout by default) and ``--split [NAME ...]`` (every
+patched copy, or the ones named), prints one JSON line per
 root, the card's name and power limit, and last one JSON line with every
 root's rows.
 """
@@ -74,15 +75,21 @@ def main(tool_file, doc, time_root, splits, subdir, argv=None):
     docstring)."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--roots", nargs="+", default=[REPO])
-    ap.add_argument("--split", action="store_true")
+    ap.add_argument("--split", nargs="*", default=None,
+                    help="time patched copies too: the ones named, or all")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
     if opts.one:
         print(json.dumps(time_root(opts.one)), flush=True)
         return 0
     roots = [os.path.abspath(r) for r in opts.roots]
-    if opts.split:
-        roots += [make_split(splits, subdir, name) for name in splits]
+    if opts.split is not None:
+        for name in opts.split:
+            if name not in splits:
+                raise SystemExit(f"unknown split {name!r}: want one of "
+                                 f"{sorted(splits)}")
+        roots += [make_split(splits, subdir, name)
+                  for name in opts.split or splits]
     tool = os.path.splitext(os.path.basename(tool_file))[0]
     results = []
     for root in roots:

@@ -5,6 +5,9 @@ They skip where there is no CUDA device. On a machine with the card run
 neither JAX nor the JAX package, so it runs where they are not installed.
 """
 
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -568,28 +571,47 @@ def test_probe_kernels_match_plain_versions(cuda_device, name):
 @pytest.mark.cuda
 def test_probe_kernels_at_other_sizes(cuda_device):
     """Ragged pixel tiles of the sub-row kernels (the dot in both launch
-    shapes, one tile and many, a ragged last tile in each: two launches
-    equal bit for bit, no atomics), many clamped indices of the block
-    gather, the row copy from the smallest to the largest row its bulk
-    copies take."""
+    shapes, one tile and many, a ragged last tile in each; the sum's ring
+    from one tile to many tiles a CTA: two launches equal bit for bit, no
+    atomics), the block gather's ring around its stage count, at many
+    clamped indices and at 16-byte, 2 KB and 16 KB blocks, the row copy
+    from the smallest to the largest row its bulk copies take."""
     rng = np.random.RandomState(0)
     w = torch.from_numpy((rng.randn(8, 128, 128) / 16).astype(np.float32)
                          ).to(cuda_device, torch.bfloat16)
     for P in (1, 16, 17, 37, 64, 129, 8449, 16384):   # 8449: large shape
         x = torch.from_numpy(rng.randn(P, 8, 128).astype(np.float32)).to(
             cuda_device, torch.bfloat16)
-        if P == 37:
-            _close(probes.probe_subrow_sum(x), probes.probe_subrow_sum_ref(x),
-                   1e-5)
         got = probes.probe_subrow_dot(x, w)
         _close(got, probes.probe_subrow_dot_ref(x, w), 1e-5)
         assert torch.equal(got, probes.probe_subrow_dot(x, w)), P
-    table = torch.from_numpy(rng.randn(64 * 8, 256).astype(np.float32)).to(
-        cuda_device)                                  # 8 KB blocks, f32
-    idx = torch.from_numpy(rng.randint(-5, 70, 1000).astype(np.int32)).to(
-        cuda_device)
-    assert torch.equal(probes.probe_block_gather(table, idx),
-                       probes.probe_block_gather_ref(table, idx))
+    for P in (1, 15, 16, 17, 37, 8449, 65536):
+        x = torch.randn(P, 8, 128, device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(P)
+                        ).to(torch.bfloat16)
+        got = probes.probe_subrow_sum(x)
+        _close(got, probes.probe_subrow_sum_ref(x), 1e-5)
+        assert torch.equal(got, probes.probe_subrow_sum(x)), P
+    src = (pathlib.Path(__file__).resolve().parents[1] / "lsnet_torch"
+           / "csrc" / "probe_block_gather.cu").read_text()
+    ring, most = (int(re.search(rf"\b{k} = (\d+);", src).group(1))
+                  for k in ("RING_BYTES", "MAX_STAGES"))
+    # (cols, dtype): 8-row blocks of 16 bytes, 2 KB and 16 KB
+    for cols, dtype in ((1, torch.bfloat16), (128, torch.bfloat16),
+                        (512, torch.float32)):
+        nblocks = 300
+        table = torch.randn(nblocks * 8, cols, device=cuda_device,
+                            generator=torch.Generator(cuda_device
+                                                      ).manual_seed(cols)
+                            ).to(dtype)
+        stages = min(most, ring // (8 * cols * table.element_size()))
+        for n in sorted({1, 2, max(1, stages - 1), stages, stages + 1, 1000,
+                         147456}):
+            idx = torch.from_numpy(rng.randint(-5, nblocks + 5, n).astype(
+                np.int32)).to(cuda_device)
+            assert torch.equal(probes.probe_block_gather(table, idx),
+                               probes.probe_block_gather_ref(table, idx)), \
+                (cols, n)
     for cols in (4, 128, 4096):                       # 16 B, 512 B, 16 KB
         row = torch.from_numpy(rng.randn(3, cols).astype(np.float32)).to(
             cuda_device)
