@@ -135,7 +135,27 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    the hook's), 189 K1 forward launches a step (90 backbone calls twice
    under ``with_cp``, 9 head), 99 of each backward kernel, 99 forward an
    eval batch; every K1 call of the first train step held against its
-   plain version.
+   plain version;
+10. the RepPoints family: (a) narrow RepPoints v1 and v2 models (R50,
+   feat 64, two stacked convs, f32) on the card against the CPU: the
+   head outputs, then the loss, its terms and every parameter's
+   gradient, at phase 3's tolerances; (b) K1's forward, bwd-data and
+   bwd-weight against their plain versions at RepPoints' paired gather
+   (B=2, 800x1344, the five levels, each job on its own level, no mask,
+   scale 1, bilinear) at C = cout = 256 and at v2's C = 262 (padded to
+   288), f32 and bf16, with each call's time beside its bound; (c) and
+   (d) the shipped ``reppoints_moment`` and ``reppoints_v2_moment`` files
+   at full width, 80 classes: ``init_detector`` from a
+   ``save_checkpoint`` file, ``inference_detector`` twice on a seeded
+   480x640 image (equal detections), ``detect`` at B=2 800x1344 bf16 (2
+   K1 and 0 grouped launches a forward), 2 train steps at B=2 bf16 (2 K1
+   launches of each kind a step, finite loss, trainable parameters moved
+   and frozen ones not), each profiled; (e) the two shipped Dense
+   RepPoints files (729 points): ``detect`` and one train step, no K1
+   launch, peak memory; (f) the RepPoints moment file through
+   ``lsnet_torch.tools.train`` (1 epoch of 2 steps on 4 procedural
+   768x1280 images, an EvalHook on 2 more) and ``lsnet_torch.tools.test``
+   on its checkpoint (metrics within 1e-4 of the hook's).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (all ten kernels) and, last, ``{"ok": true, "device": {...}}``; the
@@ -144,7 +164,8 @@ phases 2c, 2d and the profiled train steps. ``python3 chip_smoke.py --only
 backward`` builds, runs phases 2c and 2d alone and prints no result line
 (for work on the backward kernels); ``--only probes`` does the same for
 phase 2e, ``--only accuracy`` for phase 7, ``--only api`` for the Res2Net
-K1 cases of phase 2a and phase 8, ``--only cpv`` for phase 9. With
+K1 cases of phase 2a and phase 8, ``--only cpv`` for phase 9,
+``--only reppoints`` for phase 10. With
 ``CHIP_SMOKE_LOG=<path>`` in the environment it also writes every line it
 prints to that file. It needs the repository
 around it and a CUDA device, and runs no JAX.
@@ -176,6 +197,7 @@ from lsnet_torch.core import cpv  # noqa: E402
 from lsnet_torch.core.cpv import CPVLossConfig  # noqa: E402
 from lsnet_torch.core.decode import TestConfig  # noqa: E402
 from lsnet_torch.core.loss import LossConfig  # noqa: E402
+from lsnet_torch.core import reppoints as rp  # noqa: E402
 from lsnet_torch.evalkit import tta  # noqa: E402
 from lsnet_torch.models import build_backbone, build_detector  # noqa: E402
 from lsnet_torch.models.heads.ls_head import branch_pyramid_jobs  # noqa: E402
@@ -235,7 +257,7 @@ LARGE_DOT_P = 16384              # pixels of the sub-row dot's large run
 LARGE_SUM_P = 65536              # pixels of the sub-row sum's large run:
 #                                  x 128 MB and out 32 MB pass the 50 MB L2
 L2_FLUSH_BYTES = 256 << 20       # written before each call of a cold timing
-PROFILE_TRIES = 8                # profiles that may lose their device records
+PROFILE_TRIES = 16               # profiles that may lose their device records
 LOST_PROFILES = []               # host records of each profile that did
 # phase 6: the shipped X-101-64x4d-DCN bbox config through the runner, on
 # procedural sets of 768x1280 landscape and 1280x768 portrait images
@@ -294,6 +316,24 @@ API_IMAGE_HW = (480, 640)
 API_SCALES = [(1333, 800), (1666, 1000)]         # aug_test, each with flip
 API_RUNS = 5                     # timed inference_detector calls (median)
 CLS_SPREAD = 30.0                # the classifier's weights x this (below)
+# phase 10: the RepPoints family. K1 launches a forward of a RepPoints v1
+# or v2 head: the 2 contractions of its paired cls / refine gather (C =
+# 256, v2 256 + 6 corner channels); the Dense RepPoints heads run none
+RP_CONFIGS = {
+    "v1": os.path.join(REPO, "configs", "reppoints",
+                       "reppoints_moment_r50_fpn_1x_coco.py"),
+    "v2": os.path.join(REPO, "configs", "reppoints",
+                       "reppoints_v2_moment_r50_fpn_1x_coco.py"),
+    "dense_v1": os.path.join(REPO, "configs", "dense_reppoints",
+                             "dense_reppoints_r50_fpn_1x_coco.py"),
+    "dense_v2": os.path.join(REPO, "configs", "dense_reppoints",
+                             "dense_reppoints_v2_r50_fpn_1x_coco.py")}
+RP_K1_PER_FORWARD = 2
+RP_V2_C = FEAT + 6
+RP_TRAIN_STEPS = 2               # counted train steps of phases 10c, 10d
+DENSE_TRAIN_STEPS = 1            # of phase 10e
+RP_RUNNER_TRAIN_HW = [LAND] * 4  # 2 steps of 2 images, aspect 5:3
+RP_RUNNER_VAL_HW = [LAND] * 2    # one eval batch
 
 
 LOG_PATH = os.environ.get("CHIP_SMOKE_LOG")    # optional copy of the log
@@ -326,42 +366,66 @@ def dev_us(event):
                    getattr(event, "cuda_time_total", 0.0))
 
 
-def kernel_device_us(fn, kernel="", iters=10, skip=()):
+def kernel_device_us(fn, kernel="", iters=10, skip=(), per_call=None,
+                     profiles=1):
     """Mean device time per call of fn() of the kernels whose name contains
     ``kernel`` (all of fn's kernels by default) and is none of ``skip``,
-    from the profiler: for
+    from the profiler (the median of ``profiles`` profiles): for
     work so short that CUDA events around the calls time the host's launch
     rate instead. Raises AssertionError when PROFILE_TRIES profiles in a
     row lack ``kernel``'s device records, or hold a number of them that is
-    no whole multiple of ``iters``.
+    no whole multiple of ``iters`` (not ``per_call * iters`` exactly, where
+    the caller knows that fn() launches ``per_call`` of them).
 
     A profile can lose every device record while it keeps the host's (the
     launches): on the H100 with PyTorch 2.11 / CUDA 12.8 it happened to a
     probe kernel and to ``torch.mm`` alike, cluster launch or not, rarely
-    and sometimes for two profiles in a row (four in a row once, for K1 in
-    phase 9b), each time with an "Activity
+    and sometimes for several profiles in a row (eight in a row once, for
+    K1 in phase 10b), each time with an "Activity
     Buffer Request" span (CUPTI asking the profiler for a new record
-    buffer) over the first launch. A profile can also lose only some of
+    buffer) over the first launch; so each profile records its calls in
+    a second step, after a warm-up step of the same calls in which the
+    profiler starts collecting. A profile can also lose only some of
     them: the named kernel's records missing beside those of other kernels,
     or fewer of them than a whole number per call. Such a profile is taken
     again and its records kept in LOST_PROFILES (``bench_probes`` and
     ``bench_grouped`` report them); it is never read as 0 or as a part of
-    the calls."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    on_device = torch.autograd.DeviceType.CUDA
+    the calls. A profile that holds every record can still read about half
+    the time of the profiles before and after it (K1 at RepPoints' paired
+    call, twice in four runs, events times steady): ``profiles`` > 1 keeps
+    such a reading out of the median, and logs every reading."""
     fn()
     torch.cuda.synchronize()
+    readings = [_profile_device_us(fn, kernel, iters, skip, per_call)
+                for _ in range(profiles)]
+    if profiles > 1:
+        log(f"kernel_device_us {kernel!r}: readings {readings}")
+    return sorted(readings)[profiles // 2]
+
+
+def _profile_device_us(fn, kernel, iters, skip, per_call):
+    """One accepted profile's reading for :func:`kernel_device_us`."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from torch.profiler import schedule
+    on_device = torch.autograd.DeviceType.CUDA
     for _ in range(PROFILE_TRIES):
-        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CUDA],
+                      schedule=schedule(wait=0, warmup=1, active=1,
+                                        repeat=1)) as prof:
+            for _ in range(2):              # warm-up step, recorded step
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         averages = prof.key_averages()
-        events = [e for e in averages if e.device_type == on_device]
+        events = [e for e in averages if e.device_type == on_device
+                  and not e.key.startswith("ProfilerStep")]
         mine = [e for e in events if kernel in e.key and e.key not in skip]
         launches = sum(e.count for e in mine)
         # each call launches the named kernel a whole number of times
-        if mine and (not kernel or launches % iters == 0):
+        whole = (launches % iters == 0 if per_call is None
+                 else launches == per_call * iters)
+        if mine and (not kernel or whole):
             break
         LOST_PROFILES.append([f"{e.key} x{e.count}" for e in averages])
         log(f"kernel_device_us: the profile of {kernel!r} lost device "
@@ -1209,11 +1273,12 @@ def outputs_card_vs_cpu(label, cfg):
         raise AssertionError(f"{label}: card disagrees with CPU: {worst}")
 
 
-def drive_main_path(label, cfg, grouped_per_forward, task="bbox", k1=None):
+def drive_main_path(label, cfg, grouped_per_forward, task="bbox", k1=None,
+                    config=None):
     """Phase 4: a full-width model end to end, B=2 at 800x1344, bf16, with
-    the task's own test settings and decode (``lscpv_decode`` for the CPV
-    head); ``k1`` K1 launches a forward (K1_PER_FORWARD[task] unless
-    given)."""
+    the task's own test settings (those of the ``config`` file where
+    given) and the head's decode (``train.loop.decode_for``); ``k1`` K1
+    launches a forward (K1_PER_FORWARD[task] unless given)."""
     k1 = K1_PER_FORWARD[task] if k1 is None else k1
     t0 = time.perf_counter()
     model = init_model(cfg, device="cuda", seed=0, dtype=torch.bfloat16)
@@ -1222,11 +1287,12 @@ def drive_main_path(label, cfg, grouped_per_forward, task="bbox", k1=None):
         "cuda", torch.bfloat16)
     img_shapes = torch.tensor([[H, W]] * B, device="cuda")
     sfs = torch.ones(B, 4, device="cuda")
-    tcfg = TestConfig(image_shape=(H, W), **configs.TEST_SETTINGS[task])
+    tcfg = (runner_loop.test_cfg_from(config, (H, W)) if config else
+            TestConfig(image_shape=(H, W), **configs.TEST_SETTINGS[task]))
     log(f"{label} model built in {time.perf_counter() - t0:.1f}s")
 
     def run():
-        return detect(model, images, img_shapes, sfs, tcfg)
+        return detect(model, images, img_shapes, sfs, tcfg, config=config)
 
     for _ in range(2):                      # warm-up
         run()
@@ -1267,7 +1333,7 @@ def drive_main_path(label, cfg, grouped_per_forward, task="bbox", k1=None):
             outs = model(images, fd.INFERENCE_SAMPLING)
         torch.cuda.synchronize()
         fwd_ms = (time.perf_counter() - t0) / ITERS * 1e3
-        decode = runner_loop.decode_for(model)
+        decode = runner_loop.decode_for(model, config)
         t0 = time.perf_counter()
         for _ in range(ITERS):
             decode(outs, img_shapes, sfs, tcfg)
@@ -1394,13 +1460,16 @@ def zero_launch_counts():
 
 
 def drive_train_path(task, cfg, lcfg=None, k1=None, steps=None,
+                     label=None, grouped=GROUPED_PER_FORWARD,
                      **optim_kwargs):
     """Phase 4b: train steps of the full-width X-101-64x4d-DCN in
-    ``task``, B=2 at 800x1344, bf16 compute over f32 master weights; the
-    loss config ``lcfg`` (the task's unless given), ``k1`` K1 launches a
-    forward (K1_PER_FORWARD[task] unless given), ``steps`` counted steps
-    (TRAIN_STEPS unless given), ``optim_kwargs`` to the optimizer."""
-    label = f"X-101 {task} train"
+    ``task`` (or of the model ``cfg`` names: ``label``, ``grouped``
+    grouped launches a forward), B=2 at 800x1344, bf16 compute over f32
+    master weights; the loss config ``lcfg`` (the task's unless given),
+    ``k1`` K1 launches a forward (K1_PER_FORWARD[task] unless given),
+    ``steps`` counted steps (TRAIN_STEPS unless given), ``optim_kwargs``
+    to the optimizer."""
+    label = label or f"X-101 {task} train"
     num_classes = cfg["bbox_head"]["num_classes"]
     k1 = K1_PER_FORWARD[task] if k1 is None else k1
     steps = steps or TRAIN_STEPS
@@ -1426,17 +1495,17 @@ def drive_train_path(task, cfg, lcfg=None, k1=None, steps=None,
     history = [{k: v.item() for k, v in m.items()} for m in history]
     img_s = B * steps / dt
     log(f"{label}: {img_s:.3f} img/s ({dt / steps * 1e3:.2f} ms "
-        f"per step of {B}), peak memory {peak / 2 ** 30:.2f} GiB, launches "
-        f"{launches} over {steps} steps")
+        f"per step of {B}), peak memory {peak / 2 ** 30:.2f} GiB, "
+        f"launches {launches} over {steps} steps")
     for m in history:
         log("  step " + json.dumps(m))
     want = {
         "deform_gather_contract": k1,
         "deform_gather_contract_bwd_data": k1,
         "deform_gather_contract_bwd_weight": k1,
-        "deform_gather_grouped_contract": GROUPED_PER_FORWARD,
-        "deform_gather_grouped_contract_bwd_data": GROUPED_PER_FORWARD,
-        "deform_gather_grouped_contract_bwd_weight": GROUPED_PER_FORWARD}
+        "deform_gather_grouped_contract": grouped,
+        "deform_gather_grouped_contract_bwd_data": grouped,
+        "deform_gather_grouped_contract_bwd_weight": grouped}
     want = {k: v * steps for k, v in want.items()}
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, want {want}")
@@ -2042,13 +2111,15 @@ def check_res2net_kernel():
 
 def api_weights_(model, seed):
     """Phase 8's seeded weights, in place: ``random_weights_``, then the
-    classifier ``pts_cls_out`` x CLS_SPREAD (the kept scores then lie far
-    apart: no two of them tie within the card's ~1e-6 differences) and
-    the backbone ``conv_offset`` kernels 0 (each backbone sample within a
-    bias of a lattice point, far from a nearest-rounding tie)."""
+    classifier (``pts_cls_out``, RepPoints' ``cls_out``) x CLS_SPREAD
+    (the kept scores then lie far apart: no two of them tie within the
+    card's ~1e-6 differences) and the backbone ``conv_offset`` kernels 0
+    (each backbone sample within a bias of a lattice point, far from a
+    nearest-rounding tie)."""
     apis.random_weights_(model, seed)
+    cls = "pts_cls_out" if hasattr(model.head, "pts_cls_out") else "cls_out"
     with torch.no_grad():
-        model.head.pts_cls_out.weight.mul_(CLS_SPREAD)
+        getattr(model.head, cls).weight.mul_(CLS_SPREAD)
         for name, m in model.backbone.named_modules():
             if name.endswith("conv_offset"):
                 m.weight.zero_()
@@ -2649,14 +2720,317 @@ def check_cpv(root):
     return numbers, rows, by_path
 
 
+# ---------------------------------------------------- phase 10: RepPoints
+
+def rp_config(name):
+    return Config.fromfile(RP_CONFIGS[name])
+
+
+def narrow_rp_cfg(name):
+    """Phase 10a: the shipped file's model (R50) with a narrow neck and
+    head: feat 64, two stacked convs."""
+    cfg = rp_config(name).model.to_dict()
+    cfg["neck"]["out_channels"] = 64
+    cfg["bbox_head"].update(in_channels=64, feat_channels=64,
+                            point_feat_channels=64, stacked_convs=2)
+    return cfg
+
+
+def check_reppoints_small():
+    """Phase 10a: narrow RepPoints v1 and v2 models on the card against
+    the CPU: the head outputs, then the loss, its terms and every
+    parameter's gradient, at phase 3's tolerances."""
+    hw = (96, 128)
+    for name, kind in (("v1", rp.RepPointsConfig),
+                       ("v2", rp.RepPointsV2Config)):
+        label = f"R50-shaped RepPoints {name}"
+        outputs_card_vs_cpu(label, narrow_rp_cfg(name))
+        gradients_card_vs_cpu(label, narrow_rp_cfg(name),
+                              kind(image_shape=hw, num_classes=8), hw)
+
+
+def rp_k1_inputs(dtype, gen, C):
+    """(flat, idx, w, weight) of RepPoints' paired gather at B=2,
+    800x1344: five level maps of C channels, each job on its own level at
+    scale 1, stride 1 and no mask, offsets a few pixels around the taps,
+    bilinear; a (K, C, 256) weight."""
+    dev = torch.device("cuda")
+    feats = [torch.randn(B, h, w, C, generator=gen).to(dev, dtype)
+             for h, w in LEVELS]
+    levels = fd.pack_levels(feats)
+    jobs = [fd.SampleJob(i, (2.0 * torch.randn(B, h, w, 2 * K,
+                                               generator=gen)).to(dev),
+                         None, (1.0, 1.0), (1, 1), (1, 1), (1, 1))
+            for i, (h, w) in enumerate(LEVELS)]
+    idx, w = fd._gather_indices_tap(levels, jobs, K, "bilinear")
+    weight = (0.02 * torch.randn(K, C, FEAT, generator=gen)).to(dev, dtype)
+    return levels.flat.contiguous(), idx, w, weight
+
+
+def check_reppoints_kernels():
+    """Phase 10b: K1's forward, bwd-data and bwd-weight against their
+    plain versions at RepPoints' paired call (B=2, 800x1344, the five
+    levels, no mask, scale 1, bilinear): C = cout = 256 (v1) and C = 262
+    (v2, padded to 288 by the wrappers), f32 (TF32 off) and bf16, phase
+    2's tolerances; each call's events time, plain time and bound, and
+    for bf16 (the train step's) each kernel's device time on operands
+    padded beforehand, the padding copies' device time and the einsum
+    yardsticks. Returns the bf16 rows by shape."""
+    gen = torch.Generator().manual_seed(10)
+    cgen = torch.Generator(device="cuda").manual_seed(10)
+    rows = {}
+    for C in (FEAT, RP_V2_C):
+        label = f"RepPoints {'v2' if C != FEAT else 'v1'} paired"
+        for dtype in (torch.float32, torch.bfloat16):
+            args = rp_k1_inputs(dtype, gen, C)
+            got = deform_gather_contract(*args).float()
+            want = deform_gather_contract_ref(*args).float()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            lim = TOL[dtype] * max(1.0, want.abs().max().item())
+            if not (bool(torch.isfinite(got).all()) and err <= lim
+                    and got.shape == want.shape):
+                raise AssertionError(f"{label} {dtype}: K1 forward err "
+                                     f"{err} > {lim}")
+            del got, want
+            main = dtype == torch.bfloat16
+            row = check_backward_call(
+                dict(shape=label, C=C, cout=FEAT, sampling="bilinear"),
+                args, 0, cgen, library=main)
+            row.update(fwd_err=err, fwd_limit=lim,
+                       fwd_ms=cuda_ms(lambda: deform_gather_contract(*args),
+                                      10),
+                       fwd_plain_ms=cuda_ms(
+                           lambda: deform_gather_contract_ref(*args), 2))
+            row["fwd_bound_ms"], row["fwd_bound_by"] = bound_ms(args)
+            if main:
+                dout = torch.randn(args[1].shape[2], FEAT, device="cuda",
+                                   generator=cgen).to(dtype)
+                fp, wp = dg.pad_channels(args[0], args[3])
+                padded = (fp, args[1], args[2], wp)
+                dp = dg.pad_dout(dout, wp.shape[2])
+                row["device_us"] = {
+                    "forward": kernel_device_us(
+                        lambda: dg._forward(*padded), "dgc_", 5,
+                        per_call=1, profiles=3),
+                    "bwd_data": kernel_device_us(
+                        lambda: dg.deform_gather_contract_bwd_data(
+                            *padded, dp), "bwd_data_kernel", 5, per_call=1,
+                        profiles=3),
+                    "bwd_weight": kernel_device_us(
+                        lambda: dg.deform_gather_contract_bwd_weight(
+                            *padded, dp), "bwd_weight_kernel", 5,
+                        per_call=1, profiles=3),
+                    "padding": pad_device_us(args, dout)}
+                del fp, wp, padded, dp
+                vals = dg.gathered_rows(*args[:3]).to(dtype)
+                row["fwd_library_ms"] = cuda_ms(
+                    lambda: torch.einsum("kpc,kco->po", vals, args[3]), 10)
+                del vals
+                rows[label] = row
+            log(f"reppoints kernels {label} {dtype}: forward "
+                f"{row['fwd_ms']:.4f} ms (bound {row['fwd_bound_ms']:.4f}, "
+                f"plain {row['fwd_plain_ms']:.4f}), bwd-data "
+                f"{row['data_ms']:.4f} (bound {row['data_bound_ms']:.4f}), "
+                f"bwd-weight {row['weight_ms']:.4f} (bound "
+                f"{row['weight_bound_ms']:.4f}) " + json.dumps(row))
+            del args
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_reppoints_full(root, name):
+    """Phase 10c / 10d: the shipped RepPoints v1 / v2 moment file at full
+    width (R50, 80 classes, seeded weights): ``init_detector`` from a
+    ``save_checkpoint`` file, ``inference_detector`` twice on a seeded
+    480x640 image (equal detections, 2 K1 launches each), ``detect`` at
+    B=2 800x1344 bf16 (2 K1 and 0 grouped a forward), RP_TRAIN_STEPS train
+    steps at B=2 bf16 (bilinear, 20 instances an image; 2 K1 launches of
+    each kind a step, finite loss, trainable parameters moved and frozen
+    ones not), each profiled. Returns (numbers, launches by path)."""
+    cfg = rp_config(name)
+    label = f"RepPoints {name} R50"
+    by_path, numbers = {}, {}
+    path = seeded_checkpoint(cfg, os.path.join(root, name))
+    bundle = apis.init_detector(RP_CONFIGS[name], path)
+    kind = type(bundle.model.head).__name__
+    if kind != ("RepPointsV2Head" if name == "v2" else "RepPointsHead"):
+        raise AssertionError(f"{label}: the bundle's head is {kind}")
+    img = api_image(3)
+    first = apis.inference_detector(bundle, img)
+    zero_launch_counts()
+    again = apis.inference_detector(bundle, img)
+    by_path[f"{label} inference_detector"] = launch_counts()
+    want = {**dict.fromkeys(launch_counts(), 0),
+            "deform_gather_contract": RP_K1_PER_FORWARD}
+    n = len(again["scores"])
+    got = by_path[f"{label} inference_detector"]
+    if got != want or not n:
+        raise AssertionError(f"{label} inference_detector: {n} detections, "
+                             f"launches {got}")
+    same_detections(f"{label} inference_detector, second call", again,
+                    first, atol=0.0)
+    log(f"{label} inference_detector: {n} detections, equal on a second "
+        "call")
+    del bundle
+    torch.cuda.empty_cache()
+
+    model_cfg = cfg.model.to_dict()
+    run, img_s, launches, peak = drive_main_path(
+        label, model_cfg, 0, "bbox", k1=RP_K1_PER_FORWARD, config=cfg)
+    profile(label, run, B / img_s * 1e3)
+    numbers["img_per_s"], numbers["peak_memory_bytes"] = img_s, peak
+    by_path[label] = {k: v // ITERS for k, v in launches.items()}
+    del run
+    torch.cuda.empty_cache()
+    run, img_s, launches, peak = drive_train_path(
+        "bbox", model_cfg, runner_loop.train_loss_cfg(cfg, (H, W)),
+        k1=RP_K1_PER_FORWARD, steps=RP_TRAIN_STEPS, label=f"{label} train",
+        grouped=0, warmup_iters=0)
+    card_state(f"before the profiled {label} train step")
+    profile(f"{label} train step", run, B / img_s * 1e3)
+    numbers["train_img_per_s"] = img_s
+    numbers["train_peak_memory_bytes"] = peak
+    by_path[f"{label} train"] = {k: v // RP_TRAIN_STEPS
+                                 for k, v in launches.items()}
+    del run
+    torch.cuda.empty_cache()
+    return numbers, by_path
+
+
+def check_dense_full(name):
+    """Phase 10e: the shipped Dense RepPoints v1 / v2 file at full width
+    (R50, 729 points, 80 classes, seeded weights): ``detect`` at B=2
+    800x1344 bf16 and one train step (bf16, 20 instances an image with
+    36-point contours), 0 K1 and 0 grouped launches, each profiled, with
+    peak memory. Returns (numbers, launches by path)."""
+    cfg = rp_config(name)
+    label = f"Dense RepPoints {name.split('_')[1]} R50"
+    model_cfg = cfg.model.to_dict()
+    numbers, by_path = {"batch": B}, {}
+    run, img_s, launches, peak = drive_main_path(
+        label, model_cfg, 0, "bbox", k1=0, config=cfg)
+    profile(label, run, B / img_s * 1e3)
+    numbers["img_per_s"], numbers["peak_memory_bytes"] = img_s, peak
+    by_path[label] = {k: v // ITERS for k, v in launches.items()}
+    del run
+    torch.cuda.empty_cache()
+    run, img_s, launches, peak = drive_train_path(
+        "bbox", model_cfg, runner_loop.train_loss_cfg(cfg, (H, W)), k1=0,
+        steps=DENSE_TRAIN_STEPS, label=f"{label} train", grouped=0,
+        warmup_iters=0)
+    profile(f"{label} train step", run, B / img_s * 1e3)
+    numbers["train_img_per_s"] = img_s
+    numbers["train_peak_memory_bytes"] = peak
+    by_path[f"{label} train"] = {k: v // DENSE_TRAIN_STEPS
+                                 for k, v in launches.items()}
+    del run
+    torch.cuda.empty_cache()
+    return numbers, by_path
+
+
+def check_reppoints_runner(root):
+    """Phase 10f: the shipped RepPoints moment file at full width through
+    ``lsnet_torch.tools.train`` (1 epoch of 2 steps on 4 procedural
+    768x1280 images, an EvalHook on 2 more) and ``lsnet_torch.tools.test``
+    on its checkpoint (metrics within 1e-4 of the hook's); 2 K1 launches of
+    each kind every step, 2 forward in the eval. Returns (numbers,
+    launches per step, per eval)."""
+    train_root, val_root = (os.path.join(root, n) for n in ("train", "val"))
+    train_ann, _ = make_shapes_coco(train_root, len(RP_RUNNER_TRAIN_HW),
+                                    seed=5, hw=RP_RUNNER_TRAIN_HW)
+    val_ann, _ = make_shapes_coco(val_root, len(RP_RUNNER_VAL_HW), seed=6,
+                                  hw=RP_RUNNER_VAL_HW)
+    test_opts, opts = runner_options(train_root, val_root, train_ann,
+                                     val_ann)
+    work = os.path.join(root, "work")
+    LaunchCountHook.steps.clear()
+    LaunchCountHook.evals.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res = train_tool.main([RP_CONFIGS["v1"], "--work-dir", work,
+                               "--total-epochs", "1",
+                               "--max-iters-per-epoch", "2",
+                               "--options", *opts])
+    finally:
+        LaunchCountHook.start_backbone = {}
+    train_s = time.perf_counter() - t0
+    steps, evals = list(LaunchCountHook.steps), list(LaunchCountHook.evals)
+    train = log_records(work, "train")
+    val = log_records(work, "val")
+    for r in train:
+        log("runner RepPoints " + json.dumps(r))
+    if len(train) != 2 or res["step"] != 2 or len(val) != 1 or any(
+            not math.isfinite(r[k]) for r in train
+            for k in ("loss", "grad_norm", "loss_pts_init",
+                      "loss_pts_refine")):
+        raise AssertionError(f"runner RepPoints: records {train}, {val}")
+    want = {**dict.fromkeys(launch_counts(), 0),
+            "deform_gather_contract": RP_K1_PER_FORWARD,
+            "deform_gather_contract_bwd_data": RP_K1_PER_FORWARD,
+            "deform_gather_contract_bwd_weight": RP_K1_PER_FORWARD}
+    if steps != [want] * 2:
+        raise AssertionError(f"runner RepPoints: launches per step {steps}, "
+                             f"want {want}")
+    want_eval = {**dict.fromkeys(launch_counts(), 0),
+                 "deform_gather_contract": RP_K1_PER_FORWARD}
+    if evals != [want_eval]:
+        raise AssertionError(f"runner RepPoints: launches per eval {evals}, "
+                             f"want {want_eval}")
+    path = os.path.join(work, "ckpts", "step_2.pt")
+    metrics = test_tool.main([RP_CONFIGS["v1"], path, "--eval", "bbox",
+                              "--options", *test_opts])
+    hook_metrics = {k: v for k, v in val[-1].items()
+                    if k not in ("mode", "epoch")}
+    log(f"runner RepPoints tools.test metrics {json.dumps(metrics)}; "
+        f"EvalHook {json.dumps(hook_metrics)}")
+    if metrics.keys() != hook_metrics.keys() or len(metrics) != 12 or any(
+            not -1.0 <= v <= 1.0 or abs(v - hook_metrics[k]) > 1e-4
+            for k, v in metrics.items()):
+        raise AssertionError("runner RepPoints: tools.test metrics disagree "
+                             "with the EvalHook's")
+    numbers = {"train_and_eval_s": train_s,
+               "train_s_per_iter": [r["time"] for r in train],
+               "losses": [r["loss"] for r in train], "metrics": metrics,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    return numbers, steps[0], evals[0]
+
+
+def check_reppoints(root):
+    """Phase 10 (a to f). Returns (numbers, kernel rows, launches by
+    path)."""
+    t0 = time.perf_counter()
+    check_reppoints_small()
+    seconds = {"a": time.perf_counter() - t0}
+    rows = check_reppoints_kernels()
+    seconds["b"] = time.perf_counter() - t0 - sum(seconds.values())
+    numbers, by_path = {}, {}
+    for part, name in (("c", "v1"), ("d", "v2")):
+        numbers[name], paths = check_reppoints_full(root, name)
+        by_path.update(paths)
+        seconds[part] = time.perf_counter() - t0 - sum(seconds.values())
+    for name in ("dense_v1", "dense_v2"):
+        numbers[name], paths = check_dense_full(name)
+        by_path.update(paths)
+    seconds["e"] = time.perf_counter() - t0 - sum(seconds.values())
+    (numbers["runner"], by_path["runner RepPoints train"],
+     by_path["runner RepPoints eval"]) = check_reppoints_runner(
+        os.path.join(root, "runner"))
+    seconds["f"] = time.perf_counter() - t0 - sum(seconds.values())
+    log(f"phase 10 seconds by part {json.dumps(seconds)}")
+    numbers["seconds"] = time.perf_counter() - t0
+    return numbers, rows, by_path
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["backward", "probes", "accuracy",
-                                           "api", "cpv"],
+                                           "api", "cpv", "reppoints"],
                         default=None,
                         help="run phases 2c and 2d, phase 2e, phase 7, "
-                        "phase 2a's Res2Net cases and phase 8, or phase 9 "
-                        "alone; no result line")
+                        "phase 2a's Res2Net cases and phase 8, phase 9 or "
+                        "phase 10 alone; no result line")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2718,6 +3092,16 @@ def main(argv=None):
         log("cpv kernel rows " + json.dumps(rows))
         log("launches per call or step " + json.dumps(by_path))
         log(f"partial run (--only cpv) passed in "
+            f"{time.perf_counter() - t_start:.1f}s; no result line")
+        return 0
+    if opts.only == "reppoints":
+        import tempfile
+        with tempfile.TemporaryDirectory() as root:
+            numbers, rows, by_path = check_reppoints(root)
+        log(f"{smi}: reppoints " + json.dumps(numbers))
+        log("reppoints kernel rows " + json.dumps(rows))
+        log("launches per call or step " + json.dumps(by_path))
+        log(f"partial run (--only reppoints) passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
         return 0
 
@@ -2793,6 +3177,21 @@ def main(argv=None):
         e2e["X-101-64x4d-DCN CPV train"] = cpv_numbers["train_img_per_s"]
         log(f"{smi}: cpv " + json.dumps(cpv_numbers)
             + f" (phase 9 in {cpv_numbers['seconds']:.1f}s)")
+        # phase 10: the RepPoints family
+        rp_numbers, rp_rows, rp_paths = check_reppoints(
+            os.path.join(root, "reppoints"))
+        by_path.update(rp_paths)
+        for name, label in (("v1", "RepPoints v1 R50"),
+                            ("v2", "RepPoints v2 R50"),
+                            ("dense_v1", "Dense RepPoints v1 R50"),
+                            ("dense_v2", "Dense RepPoints v2 R50")):
+            e2e[label] = rp_numbers[name]["img_per_s"]
+            e2e[f"{label} train"] = rp_numbers[name]["train_img_per_s"]
+            peaks[label] = rp_numbers[name]["peak_memory_bytes"]
+            peaks[f"{label} train"] = \
+                rp_numbers[name]["train_peak_memory_bytes"]
+        log(f"{smi}: reppoints " + json.dumps(rp_numbers)
+            + f" (phase 10 in {rp_numbers['seconds']:.1f}s)")
     for name, entry in probe_entries.items():
         by_path.setdefault("lsnet_torch.tools.probe", {})[name] = \
             entry["launches"]
@@ -2829,6 +3228,22 @@ def main(argv=None):
             "bound_by": row[f"{kind}_bound_by"], "library_ms": row[lib]}
             for label, row in cpv_rows.items()}
 
+    def rp_entry(kind):
+        """Phase 10b's bf16 rows of one K1 kernel (kind fwd, data or
+        weight) at RepPoints' paired call, v1 and v2."""
+        lib = {"fwd": "fwd_library_ms", "data": "data_einsum_g_only_ms",
+               "weight": "weight_library_ms"}[kind]
+        dev = {"fwd": "forward", "data": "bwd_data",
+               "weight": "bwd_weight"}[kind]
+        return {label: {
+            "C": row["C"], "cout": row["cout"], "px": row["px"],
+            "ms": row[f"{kind}_ms"], "device_us": row["device_us"][dev],
+            "padding_device_us": row["device_us"]["padding"],
+            "plain_ms": row[f"{kind}_plain_ms"],
+            "bound_ms": row[f"{kind}_bound_ms"],
+            "bound_by": row[f"{kind}_bound_by"], "library_ms": row[lib]}
+            for label, row in rp_rows.items()}
+
     def bwd_entry(name, source, replaces, row):
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[name],
@@ -2843,6 +3258,7 @@ def main(argv=None):
         if name.startswith("deform_gather_contract_bwd"):
             entry["cpv_res2net_per_call"] = cpv_entry(
                 name.rsplit("_", 1)[1])
+            entry["reppoints_per_call"] = rp_entry(name.rsplit("_", 1)[1])
         if "per_call" in row:
             entry["pose_bbox_ms"] = pose_bbox_ms(row["per_call"])
             entry["per_call"] = row["per_call"]
@@ -2868,6 +3284,7 @@ def main(argv=None):
                                     "library_ms")}
             for (st, stride), row in res2_rows.items()},
         "cpv_res2net_per_call": cpv_entry("fwd"),
+        "reppoints_per_call": rp_entry("fwd"),
         "launches_by_path": path_counts("deform_gather_contract")}, {
         "name": "deform_gather_grouped_contract", "route": "cuda",
         "source": "lsnet_torch/csrc/grouped_deform_contract.cu",

@@ -1,8 +1,12 @@
 """User entry points (counterpart of ``lsnet_tpu/apis.py``, the reference's
-``mmdet.apis``), for the ``LSDetector`` / ``LSHead`` and ``LSCPVDetector``
-configs. A CPV detector decodes with ``lscpv_decode`` (its corner snap),
-except in ``aug_test_simple``, which takes LSNet's candidates as JAX's
-does.
+``mmdet.apis``), for the ``LSDetector`` / ``LSHead``, ``LSCPVDetector``
+and RepPoints v1 / v2 configs. A detector decodes with its head's decode
+(``train.loop.decode_for``: ``lscpv_decode``'s corner snap for CPV,
+``reppoints_decode`` / ``reppoints_v2_decode`` for RepPoints, whose
+landmarks are zeros), except in ``aug_test_simple``, which takes LSNet's
+candidates as JAX's does and so serves the LSNet heads only. A Dense
+RepPoints config is refused by :func:`init_detector`: the JAX API has no
+decode for it, and it is evaluated through ``lsnet_torch.tools.test``.
 
 The image-level API:
 
@@ -39,10 +43,8 @@ from typing import (Any, Callable, Dict, Mapping, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 
-from .core.cpv import CPVLossConfig
 from .core.decode import (Detections, TestConfig, lsnet_decode_candidates,
                           nms_candidates)
-from .core.loss import LossConfig
 from .data.transforms import (canvas_for_scale, normalize_image,
                               pad_to_shape, rescale_size, resize_image)
 from .models import build_detector
@@ -52,10 +54,11 @@ from .models.layers import FrozenBatchNorm
 from .ops.flat_deform import (INFERENCE_SAMPLING, TRAIN_SAMPLING,
                               sampling_from_spec)
 from .train.checkpoint import deploy_sampling, restore_eval_state
-from .train.loop import (decode_for, evaluate_detector,  # noqa: F401
-                         runner_device, test_cfg_from, train_detector)
+from .train.loop import (DENSE_REPPOINTS, decode_for,  # noqa: F401
+                         evaluate_detector, runner_device, test_cfg_from,
+                         train_detector)
 from .train.optim import build_optimizer
-from .train.step import make_train_step
+from .train.step import LossCfg, make_train_step
 from .utils.config import Config
 
 Image = Union[str, np.ndarray]
@@ -91,8 +94,7 @@ def init_model(cfg: Dict[str, Any], device: str = "cuda", seed: int = 0,
     return model.to(device=device, dtype=dtype).train(train)
 
 
-def train_detector_step(model: LSDetector,
-                        loss_cfg: Union[LossConfig, CPVLossConfig], *,
+def train_detector_step(model: LSDetector, loss_cfg: LossCfg, *,
                         base_lr: float = 0.01, steps_per_epoch: int = 1000,
                         decay_epochs: Sequence[int] = (8, 11),
                         mixed_precision: bool = True,
@@ -103,7 +105,8 @@ def train_detector_step(model: LSDetector,
     """``step(batch) -> metrics`` for ``model`` (f32 master weights, from
     ``init_model(..., train=True)``): the reference recipe (SGD 0.9,
     weight decay 1e-4, clip 35, warm-up + step schedule) on the loss of
-    ``loss_cfg.task`` (``lscpv_loss`` for a ``CPVLossConfig``), bf16
+    ``loss_cfg.task`` (``lscpv_loss`` for a ``CPVLossConfig``, the
+    RepPoints family's for its configs: ``train.step.LOSSES``), bf16
     compute unless ``mixed_precision=False``. ``optim_kwargs`` go to
     :func:`lsnet_torch.train.optim.build_optimizer`."""
     optimizer, _ = build_optimizer(model.parameters(), base_lr,
@@ -116,14 +119,18 @@ def train_detector_step(model: LSDetector,
 def detect(model: LSDetector, images: torch.Tensor,
            img_shapes: torch.Tensor, scale_factors: torch.Tensor,
            test_cfg: TestConfig,
-           sampling: Mapping[str, str] = INFERENCE_SAMPLING) -> Detections:
+           sampling: Mapping[str, str] = INFERENCE_SAMPLING,
+           config: Optional[Config] = None) -> Detections:
     """images (B, H, W, 3) NHWC in the model's dtype; img_shapes (B, 2)
     [h, w]; scale_factors (B, 4); ``sampling`` maps each sampling site to
     its mode (``flat_deform.TRAIN_SAMPLING`` for bilinear everywhere).
-    Returns padded Detections (``lscpv_decode``'s for a CPV detector)."""
+    Returns padded Detections of the head's decode
+    (``train.loop.decode_for``, which needs the model's ``config`` file
+    for the RepPoints heads)."""
+    decode = decode_for(model, config)
     with torch.inference_mode():
         outs = model(images, sampling)
-        return decode_for(model)(outs, img_shapes, scale_factors, test_cfg)
+        return decode(outs, img_shapes, scale_factors, test_cfg)
 
 
 # ------------------------------------------------------------ image level
@@ -160,7 +167,7 @@ class DetectorBundle:
 
             def fwd(images, img_shapes, scale_factors):
                 return detect(self.model, images, img_shapes, scale_factors,
-                              tcfg, self.sampling)
+                              tcfg, self.sampling, self.cfg)
 
             self._fwd_cache[canvas_hw] = fwd
         return self._fwd_cache[canvas_hw]
@@ -185,9 +192,16 @@ def init_detector(config: Union[str, Config],
     init_weights_`) from seed 0. The sampling is ``test_cfg.dcn_sampling``
     where the config sets it, else what the checkpoint's meta deploys
     (``deploy_sampling``), else ``INFERENCE_SAMPLING``. Raises when there
-    is no CUDA device, unless ``device="cpu"``."""
+    is no CUDA device, unless ``device="cpu"``, and for a Dense RepPoints
+    config (no image-level decode; evaluate it with
+    ``lsnet_torch.tools.test``)."""
     device = runner_device(device)
     cfg = Config.fromfile(config) if isinstance(config, str) else config
+    if cfg.model.get("bbox_head", {}).get("type") in DENSE_REPPOINTS:
+        raise NotImplementedError(
+            f"{cfg.model.type}: the image-level API has no Dense RepPoints "
+            "decode (neither has the JAX package's); evaluate the config "
+            "with python3 -m lsnet_torch.tools.test")
     test = cfg.get("test_cfg") or {}
     if test.get("dcn_gather_quant"):
         raise NotImplementedError("dcn_gather_quant: gather quantisation is "
@@ -277,6 +291,11 @@ def aug_test_simple(bundle: DetectorBundle, img: Image,
     concatenated, then ONE class-wise NMS."""
     from .evalkit.tta import bbox_flip, extreme_flip
 
+    kind = type(bundle.model.head).__name__
+    if kind not in ("LSHead", "LSCPVHead"):
+        raise NotImplementedError(
+            f"aug_test_simple takes LSNet's candidates, which a {kind} "
+            "does not give; use aug_test")
     img = _read(img)
     scales = scales or [(1333, 800)]
     H, W = img.shape[:2]

@@ -6,6 +6,8 @@ uses ``vmap``.
   GT's matched FPN level; optional polygon-centroid anchor point.
 * ``atss_assign``: refine stage; per-level top-k by center distance, IoU
   threshold = mean + std, center inside the GT.
+* ``max_iou_assign``: the classic anchor IoU assigner with an ignore band
+  (RepPoints' refine stage), on the decoded init boxes.
 
 Everything is dense (N points x M padded GTs) with validity masks; the
 outputs are per-point assigned GT indices (-1 = background). Ties go to
@@ -177,3 +179,58 @@ def atss_assign(bboxes: torch.Tensor, point_valid: torch.Tensor,
                          torch.full_like(argmax, -1)).to(torch.int32)
     return AssignResult(gt_idx, torch.where(
         hit, max_overlaps, torch.zeros_like(max_overlaps)))
+
+
+class MaxIoUAssignResult(NamedTuple):
+    """Per-box assignment with an ignore band. gt_idx: (B, N) int32, -1 =
+    background; max_overlaps (B, N), 0 where no valid pair; ignore (B, N)
+    bool: boxes whose max IoU falls in [neg_iou_thr, pos_iou_thr) and no
+    GT claims (the reference MaxIoUAssigner's assigned == -1 band)."""
+    gt_idx: torch.Tensor
+    max_overlaps: torch.Tensor
+    ignore: torch.Tensor
+
+
+def max_iou_assign(bboxes: torch.Tensor, valid: torch.Tensor,
+                   gt_bboxes: torch.Tensor, gt_valid: torch.Tensor, *,
+                   pos_iou_thr: float = 0.5, neg_iou_thr: float = 0.4,
+                   min_pos_iou: float = 0.0,
+                   gt_max_assign_all: bool = True) -> MaxIoUAssignResult:
+    """The anchor IoU assigner (reference ``max_iou_assigner.py``):
+
+    1. a box takes its argmax-IoU GT where that IoU >= pos_iou_thr;
+    2. max IoU < neg_iou_thr is background, in between is ignored;
+    3. every GT claims its best box(es) where that IoU >= min_pos_iou and
+       > 0; a later GT overrides an earlier one (the reference's loop).
+
+    bboxes (B, N, 4); valid (B, N); gt_bboxes (B, M, 4); gt_valid (B, M).
+    The IoU is f32 with no epsilon in the union, and step 3 compares it
+    for exact equality with each GT's best, so ties fall where the JAX
+    package's do. Invalid pairs read -1."""
+    B, N = bboxes.shape[:2]
+    M = gt_bboxes.shape[1]
+    overlaps = box_iou(bboxes.float(), gt_bboxes.float())        # (B, N, M)
+    overlaps = torch.where(valid[:, :, None] & gt_valid[:, None, :],
+                           overlaps, torch.full_like(overlaps, -1.0))
+    max_ov = overlaps.amax(dim=2)
+    arg_ov = overlaps.argmax(dim=2)
+    pos = max_ov >= pos_iou_thr
+    neg = (max_ov < neg_iou_thr) & (max_ov >= -0.5)
+    gt_idx = torch.where(pos, arg_ov, torch.full_like(arg_ov, -1))
+    ignore = ~pos & ~neg
+
+    gt_best = overlaps.amax(dim=1)                               # (B, M)
+    claim_ok = (gt_best >= min_pos_iou) & gt_valid & (gt_best > 0)
+    if gt_max_assign_all:
+        is_best = (overlaps == gt_best[:, None, :]) & claim_ok[:, None, :]
+    else:
+        best = overlaps.argmax(dim=1)                            # (B, M)
+        is_best = torch.zeros_like(overlaps, dtype=torch.bool)
+        is_best.scatter_(1, best[:, None, :], True)
+        is_best = is_best & claim_ok[:, None, :]
+    rank = torch.arange(1, M + 1, device=bboxes.device).view(1, 1, M)
+    claim = (is_best * rank).amax(dim=2) - 1        # the last claiming GT
+    gt_idx = torch.where(claim >= 0, claim, gt_idx).to(torch.int32)
+    ignore = ignore & (claim < 0)
+    max_ov = torch.where(max_ov < 0, torch.zeros_like(max_ov), max_ov)
+    return MaxIoUAssignResult(gt_idx, max_ov, ignore)

@@ -231,18 +231,26 @@ def cpv_aux_losses(outs: Mapping[str, Sequence[torch.Tensor]],
     else:
         sem_map, sem_w = make_sem_targets(gt_bboxes, gt_labels, gt_valid,
                                           image_shape, num_classes)
+    losses["loss_sem"] = sem_loss(outs["sem_score"], sem_map, sem_w,
+                                  sem_loss_weight)
+    return losses
+
+
+def sem_loss(sem_scores: Sequence[torch.Tensor], sem_map: torch.Tensor,
+             sem_w: torch.Tensor, weight: float) -> torch.Tensor:
+    """SEP-focal loss of the per-level semantic score maps (B, h, w, C)
+    against the stride-8 targets, nearest-resized to each level, averaged
+    over the targets' positive cells."""
     scores, maps, wts = [], [], []
-    for lvl_score in outs["sem_score"]:
+    for lvl_score in sem_scores:
         hw = tuple(lvl_score.shape[1:3])
         scores.append(lvl_score.reshape(-1))
         maps.append(_nearest_resize(sem_map, hw).reshape(-1))
         wts.append(_nearest_resize(sem_w, hw).reshape(-1))
     maps_c = torch.cat(maps)
     avg = (maps_c > 0).sum().clamp(min=1)
-    losses["loss_sem"] = sep_focal_loss(
-        torch.cat(scores)[:, None], maps_c[:, None], torch.cat(wts),
-        avg_factor=avg) * sem_loss_weight
-    return losses
+    return sep_focal_loss(torch.cat(scores)[:, None], maps_c[:, None],
+                          torch.cat(wts), avg_factor=avg) * weight
 
 
 def lscpv_loss(outs: Mapping[str, Sequence[torch.Tensor]],

@@ -103,7 +103,7 @@ class CocoDataset:
         if cfg.corruption is not None:
             raise NotImplementedError(
                 "image corruptions (data/corruptions.py) are not ported "
-                "yet: ROADMAP Queue 1 item 12")
+                "yet: ROADMAP Queue 1 \"Inherited zoo\"")
         if not test_mode:
             # validate the scale spec eagerly: a bad multiscale config must
             # fail at dataset construction, not minutes later in the first

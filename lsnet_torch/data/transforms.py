@@ -509,7 +509,7 @@ def corrupt_sample(sample: Dict, corruption: str, severity: int = 1
     landmarks untouched — reference Corrupt semantics). Not ported yet."""
     raise NotImplementedError(
         "image corruptions (data/corruptions.py) are not ported yet: "
-        "ROADMAP Queue 1 item 12")
+        "ROADMAP Queue 1 \"Inherited zoo\"")
 
 
 def normalize_image(img: np.ndarray,

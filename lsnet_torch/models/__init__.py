@@ -1,19 +1,32 @@
 """Model builders (counterpart of ``lsnet_tpu/models/__init__.py``): config
 dicts with a ``type`` key -> ``nn.Module``s. The port builds ResNet,
-ResNeXt, Res2Net, FPN, LSHead (all four tasks), LSCPVHead, and
-LSDetector / LSCPVDetector (an LSDetector with the CPV head)."""
+ResNeXt, Res2Net, FPN, LSHead (all four tasks), LSCPVHead, the RepPoints
+family's four heads (RepPointsHead, RepPointsV2Head, DenseRepPointsHead,
+DenseRepPointsV2Head), and their single-stage detectors, each an
+``LSDetector`` (backbone -> FPN -> head), as in the JAX package."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Union
+from typing import Any, Dict, Sequence
 
 from torch import nn
 
 from .backbones.resnet import ResNet
 from .detectors.lsnet import LSDetector
+from .heads.dense_reppoints import DenseRepPointsHead, DenseRepPointsV2Head
 from .heads.ls_head import LSHead
 from .heads.lscpv_head import LSCPVHead
+from .heads.reppoints import RepPointsHead, RepPointsV2Head
 from .necks.fpn import FPN
+
+# the single-stage detector types and heads the port builds; as in the JAX
+# package, any of the types assembles backbone -> FPN -> whichever head
+# the config gives (the shipped RepPoints v2 file keeps RepPointsDetector)
+DETECTORS = ("LSDetector", "LSCPVDetector", "RepPointsDetector",
+             "RepPointsV2Detector", "DenseRepPointsDetector",
+             "DenseRepPointsV2Detector")
+HEADS = ("LSHead", "LSCPVHead", "RepPointsHead", "RepPointsV2Head",
+         "DenseRepPointsHead", "DenseRepPointsV2Head")
 
 
 def build_backbone(cfg: Dict[str, Any]) -> ResNet:
@@ -43,10 +56,10 @@ def build_neck(cfg: Dict[str, Any], in_channels: Sequence[int]) -> FPN:
     return FPN(in_channels=list(in_channels), **cfg)
 
 
-def build_head(cfg: Dict[str, Any]) -> Union[LSHead, LSCPVHead]:
+def build_head(cfg: Dict[str, Any]) -> nn.Module:
     cfg = dict(cfg)
     kind = cfg.pop("type")
-    if kind not in ("LSHead", "LSCPVHead"):
+    if kind not in HEADS:
         raise NotImplementedError(f"head {kind}")
     # losses and the point layout are read by training and decode
     for k in [k for k in cfg if k.startswith("loss_")] + [
@@ -55,6 +68,19 @@ def build_head(cfg: Dict[str, Any]) -> Union[LSHead, LSCPVHead]:
     norm_cfg = cfg.pop("norm_cfg", None)
     if norm_cfg is not None:
         cfg["norm_groups"] = norm_cfg.get("num_groups", 32)
+    if kind in ("DenseRepPointsHead", "DenseRepPointsV2Head"):
+        for k in ("train_cfg", "test_cfg", "transform_method",
+                  "sample_padding_mode", "use_grid_points", "center_init"):
+            cfg.pop(k, None)
+        cls_h = (DenseRepPointsHead if kind == "DenseRepPointsHead"
+                 else DenseRepPointsV2Head)
+        return cls_h(**cfg)
+    if kind in ("RepPointsHead", "RepPointsV2Head"):
+        for k in ("use_grid_points", "center_init", "train_cfg",
+                  "test_cfg"):
+            cfg.pop(k, None)
+        cls_h = RepPointsHead if kind == "RepPointsHead" else RepPointsV2Head
+        return cls_h(**cfg)
     if cfg.pop("fuse_towers", False):
         raise NotImplementedError("fuse_towers is a TPU layout option")
     if kind == "LSHead":
@@ -70,7 +96,7 @@ def build_detector(cfg: Dict[str, Any]) -> LSDetector:
     """Build the detector from a full ``model`` config dict."""
     cfg = dict(cfg)
     kind = cfg.pop("type")
-    if kind not in ("LSDetector", "LSCPVDetector"):
+    if kind not in DETECTORS:
         raise NotImplementedError(f"detector {kind}")
     backbone = build_backbone(cfg.pop("backbone"))
     neck = build_neck(cfg.pop("neck"), backbone.out_channels)

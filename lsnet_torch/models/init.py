@@ -7,18 +7,23 @@ Each parameter is drawn from the distribution its flax module gives it:
   ``kaiming_init``, He normal over fan_out (``lsnet_tpu/models/layers.py:28``);
 * ``nn.Conv2d`` of the head: N(0, 0.01) (``normal_init``, ``:32``), the
   classifier's bias at the focal prior ``bias_init_with_prob(0.01)``
-  (``:42``; ``ls_head.py:268-269``; in LSCPVHead also the corner-heatmap
-  and semantic scores, ``lscpv_head.py:135-170``), every other bias 0;
-* LSCPVHead's modules that keep the flax defaults
-  (``lsnet_tpu/models/heads/lscpv_head.py``): the ConvModules of its
-  corner-pool packs and ``sem_embedding`` ``kaiming_init``, the packs'
-  bare ``p_conv1`` / ``conv1`` LeCun normal (truncated at 2 std, fan_in);
+  (``:42``; ``ls_head.py:268-269``; in LSCPVHead and RepPointsV2Head also
+  the corner-heatmap and semantic scores, ``lscpv_head.py:135-170``,
+  ``reppoints.py:177-214``; in the Dense RepPoints heads the classifier,
+  ``dense_reppoints.py:187``, and v2's semantic and contour scores,
+  ``:276-279``), every other bias 0;
+* the modules of LSCPVHead and RepPointsV2Head that keep the flax
+  defaults (``lsnet_tpu/models/heads/lscpv_head.py``): the ConvModules of
+  their corner-pool packs and ``sem_embedding`` ``kaiming_init``, the
+  packs' bare ``p_conv1`` / ``conv1`` LeCun normal (truncated at 2 std,
+  fan_in);
+* the RepPoints heads' ``moment_transfer``: 0;
 * ``conv_offset`` of a DCNv2 pack: 0 (``layers.py:146``), so every DCN
   starts as a plain conv;
 * the DCNv2 weight: U(-s, s) with s = 1 / sqrt(cin_per_group * k * k), the
   torch ``reset_parameters`` scale;
 * the pyramid (refine) deformable weights: He normal over fan_out in
-  LSHead, N(0, 0.01) in LSCPVHead;
+  LSHead and the RepPoints heads, N(0, 0.01) in LSCPVHead;
 * GroupNorm and FrozenBatchNorm: scale 1 and bias 0; the statistics mean 0
   and var 1.
 
@@ -35,17 +40,22 @@ from typing import Set
 import torch
 from torch import nn
 
+from .heads.dense_reppoints import DenseRepPointsHead
 from .heads.ls_head import LSHead
 from .heads.lscpv_head import LSCPVHead
+from .heads.reppoints import RepPointsHead, RepPointsV2Head
 from .layers import (FrozenBatchNorm, ModulatedDeformConvPack,
                      PairedPyramidDeformConv, PyramidDeformConv)
 
 PRIOR_PROB = 0.01
 # head convolutions whose bias starts at the focal prior
-PRIOR_BIASED = ("pts_cls_out", "hem_tl_score_out", "hem_br_score_out",
-                "sem_out")
-# LSCPVHead convolutions (name ends) with the flax defaults: ConvModule's
-# kaiming_init, nn.Conv's lecun_normal
+PRIOR_BIASED = ("cls_out", "hem_tl_score_out", "hem_br_score_out",
+                "sem_out", "cont_score_out")
+# the heads whose convolutions start at N(0, 0.01)
+HEADS = (LSHead, LSCPVHead, RepPointsHead, DenseRepPointsHead)
+# heads with the corner-pool packs, whose convolutions (name ends) keep
+# the flax defaults: ConvModule's kaiming_init, nn.Conv's lecun_normal
+CORNER_HEADS = (LSCPVHead, RepPointsV2Head)
 CPV_KAIMING = ("p1_conv1.conv", "p2_conv1.conv", "conv2.conv",
                "sem_embedding.conv")
 CPV_LECUN = ("p_conv1", "hem_tl.conv1", "hem_br.conv1")
@@ -71,12 +81,13 @@ def init_weights_(model: nn.Module, generator: torch.Generator
                   ) -> nn.Module:
     """Draw every parameter of ``model`` (a detector or any of its parts)
     from its JAX initializer, in place, in module order."""
-    head_modules: Set[int] = {
-        id(m) for h in model.modules() if isinstance(h, (LSHead, LSCPVHead))
-        for m in h.modules()}
-    cpv_modules: Set[int] = {
-        id(m) for h in model.modules() if isinstance(h, LSCPVHead)
-        for m in h.modules()}
+    def members(kinds) -> Set[int]:
+        return {id(m) for h in model.modules() if isinstance(h, kinds)
+                for m in h.modules()}
+
+    head_modules = members(HEADS)
+    cpv_modules = members(CORNER_HEADS)
+    normal_deform = members(LSCPVHead)
     done: Set[int] = set()
 
     def mark(*ps):
@@ -117,9 +128,12 @@ def init_weights_(model: nn.Module, generator: torch.Generator
             if m.bias is not None:
                 m.bias.zero_()
             mark(m.weight, m.bias)
+        elif isinstance(m, RepPointsHead) and hasattr(m, "moment_transfer"):
+            m.moment_transfer.zero_()
+            mark(m.moment_transfer)
         elif isinstance(m, (PyramidDeformConv, PairedPyramidDeformConv)):
             for p in m.parameters(recurse=False):   # HWIO
-                if id(m) in cpv_modules:
+                if id(m) in normal_deform:
                     _normal_(p, 0.01, generator)
                 else:
                     _he_fan_out_(p, p.shape[0] * p.shape[1] * p.shape[3],

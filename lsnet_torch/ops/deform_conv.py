@@ -4,6 +4,7 @@ multi-level engine and its kernel.
 
 Reference semantics (``mmdet/ops/dcn/src/cuda/deform_conv_cuda_kernel.cu``):
 
+* ``deform_conv`` (DCNv1): the same sampling with no mask;
 * ``modulated_deform_conv`` (DCNv2): for output pixel (h, w) and tap (i, j)
   sample the input at ``y = h*stride - pad + i*dil + off_y`` with
   zero-padded bilinear interpolation, multiply by the tap's mask and
@@ -114,6 +115,17 @@ def _contract(patches: torch.Tensor, weight: torch.Tensor,
     wg = weight.reshape(K, cg, groups, cout // groups).float()
     out = torch.einsum("bpkgc,kcgo->bpgo", pg, wg)
     return out.reshape(B, Ho, Wo, cout).to(patches.dtype)
+
+
+def deform_conv(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
+                *, stride=1, padding=0, dilation=1,
+                groups: int = 1) -> torch.Tensor:
+    """DCNv1. x (B,H,W,Cin), offset (B,Ho,Wo,2K), weight
+    (kh,kw,Cin/groups,cout)."""
+    ks = (weight.shape[0], weight.shape[1])
+    patches = _sample_patches(x, offset, ks, _pair(stride), _pair(padding),
+                              _pair(dilation))
+    return _contract(patches, weight, groups)
 
 
 def modulated_deform_conv(x: torch.Tensor, offset: torch.Tensor,

@@ -65,7 +65,8 @@ def deploy_sampling(meta: Optional[Mapping[str, Any]]) -> Mapping[str, str]:
         raise NotImplementedError(
             "a checkpoint trained on refine taps "
             f"{meta['refine_taps_train']!r}: refine taps 5 are not ported "
-            "yet (ROADMAP Queue 1 item 3)")
+            "yet (ROADMAP Queue 1 \"Leftovers on the surface already "
+            "ported\")")
     train = sampling_from_spec(meta.get("dcn_sampling_train"))
     deploy = {}
     for site in SITES:
@@ -311,7 +312,7 @@ def convert_torch_lshead(state_dict: Mapping[str, Any], task: str = "bbox"
 
     ``bbox_head.`` and ``module.`` prefixes are taken off;
     ``dcn_base_offset`` and ``num_batches_tracked`` are skipped; any other
-    key raises (the DCN-tower keys too: ROADMAP Queue 1 item 2)."""
+    key raises (the DCN-tower keys too: ROADMAP Queue 1 "Not queued")."""
     main = MAIN_BRANCH[task]
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     unknown = []

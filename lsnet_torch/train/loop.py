@@ -23,28 +23,38 @@ The head family sets the loss and the decode, as in the JAX runner:
 LSHead trains on ``lsnet_loss`` and decodes with ``lsnet_decode``;
 LSCPVHead (``LSCPVDetector``) on ``lscpv_loss``, whose config reads only
 the base (LSHead) loss settings from the file, as JAX's does, and decodes
-with ``lscpv_decode``.
+with ``lscpv_decode``; RepPointsHead / RepPointsV2Head on
+``reppoints_loss`` / ``reppoints_v2_loss`` and their decodes; the Dense
+RepPoints heads on ``dense_reppoints_loss`` / ``dense_reppoints_v2_loss``
+(their pipeline carries the 36-point GT polygons, as the segm task's),
+evaluated by bbox: ``dense_reppoints_decode``'s boxes with zero
+landmarks.
 
-Left out, as the TPU's own or not LSNet: the compile cache, the chunk
-budget, the device mesh (one card; ``num_hosts`` 1 until ROADMAP Queue 1
-item 11), and the two-stage, dense and RepPoints branches.
+Left out, as the TPU's own or not yet ported: the compile cache, the
+chunk budget, the device mesh (one card; ``num_hosts`` 1 until ROADMAP
+Queue 1 "Multi-GPU"), and the two-stage and anchor-based dense branches.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
 from ..core.cpv import CPVLossConfig, lscpv_decode
-from ..core.decode import TestConfig, lsnet_decode
+from ..core.decode import Detections, TestConfig, lsnet_decode
+from ..core.dense_reppoints import (DenseRepPointsConfig,
+                                    DenseRepPointsV2Config,
+                                    dense_reppoints_decode)
 from ..core.loss import LossConfig
+from ..core.reppoints import (RepPointsConfig, RepPointsV2Config,
+                              reppoints_decode, reppoints_v2_decode)
 from ..data.coco import (CocoDataset, DataLoader, DatasetConfig,
                          batch_to_device, collate_batch)
 from ..evalkit.evaluator import (coco_gt_from_annotations, detections_to_coco,
                                  evaluate_coco)
-from ..models import build_detector, is_cpv
+from ..models import DETECTORS, HEADS, build_detector
 from ..models.init import init_weights_
 from ..ops.flat_deform import (INFERENCE_SAMPLING, TRAIN_SAMPLING,
                                sampling_from_spec)
@@ -57,6 +67,8 @@ from .step import make_train_step
 
 DATA_TASK = {"bbox": "bbox", "segm": "segm", "pose_bbox": "pose",
              "pose_kbox": "pose"}
+DENSE_REPPOINTS = ("DenseRepPointsHead", "DenseRepPointsV2Head")
+REPPOINTS = ("RepPointsHead", "RepPointsV2Head")
 IOU_TYPE = {"bbox": "bbox", "segm": "segm", "pose_bbox": "keypoints",
             "pose_kbox": "keypoints"}
 
@@ -97,20 +109,115 @@ def loss_cfg_from(cfg, image_shape) -> LossConfig:
     )
 
 
-def train_loss_cfg(cfg, image_shape) -> Union[LossConfig, CPVLossConfig]:
-    """The train step's loss config: ``CPVLossConfig`` around the base
-    config for the CPV head (its heatmap, offset and semantic terms keep
-    their defaults, as in the JAX runner), else ``loss_cfg_from``."""
+def _assigners(cfg):
+    tc = cfg.get("train_cfg", {}) or {}
+    return (tc.get("init", {}).get("assigner", {}),
+            tc.get("refine", {}).get("assigner", {}))
+
+
+def reppoints_cfg_from(cfg, image_shape) -> RepPointsConfig:
+    """The RepPoints loss / decode config of a RepPoints file
+    (``RepPointsV2Config`` for RepPointsV2Head, whose CPV terms keep their
+    defaults, as in the JAX runner)."""
+    head = cfg.model.bbox_head
+    init_a, ref_a = _assigners(cfg)
+    kind = (RepPointsV2Config if head.get("type") == "RepPointsV2Head"
+            else RepPointsConfig)
+    return kind(
+        image_shape=tuple(image_shape),
+        num_classes=head.num_classes,
+        num_points=head.get("num_points", 9),
+        point_strides=tuple(head.get("point_strides",
+                                     (8, 16, 32, 64, 128))),
+        point_base_scale=head.get("point_base_scale", 4),
+        transform_method=head.get("transform_method", "moment"),
+        init_scale=init_a.get("scale", 4),
+        init_pos_num=init_a.get("pos_num", 1),
+        refine_pos_iou=ref_a.get("pos_iou_thr", 0.5),
+        refine_neg_iou=ref_a.get("neg_iou_thr", 0.4),
+        refine_min_pos_iou=ref_a.get("min_pos_iou", 0.0),
+        cls_weight=head.get("loss_cls", {}).get("loss_weight", 1.0),
+        init_weight=head.get("loss_bbox_init", {}).get("loss_weight", 0.5),
+        refine_weight=head.get("loss_bbox_refine", {}
+                               ).get("loss_weight", 1.0))
+
+
+def dense_reppoints_cfg_from(cfg, image_shape) -> DenseRepPointsConfig:
+    """The Dense RepPoints loss / decode config of a Dense RepPoints file
+    (``DenseRepPointsV2Config`` for the v2 head); the loss weights keep
+    their defaults, as in the JAX runner."""
+    head = cfg.model.bbox_head
+    init_a, ref_a = _assigners(cfg)
+    kind = (DenseRepPointsV2Config
+            if head.get("type") == "DenseRepPointsV2Head"
+            else DenseRepPointsConfig)
+    return kind(
+        image_shape=tuple(image_shape),
+        num_classes=head.num_classes,
+        num_points=head.get("num_points", 729),
+        num_group=head.get("num_group", 9),
+        num_score_group=head.get("num_score_group", 121),
+        point_strides=tuple(head.get("point_strides",
+                                     (8, 16, 32, 64, 128))),
+        point_base_scale=head.get("point_base_scale", 4),
+        init_scale=init_a.get("scale", 4),
+        init_pos_num=init_a.get("pos_num", 1),
+        refine_pos_iou=ref_a.get("pos_iou_thr", 0.5),
+        refine_neg_iou=ref_a.get("neg_iou_thr", 0.4),
+        refine_min_pos_iou=ref_a.get("min_pos_iou", 0.0))
+
+
+def train_loss_cfg(cfg, image_shape):
+    """The train step's loss config, by head type: ``CPVLossConfig``
+    around the base config for the CPV head (its heatmap, offset and
+    semantic terms keep their defaults, as in the JAX runner),
+    ``reppoints_cfg_from`` / ``dense_reppoints_cfg_from`` for the
+    RepPoints family, else ``loss_cfg_from``."""
+    kind = cfg.model.bbox_head.get("type")
+    if kind in REPPOINTS:
+        return reppoints_cfg_from(cfg, image_shape)
+    if kind in DENSE_REPPOINTS:
+        return dense_reppoints_cfg_from(cfg, image_shape)
     base = loss_cfg_from(cfg, image_shape)
-    if cfg.model.bbox_head.get("type") == "LSCPVHead":
+    if kind == "LSCPVHead":
         return CPVLossConfig(base=base)
     return base
 
 
-def decode_for(model: torch.nn.Module) -> Callable[..., Any]:
-    """The detector's decode: ``lscpv_decode`` for the CPV head, else
-    ``lsnet_decode``; ``fn(outs, img_shapes, scale_factors, test_cfg)``."""
-    return lscpv_decode if is_cpv(model) else lsnet_decode
+def decode_for(model: torch.nn.Module, config=None) -> Callable[..., Any]:
+    """The detector's decode, by its head: ``lscpv_decode`` for the CPV
+    head, ``reppoints_decode`` / ``reppoints_v2_decode`` for the RepPoints
+    heads, ``dense_reppoints_decode`` as bbox Detections (zero landmarks)
+    for the Dense RepPoints heads, else ``lsnet_decode``;
+    ``fn(outs, img_shapes, scale_factors, test_cfg)``. The RepPoints
+    family's decodes take their settings from the model's ``config`` file
+    (``reppoints_cfg_from`` / ``dense_reppoints_cfg_from`` at the test
+    config's canvas, as in the JAX runner) and require it."""
+    kind = type(model.head).__name__
+    if kind == "LSCPVHead":
+        return lscpv_decode
+    if kind not in REPPOINTS + DENSE_REPPOINTS:
+        return lsnet_decode
+    if config is None:
+        raise ValueError(f"{kind}: its decode reads the model's config "
+                         "file; pass it as config")
+    if kind in REPPOINTS:
+        fn = reppoints_decode if kind == "RepPointsHead" \
+            else reppoints_v2_decode
+
+        def decode(outs, img_shapes, scale_factors, tcfg):
+            rcfg = reppoints_cfg_from(config, tcfg.image_shape)
+            return fn(outs, img_shapes, scale_factors, tcfg, rcfg)
+        return decode
+
+    def decode(outs, img_shapes, scale_factors, tcfg):
+        dcfg = dense_reppoints_cfg_from(config, tcfg.image_shape)
+        d = dense_reppoints_decode(outs, img_shapes, scale_factors, tcfg,
+                                   dcfg)
+        lms = torch.zeros(*d.bboxes.shape[:2], 8, dtype=d.bboxes.dtype,
+                          device=d.bboxes.device)
+        return Detections(d.bboxes, d.scores, d.labels, lms, d.valid)
+    return decode
 
 
 def test_cfg_from(cfg, image_shape) -> TestConfig:
@@ -133,21 +240,38 @@ def test_cfg_from(cfg, image_shape) -> TestConfig:
 
 
 def check_runnable(cfg) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of a model or
-    dataset the port cannot run yet."""
+    """Raise ``NotImplementedError`` naming the ROADMAP entry of a model
+    or dataset the port cannot run yet."""
     model = cfg.model
-    head = {"LSDetector": "LSHead", "LSCPVDetector": "LSCPVHead"}.get(
-        model.type)
-    if head is None or model.get("bbox_head", {}).get("type") != head:
-        raise NotImplementedError(f"{model.type}: the port runs LSDetector "
-                                  "with LSHead and LSCPVDetector with "
-                                  "LSCPVHead; the zoo is ROADMAP Queue 1 "
-                                  "item 12")
+    head = model.get("bbox_head", {}).get("type")
+    if model.type not in DETECTORS or head not in HEADS:
+        raise NotImplementedError(
+            f"{model.type} with {head}: the port runs the single-stage "
+            f"detectors {', '.join(sorted(DETECTORS))} with the heads "
+            f"{', '.join(sorted(HEADS))}; the rest of "
+            "the zoo is ROADMAP Queue 1 \"Inherited zoo\"")
     for split in ("train", "val"):
         kind = cfg.data.get(split, {}).get("type", "CocoDataset")
         if kind != "CocoDataset":
             raise NotImplementedError(f"dataset {kind}: data/extra.py is "
-                                      "ROADMAP Queue 1 item 12")
+                                      "ROADMAP Queue 1 \"Inherited zoo\"")
+
+
+def head_num_vectors(cfg) -> int:
+    """The pipeline's ``num_vectors``: the head's, or 36 for Dense
+    RepPoints, whose loss reads the segm task's 36-point GT polygons."""
+    head = cfg.model.bbox_head
+    return head.get("num_vectors",
+                    36 if head.get("type") in DENSE_REPPOINTS else 4)
+
+
+def data_task(cfg, split: str) -> str:
+    """The pipeline's task: the head's, except that Dense RepPoints trains
+    on the segm task's polygons (and evaluates by bbox)."""
+    head = cfg.model.bbox_head
+    if split == "train" and head.get("type") in DENSE_REPPOINTS:
+        return "segm"
+    return DATA_TASK[head.get("task", "bbox")]
 
 
 def eval_sampling(explicit: Optional[Mapping[str, str]] = None,
@@ -174,15 +298,14 @@ def runner_device(device) -> torch.device:
 
 
 def _dataset_cfg(cfg, split: str, **kw) -> DatasetConfig:
-    head = cfg.model.bbox_head
     d = cfg.data[split]
     raw = d.get("img_scale", (1333, 800))
     scale = (tuple(tuple(s) for s in raw)
              if isinstance(raw[0], (list, tuple)) else tuple(raw))
     return DatasetConfig(
         ann_file=d.ann_file, img_prefix=d.img_prefix,
-        task=DATA_TASK[head.get("task", "bbox")],
-        num_vectors=head.get("num_vectors", 4), img_scale=scale, **kw)
+        task=data_task(cfg, split), num_vectors=head_num_vectors(cfg),
+        img_scale=scale, **kw)
 
 
 def train_detector(cfg, work_dir: str, *, total_epochs: Optional[int] = None,
@@ -316,7 +439,7 @@ def evaluate_detector(cfg, model: torch.nn.Module, canvas, *,
     img_sizes = {info["id"]: (info["height"], info["width"])
                  for info in ds.coco.img_infos}
     label_to_cat = {v: k for k, v in ds.coco.cat_to_label.items()}
-    decode = decode_for(model)
+    decode = decode_for(model, cfg)
     land, port = tuple(canvas), (canvas[1], canvas[0])
     groups = {land: [], port: []}
     for i in range(n):
@@ -331,8 +454,9 @@ def evaluate_detector(cfg, model: torch.nn.Module, canvas, *,
             for s0 in range(0, len(idx_list), batch_size):
                 samples = [ds.get_sample(i)
                            for i in idx_list[s0:s0 + batch_size]]
-                batch = collate_batch(samples, cv, task=DATA_TASK[task],
-                                      num_vectors=head.get("num_vectors", 4))
+                batch = collate_batch(samples, cv,
+                                      task=data_task(cfg, "val"),
+                                      num_vectors=head_num_vectors(cfg))
                 image = torch.from_numpy(batch["image"]).to(
                     param.device, param.dtype)
                 with torch.inference_mode():

@@ -26,25 +26,48 @@ import torch
 from torch.nn.utils.stateless import _reparametrize_module
 
 from ..core.cpv import CPVLossConfig, lscpv_loss
+from ..core.dense_reppoints import (DenseRepPointsConfig,
+                                    DenseRepPointsV2Config,
+                                    dense_reppoints_loss,
+                                    dense_reppoints_v2_loss)
 from ..core.loss import LossConfig, lsnet_loss
+from ..core.reppoints import (RepPointsConfig, RepPointsV2Config,
+                              reppoints_loss, reppoints_v2_loss)
 from ..ops.flat_deform import TRAIN_SAMPLING
 from .optim import ClippedSGD
 
 # the loss of each head family, by its config's type
-LOSSES = {LossConfig: lsnet_loss, CPVLossConfig: lscpv_loss}
+LOSSES = {LossConfig: lsnet_loss, CPVLossConfig: lscpv_loss,
+          RepPointsConfig: reppoints_loss,
+          RepPointsV2Config: reppoints_v2_loss,
+          DenseRepPointsConfig: dense_reppoints_loss,
+          DenseRepPointsV2Config: dense_reppoints_v2_loss}
+LossCfg = Union[LossConfig, CPVLossConfig, RepPointsConfig,
+                DenseRepPointsConfig]
+
+
+def as_f32(outs: Mapping[str, object]) -> Dict[str, object]:
+    """The head's outputs in f32: each level map of a list, and a tensor
+    output (the RepPoints ``moment``) itself."""
+    return {k: v.float() if isinstance(v, torch.Tensor)
+            else [m.float() for m in v] for k, v in outs.items()}
 
 
 def make_train_step(model: torch.nn.Module, optimizer: ClippedSGD,
-                    loss_cfg: Union[LossConfig, CPVLossConfig],
+                    loss_cfg: LossCfg,
                     mixed_precision: bool = True,
                     sampling: Mapping[str, str] = TRAIN_SAMPLING
                     ) -> Callable[[Mapping[str, torch.Tensor]],
                                   Dict[str, torch.Tensor]]:
     """``step(batch) -> metrics``: one update of ``model`` in place.
 
-    The loss is ``lsnet_loss`` for a ``LossConfig``, ``lscpv_loss`` for a
-    ``CPVLossConfig`` (the CPV head). batch: ``image`` (B, H, W, 3) NHWC
-    and the keys of the loss, on the model's device.
+    The loss is the one ``LOSSES`` names for the config's type:
+    ``lsnet_loss`` for a ``LossConfig``, ``lscpv_loss`` for a
+    ``CPVLossConfig`` (the CPV head), ``reppoints_loss`` /
+    ``reppoints_v2_loss`` / ``dense_reppoints_loss`` /
+    ``dense_reppoints_v2_loss`` for the RepPoints family's. batch:
+    ``image`` (B, H, W, 3) NHWC and the keys of the loss, on the model's
+    device.
     metrics: ``loss``, the loss terms and the pre-clip ``grad_norm``, as
     tensors on the device (no synchronisation)."""
     loss_fn = LOSSES[type(loss_cfg)]
@@ -70,7 +93,7 @@ def make_train_step(model: torch.nn.Module, optimizer: ClippedSGD,
             outs = model(image.to(torch.bfloat16) if mixed_precision
                          else image, sampling)
             # assignment and losses in f32
-            outs = {k: [m.float() for m in v] for k, v in outs.items()}
+            outs = as_f32(outs)
             total, losses = loss_fn(outs, batch, loss_cfg)
             grads = torch.autograd.grad(total, optimizer.params)
         metrics = {k: v.detach() for k, v in losses.items()}

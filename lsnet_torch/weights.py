@@ -6,8 +6,9 @@ The port's modules carry the flax module names, so a variable at
 
 * ``kernel`` (an ``nn.Conv2d``): HWIO -> OIHW, renamed ``weight``;
 * ``scale`` (GroupNorm, FrozenBatchNorm): renamed ``weight``;
-* ``bias`` and the deformable layers' HWIO ``weight``/``weight_a``/
-  ``weight_b``: unchanged;
+* ``bias``, the deformable layers' HWIO ``weight``/``weight_a``/
+  ``weight_b`` and the RepPoints heads' ``moment_transfer`` (2,):
+  unchanged;
 * ``batch_stats`` ``mean``/``var``: the FrozenBatchNorm buffers.
 
 :func:`load_jax_variables` loads strictly: a variable the model does not
@@ -27,7 +28,8 @@ from torch import nn
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                  "weight": "weight", "weight_a": "weight_a",
-                 "weight_b": "weight_b"}
+                 "weight_b": "weight_b",
+                 "moment_transfer": "moment_transfer"}
 _STAT_LEAVES = {"mean": "mean", "var": "var"}
 
 

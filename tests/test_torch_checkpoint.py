@@ -158,7 +158,8 @@ def test_deploy_sampling_leaves_the_default_unchanged(tmp_path):
     assert got[0] == dict.fromkeys(pfd.SITES, "nearest")
     assert got[1] == before == dict(pfd.INFERENCE_SAMPLING)
     assert ck.deploy_sampling(None) is pfd.INFERENCE_SAMPLING
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1 \"Leftovers on the surface already"):
         ck.deploy_sampling({"refine_taps_train": "0,1,3,5,7"})
 
 

@@ -1,5 +1,5 @@
-"""The shipped LSNet configs through the port's config loader and
-``build_detector``.
+"""The shipped LSNet and RepPoints-family configs through the port's
+config loader and ``build_detector``.
 
 Every ``configs/lsnet/*.py`` file is read with the port's own
 ``lsnet_torch.utils.config.Config``, whose ``to_dict()`` must equal the JAX
@@ -13,7 +13,11 @@ on the ``meta`` device (no weights are allocated). The R50, X-101 and
 Res2Net-101 files build, ``with_cp=True`` included, the two CPV files with
 the CPV head (``LSCPVDetector``: an LSDetector with ``LSCPVHead``); the
 runner's loss config of a CPV file is ``CPVLossConfig`` around the base
-one, as the JAX runner's ``make_loss_for`` builds it.
+one, as the JAX runner's ``make_loss_for`` builds it. The five
+``configs/reppoints`` and ``configs/dense_reppoints`` files read the same,
+build on the ``meta`` device with a head whose state dict has the keys
+and shapes of the JAX head's parameters, and give the JAX runner's loss
+and test configs.
 
 ``with_cp`` runs each residual block under ``torch.utils.checkpoint``
 (``remat`` in the JAX package): a narrow ResNeXt with DCN stages gives the
@@ -231,3 +235,80 @@ def test_with_cp_under_the_mixed_precision_train_step():
     assert loss_cp == loss
     for n, w in want.items():
         assert torch.equal(got[n], w), n
+
+
+# ------------------------------------------------------------ RepPoints
+
+RP_CONFIGS = sorted(
+    os.path.relpath(p, os.path.join(REPO, "configs")) for d in (
+        "reppoints", "dense_reppoints")
+    for p in glob.glob(os.path.join(REPO, "configs", d, "*.py")))
+
+
+def test_every_reppoints_config_is_listed():
+    """Three RepPoints files (moment, minmax, v2) and two Dense RepPoints
+    files (v1, v2)."""
+    assert len(RP_CONFIGS) == 5
+    assert sum(n.startswith("dense_reppoints/") for n in RP_CONFIGS) == 2
+
+
+@pytest.mark.parametrize("name", RP_CONFIGS)
+def test_reppoints_config_loader_reads_the_same(name):
+    path = os.path.join(REPO, "configs", name)
+    assert PConfig.fromfile(path).to_dict() == Config.fromfile(
+        path).to_dict()
+
+
+@pytest.mark.parametrize("name", RP_CONFIGS)
+def test_reppoints_config_builds_with_the_jax_head_parameters(name):
+    """``build_detector`` on the ``meta`` device; the head's state dict
+    has the keys and shapes ``from_jax_variables`` makes of the JAX
+    head's parameters (``eval_shape`` of its init at the full width)."""
+    import jax
+    import jax.numpy as jnp
+    from lsnet_tpu.models import build_head as j_build_head
+    from lsnet_torch.weights import from_jax_variables
+    cfg = Config.fromfile(os.path.join(REPO, "configs", name))
+    model_cfg = cfg.to_dict()["model"]
+    with torch.device("meta"):
+        model = build_detector(model_cfg)
+    assert type(model.head).__name__ == model_cfg["bbox_head"]["type"]
+    jhead, _ = j_build_head(dict(model_cfg["bbox_head"]))
+    feats = [jnp.zeros((1, s, s, 256)) for s in (4, 2, 2, 1, 1)]
+    shapes = jax.eval_shape(lambda: jhead.init(jax.random.PRNGKey(0),
+                                               feats))
+    want = {k: tuple(v.shape) for k, v in from_jax_variables(jax.tree.map(
+        lambda s: np.zeros(s.shape, np.float32), shapes)).items()}
+    got = {k: tuple(v.shape) for k, v in model.head.state_dict().items()}
+    assert got == want
+    if "v2" in name and not name.startswith("dense"):
+        # the paired gather reads C = 256 + 6 corner channels
+        assert model.head.cls_refine_dcn.weight_a.shape == (3, 3, 262, 256)
+    if name.startswith("dense"):
+        assert model.head.num_points == 729
+
+
+@pytest.mark.parametrize("name", RP_CONFIGS)
+def test_reppoints_runner_configs_match_the_jax_runner(name):
+    """The loss config (the RepPoints or Dense RepPoints config of
+    ``make_loss_for``), the test config and the pipeline's
+    ``num_vectors`` equal the JAX runner's field by field."""
+    path = os.path.join(REPO, "configs", name)
+    jcfg, pcfg = Config.fromfile(path), PConfig.fromfile(path)
+    canvas = (800, 1344)
+    dense = name.startswith("dense")
+    want = (jloop.dense_reppoints_cfg_from if dense
+            else jloop.reppoints_cfg_from)(jcfg, canvas)
+    got = ploop.train_loss_cfg(pcfg, canvas)
+    # v2's config is a subclass of its own (the train step's loss table
+    # tells v2 from v1 by it); the JAX runner picks the loss by head type
+    assert type(got).__name__.replace("V2", "") == type(want).__name__
+    assert ("V2" in type(got).__name__) == ("v2" in name)
+    for f in want.__dataclass_fields__:
+        assert getattr(got, f) == getattr(want, f), f
+    want = jloop.test_cfg_from(jcfg, canvas)
+    got = ploop.test_cfg_from(pcfg, canvas)
+    for f in got.__dataclass_fields__:
+        assert getattr(got, f) == getattr(want, f), f
+    assert ploop.head_num_vectors(pcfg) == jloop._head_num_vectors(
+        jcfg, jcfg.model.bbox_head)

@@ -685,3 +685,85 @@ def test_batch_to_device_on_the_card(cuda_device, tmp_path):
             assert moved[k].cpu().numpy().dtype == v.dtype, k
     with pytest.raises(RuntimeError):
         coco.batch_to_device(batch, f"cuda:{torch.cuda.device_count()}")
+
+
+def _paired_mask_free_inputs(dev, dtype, C, cout, levels, B=2, seed=0):
+    """(flat, idx, w, weight) of RepPoints' paired gather: each job reads
+    its own level at scale 1, stride 1, with no mask (plain DeformConv),
+    offsets a few pixels around the 3x3 taps."""
+    from lsnet_torch.ops import flat_deform as fd
+    gen = torch.Generator().manual_seed(seed)
+    feats = [torch.randn(B, h, w, C, generator=gen).to(dev, dtype)
+             for h, w in levels]
+    lv = fd.pack_levels(feats)
+    jobs = [fd.SampleJob(i, (2.0 * torch.randn(B, h, w, 18, generator=gen)
+                             ).to(dev), None, (1.0, 1.0), (1, 1), (1, 1),
+                         (1, 1)) for i, (h, w) in enumerate(levels)]
+    idx, w = fd._gather_indices_tap(lv, jobs, 9, "bilinear")
+    weight = (0.05 * torch.randn(9, C, cout, generator=gen)).to(dev, dtype)
+    return lv.flat.contiguous(), idx, w, weight
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("C", [256, 262])
+def test_k1_at_the_paired_mask_free_shape(cuda_device, dtype, rel, C):
+    """K1's forward, bwd-data and bwd-weight on RepPoints' paired gather
+    (v1 C = 256, v2 C = 262 through the wrappers' padding) at a 128x192
+    canvas's five levels, against the plain versions."""
+    levels = [(16, 24), (8, 12), (4, 6), (2, 3), (1, 2)]
+    flat, idx, w, wk = _paired_mask_free_inputs(cuda_device, dtype, C, 256,
+                                                levels)
+    dout = torch.randn(idx.shape[2], 256, device=cuda_device).to(dtype)
+    _close(deform_gather_contract(flat, idx, w, wk),
+           deform_gather_contract_ref(flat, idx, w, wk), rel)
+    got = (*dg.deform_gather_contract_bwd_data(flat, idx, w, wk, dout),
+           dg.deform_gather_contract_bwd_weight(flat, idx, w, wk, dout))
+    for g, ref in zip(got, dg.deform_gather_contract_bwd_ref(flat, idx, w,
+                                                             wk, dout)):
+        assert g.dtype == ref.dtype and g.shape == ref.shape
+        _close(g, ref, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_reppoints_heads_on_the_card_match_the_cpu(cuda_device, version):
+    """A narrow RepPoints v1 / v2 head (f32, bilinear): every output on the
+    card within 1e-4 of the CPU's, the gradients of its parameters too,
+    and 2 K1 launches a forward (the paired gather's two contractions),
+    each backward kernel twice a backward."""
+    from lsnet_torch.apis import random_weights_
+    from lsnet_torch.models.heads.reppoints import (RepPointsHead,
+                                                    RepPointsV2Head)
+    kind = RepPointsV2Head if version == "v2" else RepPointsHead
+    extra = dict(corner_dim=16) if version == "v2" else {}
+    head = random_weights_(kind(4, 64, 64, 64, stacked_convs=1,
+                                norm_groups=8, **extra), 0)
+    gen = torch.Generator().manual_seed(1)
+    feats = [torch.randn(2, 64, h, h, generator=gen) for h in (16, 8, 4, 2,
+                                                               2)]
+
+    def run(dev):
+        head.to(dev).zero_grad()
+        outs = head([f.to(dev) for f in feats])
+        total = sum((m.float() ** 2).mean() for k, v in outs.items()
+                    for m in ([v] if k == "moment" else v))
+        total.backward()
+        # clones: moving the module later moves the gradients it holds
+        return outs, {n: p.grad.detach().clone().cpu()
+                      for n, p in head.named_parameters()}
+
+    want, want_g = run("cpu")
+    counters = (deform_gather_contract, dg.deform_gather_contract_bwd_data,
+                dg.deform_gather_contract_bwd_weight)
+    before = [c.launches for c in counters]
+    got, got_g = run(cuda_device)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 2]
+    for key, maps in want.items():
+        for g, w_ in zip([got[key]] if key == "moment" else got[key],
+                         [maps] if key == "moment" else maps):
+            _close(g.detach().cpu(), w_.detach(), 1e-4)
+    for n, g in want_g.items():
+        _close(got_g[n], g, 1e-4)

@@ -124,9 +124,9 @@ def test_corruptions_name_their_roadmap_item(shapes_set):
     ann, img = shapes_set
     _, pcfg = _dataset_cfgs(ann, img, "bbox", corruption=("gaussian_noise",
                                                           1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 \"Inherited zoo\""):
         pcoco.CocoDataset(pcfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 \"Inherited zoo\""):
         ptf.corrupt_sample({"image": np.zeros((4, 4, 3), np.uint8)},
                            "gaussian_noise")
 
