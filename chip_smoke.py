@@ -155,7 +155,23 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    launch, peak memory; (f) the RepPoints moment file through
    ``lsnet_torch.tools.train`` (1 epoch of 2 steps on 4 procedural
    768x1280 images, an EvalHook on 2 more) and ``lsnet_torch.tools.test``
-   on its checkpoint (metrics within 1e-4 of the hook's).
+   on its checkpoint (metrics within 1e-4 of the hook's);
+11. the dense zoo: (a) each of the six shipped RetinaNet, GA-RetinaNet,
+   GA-RPN, FCOS, ATSS and GFL files as a narrow model (R50, feat 64, two
+   stacked convs, f32) on the card against the CPU: the head outputs,
+   then the loss, its terms and every parameter's gradient, at phase 3's
+   tolerances; K1's forward, bwd-data and bwd-weight against their plain
+   versions at Guided Anchoring's mask-free feature adaption (C = cout =
+   256, each level's job on its own level, scale 1, bilinear):
+   GA-RetinaNet's 44,800 px and GA-RPN's 179,046 (its FPN starts at C2),
+   f32 and bf16; (b) each file at full width, 80 classes, seeded weights:
+   ``init_detector`` from a ``save_checkpoint`` file and
+   ``inference_detector`` twice (GA-RPN, which the API refuses, through
+   ``detect`` only), ``detect`` at B=2 800x1344 bf16 and 2 train steps,
+   each profiled, with the K1 launches asserted (GA-RetinaNet 2, GA-RPN 1
+   a forward and of each backward kernel a step, the other four 0); (c)
+   GA-RetinaNet through ``lsnet_torch.tools.train`` and
+   ``lsnet_torch.tools.test``, as (10f).
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (all ten kernels) and, last, ``{"ok": true, "device": {...}}``; the
@@ -165,9 +181,10 @@ backward`` builds, runs phases 2c and 2d alone and prints no result line
 (for work on the backward kernels); ``--only probes`` does the same for
 phase 2e, ``--only accuracy`` for phase 7, ``--only api`` for the Res2Net
 K1 cases of phase 2a and phase 8, ``--only cpv`` for phase 9,
-``--only reppoints`` for phase 10. With
+``--only reppoints`` for phase 10, ``--only dense`` for phase 11. With
 ``CHIP_SMOKE_LOG=<path>`` in the environment it also writes every line it
-prints to that file. It needs the repository
+prints to that file, each after the seconds since the start. It needs
+the repository
 around it and a CUDA device, and runs no JAX.
 """
 
@@ -199,7 +216,8 @@ from lsnet_torch.core.decode import TestConfig  # noqa: E402
 from lsnet_torch.core.loss import LossConfig  # noqa: E402
 from lsnet_torch.core import reppoints as rp  # noqa: E402
 from lsnet_torch.evalkit import tta  # noqa: E402
-from lsnet_torch.models import build_backbone, build_detector  # noqa: E402
+from lsnet_torch.models import (build_backbone, build_detector,  # noqa: E402
+                                head_cfg_of)
 from lsnet_torch.models.heads.ls_head import branch_pyramid_jobs  # noqa: E402
 from lsnet_torch.models.init import init_weights_  # noqa: E402
 from lsnet_torch.models.layers import (  # noqa: E402
@@ -334,16 +352,39 @@ RP_TRAIN_STEPS = 2               # counted train steps of phases 10c, 10d
 DENSE_TRAIN_STEPS = 1            # of phase 10e
 RP_RUNNER_TRAIN_HW = [LAND] * 4  # 2 steps of 2 images, aspect 5:3
 RP_RUNNER_VAL_HW = [LAND] * 2    # one eval batch
+# phase 11: the dense zoo. K1 launches a forward: GA-RetinaNet's two
+# feature adaptions (cls, reg), GA-RPN's one; RetinaNet, FCOS, ATSS and
+# GFL run none. GA-RPN's FPN starts at C2: its levels are at strides 4 to
+# 64, so its adaption reads B x 89,523 px (GA-RetinaNet's 22,400 a image)
+ZOO_CONFIGS = {
+    "retina": os.path.join(REPO, "configs", "retinanet",
+                           "retinanet_r50_fpn_1x_coco.py"),
+    "ga_retina": os.path.join(REPO, "configs", "guided_anchoring",
+                              "ga_retinanet_r50_fpn_1x_coco.py"),
+    "ga_rpn": os.path.join(REPO, "configs", "guided_anchoring",
+                           "ga_rpn_r50_fpn_1x_coco.py"),
+    "fcos": os.path.join(REPO, "configs", "fcos", "fcos_r50_fpn_1x_coco.py"),
+    "atss": os.path.join(REPO, "configs", "atss", "atss_r50_fpn_1x_coco.py"),
+    "gfl": os.path.join(REPO, "configs", "gfl", "gfl_r50_fpn_1x_coco.py")}
+ZOO_LABELS = {"retina": "RetinaNet", "ga_retina": "GA-RetinaNet",
+              "ga_rpn": "GA-RPN", "fcos": "FCOS", "atss": "ATSS",
+              "gfl": "GFL"}
+ZOO_K1_PER_FORWARD = {"ga_retina": 2, "ga_rpn": 1}
+GA_RPN_LEVELS = [(200, 336)] + LEVELS[:4]
+ZOO_TRAIN_STEPS = 2              # counted train steps of phase 11b
 
 
 LOG_PATH = os.environ.get("CHIP_SMOKE_LOG")    # optional copy of the log
+STARTED = time.perf_counter()
 
 
 def log(msg):
+    """Print ``msg``; copy it to LOG_PATH, where given, after the seconds
+    since the script started."""
     print(msg, flush=True)
     if LOG_PATH:
         with open(LOG_PATH, "a") as f:
-            f.write(msg + "\n")
+            f.write(f"[{time.perf_counter() - STARTED:7.1f}s] {msg}\n")
 
 
 def cuda_ms(fn, iters):
@@ -1251,10 +1292,18 @@ def check_small_against_cpu():
         outputs_card_vs_cpu(label, cfg)
 
 
+def set_classes(cfg, n):
+    """``n`` classes for a head that has classes (GA-RPN has none)."""
+    head = head_cfg_of(cfg)
+    if cfg["type"] != "RPN":
+        head["num_classes"] = n
+    return head.get("num_classes", 1)
+
+
 def outputs_card_vs_cpu(label, cfg):
     """Phase 3a for one model: the head outputs of ``cfg`` (8 classes)
     on the card against the CPU, 1e-3 of max(1, max|ref|)."""
-    cfg["bbox_head"]["num_classes"] = 8
+    set_classes(cfg, 8)
     cpu = unit_bn_scales_(init_model(cfg, device="cpu", seed=1))
     gpu = unit_bn_scales_(init_model(cfg, device="cuda", seed=1))
     images = torch.randn(2, 96, 128, 3,
@@ -1358,6 +1407,7 @@ def synthetic_batch(batch, hw, num_gt, num_classes, seed, device):
     out = {
         "image": torch.randn(batch, h, w, 3, generator=gen),
         "pad_shape": torch.tensor([[h, w]] * batch, dtype=torch.int32),
+        "img_shape": torch.tensor([[h, w]] * batch, dtype=torch.int32),
         "gt_bboxes": bb,
         "gt_labels": torch.randint(0, num_classes, (batch, num_gt),
                                    generator=gen),
@@ -1399,7 +1449,7 @@ def gradients_card_vs_cpu(label, cfg, lcfg, hw):
     """Phase 3b for one model: the loss (``runner_step.LOSSES`` of the
     config's type), each of its terms and every parameter's gradient of
     ``cfg`` (8 classes) on the card against the CPU, f32."""
-    cfg["bbox_head"]["num_classes"] = 8
+    set_classes(cfg, 8)
     loss_fn = runner_step.LOSSES[type(lcfg)]
     grads = {}
     for device in ("cpu", "cuda"):
@@ -1470,7 +1520,7 @@ def drive_train_path(task, cfg, lcfg=None, k1=None, steps=None,
     ``steps`` counted steps (TRAIN_STEPS unless given), ``optim_kwargs``
     to the optimizer."""
     label = label or f"X-101 {task} train"
-    num_classes = cfg["bbox_head"]["num_classes"]
+    num_classes = head_cfg_of(cfg).get("num_classes", 1)
     k1 = K1_PER_FORWARD[task] if k1 is None else k1
     steps = steps or TRAIN_STEPS
     t0 = time.perf_counter()
@@ -1530,20 +1580,38 @@ def drive_train_path(task, cfg, lcfg=None, k1=None, steps=None,
 
 
 def profile(label, run, batch_ms):
-    """Phase 5: device time by kernel over one forward + decode, and the
-    device's idle share of the measured batch time."""
+    """Phase 5: device time by kernel over one call of ``run`` (a forward
+    + decode, or a train step), and the device's idle share of the
+    measured batch time. The profile records the device's activity only
+    (the host's operator events of an X-101 train step, some 10^5, took
+    the profiler 11-20 s to sum), in a second step after a warm-up step
+    of the same call, as ``kernel_device_us`` does; a profile without
+    device records is taken again (PROFILE_TRIES times)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    # kernel events only: an operator's event, or a device-side copy of a
-    # user annotation (the optimizer's step), repeats its kernels' time
+    from torch.profiler import schedule
     on_device = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in events
-               if dev_us(e) > 0 and e.device_type == on_device
-               and not e.key.startswith("Optimizer.")]
+    for _ in range(PROFILE_TRIES):
+        with tprofile(activities=[ProfilerActivity.CUDA],
+                      schedule=schedule(wait=0, warmup=1, active=1,
+                                        repeat=1)) as prof:
+            for _ in range(2):              # warm-up step, recorded step
+                run()
+                torch.cuda.synchronize()
+                prof.step()
+        events = prof.key_averages()
+        # kernel events only: a device-side copy of a user annotation (the
+        # optimizer's step, a profiler step) repeats its kernels' time
+        kernels = [e for e in events
+                   if dev_us(e) > 0 and e.device_type == on_device
+                   and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
+        if kernels:
+            break
+        LOST_PROFILES.append([f"{e.key} x{e.count}" for e in events])
+        log(f"profile {label}: no device records; records "
+            f"{LOST_PROFILES[-1]}")
+    else:
+        raise AssertionError(f"profile {label}: {PROFILE_TRIES} profiles "
+                             "in a row without device records")
     total = sum(dev_us(e) for e in kernels)
     dgc = sum(dev_us(e) for e in kernels if "dgc_" in e.key)
     gdc = sum(dev_us(e) for e in kernels if "gdc_" in e.key)
@@ -1567,6 +1635,8 @@ def profile(label, run, batch_ms):
             + f"; {sum(bwd.values()) / total:.3f} of the device time")
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return {"device_ms": total / 1e3, "dgc_ms": dgc / 1e3,
+            "idle_share": 1.0 - total / 1e3 / batch_ms}
 
 
 @runner_hooks.HOOKS.register_module()
@@ -2111,13 +2181,17 @@ def check_res2net_kernel():
 
 def api_weights_(model, seed):
     """Phase 8's seeded weights, in place: ``random_weights_``, then the
-    classifier (``pts_cls_out``, RepPoints' ``cls_out``) x CLS_SPREAD
+    classifier (``pts_cls_out``, RepPoints' ``cls_out``, the dense zoo's
+    ``retina_cls`` / ``fcos_cls`` / ``atss_cls`` / ``gfl_cls`` /
+    ``ga_cls``) x CLS_SPREAD
     (the kept scores then lie far apart: no two of them tie within the
     card's ~1e-6 differences) and the backbone ``conv_offset`` kernels 0
     (each backbone sample within a bias of a lattice point, far from a
     nearest-rounding tie)."""
     apis.random_weights_(model, seed)
-    cls = "pts_cls_out" if hasattr(model.head, "pts_cls_out") else "cls_out"
+    cls = next(n for n in ("pts_cls_out", "cls_out", "retina_cls",
+                           "fcos_cls", "atss_cls", "gfl_cls", "ga_cls")
+               if hasattr(model.head, n))
     with torch.no_grad():
         getattr(model.head, cls).weight.mul_(CLS_SPREAD)
         for name, m in model.backbone.named_modules():
@@ -2749,40 +2823,51 @@ def check_reppoints_small():
                               kind(image_shape=hw, num_classes=8), hw)
 
 
-def rp_k1_inputs(dtype, gen, C):
-    """(flat, idx, w, weight) of RepPoints' paired gather at B=2,
-    800x1344: five level maps of C channels, each job on its own level at
-    scale 1, stride 1 and no mask, offsets a few pixels around the taps,
-    bilinear; a (K, C, 256) weight."""
+def rp_k1_inputs(dtype, gen, C, levels=LEVELS):
+    """(flat, idx, w, weight) of RepPoints' paired gather (and of Guided
+    Anchoring's feature adaption) at B=2, 800x1344: five level maps of C
+    channels (``levels``), each job on its own level at scale 1, stride 1
+    and no mask, offsets a few pixels around the taps, bilinear; a (K, C,
+    256) weight."""
     dev = torch.device("cuda")
     feats = [torch.randn(B, h, w, C, generator=gen).to(dev, dtype)
-             for h, w in LEVELS]
-    levels = fd.pack_levels(feats)
+             for h, w in levels]
+    levels_ = fd.pack_levels(feats)
     jobs = [fd.SampleJob(i, (2.0 * torch.randn(B, h, w, 2 * K,
                                                generator=gen)).to(dev),
                          None, (1.0, 1.0), (1, 1), (1, 1), (1, 1))
-            for i, (h, w) in enumerate(LEVELS)]
-    idx, w = fd._gather_indices_tap(levels, jobs, K, "bilinear")
+            for i, (h, w) in enumerate(levels)]
+    idx, w = fd._gather_indices_tap(levels_, jobs, K, "bilinear")
     weight = (0.02 * torch.randn(K, C, FEAT, generator=gen)).to(dev, dtype)
-    return levels.flat.contiguous(), idx, w, weight
+    return levels_.flat.contiguous(), idx, w, weight
 
 
 def check_reppoints_kernels():
     """Phase 10b: K1's forward, bwd-data and bwd-weight against their
     plain versions at RepPoints' paired call (B=2, 800x1344, the five
     levels, no mask, scale 1, bilinear): C = cout = 256 (v1) and C = 262
-    (v2, padded to 288 by the wrappers), f32 (TF32 off) and bf16, phase
-    2's tolerances; each call's events time, plain time and bound, and
-    for bf16 (the train step's) each kernel's device time on operands
-    padded beforehand, the padding copies' device time and the einsum
-    yardsticks. Returns the bf16 rows by shape."""
-    gen = torch.Generator().manual_seed(10)
-    cgen = torch.Generator(device="cuda").manual_seed(10)
+    (v2, padded to 288 by the wrappers). Returns the bf16 rows by
+    shape."""
+    return check_k1_level_calls(
+        "reppoints", [("RepPoints v1 paired", FEAT, LEVELS),
+                      ("RepPoints v2 paired", RP_V2_C, LEVELS)], seed=10)
+
+
+def check_k1_level_calls(what, cases, seed):
+    """K1's forward, bwd-data and bwd-weight against their plain versions
+    at calls whose jobs each read their own level at scale 1, stride 1,
+    no mask, bilinear (``rp_k1_inputs``), for each (label, C, levels) of
+    ``cases``: f32 (TF32 off) and bf16, phase 2's tolerances; each call's
+    events time, plain time and bound, and for bf16 (the train step's)
+    each kernel's device time on operands padded beforehand, the padding
+    copies' device time and the einsum yardsticks. Returns the bf16 rows
+    by label."""
+    gen = torch.Generator().manual_seed(seed)
+    cgen = torch.Generator(device="cuda").manual_seed(seed)
     rows = {}
-    for C in (FEAT, RP_V2_C):
-        label = f"RepPoints {'v2' if C != FEAT else 'v1'} paired"
+    for label, C, levels in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            args = rp_k1_inputs(dtype, gen, C)
+            args = rp_k1_inputs(dtype, gen, C, levels)
             got = deform_gather_contract(*args).float()
             want = deform_gather_contract_ref(*args).float()
             torch.cuda.synchronize()
@@ -2828,7 +2913,7 @@ def check_reppoints_kernels():
                     lambda: torch.einsum("kpc,kco->po", vals, args[3]), 10)
                 del vals
                 rows[label] = row
-            log(f"reppoints kernels {label} {dtype}: forward "
+            log(f"{what} kernels {label} {dtype}: forward "
                 f"{row['fwd_ms']:.4f} ms (bound {row['fwd_bound_ms']:.4f}, "
                 f"plain {row['fwd_plain_ms']:.4f}), bwd-data "
                 f"{row['data_ms']:.4f} (bound {row['data_bound_ms']:.4f}), "
@@ -2936,6 +3021,18 @@ def check_reppoints_runner(root):
     on its checkpoint (metrics within 1e-4 of the hook's); 2 K1 launches of
     each kind every step, 2 forward in the eval. Returns (numbers,
     launches per step, per eval)."""
+    return check_file_runner("RepPoints", RP_CONFIGS["v1"],
+                             RP_K1_PER_FORWARD,
+                             ("loss_pts_init", "loss_pts_refine"), root)
+
+
+def check_file_runner(label, path, k1, loss_keys, root):
+    """A shipped file at full width through ``lsnet_torch.tools.train`` (1
+    epoch of 2 steps on 4 procedural 768x1280 images, an EvalHook on 2
+    more) and ``lsnet_torch.tools.test`` on its checkpoint (metrics
+    within 1e-4 of the hook's); ``k1`` K1 launches of each kind every
+    step and forward in the eval, finite ``loss_keys``. Returns (numbers,
+    launches per step, per eval)."""
     train_root, val_root = (os.path.join(root, n) for n in ("train", "val"))
     train_ann, _ = make_shapes_coco(train_root, len(RP_RUNNER_TRAIN_HW),
                                     seed=5, hw=RP_RUNNER_TRAIN_HW)
@@ -2949,7 +3046,7 @@ def check_reppoints_runner(root):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
-        res = train_tool.main([RP_CONFIGS["v1"], "--work-dir", work,
+        res = train_tool.main([path, "--work-dir", work,
                                "--total-epochs", "1",
                                "--max-iters-per-epoch", "2",
                                "--options", *opts])
@@ -2960,35 +3057,34 @@ def check_reppoints_runner(root):
     train = log_records(work, "train")
     val = log_records(work, "val")
     for r in train:
-        log("runner RepPoints " + json.dumps(r))
+        log(f"runner {label} " + json.dumps(r))
     if len(train) != 2 or res["step"] != 2 or len(val) != 1 or any(
             not math.isfinite(r[k]) for r in train
-            for k in ("loss", "grad_norm", "loss_pts_init",
-                      "loss_pts_refine")):
-        raise AssertionError(f"runner RepPoints: records {train}, {val}")
+            for k in ("loss", "grad_norm") + tuple(loss_keys)):
+        raise AssertionError(f"runner {label}: records {train}, {val}")
     want = {**dict.fromkeys(launch_counts(), 0),
-            "deform_gather_contract": RP_K1_PER_FORWARD,
-            "deform_gather_contract_bwd_data": RP_K1_PER_FORWARD,
-            "deform_gather_contract_bwd_weight": RP_K1_PER_FORWARD}
+            "deform_gather_contract": k1,
+            "deform_gather_contract_bwd_data": k1,
+            "deform_gather_contract_bwd_weight": k1}
     if steps != [want] * 2:
-        raise AssertionError(f"runner RepPoints: launches per step {steps}, "
+        raise AssertionError(f"runner {label}: launches per step {steps}, "
                              f"want {want}")
     want_eval = {**dict.fromkeys(launch_counts(), 0),
-                 "deform_gather_contract": RP_K1_PER_FORWARD}
+                 "deform_gather_contract": k1}
     if evals != [want_eval]:
-        raise AssertionError(f"runner RepPoints: launches per eval {evals}, "
+        raise AssertionError(f"runner {label}: launches per eval {evals}, "
                              f"want {want_eval}")
-    path = os.path.join(work, "ckpts", "step_2.pt")
-    metrics = test_tool.main([RP_CONFIGS["v1"], path, "--eval", "bbox",
+    ckpt_path = os.path.join(work, "ckpts", "step_2.pt")
+    metrics = test_tool.main([path, ckpt_path, "--eval", "bbox",
                               "--options", *test_opts])
     hook_metrics = {k: v for k, v in val[-1].items()
                     if k not in ("mode", "epoch")}
-    log(f"runner RepPoints tools.test metrics {json.dumps(metrics)}; "
+    log(f"runner {label} tools.test metrics {json.dumps(metrics)}; "
         f"EvalHook {json.dumps(hook_metrics)}")
     if metrics.keys() != hook_metrics.keys() or len(metrics) != 12 or any(
             not -1.0 <= v <= 1.0 or abs(v - hook_metrics[k]) > 1e-4
             for k, v in metrics.items()):
-        raise AssertionError("runner RepPoints: tools.test metrics disagree "
+        raise AssertionError(f"runner {label}: tools.test metrics disagree "
                              "with the EvalHook's")
     numbers = {"train_and_eval_s": train_s,
                "train_s_per_iter": [r["time"] for r in train],
@@ -3022,15 +3118,151 @@ def check_reppoints(root):
     numbers["seconds"] = time.perf_counter() - t0
     return numbers, rows, by_path
 
+# ---------------------------------------------------- phase 11: dense zoo
+
+def zoo_config(name):
+    return Config.fromfile(ZOO_CONFIGS[name])
+
+
+def narrow_zoo_cfg(name):
+    """Phase 11a: the shipped file's model (R50) with a narrow neck and
+    head: feat 64, two stacked convs."""
+    cfg = zoo_config(name).model.to_dict()
+    cfg["neck"]["out_channels"] = 64
+    head = head_cfg_of(cfg)
+    head.update(in_channels=64, feat_channels=64)
+    if "stacked_convs" in head:
+        head["stacked_convs"] = 2
+    return cfg
+
+
+def check_zoo_small():
+    """Phase 11a: each file's narrow model on the card against the CPU:
+    the head outputs, then the loss, its terms and every parameter's
+    gradient, at phase 3's tolerances."""
+    import dataclasses
+    hw = (96, 128)
+    for name in ZOO_CONFIGS:
+        label = f"R50-shaped {ZOO_LABELS[name]}"
+        outputs_card_vs_cpu(label, narrow_zoo_cfg(name))
+        cfg = narrow_zoo_cfg(name)
+        lcfg = dataclasses.replace(
+            runner_loop.dense_cfg_from(zoo_config(name), hw),
+            num_classes=set_classes(cfg, 8))
+        gradients_card_vs_cpu(label, cfg, lcfg, hw)
+
+
+def check_zoo_kernels():
+    """Phase 11a: K1's forward, bwd-data and bwd-weight against their
+    plain versions at Guided Anchoring's feature adaption (B=2, 800x1344,
+    C = cout = 256, each level's job on its own level, no mask, scale 1,
+    bilinear): GA-RetinaNet's five levels at strides 8 to 128 (44,800 px)
+    and GA-RPN's at 4 to 64 (179,046 px). Returns the bf16 rows."""
+    return check_k1_level_calls(
+        "guided anchoring", [("GA-RetinaNet adaption", FEAT, LEVELS),
+                             ("GA-RPN adaption", FEAT, GA_RPN_LEVELS)],
+        seed=11)
+
+
+def check_zoo_full(root, name):
+    """Phase 11b: the shipped file at full width (R50, 80 classes, seeded
+    weights): ``init_detector`` from a ``save_checkpoint`` file and
+    ``inference_detector`` twice on a seeded 480x640 image (equal
+    detections; GA-RPN, which ``init_detector`` refuses, only through
+    ``detect``), ``detect`` at B=2 800x1344 bf16, ZOO_TRAIN_STEPS train
+    steps at B=2 bf16 (20 instances an image), each profiled, the K1
+    launches asserted (ZOO_K1_PER_FORWARD a forward and of each kind a
+    step). Returns (numbers, launches by path)."""
+    cfg = zoo_config(name)
+    label = f"{ZOO_LABELS[name]} R50"
+    k1 = ZOO_K1_PER_FORWARD.get(name, 0)
+    by_path, numbers = {}, {}
+    if name == "ga_rpn":
+        try:
+            apis.init_detector(ZOO_CONFIGS[name], device="cuda")
+        except NotImplementedError as e:
+            log(f"{label}: init_detector refuses the file: {e}")
+        else:
+            raise AssertionError(f"{label}: init_detector served an RPN")
+    else:
+        path = seeded_checkpoint(cfg, os.path.join(root, name))
+        bundle = apis.init_detector(ZOO_CONFIGS[name], path)
+        img = api_image(3)
+        first = apis.inference_detector(bundle, img)
+        zero_launch_counts()
+        again = apis.inference_detector(bundle, img)
+        by_path[f"{label} inference_detector"] = launch_counts()
+        want = {**dict.fromkeys(launch_counts(), 0),
+                "deform_gather_contract": k1}
+        n = len(again["scores"])
+        got = by_path[f"{label} inference_detector"]
+        if got != want or not n:
+            raise AssertionError(f"{label} inference_detector: {n} "
+                                 f"detections, launches {got}")
+        same_detections(f"{label} inference_detector, second call", again,
+                        first, atol=0.0)
+        log(f"{label} inference_detector: {n} detections, equal on a "
+            "second call")
+        del bundle
+        torch.cuda.empty_cache()
+
+    model_cfg = cfg.model.to_dict()
+    run, img_s, launches, peak = drive_main_path(
+        label, model_cfg, 0, "bbox", k1=k1, config=cfg)
+    numbers["detect"] = profile(label, run, B / img_s * 1e3)
+    numbers["img_per_s"], numbers["peak_memory_bytes"] = img_s, peak
+    by_path[label] = {k: v // ITERS for k, v in launches.items()}
+    del run
+    torch.cuda.empty_cache()
+    run, img_s, launches, peak = drive_train_path(
+        "bbox", model_cfg, runner_loop.train_loss_cfg(cfg, (H, W)), k1=k1,
+        steps=ZOO_TRAIN_STEPS, label=f"{label} train", grouped=0,
+        warmup_iters=0)
+    numbers["train"] = profile(f"{label} train step", run,
+                               B / img_s * 1e3)
+    numbers["train_img_per_s"] = img_s
+    numbers["train_peak_memory_bytes"] = peak
+    by_path[f"{label} train"] = {k: v // ZOO_TRAIN_STEPS
+                                 for k, v in launches.items()}
+    del run
+    torch.cuda.empty_cache()
+    log(f"{label} numbers " + json.dumps(numbers))
+    return numbers, by_path
+
+
+def check_zoo(root):
+    """Phase 11 (a to c). Returns (numbers, kernel rows, launches by
+    path)."""
+    t0 = time.perf_counter()
+    check_zoo_small()
+    rows = check_zoo_kernels()
+    seconds = {"a": time.perf_counter() - t0}
+    numbers, by_path = {}, {}
+    for name in ZOO_CONFIGS:
+        numbers[name], paths = check_zoo_full(root, name)
+        by_path.update(paths)
+    seconds["b"] = time.perf_counter() - t0 - sum(seconds.values())
+    (numbers["runner"], by_path["runner GA-RetinaNet train"],
+     by_path["runner GA-RetinaNet eval"]) = check_file_runner(
+        "GA-RetinaNet", ZOO_CONFIGS["ga_retina"],
+        ZOO_K1_PER_FORWARD["ga_retina"],
+        ("loss_loc", "loss_shape", "loss_cls", "loss_bbox"),
+        os.path.join(root, "runner"))
+    seconds["c"] = time.perf_counter() - t0 - sum(seconds.values())
+    log(f"phase 11 seconds by part {json.dumps(seconds)}")
+    numbers["seconds"] = time.perf_counter() - t0
+    return numbers, rows, by_path
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["backward", "probes", "accuracy",
-                                           "api", "cpv", "reppoints"],
+                                           "api", "cpv", "reppoints",
+                                           "dense"],
                         default=None,
                         help="run phases 2c and 2d, phase 2e, phase 7, "
-                        "phase 2a's Res2Net cases and phase 8, phase 9 or "
-                        "phase 10 alone; no result line")
+                        "phase 2a's Res2Net cases and phase 8, phase 9, "
+                        "phase 10 or phase 11 alone; no result line")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3102,6 +3334,16 @@ def main(argv=None):
         log("reppoints kernel rows " + json.dumps(rows))
         log("launches per call or step " + json.dumps(by_path))
         log(f"partial run (--only reppoints) passed in "
+            f"{time.perf_counter() - t_start:.1f}s; no result line")
+        return 0
+    if opts.only == "dense":
+        import tempfile
+        with tempfile.TemporaryDirectory() as root:
+            numbers, rows, by_path = check_zoo(root)
+        log(f"{smi}: dense " + json.dumps(numbers))
+        log("dense kernel rows " + json.dumps(rows))
+        log("launches per call or step " + json.dumps(by_path))
+        log(f"partial run (--only dense) passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
         return 0
 
@@ -3192,6 +3434,18 @@ def main(argv=None):
                 rp_numbers[name]["train_peak_memory_bytes"]
         log(f"{smi}: reppoints " + json.dumps(rp_numbers)
             + f" (phase 10 in {rp_numbers['seconds']:.1f}s)")
+        # phase 11: the dense zoo
+        zoo_numbers, zoo_rows, zoo_paths = check_zoo(
+            os.path.join(root, "dense"))
+        by_path.update(zoo_paths)
+        for name, label in ZOO_LABELS.items():
+            e2e[f"{label} R50"] = zoo_numbers[name]["img_per_s"]
+            e2e[f"{label} R50 train"] = zoo_numbers[name]["train_img_per_s"]
+            peaks[f"{label} R50"] = zoo_numbers[name]["peak_memory_bytes"]
+            peaks[f"{label} R50 train"] = \
+                zoo_numbers[name]["train_peak_memory_bytes"]
+        log(f"{smi}: dense " + json.dumps(zoo_numbers)
+            + f" (phase 11 in {zoo_numbers['seconds']:.1f}s)")
     for name, entry in probe_entries.items():
         by_path.setdefault("lsnet_torch.tools.probe", {})[name] = \
             entry["launches"]
@@ -3228,9 +3482,10 @@ def main(argv=None):
             "bound_by": row[f"{kind}_bound_by"], "library_ms": row[lib]}
             for label, row in cpv_rows.items()}
 
-    def rp_entry(kind):
+    def rp_entry(kind, rows=None):
         """Phase 10b's bf16 rows of one K1 kernel (kind fwd, data or
-        weight) at RepPoints' paired call, v1 and v2."""
+        weight) at RepPoints' paired call, v1 and v2 (phase 11a's at
+        Guided Anchoring's adaption with ``rows=zoo_rows``)."""
         lib = {"fwd": "fwd_library_ms", "data": "data_einsum_g_only_ms",
                "weight": "weight_library_ms"}[kind]
         dev = {"fwd": "forward", "data": "bwd_data",
@@ -3242,7 +3497,7 @@ def main(argv=None):
             "plain_ms": row[f"{kind}_plain_ms"],
             "bound_ms": row[f"{kind}_bound_ms"],
             "bound_by": row[f"{kind}_bound_by"], "library_ms": row[lib]}
-            for label, row in rp_rows.items()}
+            for label, row in (rp_rows if rows is None else rows).items()}
 
     def bwd_entry(name, source, replaces, row):
         entry = {"name": name, "route": "cuda", "source": source,
@@ -3259,6 +3514,8 @@ def main(argv=None):
             entry["cpv_res2net_per_call"] = cpv_entry(
                 name.rsplit("_", 1)[1])
             entry["reppoints_per_call"] = rp_entry(name.rsplit("_", 1)[1])
+            entry["guided_anchoring_per_call"] = rp_entry(
+                name.rsplit("_", 1)[1], zoo_rows)
         if "per_call" in row:
             entry["pose_bbox_ms"] = pose_bbox_ms(row["per_call"])
             entry["per_call"] = row["per_call"]
@@ -3285,6 +3542,7 @@ def main(argv=None):
             for (st, stride), row in res2_rows.items()},
         "cpv_res2net_per_call": cpv_entry("fwd"),
         "reppoints_per_call": rp_entry("fwd"),
+        "guided_anchoring_per_call": rp_entry("fwd", zoo_rows),
         "launches_by_path": path_counts("deform_gather_contract")}, {
         "name": "deform_gather_grouped_contract", "route": "cuda",
         "source": "lsnet_torch/csrc/grouped_deform_contract.cu",

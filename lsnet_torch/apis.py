@@ -4,9 +4,13 @@ and RepPoints v1 / v2 configs. A detector decodes with its head's decode
 (``train.loop.decode_for``: ``lscpv_decode``'s corner snap for CPV,
 ``reppoints_decode`` / ``reppoints_v2_decode`` for RepPoints, whose
 landmarks are zeros), except in ``aug_test_simple``, which takes LSNet's
-candidates as JAX's does and so serves the LSNet heads only. A Dense
-RepPoints config is refused by :func:`init_detector`: the JAX API has no
-decode for it, and it is evaluated through ``lsnet_torch.tools.test``.
+candidates as JAX's does and so serves the LSNet heads only. The dense
+zoo's RetinaNet, FCOS, ATSS, GFL and GA-RetinaNet files decode with
+``dense_decode`` (zero landmarks). A Dense RepPoints config and a GA-RPN
+config are refused by :func:`init_detector`: the JAX API has no decode
+for the first and reads ``bbox_head``, which an ``RPN`` lacks; both are
+evaluated through ``lsnet_torch.tools.test`` and served by
+:func:`detect`.
 
 The image-level API:
 
@@ -126,7 +130,7 @@ def detect(model: LSDetector, images: torch.Tensor,
     its mode (``flat_deform.TRAIN_SAMPLING`` for bilinear everywhere).
     Returns padded Detections of the head's decode
     (``train.loop.decode_for``, which needs the model's ``config`` file
-    for the RepPoints heads)."""
+    for the RepPoints heads and the dense zoo's)."""
     decode = decode_for(model, config)
     with torch.inference_mode():
         outs = model(images, sampling)
@@ -193,8 +197,8 @@ def init_detector(config: Union[str, Config],
     where the config sets it, else what the checkpoint's meta deploys
     (``deploy_sampling``), else ``INFERENCE_SAMPLING``. Raises when there
     is no CUDA device, unless ``device="cpu"``, and for a Dense RepPoints
-    config (no image-level decode; evaluate it with
-    ``lsnet_torch.tools.test``)."""
+    or a GA-RPN config (no image-level decode; evaluate it with
+    ``lsnet_torch.tools.test``, serve it with :func:`detect`)."""
     device = runner_device(device)
     cfg = Config.fromfile(config) if isinstance(config, str) else config
     if cfg.model.get("bbox_head", {}).get("type") in DENSE_REPPOINTS:
@@ -202,6 +206,12 @@ def init_detector(config: Union[str, Config],
             f"{cfg.model.type}: the image-level API has no Dense RepPoints "
             "decode (neither has the JAX package's); evaluate the config "
             "with python3 -m lsnet_torch.tools.test")
+    if cfg.model.get("type") == "RPN":
+        raise NotImplementedError(
+            "RPN: the image-level API reads model.bbox_head, which a "
+            "standalone RPN has not (the JAX package's neither); evaluate "
+            "the config with python3 -m lsnet_torch.tools.test, serve it "
+            "with apis.detect")
     test = cfg.get("test_cfg") or {}
     if test.get("dcn_gather_quant"):
         raise NotImplementedError("dcn_gather_quant: gather quantisation is "

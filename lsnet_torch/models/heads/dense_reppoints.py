@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..layers import nchw, nhwc
+from .dense import Tower, conv3
 
 
 def _border_corners(xs: torch.Tensor, ys: torch.Tensor, H: int, W: int):
@@ -141,31 +142,6 @@ def grid_group_partition(pts: torch.Tensor, num_score_group: int
     return gy * k + gx
 
 
-def _conv3(cin: int, cout: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, padding=1)
-
-
-class _Tower(nn.Module):
-    """``convs`` x (3x3 conv, GroupNorm(32), ReLU), named
-    ``{prefix}{i}`` and ``{prefix}{i}_gn``."""
-
-    def __init__(self, convs: int, cin: int, channels: int, prefix: str):
-        super().__init__()
-        self.convs, self.prefix = convs, prefix
-        for i in range(convs):
-            setattr(self, f"{prefix}{i}", _conv3(cin if i == 0 else channels,
-                                                 channels))
-            # flax's GroupNorm default epsilon
-            setattr(self, f"{prefix}{i}_gn",
-                    nn.GroupNorm(32, channels, eps=1e-6))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for i in range(self.convs):
-            x = getattr(self, f"{self.prefix}{i}")(x)
-            x = F.relu(getattr(self, f"{self.prefix}{i}_gn")(x))
-        return x
-
-
 class DenseRepPointsHead(nn.Module):
     """``forward(feats, sampling)`` -> per-level NHWC ``cls``,
     ``pts_init`` / ``pts_refine`` (2P, [x, y] per point, stride units)
@@ -184,17 +160,17 @@ class DenseRepPointsHead(nn.Module):
         self.gradient_mul = gradient_mul
         self.point_base_scale = point_base_scale
         fc, pf, P2 = feat_channels, point_feat_channels, 2 * num_points
-        self._Tower_0 = _Tower(stacked_convs, in_channels, fc, "cls_conv")
-        self._Tower_1 = _Tower(stacked_convs, in_channels, fc, "reg_conv")
-        self._Tower_2 = _Tower(stacked_mask_convs, in_channels, fc,
+        self._Tower_0 = Tower(stacked_convs, in_channels, fc, True, "cls_conv")
+        self._Tower_1 = Tower(stacked_convs, in_channels, fc, True, "reg_conv")
+        self._Tower_2 = Tower(stacked_mask_convs, in_channels, fc, True,
                                "mask_conv")
-        self.pts_init_conv = _conv3(fc, pf)
+        self.pts_init_conv = conv3(fc, pf)
         self.pts_init_out = nn.Conv2d(pf, P2, 1)
-        self.pts_refine_conv = _conv3(fc, pf)
+        self.pts_refine_conv = conv3(fc, pf)
         self.pts_refine_out = nn.Conv2d(pf, P2, 1)
         self.cls_conv1x1 = nn.Conv2d(num_group * fc, pf, 1)
         self.cls_out = nn.Conv2d(pf, num_classes, 1)
-        self.mask_init_conv = _conv3(fc, pf)
+        self.mask_init_conv = conv3(fc, pf)
         self.mask_init_out = nn.Conv2d(pf, num_score_group, 1)
         self.register_buffer("init_prior", torch.from_numpy(
             self.points_init()), persistent=False)
@@ -275,10 +251,10 @@ class DenseRepPointsV2Head(DenseRepPointsHead):
                  feat_channels: int = 256, **kw):
         kw.pop("stacked_shared_convs", None)    # v2 reads the raw level
         super().__init__(num_classes, in_channels, feat_channels, **kw)
-        self.sem_out = _conv3(in_channels, num_classes)
-        self.sem_embedding = _conv3(in_channels, feat_channels)
-        self.cont_score_out = _conv3(feat_channels, 1)
-        self.cont_offset_out = _conv3(feat_channels, 2)
+        self.sem_out = conv3(in_channels, num_classes)
+        self.sem_embedding = conv3(in_channels, feat_channels)
+        self.cont_score_out = conv3(feat_channels, 1)
+        self.cont_offset_out = conv3(feat_channels, 2)
         self.sem_gn = nn.GroupNorm(32, feat_channels, eps=1e-6)
 
     def forward(self, feats: Sequence[torch.Tensor], sampling=None

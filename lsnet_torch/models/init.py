@@ -17,6 +17,13 @@ Each parameter is drawn from the distribution its flax module gives it:
   their corner-pool packs and ``sem_embedding`` ``kaiming_init``, the
   packs' bare ``p_conv1`` / ``conv1`` LeCun normal (truncated at 2 std,
   fan_in);
+* the dense zoo's heads (``models/heads/dense.py``): every convolution
+  N(0, 0.01), the focal prior on ``retina_cls``, ``fcos_cls``,
+  ``atss_cls``, ``gfl_cls``, GA-RetinaNet's ``ga_cls`` and both GA heads'
+  ``conv_loc`` (GA-RPN's ``ga_cls`` bias is 0, as in JAX), the
+  ``adaption_offset*`` convs 0, so every guided-anchor offset starts at
+  exactly 0, the raw ``adaption_weight*`` N(0, 0.01), the per-level
+  ``scales`` 1;
 * the RepPoints heads' ``moment_transfer``: 0;
 * ``conv_offset`` of a DCNv2 pack: 0 (``layers.py:146``), so every DCN
   starts as a plain conv;
@@ -40,6 +47,8 @@ from typing import Set
 import torch
 from torch import nn
 
+from .heads.dense import (GARetinaHead, GARPNHead, RetinaHead,
+                          ScaledHead)
 from .heads.dense_reppoints import DenseRepPointsHead
 from .heads.ls_head import LSHead
 from .heads.lscpv_head import LSCPVHead
@@ -50,9 +59,11 @@ from .layers import (FrozenBatchNorm, ModulatedDeformConvPack,
 PRIOR_PROB = 0.01
 # head convolutions whose bias starts at the focal prior
 PRIOR_BIASED = ("cls_out", "hem_tl_score_out", "hem_br_score_out",
-                "sem_out", "cont_score_out")
+                "sem_out", "cont_score_out", "retina_cls", "fcos_cls",
+                "atss_cls", "gfl_cls", "conv_loc")
 # the heads whose convolutions start at N(0, 0.01)
-HEADS = (LSHead, LSCPVHead, RepPointsHead, DenseRepPointsHead)
+DENSE_HEADS = (RetinaHead, ScaledHead, GARetinaHead, GARPNHead)
+HEADS = (LSHead, LSCPVHead, RepPointsHead, DenseRepPointsHead) + DENSE_HEADS
 # heads with the corner-pool packs, whose convolutions (name ends) keep
 # the flax defaults: ConvModule's kaiming_init, nn.Conv's lecun_normal
 CORNER_HEADS = (LSCPVHead, RepPointsV2Head)
@@ -86,6 +97,9 @@ def init_weights_(model: nn.Module, generator: torch.Generator
                 for m in h.modules()}
 
     head_modules = members(HEADS)
+    # GA-RetinaNet's 3x3 classifier starts at the prior, GA-RPN's 1x1 at 0
+    prior_ids = {id(getattr(h, "ga_cls")) for h in model.modules()
+                 if isinstance(h, GARetinaHead)}
     cpv_modules = members(CORNER_HEADS)
     normal_deform = members(LSCPVHead)
     done: Set[int] = set()
@@ -104,7 +118,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator
         elif isinstance(m, nn.Conv2d):
             cpv = id(m) in cpv_modules
             cout, cin, kh, kw = m.weight.shape          # OIHW
-            if name.endswith("conv_offset"):
+            if name.endswith(("conv_offset", "adaption_offset",
+                              "adaption_offset_cls", "adaption_offset_reg")):
                 m.weight.zero_()
             elif cpv and name.endswith(CPV_LECUN):
                 std = math.sqrt(1.0 / (cin * kh * kw)) / TRUNC_STD
@@ -117,7 +132,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator
                 _he_fan_out_(m.weight, cout * kh * kw, generator)
             if m.bias is not None:
                 m.bias.zero_()
-                if id(m) in head_modules and name.endswith(PRIOR_BIASED):
+                if id(m) in head_modules and (
+                        name.endswith(PRIOR_BIASED) or id(m) in prior_ids):
                     m.bias.fill_(bias_init_with_prob(PRIOR_PROB))
             mark(m.weight, m.bias)
         elif isinstance(m, ModulatedDeformConvPack):
@@ -128,6 +144,13 @@ def init_weights_(model: nn.Module, generator: torch.Generator
             if m.bias is not None:
                 m.bias.zero_()
             mark(m.weight, m.bias)
+        elif isinstance(m, DENSE_HEADS):
+            for pname, p in m.named_parameters(recurse=False):
+                if pname == "scales":
+                    p.fill_(1.0)
+                else:                               # adaption_weight*
+                    _normal_(p, 0.01, generator)
+                mark(p)
         elif isinstance(m, RepPointsHead) and hasattr(m, "moment_transfer"):
             m.moment_transfer.zero_()
             mark(m.moment_transfer)

@@ -35,10 +35,13 @@ def sigmoid_focal_loss(pred: torch.Tensor, target: torch.Tensor,
                        weight: Optional[torch.Tensor] = None, *,
                        gamma: float = 2.0, alpha: float = 0.25,
                        reduction: str = "mean",
-                       avg_factor: AvgFactor = None) -> torch.Tensor:
-    """pred (N, C) logits; target (N,) int class indices, C = background;
-    weight (N,) per-sample label weights."""
-    C = pred.shape[-1]
+                       avg_factor: AvgFactor = None,
+                       num_classes: Optional[int] = None) -> torch.Tensor:
+    """pred (N, C) logits; target (N,) int class indices, ``num_classes``
+    (C unless given) = background; weight (N,) per-sample label weights.
+    Guided Anchoring's location loss passes ``num_classes=1`` with a
+    (N, 1) ``pred`` and targets 0 (an object's centre) or 1."""
+    C = pred.shape[-1] if num_classes is None else num_classes
     oh = F.one_hot(target.long(), C + 1)[..., :C].to(torch.float32)
     logits = pred.float()
     p = torch.sigmoid(logits)

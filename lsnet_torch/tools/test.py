@@ -34,7 +34,7 @@ def main(argv=None):
     from ..models import build_detector
     from ..train.checkpoint import restore_eval_state
     from ..train.loop import (IOU_TYPE, check_runnable, eval_sampling,
-                              evaluate_detector, runner_device)
+                              evaluate_detector, head_cfg, runner_device)
     from ..utils.config import Config
     from .train import parse_options
 
@@ -42,7 +42,7 @@ def main(argv=None):
     if args.options:
         cfg.merge_from_dict(parse_options(args.options))
     check_runnable(cfg)
-    iou_type = IOU_TYPE[cfg.model.bbox_head.get("task", "bbox")]
+    iou_type = IOU_TYPE[head_cfg(cfg).get("task", "bbox")]
     if args.eval and args.eval != [iou_type]:
         raise ValueError(f"--eval {args.eval}: this config's task is "
                          f"scored by {iou_type!r}")

@@ -28,11 +28,15 @@ with ``lscpv_decode``; RepPointsHead / RepPointsV2Head on
 RepPoints heads on ``dense_reppoints_loss`` / ``dense_reppoints_v2_loss``
 (their pipeline carries the 36-point GT polygons, as the segm task's),
 evaluated by bbox: ``dense_reppoints_decode``'s boxes with zero
-landmarks.
+landmarks; the dense zoo's heads (``DENSE_HEAD_KINDS``: RetinaNet, FCOS,
+ATSS, GFL, GA-RetinaNet and the standalone GA-RPN, whose head is the
+``RPN``'s ``rpn_head``) on ``dense_loss`` and ``dense_decode`` with the
+``dense_cfg_from`` settings (a GA-RPN proposal is a label-0 detection).
 
 Left out, as the TPU's own or not yet ported: the compile cache, the
 chunk budget, the device mesh (one card; ``num_hosts`` 1 until ROADMAP
-Queue 1 "Multi-GPU"), and the two-stage and anchor-based dense branches.
+Queue 1 "Multi-GPU"), the two-stage branch and the rest of the dense
+zoo.
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ import torch
 
 from ..core.cpv import CPVLossConfig, lscpv_decode
 from ..core.decode import Detections, TestConfig, lsnet_decode
+from ..core.dense_decode import dense_decode
+from ..core.dense_loss import DenseLossConfig
 from ..core.dense_reppoints import (DenseRepPointsConfig,
                                     DenseRepPointsV2Config,
                                     dense_reppoints_decode)
@@ -54,7 +60,7 @@ from ..data.coco import (CocoDataset, DataLoader, DatasetConfig,
                          batch_to_device, collate_batch)
 from ..evalkit.evaluator import (coco_gt_from_annotations, detections_to_coco,
                                  evaluate_coco)
-from ..models import DETECTORS, HEADS, build_detector
+from ..models import DETECTORS, HEADS, build_detector, head_cfg_of
 from ..models.init import init_weights_
 from ..ops.flat_deform import (INFERENCE_SAMPLING, TRAIN_SAMPLING,
                                sampling_from_spec)
@@ -71,6 +77,16 @@ DENSE_REPPOINTS = ("DenseRepPointsHead", "DenseRepPointsV2Head")
 REPPOINTS = ("RepPointsHead", "RepPointsV2Head")
 IOU_TYPE = {"bbox": "bbox", "segm": "segm", "pose_bbox": "keypoints",
             "pose_kbox": "keypoints"}
+# the dense zoo's heads the port runs, by their loss and decode kind
+DENSE_HEAD_KINDS = {"RetinaHead": "retina", "FCOSHead": "fcos",
+                    "ATSSHead": "atss", "GFLHead": "gfl",
+                    "GARetinaHead": "ga_retina", "GARPNHead": "ga_rpn"}
+
+
+def head_cfg(cfg):
+    """The head's config of a file (the JAX runner's ``_head_cfg`` for
+    single-stage files)."""
+    return head_cfg_of(cfg.model)
 
 
 def _loss_weight(head, names, default: float) -> float:
@@ -167,13 +183,45 @@ def dense_reppoints_cfg_from(cfg, image_shape) -> DenseRepPointsConfig:
         refine_min_pos_iou=ref_a.get("min_pos_iou", 0.0))
 
 
+def dense_cfg_from(cfg, image_shape) -> DenseLossConfig:
+    """The loss / decode config of a dense-zoo file: JAX's
+    ``dense_cfg_from`` for the six ported kinds, with two repairs. An
+    ``assigner=None`` (the FCOS file's) reads as no settings; the JAX
+    function raises on it. The Guided Anchoring heads' levels are the
+    ``square_anchor_generator``'s strides; JAX reads the head's
+    ``strides``, absent in both GA files, so its default (8, ..., 128)
+    against the GA-RPN file's FPN levels at 4, ..., 64."""
+    head = head_cfg(cfg)
+    kind = DENSE_HEAD_KINDS[head.type]
+    tc = cfg.get("train_cfg", {}) or {}
+    assigner = tc.get("assigner") or {}
+    strides = head.get("strides")
+    if strides is None and kind in ("ga_retina", "ga_rpn"):
+        strides = (head.get("square_anchor_generator") or {}).get("strides")
+    return DenseLossConfig(
+        image_shape=tuple(image_shape),
+        num_classes=head.get("num_classes", 1),
+        head=kind,
+        strides=tuple(strides or (8, 16, 32, 64, 128)),
+        pos_iou_thr=assigner.get("pos_iou_thr", 0.5),
+        neg_iou_thr=assigner.get("neg_iou_thr", 0.4),
+        min_pos_iou=assigner.get("min_pos_iou", 0.0),
+        topk=assigner.get("topk", 9),
+        regress_ranges=tuple(tuple(r) for r in head.get(
+            "regress_ranges",
+            ((-1, 64), (64, 128), (128, 256), (256, 512), (512, 1e8)))))
+
+
 def train_loss_cfg(cfg, image_shape):
     """The train step's loss config, by head type: ``CPVLossConfig``
     around the base config for the CPV head (its heatmap, offset and
     semantic terms keep their defaults, as in the JAX runner),
     ``reppoints_cfg_from`` / ``dense_reppoints_cfg_from`` for the
-    RepPoints family, else ``loss_cfg_from``."""
-    kind = cfg.model.bbox_head.get("type")
+    RepPoints family, ``dense_cfg_from`` for the dense zoo, else
+    ``loss_cfg_from``."""
+    kind = head_cfg(cfg).get("type")
+    if kind in DENSE_HEAD_KINDS:
+        return dense_cfg_from(cfg, image_shape)
     if kind in REPPOINTS:
         return reppoints_cfg_from(cfg, image_shape)
     if kind in DENSE_REPPOINTS:
@@ -188,19 +236,26 @@ def decode_for(model: torch.nn.Module, config=None) -> Callable[..., Any]:
     """The detector's decode, by its head: ``lscpv_decode`` for the CPV
     head, ``reppoints_decode`` / ``reppoints_v2_decode`` for the RepPoints
     heads, ``dense_reppoints_decode`` as bbox Detections (zero landmarks)
-    for the Dense RepPoints heads, else ``lsnet_decode``;
-    ``fn(outs, img_shapes, scale_factors, test_cfg)``. The RepPoints
-    family's decodes take their settings from the model's ``config`` file
-    (``reppoints_cfg_from`` / ``dense_reppoints_cfg_from`` at the test
-    config's canvas, as in the JAX runner) and require it."""
+    for the Dense RepPoints heads, ``dense_decode`` for the dense zoo,
+    else ``lsnet_decode``; ``fn(outs, img_shapes, scale_factors,
+    test_cfg)``. The RepPoints family's and the dense zoo's decodes take
+    their settings from the model's ``config`` file
+    (``reppoints_cfg_from`` / ``dense_reppoints_cfg_from`` /
+    ``dense_cfg_from`` at the test config's canvas, as in the JAX runner)
+    and require it."""
     kind = type(model.head).__name__
     if kind == "LSCPVHead":
         return lscpv_decode
-    if kind not in REPPOINTS + DENSE_REPPOINTS:
+    if kind not in REPPOINTS + DENSE_REPPOINTS + tuple(DENSE_HEAD_KINDS):
         return lsnet_decode
     if config is None:
         raise ValueError(f"{kind}: its decode reads the model's config "
                          "file; pass it as config")
+    if kind in DENSE_HEAD_KINDS:
+        def decode(outs, img_shapes, scale_factors, tcfg):
+            return dense_decode(outs, img_shapes, scale_factors, tcfg,
+                                dense_cfg_from(config, tcfg.image_shape))
+        return decode
     if kind in REPPOINTS:
         fn = reppoints_decode if kind == "RepPointsHead" \
             else reppoints_v2_decode
@@ -221,7 +276,7 @@ def decode_for(model: torch.nn.Module, config=None) -> Callable[..., Any]:
 
 
 def test_cfg_from(cfg, image_shape) -> TestConfig:
-    head = cfg.model.bbox_head
+    head = head_cfg(cfg)
     tc = cfg.test_cfg
     return TestConfig(
         image_shape=tuple(image_shape),
@@ -243,7 +298,7 @@ def check_runnable(cfg) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP entry of a model
     or dataset the port cannot run yet."""
     model = cfg.model
-    head = model.get("bbox_head", {}).get("type")
+    head = head_cfg(cfg).get("type")
     if model.type not in DETECTORS or head not in HEADS:
         raise NotImplementedError(
             f"{model.type} with {head}: the port runs the single-stage "
@@ -260,7 +315,7 @@ def check_runnable(cfg) -> None:
 def head_num_vectors(cfg) -> int:
     """The pipeline's ``num_vectors``: the head's, or 36 for Dense
     RepPoints, whose loss reads the segm task's 36-point GT polygons."""
-    head = cfg.model.bbox_head
+    head = head_cfg(cfg)
     return head.get("num_vectors",
                     36 if head.get("type") in DENSE_REPPOINTS else 4)
 
@@ -268,7 +323,7 @@ def head_num_vectors(cfg) -> int:
 def data_task(cfg, split: str) -> str:
     """The pipeline's task: the head's, except that Dense RepPoints trains
     on the segm task's polygons (and evaluates by bbox)."""
-    head = cfg.model.bbox_head
+    head = head_cfg(cfg)
     if split == "train" and head.get("type") in DENSE_REPPOINTS:
         return "segm"
     return DATA_TASK[head.get("task", "bbox")]
@@ -430,8 +485,7 @@ def evaluate_detector(cfg, model: torch.nn.Module, canvas, *,
     (``canvas`` is the landscape one, portrait its transpose). The forward
     runs in the dtype and on the device of the model's parameters."""
     check_runnable(cfg)
-    head = cfg.model.bbox_head
-    task = head.get("task", "bbox")
+    task = head_cfg(cfg).get("task", "bbox")
     ds = CocoDataset(_dataset_cfg(cfg, "val", filter_empty=False),
                      test_mode=True)
     param = next(model.parameters())

@@ -26,6 +26,7 @@ import torch
 from torch.nn.utils.stateless import _reparametrize_module
 
 from ..core.cpv import CPVLossConfig, lscpv_loss
+from ..core.dense_loss import DenseLossConfig, dense_loss
 from ..core.dense_reppoints import (DenseRepPointsConfig,
                                     DenseRepPointsV2Config,
                                     dense_reppoints_loss,
@@ -41,9 +42,10 @@ LOSSES = {LossConfig: lsnet_loss, CPVLossConfig: lscpv_loss,
           RepPointsConfig: reppoints_loss,
           RepPointsV2Config: reppoints_v2_loss,
           DenseRepPointsConfig: dense_reppoints_loss,
-          DenseRepPointsV2Config: dense_reppoints_v2_loss}
+          DenseRepPointsV2Config: dense_reppoints_v2_loss,
+          DenseLossConfig: dense_loss}
 LossCfg = Union[LossConfig, CPVLossConfig, RepPointsConfig,
-                DenseRepPointsConfig]
+                DenseRepPointsConfig, DenseLossConfig]
 
 
 def as_f32(outs: Mapping[str, object]) -> Dict[str, object]:
@@ -65,7 +67,8 @@ def make_train_step(model: torch.nn.Module, optimizer: ClippedSGD,
     ``lsnet_loss`` for a ``LossConfig``, ``lscpv_loss`` for a
     ``CPVLossConfig`` (the CPV head), ``reppoints_loss`` /
     ``reppoints_v2_loss`` / ``dense_reppoints_loss`` /
-    ``dense_reppoints_v2_loss`` for the RepPoints family's. batch:
+    ``dense_reppoints_v2_loss`` for the RepPoints family's, ``dense_loss``
+    (by the config's head kind) for the dense zoo's. batch:
     ``image`` (B, H, W, 3) NHWC and the keys of the loss, on the model's
     device.
     metrics: ``loss``, the loss terms and the pre-clip ``grad_norm``, as

@@ -7,7 +7,9 @@ The port's modules carry the flax module names, so a variable at
 * ``kernel`` (an ``nn.Conv2d``): HWIO -> OIHW, renamed ``weight``;
 * ``scale`` (GroupNorm, FrozenBatchNorm): renamed ``weight``;
 * ``bias``, the deformable layers' HWIO ``weight``/``weight_a``/
-  ``weight_b`` and the RepPoints heads' ``moment_transfer`` (2,):
+  ``weight_b``, the RepPoints heads' ``moment_transfer`` (2,), the dense
+  heads' per-level ``scales`` (L,) and the Guided Anchoring heads' HWIO
+  ``adaption_weight``/``adaption_weight_cls``/``adaption_weight_reg``:
   unchanged;
 * ``batch_stats`` ``mean``/``var``: the FrozenBatchNorm buffers.
 
@@ -29,7 +31,10 @@ from torch import nn
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                  "weight": "weight", "weight_a": "weight_a",
                  "weight_b": "weight_b",
-                 "moment_transfer": "moment_transfer"}
+                 "moment_transfer": "moment_transfer", "scales": "scales",
+                 "adaption_weight": "adaption_weight",
+                 "adaption_weight_cls": "adaption_weight_cls",
+                 "adaption_weight_reg": "adaption_weight_reg"}
 _STAT_LEAVES = {"mean": "mean", "var": "var"}
 
 

@@ -37,7 +37,7 @@ import torch
 from lsnet_tpu.train import loop as jloop
 from lsnet_tpu.train import optim as joptim
 from lsnet_tpu.utils.config import Config
-from lsnet_torch.models import build_detector, is_cpv
+from lsnet_torch.models import build_detector, head_cfg_of, is_cpv
 from lsnet_torch.train import loop as ploop
 from lsnet_torch.train import optim as poptim
 from lsnet_torch.utils.config import Config as PConfig
@@ -312,3 +312,97 @@ def test_reppoints_runner_configs_match_the_jax_runner(name):
         assert getattr(got, f) == getattr(want, f), f
     assert ploop.head_num_vectors(pcfg) == jloop._head_num_vectors(
         jcfg, jcfg.model.bbox_head)
+
+
+# ------------------------------------------------------------ dense zoo
+
+DENSE_CONFIGS = ["retinanet/retinanet_r50_fpn_1x_coco.py",
+                 "guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py",
+                 "guided_anchoring/ga_rpn_r50_fpn_1x_coco.py",
+                 "fcos/fcos_r50_fpn_1x_coco.py",
+                 "atss/atss_r50_fpn_1x_coco.py",
+                 "gfl/gfl_r50_fpn_1x_coco.py"]
+# files the port still refuses, by the ROADMAP entry it names
+REFUSED = ["foveabox/fovea_r50_fpn_4x4_1x_coco.py",
+           "fsaf/fsaf_r50_fpn_1x_coco.py", "ssd/ssd300_coco.py",
+           "free_anchor/retinanet_free_anchor_r50_fpn_1x_coco.py",
+           "pisa/pisa_retinanet_r50_fpn_1x_coco.py",
+           "nas_fcos/nas_fcos_fcoshead_r50_fpn_1x_coco.py",
+           "faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py",
+           "mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py",
+           "cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py"]
+
+
+@pytest.mark.parametrize("name", DENSE_CONFIGS)
+def test_dense_config_builds_with_the_jax_head_parameters(name):
+    """The six dense-zoo files read the same with both loaders, pass
+    ``check_runnable``, and build on the ``meta`` device with a head whose
+    state dict has the keys and shapes of the JAX head's parameters
+    (``eval_shape`` at full width, on the file's FPN levels)."""
+    import jax
+    import jax.numpy as jnp
+    from lsnet_tpu.models import build_head as j_build_head
+    from lsnet_torch.weights import from_jax_variables
+    path = os.path.join(REPO, "configs", name)
+    assert PConfig.fromfile(path).to_dict() == Config.fromfile(
+        path).to_dict()
+    ploop.check_runnable(PConfig.fromfile(path))
+    model_cfg = Config.fromfile(path).to_dict()["model"]
+    with torch.device("meta"):
+        model = build_detector(model_cfg)
+    assert type(model.head).__name__ == head_cfg_of(model_cfg)["type"]
+    jhead, _ = j_build_head(dict(head_cfg_of(model_cfg)))
+    feats = [jnp.zeros((1, s, s, 256)) for s in (4, 2, 2, 1, 1)]
+    shapes = jax.eval_shape(lambda: jhead.init(jax.random.PRNGKey(0),
+                                               feats))
+    want = {k: tuple(v.shape) for k, v in from_jax_variables(jax.tree.map(
+        lambda s: np.zeros(s.shape, np.float32), shapes)).items()}
+    got = {k: tuple(v.shape) for k, v in model.head.state_dict().items()}
+    assert got == want
+    # the neck's extra levels: convs on the input, on the output (FCOS)
+    # or, with none named (GA-RPN), the subsampled last output
+    extra = model_cfg["neck"].get("add_extra_convs")
+    assert model.neck.add_extra_convs == extra
+    assert hasattr(model.neck, "extra_0") == (extra is not None)
+    if extra == "on_output":
+        assert model.neck.extra_0.conv.weight.shape[1] == 256
+
+
+@pytest.mark.parametrize("name", REFUSED)
+def test_rest_of_the_zoo_is_refused_with_its_roadmap_entry(name):
+    cfg = PConfig.fromfile(os.path.join(REPO, "configs", name))
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 \"Inherited zoo\""):
+        ploop.check_runnable(cfg)
+
+
+def test_fpn_extra_levels_match_jax():
+    """The FPN's ``add_extra_convs`` None (GA-RPN's file) and 'on_output'
+    (FCOS's) against the JAX FPN on the same minted weights: 1e-4 of
+    max(1, max|ref|)."""
+    import jax
+    import jax.numpy as jnp
+    from lsnet_tpu.models.necks.fpn import FPN as JFPN
+    from lsnet_torch.models.necks.fpn import FPN
+    from lsnet_torch.weights import load_jax_variables
+    from torch_port_util import assert_close, mint_variables
+    rng = np.random.RandomState(6)
+    chans = [8, 16, 32, 64]
+    shapes = [(26, 42), (13, 21), (7, 11), (4, 6)]
+    xs = [rng.randn(1, h, w, c).astype(np.float32)
+          for (h, w), c in zip(shapes, chans)]
+    for kw in (dict(add_extra_convs=None, start_level=0),
+               dict(add_extra_convs="on_output", start_level=1)):
+        kw.update(out_channels=16, num_outs=6)
+        jmod = JFPN(**kw)
+        v = mint_variables(jmod, [jnp.asarray(x) for x in xs], seed=4)
+        want = jax.jit(jmod.apply)(jax.tree.map(jnp.asarray, v),
+                                   [jnp.asarray(x) for x in xs])
+        tmod = FPN(in_channels=chans, **kw)
+        load_jax_variables(tmod, v)
+        with torch.no_grad():
+            got = tmod([torch.from_numpy(x).permute(0, 3, 1, 2)
+                        for x in xs])
+        assert len(got) == len(want) == 6
+        for g, w_ in zip(got, want):
+            assert_close(g.permute(0, 2, 3, 1), np.asarray(w_))

@@ -767,3 +767,58 @@ def test_reppoints_heads_on_the_card_match_the_cpu(cuda_device, version):
             _close(g.detach().cpu(), w_.detach(), 1e-4)
     for n, g in want_g.items():
         _close(got_g[n], g, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["GARetinaHead", "GARPNHead"])
+def test_guided_anchoring_heads_on_the_card_match_the_cpu(cuda_device,
+                                                          kind):
+    """A narrow GA-RetinaNet / GA-RPN head from its training init with
+    the adaption offsets moved off the lattice (f32, bilinear): every map
+    on the card within 1e-4 of the CPU's and every parameter's gradient
+    too; K1 runs the mask-free adaption once a branch (2 / 1 launches a
+    forward, as many of each backward kernel a backward), and the offset
+    gradient reaches ``adaption_offset*`` but not ``conv_shape`` through
+    the adaption (the shape loss is left out)."""
+    from lsnet_torch.models.heads.dense import GARetinaHead, GARPNHead
+    from lsnet_torch.models.init import init_weights_
+    head = (GARetinaHead(4, 64, 64, stacked_convs=1)
+            if kind == "GARetinaHead" else GARPNHead(64, 64))
+    init_weights_(head, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, p in head.named_parameters():
+            if name.startswith("adaption_offset"):
+                p.normal_(0.0, 0.3, generator=torch.Generator()
+                          .manual_seed(1))
+    gen = torch.Generator().manual_seed(2)
+    feats = [torch.randn(2, 64, h, h + 3, generator=gen)
+             for h in (16, 8, 4, 2, 1)]
+    calls = 2 if kind == "GARetinaHead" else 1
+
+    def run(dev):
+        head.to(dev).zero_grad()
+        outs = head([f.to(dev) for f in feats])
+        total = sum((m.float() ** 2).mean() for k in ("cls", "reg")
+                    for m in outs[k])
+        total.backward()
+        return outs, {n: None if p.grad is None
+                      else p.grad.detach().clone().cpu()
+                      for n, p in head.named_parameters()}
+
+    want, want_g = run("cpu")
+    counters = (deform_gather_contract, dg.deform_gather_contract_bwd_data,
+                dg.deform_gather_contract_bwd_weight)
+    before = [c.launches for c in counters]
+    got, got_g = run(cuda_device)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [calls] * 3
+    for key, maps in want.items():
+        for g, w_ in zip(got[key], maps):
+            _close(g.detach().cpu(), w_.detach(), 1e-4)
+    assert want_g["conv_shape.weight"] is None
+    assert got_g["conv_shape.weight"] is None
+    for n, g in want_g.items():
+        if g is not None:
+            _close(got_g[n], g, 1e-4)
+    assert all(got_g[n].abs().max() > 0 for n in got_g
+               if n.startswith("adaption"))

@@ -192,7 +192,8 @@ def test_backbone_fpn_forward():
         {k: v for k, v in sd.items() if k.startswith("backbone.")}),
         strict=True)
     neck = FPN(backbone.out_channels, out_channels=64, num_outs=5,
-               start_level=1, norm_cfg=dict(type="GN", num_groups=32))
+               start_level=1, add_extra_convs="on_input",
+               norm_cfg=dict(type="GN", num_groups=32))
     neck.load_state_dict(convert_torch_neck(
         {k: v for k, v in sd.items() if k.startswith("neck.")}),
         strict=True)

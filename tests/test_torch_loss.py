@@ -79,6 +79,30 @@ def test_sigmoid_focal_loss(reduction, avg):
     assert_close(tp.grad, jgrad)
 
 
+def test_sigmoid_focal_loss_one_class():
+    """``num_classes=1``, Guided Anchoring's location loss: (N, 1) logits,
+    target 0 at an object's centre and 1 (background) elsewhere, an
+    ignore weight; value 1e-5 and gradient 1e-4 of max(1, max|ref|)."""
+    rng = np.random.RandomState(1)
+    N = 80
+    pred = (3 * rng.randn(N, 1)).astype(np.float32)
+    target = (rng.rand(N) > 0.3).astype(np.int32)
+    weight = (rng.rand(N) > 0.2).astype(np.float32)
+
+    def jf(p):
+        return j_focal(p, jnp.asarray(target), jnp.asarray(weight),
+                       num_classes=1, avg_factor=5.0)
+
+    want, jgrad = jax.value_and_grad(jf)(jnp.asarray(pred))
+    tp = t(pred).requires_grad_()
+    got = sigmoid_focal_loss(tp, t(target), t(weight), num_classes=1,
+                             avg_factor=5.0)
+    got.backward()
+    _rel(got, want)
+    assert_close(tp.grad, jgrad)
+    assert float(got) > 0 and 0 < target.sum() < N
+
+
 @pytest.mark.parametrize("loss_type,nv", [("bbox", 4), ("polygon", 35),
                                           ("keypoint", 17)])
 def test_cross_iou_loss(loss_type, nv):

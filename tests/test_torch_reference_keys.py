@@ -75,7 +75,8 @@ def test_round_trip(part, kind):
         module = _backbone(kind)
     elif part == "neck":
         module = FPN([256, 512, 1024, 2048], out_channels=32, num_outs=5,
-                     start_level=1, norm_cfg=dict(type="GN", num_groups=8))
+                     start_level=1, add_extra_convs="on_input",
+                     norm_cfg=dict(type="GN", num_groups=8))
     else:
         module = _head(kind)
     mint_module_(module, seed=len(kind))
@@ -239,6 +240,7 @@ def test_loader_reads_mmdet_detector_dict(tmp_path):
     backbone = mint_module_(_backbone("ResNeXt-G4-DCN"), seed=1)
     neck = mint_module_(FPN(backbone.out_channels, out_channels=32,
                             num_outs=5, start_level=1,
+                            add_extra_convs="on_input",
                             norm_cfg=dict(type="GN", num_groups=8)), seed=2)
     head = mint_module_(_head("segm"), seed=4)
     sd = {"module." + k: v for k, v in {

@@ -128,3 +128,50 @@ def reference_state_dict(module, prefix=""):
         out[prefix + name] = (v.permute(3, 2, 0, 1) if flip
                               else v).contiguous().clone()
     return out
+
+
+def grads_close(got, want, rel=1e-4, abs_=1e-5, leaf_abs=None):
+    """Two flax-named gradient trees: the same leaves, and each leaf
+    within max(rel * max|want|, abs_) of the reference, or of the floor
+    ``leaf_abs`` gives the leaf by its ``keystr``."""
+    leaf_abs = leaf_abs or {}
+    flat_w = dict(jax.tree_util.tree_flatten_with_path(want)[0])
+    flat_g = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+    assert flat_g.keys() == flat_w.keys()
+    assert set(leaf_abs) <= {jax.tree_util.keystr(p) for p in flat_w}
+    for path, w_ in flat_w.items():
+        name = jax.tree_util.keystr(path)
+        g = np.asarray(flat_g[path], np.float64)
+        w_ = np.asarray(w_, np.float64)
+        assert g.shape == w_.shape, name
+        err = float(np.max(np.abs(g - w_)))
+        lim = max(rel * float(np.max(np.abs(w_))), leaf_abs.get(name, abs_))
+        assert err <= lim, (name, err, lim)
+
+
+def level_feats(levels, channels, batch=2, seed=3):
+    """Seeded NHWC FPN-level features, (batch, h, w, channels) each."""
+    rng = np.random.RandomState(seed)
+    return [rng.randn(batch, h, w, channels).astype(np.float32)
+            for h, w in levels]
+
+
+def gt_batch(hw, num_classes, m=5, seed=4, empty=False):
+    """A seeded loss batch of 2 images on an (h, w) canvas: ``m`` GT slots
+    an image, boxes 10 to 50 px a side inside the canvas, the last two
+    slots of image 1 padding (all padding with ``empty``); image 1's own
+    size 8 x 16 px under the canvas."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    wh = rng.uniform(10.0, 50.0, (2, m, 2))
+    xy = rng.uniform(0.0, 1.0, (2, m, 2)) * (np.array([w, h]) - wh)
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    valid = np.ones((2, m), bool)
+    valid[1, m - 2:] = False
+    if empty:
+        valid[:] = False
+    shape = np.array([[h, w], [h - 8, w - 16]], np.int32)
+    return dict(gt_bboxes=boxes,
+                gt_labels=rng.randint(0, num_classes, (2, m)).astype(
+                    np.int32),
+                gt_valid=valid, img_shape=shape, pad_shape=shape.copy())
