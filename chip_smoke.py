@@ -171,7 +171,29 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    each profiled, with the K1 launches asserted (GA-RetinaNet 2, GA-RPN 1
    a forward and of each backward kernel a step, the other four 0); (c)
    GA-RetinaNet through ``lsnet_torch.tools.train`` and
-   ``lsnet_torch.tools.test``, as (10f).
+   ``lsnet_torch.tools.test``, as (10f);
+12. refine taps and the port's user tools: (a) K1's forward, bwd-data and
+   bwd-weight at K = 5 (``LSNET_REFINE_TAPS=5``: the plus taps) against
+   their plain versions at the R50 bbox file's paired refine call (B=2,
+   800x1344, C = cout = 256, bilinear), f32 and bf16, at phase 2's
+   tolerances, each time beside K = 9 at the same call and beside its
+   bound; (b) a narrow R50-shaped model at taps 5 on the card against the
+   CPU (outputs, loss and gradients, phase 3's tolerances), then the
+   shipped R50 bbox file at full width with ``LSNET_REFINE_TAPS=5`` set
+   for the phase: 2 train steps at B=2 bf16 (K1 at K = 5 at the 2 refine
+   contractions and K = 9 at the 6 tower blocks, each way, counted by K),
+   a checkpoint whose meta records the taps, deployed at 5 taps by
+   ``init_detector`` with the variable unset (``inference_detector`` on a
+   480x640 image, ``detect`` at B=2); (c) ``lsnet_torch.tools.
+   test_robustness`` on the X-101-64x4d-DCN bbox file from a seeded
+   checkpoint over 4 procedural 768x1280 images, gaussian_noise and fog
+   at severities 0, 1 and 5 (8 K1 and 30 grouped launches every eval
+   batch, the json's layout, ``robustness_eval``'s P / mPC / rPC, clean
+   and corrupted eval img/s); (d) print_config, get_flops (the X-101 file
+   at 800x1344; a narrow model counted alike on the card and the CPU),
+   fuse_conv_bn and publish_model (the same detections through
+   ``init_detector``), analyze_logs on phase 6's log, browse_dataset,
+   coco_error_analysis and gen_coco_lsvr, one OK line each.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (all ten kernels) and, last, ``{"ok": true, "device": {...}}``; the
@@ -181,7 +203,9 @@ backward`` builds, runs phases 2c and 2d alone and prints no result line
 (for work on the backward kernels); ``--only probes`` does the same for
 phase 2e, ``--only accuracy`` for phase 7, ``--only api`` for the Res2Net
 K1 cases of phase 2a and phase 8, ``--only cpv`` for phase 9,
-``--only reppoints`` for phase 10, ``--only dense`` for phase 11. With
+``--only reppoints`` for phase 10, ``--only dense`` for phase 11,
+``--only tools`` for phase 12 (after a narrow runner on the card for
+analyze_logs' log). With
 ``CHIP_SMOKE_LOG=<path>`` in the environment it also writes every line it
 prints to that file, each after the seconds since the start. It needs
 the repository
@@ -281,6 +305,8 @@ LOST_PROFILES = []               # host records of each profile that did
 # procedural sets of 768x1280 landscape and 1280x768 portrait images
 # (aspect 5:3, so the multi-scale range (1333, 480)-(1333, 960) keeps every
 # resize inside the config's (800, 1344) canvas)
+R50_CONFIG = os.path.join(REPO, "configs", "lsnet",
+                          "lsnet_bbox_r50_fpn_1x_coco.py")
 RUNNER_CONFIG = os.path.join(REPO, "configs", "lsnet",
                              "lsnet_bbox_x101_fpn_dconv_c3-c5_mstrain_2x_coco.py")
 LAND, PORT = (768, 1280), (1280, 768)
@@ -1300,7 +1326,7 @@ def set_classes(cfg, n):
     return head.get("num_classes", 1)
 
 
-def outputs_card_vs_cpu(label, cfg):
+def outputs_card_vs_cpu(label, cfg, sampling=fd.TRAIN_SAMPLING):
     """Phase 3a for one model: the head outputs of ``cfg`` (8 classes)
     on the card against the CPU, 1e-3 of max(1, max|ref|)."""
     set_classes(cfg, 8)
@@ -1309,8 +1335,8 @@ def outputs_card_vs_cpu(label, cfg):
     images = torch.randn(2, 96, 128, 3,
                          generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
-        want = cpu(images)
-        got = gpu(images.cuda())
+        want = cpu(images, sampling)
+        got = gpu(images.cuda(), sampling)
     worst = 0.0
     for key in want:
         for g, w_ in zip(got[key], want[key]):
@@ -1445,7 +1471,7 @@ def check_small_gradients(task):
                           loss_config(task, hw, 8), hw)
 
 
-def gradients_card_vs_cpu(label, cfg, lcfg, hw):
+def gradients_card_vs_cpu(label, cfg, lcfg, hw, sampling=fd.TRAIN_SAMPLING):
     """Phase 3b for one model: the loss (``runner_step.LOSSES`` of the
     config's type), each of its terms and every parameter's gradient of
     ``cfg`` (8 classes) on the card against the CPU, f32."""
@@ -1456,7 +1482,7 @@ def gradients_card_vs_cpu(label, cfg, lcfg, hw):
         model = unit_bn_scales_(init_model(cfg, device=device, seed=1,
                                            train=True))
         batch = synthetic_batch(2, hw, 4, 8, 1, device)
-        outs = model(batch["image"], fd.TRAIN_SAMPLING)
+        outs = model(batch["image"], sampling)
         total, terms = loss_fn(outs, batch, lcfg)
         names = [n for n, p in model.named_parameters() if p.requires_grad]
         got = torch.autograd.grad(
@@ -3254,15 +3280,513 @@ def check_zoo(root):
     return numbers, rows, by_path
 
 
+# ------------------------------------------------------------- phase 12
+
+def leaves(x):
+    """The floating-point tensors of a nest of tuples, lists and dicts."""
+    if isinstance(x, torch.Tensor):
+        return [x] if x.is_floating_point() else []
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in leaves(v)]
+    return []
+
+
+def K1_ONLY(n):
+    """Launch counts with each of K1's three kernels at ``n`` and the
+    grouped kernels at 0 (a model without a DCN backbone)."""
+    return {**dict.fromkeys(launch_counts(), 0),
+            **dict.fromkeys(("deform_gather_contract",
+                             "deform_gather_contract_bwd_data",
+                             "deform_gather_contract_bwd_weight"), n)}
+
+
+def count_k1_by_taps():
+    """Phase 12: put in place of ``deform_gather``'s ops functions that
+    count each K1 wrapper's calls by the table's tap count K, then call
+    it. Returns the Counter of (wrapper, K) and a function that puts the
+    wrappers back."""
+    from collections import Counter
+    seen = Counter()
+    saved = dg._OPS
+
+    def counted(name, fn):
+        def call(*args):
+            seen[(name, int(args[1].shape[1]))] += 1
+            return fn(*args)
+        return call
+
+    dg._OPS = dg.ContractOps(*(counted(name, fn) for name, fn in
+                               zip(dg.ContractOps._fields, saved)))
+
+    def undo():
+        dg._OPS = saved
+    return seen, undo
+
+
+def taps_counts(run, want):
+    """Run ``run()`` with the K1 calls counted by tap count; raise unless
+    the counts are ``want`` ({(wrapper, K): calls}). Returns run()'s
+    result."""
+    seen, undo = count_k1_by_taps()
+    try:
+        out = run()
+    finally:
+        undo()
+    if dict(seen) != want:
+        raise AssertionError(f"K1 calls by taps {dict(seen)}, want {want}")
+    return out
+
+
+def refine_taps_inputs(dtype, gen, taps=fd._PLUS_TAPS):
+    """(args at K = 9, args at K = len(taps)) of the main path's paired
+    refine contraction: the R50 bbox file's cross-level jobs at B=2,
+    800x1344, C = cout = 256, bilinear, one set of feature maps and
+    offsets; the K = 5 table is the one ``dual_pyramid_dcn`` builds at
+    those taps."""
+    dev = torch.device("cuda")
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
+
+    feats = [rnd(B, h, w, FEAT).to(dtype) for h, w in LEVELS]
+    levels = fd.pack_levels(feats)
+    weight = rnd(3, 3, FEAT, FEAT, scale=0.02).to(dtype)
+    offs = [rnd(B, h, w, 2 * K, scale=2.0) for h, w in LEVELS]
+    jobs = branch_pyramid_jobs(LEVELS, offs, 3)
+    flat = levels.flat.contiguous()
+    out = []
+    for sel in (None, taps):
+        jb, (wt,) = fd._apply_refine_taps(jobs, [weight], sel)
+        k = wt.shape[0] * wt.shape[1]
+        idx, w = fd._gather_indices_tap(levels, jb, k, "bilinear")
+        out.append((flat, idx, w, fd._tap_weight(wt, dtype)))
+    return out
+
+
+def check_refine_taps_kernels():
+    """Phase 12a: K1's forward, bwd-data and bwd-weight at K = 5 (the plus
+    taps) against their plain versions at the R50 bbox file's paired
+    refine call, f32 and bf16, at phase 2's tolerances; each kernel's
+    time (CUDA events) beside K = 9 at the same call and beside its bound.
+    Returns the bf16 rows."""
+    gen = torch.Generator().manual_seed(12)
+    cgen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args9, args5 = refine_taps_inputs(dtype, gen)
+        got = deform_gather_contract(*args5).float()
+        want = deform_gather_contract_ref(*args5).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        lim = TOL[dtype] * max(1.0, want.abs().max().item())
+        if not (bool(torch.isfinite(got).all()) and err <= lim):
+            raise AssertionError(f"K1 forward at K = 5 disagrees: {err} > "
+                                 f"{lim} ({dtype})")
+        del got, want
+        bf16 = dtype == torch.bfloat16
+        bwd = check_backward_call(dict(site="refine", taps=5), args5, 0,
+                                  cgen, library=bf16)
+        px, cout = args9[1].shape[2], FEAT
+        dout = torch.randn(px, cout, device="cuda",
+                           generator=cgen).to(dtype)
+        row = dict(dtype=str(dtype).split(".")[-1], px=px, C=FEAT,
+                   cout=FEAT, forward_err=err, forward_limit=lim,
+                   data_err=bwd["data_err"], weight_err=bwd["weight_err"])
+        for k, args in ((5, args5), (9, args9)):
+            flat, idx, w, weight = args
+            calls = {
+                "forward": (lambda: deform_gather_contract(*args),
+                            lambda: deform_gather_contract_ref(*args),
+                            work),
+                "bwd_data": (lambda: dg.deform_gather_contract_bwd_data(
+                    flat, idx, w, weight, dout), None, work_bwd_data),
+                "bwd_weight": (
+                    lambda: dg.deform_gather_contract_bwd_weight(
+                        flat, idx, w, weight, dout), None, work_bwd_weight)}
+            for name, (fn, plain, wk) in calls.items():
+                row[f"{name}_k{k}_ms"] = cuda_ms(fn, 10)
+                row[f"{name}_k{k}_bound_ms"], row[f"{name}_k{k}_bound_by"] \
+                    = bound_ms(args, wk)
+                if plain is not None:
+                    row[f"{name}_k{k}_plain_ms"] = cuda_ms(plain, 2)
+        row["data_k5_plain_ms"] = bwd["data_plain_ms"]
+        row["weight_k5_plain_ms"] = bwd["weight_plain_ms"]
+        if bf16:      # the yardsticks on the already gathered patch tensor
+            vals = dg.gathered_rows(*args5[:3]).to(dtype)
+            row["forward_k5_library_ms"] = cuda_ms(
+                lambda: torch.einsum("kpc,kco->po", vals, args5[3]), 10)
+            del vals
+            row["weight_k5_library_ms"] = bwd["weight_library_ms"]
+            row["data_k5_einsum_g_only_ms"] = bwd["data_einsum_g_only_ms"]
+        for name in ("forward", "bwd_data", "bwd_weight"):
+            row[f"{name}_k5_over_k9"] = (row[f"{name}_k5_ms"]
+                                         / row[f"{name}_k9_ms"])
+        log("refine taps 5 kernels " + json.dumps(row))
+        rows[row["dtype"]] = row
+        del args9, args5, dout
+        torch.cuda.empty_cache()
+    return rows["bfloat16"]
+
+
+def refine_taps_small():
+    """Phase 12b: a narrow R50-shaped model at taps 5 on the card against
+    the CPU: the head outputs, then the loss and every gradient, at
+    phase 3's tolerances."""
+    sampling = fd.with_refine_taps(fd.TRAIN_SAMPLING, "5")
+    outputs_card_vs_cpu("R50-shaped taps 5", flagship_r50_cfg(
+        feat=64, stacked=2), sampling)
+    hw = (96, 128)
+    gradients_card_vs_cpu("R50-shaped taps 5", flagship_r50_cfg(
+        feat=64, stacked=2), loss_config("bbox", hw, 8), hw, sampling)
+
+
+def check_refine_taps_e2e(root):
+    """Phase 12b: the shipped R50 bbox file at full width, 80 classes, with
+    ``LSNET_REFINE_TAPS=5`` in the environment (set here, restored after):
+    2 train steps at B=2, 800x1344, bf16 (K1 at 5 taps at the 2 refine
+    contractions, at 9 at the 6 tower blocks, each way), a checkpoint
+    whose meta records the taps; with the variable unset again,
+    ``init_detector`` deploys it at 5 taps (``inference_detector`` on a
+    480x640 image, ``detect`` at B=2). Returns the numbers."""
+    cfg = Config.fromfile(R50_CONFIG)
+    num_classes = cfg.model.bbox_head.num_classes
+    saved_env = os.environ.get("LSNET_REFINE_TAPS")
+    os.environ["LSNET_REFINE_TAPS"] = "5"
+    try:
+        taps = ckpt.refine_taps_env()
+        sampling = fd.with_refine_taps(fd.TRAIN_SAMPLING, taps)
+        model = init_model(cfg.model.to_dict(), device="cuda", seed=0,
+                           train=True)
+        step = train_detector_step(model, loss_config(
+            "bbox", (H, W), num_classes), base_lr=0.01, sampling=sampling)
+        batch = synthetic_batch(B, (H, W), NUM_GT, num_classes, 0, "cuda")
+        step(batch)                                  # warm-up
+        torch.cuda.synchronize()
+        per_step = {(n, k): c for n in dg.ContractOps._fields
+                    for k, c in ((9, 6), (5, 2))}
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        history = taps_counts(lambda: [step(batch) for _ in range(2)],
+                              {key: 2 * c for key, c in per_step.items()})
+        torch.cuda.synchronize()
+        train_s = (time.perf_counter() - t0) / 2
+        measured = launch_counts()
+        if measured != K1_ONLY(16):
+            raise AssertionError(f"taps 5 train: launches in 2 steps "
+                                 f"{measured}, want {K1_ONLY(16)}")
+        train_launches = {n: c // 2 for n, c in measured.items()}
+        losses = [m["loss"].item() for m in history]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"taps 5 train: losses {losses}")
+        optimizer, _ = build_optimizer(model.parameters(), 0.01, 1, (8, 11))
+        path = ckpt.save_checkpoint(os.path.join(root, "taps5"), model,
+                                    optimizer, 3, ckpt.train_meta(None, taps))
+    finally:
+        if saved_env is None:
+            os.environ.pop("LSNET_REFINE_TAPS", None)
+        else:
+            os.environ["LSNET_REFINE_TAPS"] = saved_env
+    del model, step, batch
+    torch.cuda.empty_cache()
+    meta = ckpt.load_checkpoint(path)["meta"]
+    if meta != {"dcn_sampling_train": "bilinear", "refine_taps_train": "5"}:
+        raise AssertionError(f"taps 5 checkpoint meta {meta}")
+    bundle = apis.init_detector(R50_CONFIG, path)
+    if fd.refine_taps(bundle.sampling) != fd._PLUS_TAPS:
+        raise AssertionError(f"deployed sampling {dict(bundle.sampling)}")
+    fwd = {("forward", 9): 6, ("forward", 5): 2}
+    zero_launch_counts()
+    res = taps_counts(lambda: apis.inference_detector(bundle, api_image()),
+                      fwd)
+    api_launches = launch_counts()
+    want = {**K1_ONLY(0), "deform_gather_contract": 8}
+    if api_launches != want:
+        raise AssertionError(f"taps 5 inference_detector: launches "
+                             f"{api_launches}, want {want}")
+    n_api = len(res["scores"])
+    model = bundle.model.to(torch.bfloat16)
+    gen = torch.Generator().manual_seed(3)
+    images = torch.randn(B, H, W, 3, generator=gen).to("cuda",
+                                                        torch.bfloat16)
+    tcfg = runner_loop.test_cfg_from(bundle.cfg, (H, W))
+    zero_launch_counts()
+    det = taps_counts(lambda: detect(
+        model, images, torch.tensor([[H, W]] * B, device="cuda"),
+        torch.ones(B, 4, device="cuda"), tcfg, bundle.sampling),
+        {key: c * 1 for key, c in fwd.items()})
+    detect_launches = launch_counts()
+    if detect_launches != want:
+        raise AssertionError(f"taps 5 detect: launches {detect_launches}, "
+                             f"want {want}")
+    for name, x in det._asdict().items():
+        if x.is_floating_point() and not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"taps 5 detect: non-finite {name}")
+    numbers = dict(train_losses=losses, train_s_per_step=train_s,
+                   meta=meta, api_detections=n_api,
+                   detect_valid=det.valid.sum(dim=1).tolist(),
+                   k1_per_train_step={f"{n} K={k}": c
+                                      for (n, k), c in per_step.items()},
+                   launches_per_train_step=train_launches,
+                   launches_api=api_launches,
+                   launches_detect=detect_launches,
+                   k1_per_forward={f"K={k}": c for (_, k), c in fwd.items()})
+    log("refine taps 5 e2e " + json.dumps(numbers))
+    del bundle, model, images
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def robust_config(root):
+    """Phase 12c: the shipped X-101-64x4d-DCN bbox file over four
+    procedural 768x1280 val images (aspect 5:3, inside its 800x1344
+    canvas), 3 classes, written as a config file that inherits it."""
+    ann, img = make_shapes_coco(os.path.join(root, "val"), 4, seed=7,
+                                hw=[LAND] * 4)
+    data = dict(ann_file=ann, img_prefix=img)
+    path = os.path.join(root, "robust_cfg.py")
+    with open(path, "w") as f:
+        f.write(f"_base_ = {RUNNER_CONFIG!r}\n"
+                "model = dict(bbox_head=dict(num_classes=3))\n"
+                f"data = dict(train=dict({data!r}), val=dict({data!r}), "
+                f"test=dict({data!r}))\n"
+                "test_cfg = dict(score_thr=0.005)\n")
+    return path, ann
+
+
+def check_robustness(root):
+    """Phase 12c: ``lsnet_torch.tools.test_robustness`` on the X-101 file
+    from a seeded checkpoint, gaussian_noise and fog at severities 0, 1
+    and 5 on 4 images; K1 (8) and the grouped forward (30) launched for
+    every eval batch, the json's layout, ``robustness_eval`` on it.
+    Returns (numbers, config, checkpoint, ann file, json)."""
+    from lsnet_torch.tools import robustness_eval as reval_tool
+    from lsnet_torch.tools import test_robustness as robust_tool
+    cfg_path, ann = robust_config(root)
+    path = seeded_checkpoint(Config.fromfile(cfg_path),
+                             os.path.join(root, "ckpt"))
+    out = os.path.join(root, "robust.json")
+    passes = []
+    evaluate = runner_loop.evaluate_detector
+
+    def counted_evaluate(cfg, model, *a, **k):
+        sums = []
+
+        def abs_sum(out):
+            return sum(x.double().abs().sum() for x in leaves(out))
+
+        def seen_neck(_, args, out):   # the FPN maps
+            sums.append([abs_sum(out)])
+
+        def seen(_, args, out):        # the images in, the head maps out
+            sums[-1][:0] = [args[0].double().sum()]
+            sums[-1].append(abs_sum(out))
+        hooks = (model.neck.register_forward_hook(seen_neck),
+                 model.register_forward_hook(seen))
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            metrics = evaluate(cfg, model, *a, **k)
+            torch.cuda.synchronize()
+        finally:
+            for hook in hooks:
+                hook.remove()
+        seconds = time.perf_counter() - t0
+        passes.append((cfg.data.val.get("corruption"), seconds,
+                       launch_counts(),
+                       [[x.item() for x in batch] for batch in sums]))
+        return metrics
+    runner_loop.evaluate_detector = counted_evaluate
+    try:
+        results = robust_tool.main([
+            cfg_path, path, "--out", out, "--corruptions", "gaussian_noise",
+            "fog", "--severities", "0", "1", "5", "--max-images", "4"])
+    finally:
+        runner_loop.evaluate_detector = evaluate
+    batches = 1                               # 4 landscape images, batch 8
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update({"deform_gather_contract": 8 * batches,
+                 "deform_gather_grouped_contract":
+                     GROUPED_PER_FORWARD * batches})
+    if len(passes) != 5 or any(c != want for _, _, c, _ in passes):
+        raise AssertionError(f"robustness passes {passes}, want 5 passes "
+                             f"of {want}")
+    # each corrupted pass saw other images than the clean pass and its
+    # other severity, and its FPN and head maps changed with them
+    clean = passes[0][3]
+    for name, i in (("gaussian_noise", 1), ("fog", 3)):
+        (c1, _, _, s1), (c5, _, _, s5) = passes[i], passes[i + 1]
+        if (c1, c5) != ([name, 1], [name, 5]) or len(s1) != len(clean) or \
+                any(u == v for x, y in ((s1, clean), (s5, clean), (s1, s5))
+                    for a, b in zip(x, y) for u, v in zip(a, b)):
+            raise AssertionError(f"robustness: {name} passes "
+                                 f"{passes[i]}, {passes[i + 1]} against the "
+                                 f"clean pass {passes[0]}")
+    with open(out) as f:
+        saved = json.load(f)
+    if list(saved) != ["gaussian_noise", "fog"] or any(
+            list(v) != ["0", "1", "5"] for v in saved.values()) or \
+            saved["fog"]["0"] != saved["gaussian_noise"]["0"] or any(
+            len(m) != 12 for v in saved.values() for m in v.values()):
+        raise AssertionError(f"robustness json layout {saved}")
+    lines = []
+    agg = reval_tool.get_results(out, prints=("P", "mPC", "rPC"),
+                                 echo=lines.append)
+    for line in lines:
+        log("robustness_eval " + line)
+    clean_s = passes[0][1]
+    corr_s = sum(s for _, s, _, _ in passes[1:]) / len(passes[1:])
+    numbers = dict(clean_img_per_s=4 / clean_s,
+                   corrupted_img_per_s=4 / corr_s,
+                   launches_per_eval_batch=passes[0][2],
+                   image_fpn_head_sums={
+                       "clean" if c is None else f"{c[0]} {c[1]}": sums
+                       for c, _, _, sums in passes},
+                   bbox_mAP={c: {s: m["bbox_mAP"] for s, m in v.items()}
+                             for c, v in saved.items()},
+                   P_mPC_rPC=agg["bbox_mAP"])
+    log("robustness " + json.dumps(numbers))
+    return numbers, cfg_path, path, ann, results
+
+
+def coco_detections(bundle, ann):
+    """``inference_detector``'s detections on every image of ``ann`` as
+    COCO result dicts (category id = label + 1, boxes x, y, w, h)."""
+    from PIL import Image as PILImage
+    with open(ann) as f:
+        images = json.load(f)["images"]
+    root = os.path.join(os.path.dirname(ann), "imgs")
+    dts = []
+    for info in images:
+        with PILImage.open(os.path.join(root, info["file_name"])) as im:
+            res = apis.inference_detector(bundle, np.asarray(im))
+        for box, lab, sc in zip(res["bboxes"], res["labels"],
+                                res["scores"]):
+            x0, y0, x1, y1 = (float(v) for v in box[:4])
+            dts.append(dict(image_id=info["id"], category_id=int(lab) + 1,
+                            bbox=[x0, y0, x1 - x0, y1 - y0],
+                            score=float(sc)))
+    return dts
+
+
+def check_tools(root, cfg_path, path, ann, log_dir):
+    """Phase 12d: the other tools once each, on the card where they build
+    a model: print_config, get_flops (the X-101 file at 800x1344; phase
+    3's narrow model the same on the card and the CPU), fuse_conv_bn and
+    publish_model on phase 12c's checkpoint (the same detections through
+    ``init_detector``), analyze_logs on a runner log, browse_dataset,
+    coco_error_analysis on 12c's clean detections and gen_coco_lsvr.
+    Returns the numbers."""
+    import contextlib
+    import io
+    from lsnet_torch.tools import (analyze_logs, browse_dataset,
+                                   coco_error_analysis, fuse_conv_bn,
+                                   gen_coco_lsvr, get_flops, print_config,
+                                   publish_model)
+    numbers = {}
+
+    def quiet(fn, *a):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            out = fn(*a)
+        return out, text.getvalue()
+
+    cfg, text = quiet(print_config.main, [RUNNER_CONFIG])
+    if not text.startswith("Config:\n") or "ResNeXt" not in text:
+        raise AssertionError("print_config: unexpected text")
+    log(f"tool print_config OK: {len(text.splitlines())} lines")
+
+    t0 = time.perf_counter()
+    params, flops = get_flops.count(cfg, (H, W), "cuda")
+    numbers["x101_params"], numbers["x101_gflops"] = params, flops / 1e9
+    narrow = Config(dict(model=flagship_r50_cfg(feat=64, stacked=2)))
+    small = {dev: get_flops.count(narrow, (128, 192), dev)
+             for dev in ("cpu", "cuda")}
+    if small["cpu"] != small["cuda"]:
+        raise AssertionError(f"get_flops: card {small['cuda']} vs CPU "
+                             f"{small['cpu']}")
+    log(f"tool get_flops OK: X-101-64x4d-DCN at {H}x{W}: "
+        f"{params / 1e6:.2f} M parameters, {flops / 1e9:.2f} GFLOPs; narrow "
+        f"R50-shaped at 128x192 {small['cuda']} on the card and the CPU "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+    img = api_image(4)
+    want = apis.inference_detector(apis.init_detector(cfg_path, path), img)
+    fused = os.path.join(root, "fused.pt")
+    names, _ = quiet(fuse_conv_bn.main, [path, fused])
+    err = same_detections("fuse_conv_bn", apis.inference_detector(
+        apis.init_detector(cfg_path, fused), img), want)
+    log(f"tool fuse_conv_bn OK: {len(names)} pairs fused, "
+        f"{len(want['scores'])} detections as unfused (max box error "
+        f"{err:.3g} px)")
+    final, _ = quiet(publish_model.main,
+                     [path, os.path.join(root, "x101_robust.pth")])
+    err = same_detections("publish_model", apis.inference_detector(
+        apis.init_detector(cfg_path, final), img), want)
+    log(f"tool publish_model OK: {os.path.basename(final)}, "
+        f"{os.path.getsize(final)} bytes (checkpoint "
+        f"{os.path.getsize(path)}), same detections (max box error "
+        f"{err:.3g} px)")
+
+    (log_path,) = [os.path.join(log_dir, n) for n in os.listdir(log_dir)
+                   if n.endswith(".log.json")]
+    times, text = quiet(analyze_logs.main, ["cal_train_time", log_path])
+    if times is None:
+        raise AssertionError("analyze_logs: no timing records")
+    log(f"tool analyze_logs OK: {text.strip()}")
+
+    written, _ = quiet(browse_dataset.main, [
+        cfg_path, "--output-dir", os.path.join(root, "browse"),
+        "--number", "2"])
+    if len(written) != 2 or not all(map(os.path.exists, written)):
+        raise AssertionError(f"browse_dataset wrote {written}")
+    log(f"tool browse_dataset OK: {[os.path.basename(p) for p in written]}")
+
+    bundle = apis.init_detector(cfg_path, path)
+    dts = coco_detections(bundle, ann)
+    res = os.path.join(root, "clean_dets.json")
+    with open(res, "w") as f:
+        json.dump(dts, f)
+    (_, _, summary), _ = quiet(coco_error_analysis.analyze_files, res, ann)
+    bands = summary["bbox"]
+    if list(bands) != ["C75", "C50", "Loc", "Sim", "Oth", "BG", "FN"] or \
+            bands["FN"] != 1.0:
+        raise AssertionError(f"coco_error_analysis bands {bands}")
+    log(f"tool coco_error_analysis OK: {len(dts)} clean detections, bands "
+        f"{json.dumps(bands)}")
+
+    n, _ = quiet(gen_coco_lsvr.main, [ann, os.path.join(root, "lsvr.json")])
+    with open(os.path.join(root, "lsvr.json")) as f:
+        anns = json.load(f)["annotations"]
+    if n != len(anns) or any(len(a["extreme_points"]) != 10 for a in anns):
+        raise AssertionError("gen_coco_lsvr: bad annotations")
+    log(f"tool gen_coco_lsvr OK: {n} annotations")
+    return numbers
+
+
+def check_refine_taps_and_tools(root, log_dir):
+    """Phase 12. Returns (numbers, the K1 rows at K = 5)."""
+    t0 = time.perf_counter()
+    rows = check_refine_taps_kernels()
+    refine_taps_small()
+    numbers = {"taps5": check_refine_taps_e2e(root)}
+    numbers["robustness"], cfg_path, path, ann, _ = check_robustness(root)
+    numbers["tools"] = check_tools(root, cfg_path, path, ann, log_dir)
+    numbers["seconds"] = time.perf_counter() - t0
+    return numbers, rows
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["backward", "probes", "accuracy",
                                            "api", "cpv", "reppoints",
-                                           "dense"],
+                                           "dense", "tools"],
                         default=None,
                         help="run phases 2c and 2d, phase 2e, phase 7, "
                         "phase 2a's Res2Net cases and phase 8, phase 9, "
-                        "phase 10 or phase 11 alone; no result line")
+                        "phase 10, phase 11 or phase 12 alone; no result "
+                        "line")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3344,6 +3868,18 @@ def main(argv=None):
         log("dense kernel rows " + json.dumps(rows))
         log("launches per call or step " + json.dumps(by_path))
         log(f"partial run (--only dense) passed in "
+            f"{time.perf_counter() - t_start:.1f}s; no result line")
+        return 0
+    if opts.only == "tools":
+        import tempfile
+        with tempfile.TemporaryDirectory() as root:
+            narrow_runner("cuda", os.path.join(root, "runner"))
+            numbers, rows = check_refine_taps_and_tools(
+                os.path.join(root, "tools"),
+                os.path.join(root, "runner", "work_cuda"))
+        log(f"{smi}: tools " + json.dumps(numbers))
+        log(f"{smi}: K1 at refine taps 5 " + json.dumps(rows))
+        log(f"partial run (--only tools) passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
         return 0
 
@@ -3446,6 +3982,21 @@ def main(argv=None):
                 zoo_numbers[name]["train_peak_memory_bytes"]
         log(f"{smi}: dense " + json.dumps(zoo_numbers)
             + f" (phase 11 in {zoo_numbers['seconds']:.1f}s)")
+        # phase 12: refine taps 5, the robustness benchmark, the tools
+        tools_numbers, taps_rows = check_refine_taps_and_tools(
+            os.path.join(root, "tools"), os.path.join(root, "full", "A"))
+        e2e["X-101-64x4d-DCN robustness clean eval"] = \
+            tools_numbers["robustness"]["clean_img_per_s"]
+        e2e["X-101-64x4d-DCN robustness corrupted eval"] = \
+            tools_numbers["robustness"]["corrupted_img_per_s"]
+        log(f"{smi}: tools " + json.dumps(tools_numbers)
+            + f" (phase 12 in {tools_numbers['seconds']:.1f}s)")
+        taps5 = tools_numbers["taps5"]
+        by_path["taps 5 train"] = taps5["launches_per_train_step"]
+        by_path["taps 5 inference_detector"] = taps5["launches_api"]
+        by_path["taps 5 detect"] = taps5["launches_detect"]
+        by_path["robustness eval"] = \
+            tools_numbers["robustness"]["launches_per_eval_batch"]
     for name, entry in probe_entries.items():
         by_path.setdefault("lsnet_torch.tools.probe", {})[name] = \
             entry["launches"]
@@ -3499,6 +4050,26 @@ def main(argv=None):
             "bound_by": row[f"{kind}_bound_by"], "library_ms": row[lib]}
             for label, row in (rp_rows if rows is None else rows).items()}
 
+    def taps_entry(kind):
+        """Phase 12a's bf16 row of one K1 kernel (kind forward, bwd_data
+        or bwd_weight) at the paired refine call at K = 5, beside K = 9."""
+        row = taps_rows
+        plain = {"forward": "forward_k5_plain_ms",
+                 "bwd_data": "data_k5_plain_ms",
+                 "bwd_weight": "weight_k5_plain_ms"}[kind]
+        library = {"forward": "forward_k5_library_ms",
+                   "bwd_weight": "weight_k5_library_ms"}.get(kind)
+        return {"px": row["px"], "ms": row[f"{kind}_k5_ms"],
+                "plain_ms": row[plain],
+                "library_ms": row[library] if library else None,
+                "einsum_g_only_ms": row["data_k5_einsum_g_only_ms"]
+                if kind == "bwd_data" else None,
+                "bound_ms": row[f"{kind}_k5_bound_ms"],
+                "bound_by": row[f"{kind}_k5_bound_by"],
+                "k9_ms": row[f"{kind}_k9_ms"],
+                "k9_bound_ms": row[f"{kind}_k9_bound_ms"],
+                "k5_over_k9": row[f"{kind}_k5_over_k9"]}
+
     def bwd_entry(name, source, replaces, row):
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launches[name],
@@ -3516,6 +4087,8 @@ def main(argv=None):
             entry["reppoints_per_call"] = rp_entry(name.rsplit("_", 1)[1])
             entry["guided_anchoring_per_call"] = rp_entry(
                 name.rsplit("_", 1)[1], zoo_rows)
+            entry["refine_taps5_per_call"] = taps_entry(
+                "bwd_" + name.rsplit("_", 1)[1])
         if "per_call" in row:
             entry["pose_bbox_ms"] = pose_bbox_ms(row["per_call"])
             entry["per_call"] = row["per_call"]
@@ -3543,6 +4116,7 @@ def main(argv=None):
         "cpv_res2net_per_call": cpv_entry("fwd"),
         "reppoints_per_call": rp_entry("fwd"),
         "guided_anchoring_per_call": rp_entry("fwd", zoo_rows),
+        "refine_taps5_per_call": taps_entry("forward"),
         "launches_by_path": path_counts("deform_gather_contract")}, {
         "name": "deform_gather_grouped_contract", "route": "cuda",
         "source": "lsnet_torch/csrc/grouped_deform_contract.cu",

@@ -57,9 +57,10 @@ from .models.init import init_weights_
 from .models.layers import FrozenBatchNorm
 from .ops.flat_deform import (INFERENCE_SAMPLING, TRAIN_SAMPLING,
                               sampling_from_spec)
-from .train.checkpoint import deploy_sampling, restore_eval_state
+from .train.checkpoint import refine_taps_env, restore_eval_state
 from .train.loop import (DENSE_REPPOINTS, decode_for,  # noqa: F401
-                         evaluate_detector, runner_device, test_cfg_from,
+                         eval_sampling, evaluate_detector, runner_device,
+                         test_cfg_from,
                          train_detector)
 from .train.optim import build_optimizer
 from .train.step import LossCfg, make_train_step
@@ -195,7 +196,9 @@ def init_detector(config: Union[str, Config],
     the weights are the training init (:func:`lsnet_torch.models.init.
     init_weights_`) from seed 0. The sampling is ``test_cfg.dcn_sampling``
     where the config sets it, else what the checkpoint's meta deploys
-    (``deploy_sampling``), else ``INFERENCE_SAMPLING``. Raises when there
+    (``deploy_sampling``), else ``INFERENCE_SAMPLING``; the refine taps
+    are ``LSNET_REFINE_TAPS``'s where it is set, else the checkpoint's
+    (``refine_taps_train``). Raises when there
     is no CUDA device, unless ``device="cpu"``, and for a Dense RepPoints
     or a GA-RPN config (no image-level decode; evaluate it with
     ``lsnet_torch.tools.test``, serve it with :func:`detect`)."""
@@ -225,8 +228,8 @@ def init_detector(config: Union[str, Config],
     else:
         init_weights_(model, torch.Generator().manual_seed(0))
     mode = test.get("dcn_sampling")
-    sampling = (sampling_from_spec(str(mode)) if mode
-                else deploy_sampling(meta))
+    sampling = eval_sampling(sampling_from_spec(str(mode)) if mode else None,
+                             meta, refine_taps_env())
     if fuse_conv_bn:
         from .train.fuse import fuse_conv_bn as _fuse
         _fuse(model)

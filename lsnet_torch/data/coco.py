@@ -100,10 +100,6 @@ class CocoDataset:
     def __init__(self, cfg: DatasetConfig, test_mode: bool = False):
         self.cfg = cfg
         self.test_mode = test_mode
-        if cfg.corruption is not None:
-            raise NotImplementedError(
-                "image corruptions (data/corruptions.py) are not ported "
-                "yet: ROADMAP Queue 1 \"Inherited zoo\"")
         if not test_mode:
             # validate the scale spec eagerly: a bad multiscale config must
             # fail at dataset construction, not minutes later in the first
@@ -148,6 +144,10 @@ class CocoDataset:
         info = self.img_infos[idx]
         anns = self.coco.anns_by_img.get(info["id"], [])
         img = self._load_image(info)
+        if self.cfg.corruption is not None:
+            from .corruptions import corrupt
+            img = corrupt(img, self.cfg.corruption[0],
+                          int(self.cfg.corruption[1]))
         sample: Dict = {"image": img, "img_id": info["id"]}
 
         bboxes, labels = [], []

@@ -506,10 +506,15 @@ def build_aug_pipeline(specs):
 def corrupt_sample(sample: Dict, corruption: str, severity: int = 1
                    ) -> Dict:
     """Apply a named corruption to the sample's image (pixels only; boxes/
-    landmarks untouched — reference Corrupt semantics). Not ported yet."""
-    raise NotImplementedError(
-        "image corruptions (data/corruptions.py) are not ported yet: "
-        "ROADMAP Queue 1 \"Inherited zoo\"")
+    landmarks untouched — reference Corrupt semantics)."""
+    from .corruptions import corrupt
+    out = dict(sample)
+    img = np.asarray(sample["image"])
+    as_float = img.dtype != np.uint8
+    u8 = np.uint8(np.clip(img, 0, 255)) if as_float else img
+    cor = corrupt(u8, corruption, severity)
+    out["image"] = cor.astype(img.dtype) if as_float else cor
+    return out
 
 
 def normalize_image(img: np.ndarray,

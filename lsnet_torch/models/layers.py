@@ -21,7 +21,7 @@ from torch import nn
 
 from ..ops.flat_deform import (TRAIN_SAMPLING, SampleJob, dual_pyramid_dcn,
                                multilevel_modulated_dcn,
-                               multilevel_pyramid_dcn)
+                               multilevel_pyramid_dcn, refine_taps)
 
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -135,7 +135,8 @@ class ModulatedDeformConvPack(nn.Module):
 
 class PyramidDeformConv(nn.Module):
     """Weight holder for the cross-level deformable conv: a whole branch's
-    jobs (NHWC) run as one flat call (site "refine")."""
+    jobs (NHWC) run as one flat call (site "refine", at the mapping's
+    refine taps)."""
 
     site = "refine"
 
@@ -151,7 +152,8 @@ class PyramidDeformConv(nn.Module):
                 ) -> List[torch.Tensor]:
         return multilevel_pyramid_dcn(list(feats), list(jobs),
                                       self.weight.to(feats[0].dtype),
-                                      sampling[self.site])
+                                      sampling[self.site],
+                                      refine_taps(sampling))
 
 
 class PairedPyramidDeformConv(nn.Module):
@@ -177,7 +179,7 @@ class PairedPyramidDeformConv(nn.Module):
         return dual_pyramid_dcn(list(feats_a), list(feats_b), jobs,
                                 self.weight_a.to(feats_a[0].dtype),
                                 self.weight_b.to(feats_b[0].dtype),
-                                sampling[self.site])
+                                sampling[self.site], refine_taps(sampling))
 
 
 class DCNConvModule(nn.Module):

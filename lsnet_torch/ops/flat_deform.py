@@ -22,6 +22,13 @@ a read-only mapping from sampling site to mode at call time:
 ``inference_sampling()``) or ``INFERENCE_SAMPLING`` (the shipped inference
 default of ``lsnet_tpu/ops/flat_deform.py:178``, ``backbone=nearest``).
 
+The mapping may also carry a refine tap subset under ``REFINE_TAPS``
+(:func:`with_refine_taps`, the JAX package's ``LSNET_REFINE_TAPS``): the
+3x3 refine-site gathers then sample only the kept taps, e.g. the plus
+``(1, 3, 4, 5, 7)``, and the weight's dropped taps get a zero gradient.
+Only the entry points read the environment variable; the layers read
+the mapping.
+
 Every step from offsets and masks to the corner weights is differentiable
 torch code (``floor``, ``round`` and the range compares pass no gradient,
 the tent weights ``1 - |ys - y0 - dy|`` do, as in JAX); the contraction is
@@ -57,6 +64,13 @@ TRAIN_SAMPLING = MappingProxyType({s: "bilinear" for s in SITES})
 # per tap), bilinear at tower and refine.
 INFERENCE_SAMPLING = MappingProxyType(
     {"backbone": "nearest", "tower": "bilinear", "refine": "bilinear"})
+
+# The key of a sampling mapping that holds the refine tap subset (row-major
+# indices into the 3x3 grid), absent for all nine taps.
+REFINE_TAPS = "refine_taps"
+# The plus-shaped subset of ``LSNET_REFINE_TAPS=5``: the centre and the
+# four edge centres (``lsnet_tpu/ops/flat_deform.py`` ``_PLUS_TAPS``).
+_PLUS_TAPS = (1, 3, 4, 5, 7)
 
 
 def _parse_spec(spec: Optional[str]) -> Tuple[str, dict]:
@@ -96,6 +110,40 @@ def sampling_spec(spec: Optional[str]) -> str:
     return ",".join(f"{s}={m}" for s, m in sorted(listed.items()))
 
 
+def parse_refine_taps(spec: Optional[str]) -> Optional[Tuple[int, ...]]:
+    """The kept taps of a ``LSNET_REFINE_TAPS`` spec: ``"5"`` the plus
+    taps, ``"9"``, empty or None all nine (None), ``"i,j,..."`` the listed
+    row-major indices (JAX's ``_refine_taps``)."""
+    spec = (spec or "").strip()
+    if not spec or spec == "9":
+        return None
+    if spec == "5":
+        return _PLUS_TAPS
+    taps = tuple(int(t) for t in spec.split(","))
+    if not taps or any(not 0 <= t < 9 for t in taps):
+        raise ValueError(f"refine taps {spec!r}: want 5, 9 or indices "
+                         "0..8 of the 3x3 grid")
+    return taps
+
+
+def with_refine_taps(sampling: Mapping[str, str],
+                     spec: Optional[str]) -> Mapping[str, str]:
+    """``sampling`` with the refine taps of ``spec`` (None or ``"9"``: all
+    nine, the key dropped; a mapping without taps comes back as it is)."""
+    taps = parse_refine_taps(spec)
+    if taps is None and REFINE_TAPS not in sampling:
+        return sampling
+    out = {k: v for k, v in sampling.items() if k != REFINE_TAPS}
+    if taps is not None:
+        out[REFINE_TAPS] = taps
+    return MappingProxyType(out)
+
+
+def refine_taps(sampling: Mapping[str, str]) -> Optional[Tuple[int, ...]]:
+    """The refine tap subset a sampling mapping carries, or None."""
+    return sampling.get(REFINE_TAPS)
+
+
 class FlatLevels(NamedTuple):
     """Concatenated multi-level feature buffer + static level metadata."""
     flat: torch.Tensor               # (B * sum(HW_l), C)
@@ -129,6 +177,10 @@ class SampleJob(NamedTuple):
     stride: Tuple[int, int]
     padding: Tuple[int, int]
     dilation: Tuple[int, int]
+    # a tap subset (kh, kw, row-major indices kept): the offset and mask
+    # hold only the kept taps, whose base displacements come from the full
+    # (kh, kw) grid
+    taps: Optional[Tuple[int, int, Tuple[int, ...]]] = None
 
 
 def _job_coords(job: SampleJob, K: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -136,7 +188,11 @@ def _job_coords(job: SampleJob, K: int) -> Tuple[torch.Tensor, torch.Tensor]:
     pixel units, always f32. The pyramid scale multiplies the base grid,
     not the offset."""
     B, Ho, Wo, _ = job.offset.shape
-    kh = kw = math.isqrt(K)
+    if job.taps is not None:
+        kh, kw, sel = job.taps
+    else:
+        kh = kw = math.isqrt(K)
+        sel = None
     f32 = torch.float32
     dev = job.offset.device
     off = job.offset.reshape(B, Ho, Wo, K, 2).to(f32)
@@ -148,6 +204,8 @@ def _job_coords(job: SampleJob, K: int) -> Tuple[torch.Tensor, torch.Tensor]:
            * job.dilation[0]).repeat_interleave(kw)
     dxx = (torch.arange(kw, dtype=f32, device=dev)
            * job.dilation[1]).repeat(kh)
+    if sel is not None:
+        dyy, dxx = dyy[list(sel)], dxx[list(sel)]
     base_y = (hs + dyy.view(1, 1, 1, K)) * job.scale[0]
     base_x = (ws + dxx.view(1, 1, 1, K)) * job.scale[1]
     ys = (base_y + off[..., 0]).permute(0, 3, 1, 2)
@@ -244,6 +302,32 @@ def _corner_tables(levels: FlatLevels, jobs: Sequence[SampleJob], K: int,
     return idx, w, _gather_indices_tap(levels, held, K, "bilinear")
 
 
+def _apply_refine_taps(jobs: Sequence[SampleJob],
+                       weights: Sequence[torch.Tensor],
+                       taps: Optional[Sequence[int]]):
+    """Jobs and HWIO weights cut to the refine tap subset ``taps``
+    (JAX's ``_apply_refine_taps``): the offsets and masks keep the listed
+    taps, each weight becomes a (1, T, C, cout) kernel of them. A no-op
+    without a subset or for a kernel that is not 3x3."""
+    kh, kw = weights[0].shape[:2]
+    K = kh * kw
+    if taps is None or K != 9:
+        return list(jobs), list(weights)
+    sel = list(taps)
+    T = len(sel)
+    out_jobs = []
+    for j in jobs:
+        B, Ho, Wo, _ = j.offset.shape
+        off = j.offset.reshape(B, Ho, Wo, K, 2)[:, :, :, sel, :]
+        out_jobs.append(j._replace(
+            offset=off.reshape(B, Ho, Wo, 2 * T),
+            mask=None if j.mask is None else j.mask[..., sel],
+            taps=(kh, kw, tuple(sel))))
+    out_w = [w.reshape(K, *w.shape[2:])[sel].reshape(1, T, *w.shape[2:])
+             for w in weights]
+    return out_jobs, out_w
+
+
 def _tap_weight(weight: torch.Tensor, dtype) -> torch.Tensor:
     """HWIO (kh, kw, C/G, cout) -> (K, C/G, cout)."""
     kh, kw, cin, cout = weight.shape
@@ -265,11 +349,16 @@ def _split_jobs(out: torch.Tensor, jobs: Sequence[SampleJob],
 def batched_deform_matmul(levels: FlatLevels, jobs: Sequence[SampleJob],
                           weight: torch.Tensor,
                           sampling: str = DEFAULT_SAMPLING,
-                          groups: int = 1) -> List[torch.Tensor]:
+                          groups: int = 1,
+                          taps: Optional[Sequence[int]] = None
+                          ) -> List[torch.Tensor]:
     """Run all jobs through one corner table and one kernel launch.
 
     weight: HWIO (kh, kw, C/groups, cout), group-major cout when grouped.
+    ``taps``: the refine tap subset of an ungrouped 3x3 call, or None.
     Returns per-job (B, Ho, Wo, cout)."""
+    if groups == 1:
+        jobs, (weight,) = _apply_refine_taps(jobs, [weight], taps)
     K = weight.shape[0] * weight.shape[1]
     idx, w, ste = _corner_tables(levels, jobs, K, sampling)
     flat = levels.flat.contiguous()
@@ -306,24 +395,31 @@ def multilevel_modulated_dcn(feats: Sequence[torch.Tensor],
 
 def multilevel_pyramid_dcn(feats: Sequence[torch.Tensor],
                            jobs: Sequence[SampleJob], weight: torch.Tensor,
-                           sampling: str = DEFAULT_SAMPLING
+                           sampling: str = DEFAULT_SAMPLING,
+                           taps: Optional[Sequence[int]] = None
                            ) -> List[torch.Tensor]:
     """PyramidDeformConv for a whole branch (all output levels x all source
-    levels): one kernel launch."""
-    return batched_deform_matmul(pack_levels(feats), jobs, weight, sampling)
+    levels): one kernel launch, at the refine tap subset ``taps`` when
+    given."""
+    return batched_deform_matmul(pack_levels(feats), jobs, weight, sampling,
+                                 taps=taps)
 
 
 def dual_pyramid_dcn(feats_a: Sequence[torch.Tensor],
                      feats_b: Sequence[torch.Tensor],
                      jobs: Sequence[SampleJob], weight_a: torch.Tensor,
                      weight_b: torch.Tensor,
-                     sampling: str = DEFAULT_SAMPLING
+                     sampling: str = DEFAULT_SAMPLING,
+                     taps: Optional[Sequence[int]] = None
                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Two branches sampled at identical positions (the refine and cls
     branches share one offset field): one corner table, two launches
-    (autograd sums the two launches' gradients of the table)."""
+    (autograd sums the two launches' gradients of the table); both at the
+    refine tap subset ``taps`` when given."""
     if [f.shape[1:3] for f in feats_a] != [f.shape[1:3] for f in feats_b]:
         raise ValueError("dual_pyramid_dcn: branches differ in level shapes")
+    jobs, (weight_a, weight_b) = _apply_refine_taps(
+        jobs, [weight_a, weight_b], taps)
     lv_a = pack_levels(feats_a)
     lv_b = pack_levels(feats_b)
     K = weight_a.shape[0] * weight_a.shape[1]

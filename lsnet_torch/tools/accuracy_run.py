@@ -118,11 +118,12 @@ def accuracy_cfg(args, train_ann: str, train_dir: str, val_ann: str,
 
 
 def sampling_name(sampling: Mapping[str, str]) -> str:
-    """A site->mode mapping as a spec string that
+    """A sampling mapping's sites as a spec string that
     ``sampling_from_spec`` reads back: ``bilinear``, or the sites that
     are not bilinear as sorted ``site=mode``."""
-    listed = [f"{s}={m}" for s, m in sorted(sampling.items())
-              if m != "bilinear"]
+    from ..ops.flat_deform import SITES
+    listed = [f"{s}={sampling[s]}" for s in sorted(SITES)
+              if sampling[s] != "bilinear"]
     return ",".join(listed) or "bilinear"
 
 
@@ -180,7 +181,7 @@ def main(argv=None) -> Dict[str, Any]:
 
     from ..models import build_detector
     from ..ops.flat_deform import sampling_from_spec
-    from ..train.checkpoint import restore_eval_state
+    from ..train.checkpoint import refine_taps_env, restore_eval_state
     from ..train.loop import (eval_sampling, evaluate_detector,
                               runner_device, train_detector)
 
@@ -208,7 +209,7 @@ def main(argv=None) -> Dict[str, Any]:
                              eval_interval=10 ** 9, device=device)
         model, meta = out["model"], None
         train_s = time.perf_counter() - t0
-    sampling = eval_sampling(explicit, meta)
+    sampling = eval_sampling(explicit, meta, refine_taps_env())
     t1 = time.perf_counter()
     metrics = evaluate_detector(cfg, model, (IMG_H, IMG_W),
                                 batch_size=args.batch, sampling=sampling)

@@ -6,7 +6,8 @@
 
 The model is built from the config, takes the checkpoint's f32 master
 weights and runs with the sampling the checkpoint deploys with (its
-meta). ``--eval`` names the metric (bbox, segm or keypoints); it must be
+meta), at the refine taps it trained on unless ``LSNET_REFINE_TAPS`` is
+set. ``--eval`` names the metric (bbox, segm or keypoints); it must be
 the task's own. ``--options`` overrides the config as in
 ``lsnet_torch.tools.train`` (the JAX ``tools/test.py`` has no such
 option), so a run and its test can share the same overrides. It runs on
@@ -32,7 +33,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from ..models import build_detector
-    from ..train.checkpoint import restore_eval_state
+    from ..train.checkpoint import refine_taps_env, restore_eval_state
     from ..train.loop import (IOU_TYPE, check_runnable, eval_sampling,
                               evaluate_detector, head_cfg, runner_device)
     from ..utils.config import Config
@@ -55,7 +56,8 @@ def main(argv=None):
     canvas = tuple(cfg.get("canvas_shape") or (800, 1344))
     metrics = evaluate_detector(cfg, model, canvas,
                                 max_images=args.max_images,
-                                sampling=eval_sampling(meta=meta))
+                                sampling=eval_sampling(meta=meta,
+                                                       taps=refine_taps_env()))
     print(json.dumps(metrics, indent=2))
     if args.out:
         with open(args.out, "w") as f:

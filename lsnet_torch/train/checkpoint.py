@@ -22,10 +22,12 @@ module, ready for its ``load_state_dict``. A key they do not recognise
 raises: a partial load never passes silently.
 
 The meta records the train sampling as the JAX spec string
-(``dcn_sampling_train``: ``"bilinear"`` or sorted ``site=mode,...``), so
-metas read the same in both packages. :func:`deploy_sampling` turns it
-into the site->mode mapping an evaluation of the checkpoint runs with. It
-is a pure function: no process-wide default is armed, so restoring one
+(``dcn_sampling_train``: ``"bilinear"`` or sorted ``site=mode,...``) and,
+when training ran on a refine tap subset, its ``LSNET_REFINE_TAPS`` spec
+(``refine_taps_train``), so metas read the same in both packages.
+:func:`deploy_sampling` and :func:`deploy_taps` turn them into the site
+modes and the refine taps an evaluation of the checkpoint runs with. They
+are pure functions: no process-wide default is armed, so restoring one
 checkpoint cannot change how a later one deploys.
 """
 
@@ -34,7 +36,6 @@ from __future__ import annotations
 import os
 import re
 from collections import OrderedDict
-from types import MappingProxyType
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -48,10 +49,24 @@ from .optim import ClippedSGD
 _STEP_FILE = re.compile(r"step_(\d+)\.pt")
 
 
-def train_meta(spec: Optional[str] = None) -> Dict[str, Any]:
+def refine_taps_env() -> Optional[str]:
+    """The ``LSNET_REFINE_TAPS`` spec of the process, or None when unset or
+    empty. Only the entry points (the runner, ``tools.test``,
+    ``tools.test_robustness``, ``tools.accuracy_run``,
+    ``apis.init_detector``) call it; they hand the taps on in the sampling
+    mapping."""
+    return os.environ.get("LSNET_REFINE_TAPS") or None
+
+
+def train_meta(spec: Optional[str] = None,
+               taps: Optional[str] = None) -> Dict[str, Any]:
     """The train-time record of a save: the train sampling spec (None is
-    bilinear everywhere) in the JAX package's form."""
-    return {"dcn_sampling_train": sampling_spec(spec)}
+    bilinear everywhere) in the JAX package's form, and the refine taps
+    spec of the run (``refine_taps_train``, only when one was set)."""
+    meta: Dict[str, Any] = {"dcn_sampling_train": sampling_spec(spec)}
+    if taps:
+        meta["refine_taps_train"] = taps
+    return meta
 
 
 def deploy_sampling(meta: Optional[Mapping[str, Any]]) -> Mapping[str, str]:
@@ -61,12 +76,6 @@ def deploy_sampling(meta: Optional[Mapping[str, Any]]) -> Mapping[str, str]:
     the shipped default ``INFERENCE_SAMPLING``. No meta: the default."""
     if not meta:
         return INFERENCE_SAMPLING
-    if meta.get("refine_taps_train"):
-        raise NotImplementedError(
-            "a checkpoint trained on refine taps "
-            f"{meta['refine_taps_train']!r}: refine taps 5 are not ported "
-            "yet (ROADMAP Queue 1 \"Leftovers on the surface already "
-            "ported\")")
     train = sampling_from_spec(meta.get("dcn_sampling_train"))
     deploy = {}
     for site in SITES:
@@ -77,7 +86,16 @@ def deploy_sampling(meta: Optional[Mapping[str, Any]]) -> Mapping[str, str]:
             deploy[site] = mode
         else:
             deploy[site] = INFERENCE_SAMPLING[site]
-    return MappingProxyType(deploy)
+    return deploy
+
+
+def deploy_taps(meta: Optional[Mapping[str, Any]],
+                taps: Optional[str] = None) -> Optional[str]:
+    """The refine taps spec a checkpoint deploys with: the explicit
+    ``taps`` where one is given (``"9"`` is all nine), else the ones it
+    trained on (JAX's ``arm_deploy_policy``: the taps must match train
+    time), else None."""
+    return taps or (meta or {}).get("refine_taps_train")
 
 
 def save_checkpoint(ckpt_dir: str, model: torch.nn.Module,

@@ -13,7 +13,9 @@ The module tree keeps its structure (the BN stays, as ``x + bias`` up to
 one ULP of the rsqrt), so a fused model loads and saves like an unfused
 one. Pairing rule (the JAX package's, on the port's module names, which
 are flax's): a ``FrozenBatchNorm`` child ``bnN``, ``norm`` or ``X_bn``
-with a sibling ``nn.Conv2d`` ``convN``, ``conv`` or ``X_conv``. A
+with a sibling ``nn.Conv2d`` ``convN``, ``conv`` or ``X_conv``; the
+module types are read from the state dict's keys, so a checkpoint fuses
+without its model. A
 deformable pack beside a BN is not an ``nn.Conv2d`` and is skipped, as
 JAX skips a pair without a ``kernel``. The rule knows neither the deep
 stem's ``stem_bnN`` nor Res2Net's ``bn2_i``: those stay unfused, as in
@@ -23,12 +25,10 @@ JAX.
 from __future__ import annotations
 
 import re
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-
-from ..models.layers import FrozenBatchNorm
 
 
 def _conv_key_for(bn_key: str, siblings) -> Optional[str]:
@@ -46,32 +46,69 @@ def _conv_key_for(bn_key: str, siblings) -> Optional[str]:
 
 @torch.no_grad()
 def fuse_conv_bn(model: nn.Module, epsilon: float = 1e-5) -> List[str]:
-    """Fold every FrozenBatchNorm of ``model`` into its conv, in place.
-    Returns the fused BNs as JAX names them (``/backbone/layer1_0/bn1``),
-    in module order."""
-    fused: List[str] = []
-    for path, parent in model.named_modules():
-        children = dict(parent.named_children())
-        for key, bn in children.items():
-            if not isinstance(bn, FrozenBatchNorm):
-                continue
-            conv_key = _conv_key_for(key, children)
-            conv = children.get(conv_key)
-            if not isinstance(conv, nn.Conv2d):
-                continue
-            mean = bn.mean.double()
-            factor = bn.weight.double() / torch.sqrt(bn.var.double()
-                                                     + epsilon)
-            conv.weight.copy_(conv.weight.double()
-                              * factor.view(-1, 1, 1, 1))
-            conv_b = 0.0
-            if conv.bias is not None:
-                conv_b = conv.bias.double()
-                conv.bias.zero_()
-            bn.bias.copy_((conv_b - mean) * factor + bn.bias.double())
-            bn.weight.fill_((1.0 + epsilon) ** 0.5)
-            bn.mean.zero_()
-            bn.var.fill_(1.0)
-            fused.append("/" + "/".join(filter(None, path.split(".")
-                                               + [key])))
+    """Fold every FrozenBatchNorm of ``model`` into its conv, in place
+    (:func:`fuse_state_dict` on its state dict). Returns the fused BNs as
+    JAX names them (``/backbone/layer1_0/bn1``), in module order."""
+    state, fused = fuse_state_dict(model.state_dict(), epsilon)
+    model.load_state_dict(state)
     return fused
+
+
+_BN_KEYS = {"weight", "bias", "mean", "var"}
+
+
+@torch.no_grad()
+def fuse_state_dict(state: Dict[str, torch.Tensor], epsilon: float = 1e-5
+                    ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """The fused copy of a model's ``state_dict`` (a checkpoint's, with no
+    config needed) and the fused BNs' names.
+
+    The module types are read from the keys: a FrozenBatchNorm is a module
+    whose entries are exactly weight, bias, mean and var; an ``nn.Conv2d``
+    one whose entries are a 4-d weight and perhaps a bias (a deformable
+    pack has ``conv_offset`` entries too, and is skipped)."""
+    leaves: Dict[str, Dict[str, str]] = {}
+    for key in state:
+        mod, _, leaf = key.rpartition(".")
+        leaves.setdefault(mod, {})[leaf] = key
+    prefixes = set()
+    for mod in leaves:
+        parts = mod.split(".")
+        prefixes.update(".".join(parts[:i]) for i in range(1, len(parts)))
+    children: Dict[str, set] = {}
+    for mod in set(leaves) | prefixes:
+        parent, _, key = mod.rpartition(".")
+        children.setdefault(parent, set()).add(key)
+    out = dict(state)
+    fused: List[str] = []
+    for mod, bn in leaves.items():
+        if set(bn) != _BN_KEYS or mod in prefixes:
+            continue
+        parent, _, key = mod.rpartition(".")
+        conv_key = _conv_key_for(key, children[parent])
+        if conv_key is None:
+            continue
+        conv = leaves.get(f"{parent}.{conv_key}" if parent else conv_key, {})
+        if (f"{parent}.{conv_key}" in prefixes or "weight" not in conv
+                or not set(conv) <= {"weight", "bias"}
+                or state[conv["weight"]].dim() != 4):
+            continue
+        mean = state[bn["mean"]].double()
+        factor = state[bn["weight"]].double() / torch.sqrt(
+            state[bn["var"]].double() + epsilon)
+        conv_b = 0.0
+        if "bias" in conv:
+            conv_b = state[conv["bias"]].double()
+            out[conv["bias"]] = torch.zeros_like(state[conv["bias"]])
+        w = state[conv["weight"]]
+        out[conv["weight"]] = (w.double() * factor.view(-1, 1, 1, 1)).to(
+            w.dtype)
+        out[bn["bias"]] = ((conv_b - mean) * factor
+                           + state[bn["bias"]].double()).to(
+                               state[bn["bias"]].dtype)
+        out[bn["weight"]] = torch.full_like(state[bn["weight"]],
+                                            (1.0 + epsilon) ** 0.5)
+        out[bn["mean"]] = torch.zeros_like(state[bn["mean"]])
+        out[bn["var"]] = torch.ones_like(state[bn["var"]])
+        fused.append("/" + "/".join(mod.split(".")))
+    return out, fused

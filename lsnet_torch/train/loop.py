@@ -63,9 +63,10 @@ from ..evalkit.evaluator import (coco_gt_from_annotations, detections_to_coco,
 from ..models import DETECTORS, HEADS, build_detector, head_cfg_of
 from ..models.init import init_weights_
 from ..ops.flat_deform import (INFERENCE_SAMPLING, TRAIN_SAMPLING,
-                               sampling_from_spec)
+                               sampling_from_spec, with_refine_taps)
 from ..utils.logging import JsonLogger, collect_env
-from .checkpoint import (deploy_sampling, load_pretrained_backbone,
+from .checkpoint import (deploy_sampling, deploy_taps,
+                         load_pretrained_backbone, refine_taps_env,
                          restore_checkpoint, train_meta)
 from .hooks import RunnerContext, build_hooks, call_hooks
 from .optim import build_lr_schedule, build_optimizer
@@ -330,16 +331,15 @@ def data_task(cfg, split: str) -> str:
 
 
 def eval_sampling(explicit: Optional[Mapping[str, str]] = None,
-                  meta: Optional[Mapping[str, Any]] = None
-                  ) -> Mapping[str, str]:
-    """The sampling an evaluation runs: an explicit choice, else the
-    checkpoint's deployed sampling (``deploy_sampling(meta)``), else
-    ``INFERENCE_SAMPLING``."""
-    if explicit is not None:
-        return explicit
-    if meta:
-        return deploy_sampling(meta)
-    return INFERENCE_SAMPLING
+                  meta: Optional[Mapping[str, Any]] = None,
+                  taps: Optional[str] = None) -> Mapping[str, str]:
+    """The sampling an evaluation runs: an explicit site->mode choice,
+    else the checkpoint's deployed sampling (``deploy_sampling(meta)``,
+    ``INFERENCE_SAMPLING`` without one); at the refine taps of
+    ``deploy_taps(meta, taps)``: an explicit ``taps`` spec
+    (``LSNET_REFINE_TAPS``), else the ones the checkpoint trained on."""
+    modes = explicit if explicit is not None else deploy_sampling(meta)
+    return with_refine_taps(modes, deploy_taps(meta, taps))
 
 
 def runner_device(device) -> torch.device:
@@ -357,6 +357,9 @@ def _dataset_cfg(cfg, split: str, **kw) -> DatasetConfig:
     raw = d.get("img_scale", (1333, 800))
     scale = (tuple(tuple(s) for s in raw)
              if isinstance(raw[0], (list, tuple)) else tuple(raw))
+    if split == "val" and d.get("corruption") is not None:
+        # the robustness benchmark: (name, severity) on each loaded image
+        kw["corruption"] = (d.corruption[0], int(d.corruption[1]))
     return DatasetConfig(
         ann_file=d.ann_file, img_prefix=d.img_prefix,
         task=data_task(cfg, split), num_vectors=head_num_vectors(cfg),
@@ -377,8 +380,10 @@ def train_detector(cfg, work_dir: str, *, total_epochs: Optional[int] = None,
     print("environment:", dict(collect_env()), flush=True)
 
     spec = cfg.get("train_cfg", {}).get("dcn_sampling")
-    sampling = sampling_from_spec(str(spec)) if spec else TRAIN_SAMPLING
-    meta = train_meta(str(spec) if spec else None)
+    taps = refine_taps_env()
+    modes = sampling_from_spec(str(spec)) if spec else TRAIN_SAMPLING
+    sampling = with_refine_taps(modes, taps)
+    meta = train_meta(str(spec) if spec else None, taps)
 
     data_cfg = cfg.data
     train = data_cfg.train
@@ -421,10 +426,10 @@ def train_detector(cfg, work_dir: str, *, total_epochs: Optional[int] = None,
     if resume_from:
         info = restore_checkpoint(resume_from, model, optimizer)
         saved = info["meta"].get("dcn_sampling_train")
-        if sampling_from_spec(saved) != sampling:
+        if sampling_from_spec(saved) != modes:
             raise ValueError(
                 f"resuming {resume_from}, trained with DCN sampling "
-                f"{saved!r}, with train sampling {dict(sampling)}: set "
+                f"{saved!r}, with train sampling {dict(modes)}: set "
                 f"train_cfg.dcn_sampling={saved!r} to resume it")
         start_epoch = info["step"] // steps_per_epoch
         print(f"resumed from {resume_from} at epoch {start_epoch}",
@@ -446,10 +451,9 @@ def train_detector(cfg, work_dir: str, *, total_epochs: Optional[int] = None,
     ctx.model, ctx.optimizer, ctx.meta = model, optimizer, meta
     ctx.global_step = optimizer.count
     if "val" in cfg.data:
-        explicit = sampling if spec else None
         ctx.eval_fn = lambda: evaluate_detector(
             cfg, model, canvas, max_images=cfg.get("eval_max_images"),
-            sampling=eval_sampling(explicit))
+            sampling=eval_sampling(modes if spec else None, taps=taps))
 
     call_hooks(hooks, "before_train", ctx)
     for epoch in range(start_epoch, epochs):

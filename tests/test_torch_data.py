@@ -121,14 +121,20 @@ def test_batch_to_device_keeps_keys_and_dtypes(shapes_set):
 
 
 def test_corruptions_name_their_roadmap_item(shapes_set):
+    """The val dataset's corruption hook and the ``Corrupt`` augmentation
+    step give the JAX package's pixels (both corrupt the loaded image with
+    the same seeded suite)."""
     ann, img = shapes_set
-    _, pcfg = _dataset_cfgs(ann, img, "bbox", corruption=("gaussian_noise",
-                                                          1))
-    with pytest.raises(NotImplementedError, match="Queue 1 \"Inherited zoo\""):
-        pcoco.CocoDataset(pcfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 \"Inherited zoo\""):
-        ptf.corrupt_sample({"image": np.zeros((4, 4, 3), np.uint8)},
-                           "gaussian_noise")
+    jcfg, pcfg = _dataset_cfgs(ann, img, "bbox", corruption=(
+        "gaussian_noise", 1))
+    got = pcoco.CocoDataset(pcfg, test_mode=True).get_sample(0)["image"]
+    want = jcoco.CocoDataset(jcfg, test_mode=True).get_sample(0)["image"]
+    np.testing.assert_array_equal(got, want)
+    raw = {"image": np.random.RandomState(0).randint(
+        0, 256, (8, 8, 3)).astype(np.uint8)}
+    np.testing.assert_array_equal(
+        ptf.corrupt_sample(raw, "gaussian_noise")["image"],
+        jtf.corrupt_sample(raw, "gaussian_noise")["image"])
 
 
 def test_shapes_set_equals_the_jax_tool(tmp_path):

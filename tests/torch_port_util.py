@@ -175,3 +175,31 @@ def gt_batch(hw, num_classes, m=5, seed=4, empty=False):
                 gt_labels=rng.randint(0, num_classes, (2, m)).astype(
                     np.int32),
                 gt_valid=valid, img_shape=shape, pad_shape=shape.copy())
+
+
+def write_narrow_config(path, ann_file, img_prefix, hw=(64, 96), **extra):
+    """A narrow R18 LSNet bbox config file over a procedural COCO set
+    (the shipped R50 file with a 32-wide neck and head, 3 classes),
+    readable by ``Config.fromfile`` of both packages; returns ``path``."""
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    norm = dict(type="GN", num_groups=8)
+    data = dict(ann_file=ann_file, img_prefix=img_prefix,
+                img_scale=(hw[1], hw[0]))
+    cfg = dict(
+        _base_=os.path.join(repo, "configs", "lsnet",
+                            "lsnet_bbox_r50_fpn_1x_coco.py"),
+        model=dict(
+            backbone=dict(depth=18, frozen_stages=-1),
+            neck=dict(in_channels=[64, 128, 256, 512], out_channels=32,
+                      norm_cfg=norm),
+            bbox_head=dict(in_channels=32, feat_channels=32,
+                           point_feat_channels=32, stacked_convs=1,
+                           norm_cfg=norm, num_classes=3)),
+        data=dict(samples_per_gpu=2, train=dict(data), val=dict(data),
+                  test=dict(data)),
+        canvas_shape=tuple(hw), test_cfg=dict(score_thr=0.008), **extra)
+    with open(path, "w") as f:
+        for k, v in cfg.items():
+            f.write(f"{k} = {v!r}\n")
+    return path
