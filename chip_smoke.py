@@ -156,22 +156,26 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ``lsnet_torch.tools.train`` (1 epoch of 2 steps on 4 procedural
    768x1280 images, an EvalHook on 2 more) and ``lsnet_torch.tools.test``
    on its checkpoint (metrics within 1e-4 of the hook's);
-11. the dense zoo: (a) each of the six shipped RetinaNet, GA-RetinaNet,
-   GA-RPN, FCOS, ATSS and GFL files as a narrow model (R50, feat 64, two
-   stacked convs, f32) on the card against the CPU: the head outputs,
-   then the loss, its terms and every parameter's gradient, at phase 3's
-   tolerances; K1's forward, bwd-data and bwd-weight against their plain
-   versions at Guided Anchoring's mask-free feature adaption (C = cout =
-   256, each level's job on its own level, scale 1, bilinear):
-   GA-RetinaNet's 44,800 px and GA-RPN's 179,046 (its FPN starts at C2),
-   f32 and bf16; (b) each file at full width, 80 classes, seeded weights:
+11. the dense zoo: (a) each of the thirteen shipped RetinaNet,
+   GA-RetinaNet, GA-RPN, FCOS, ATSS, GFL, FoveaBox, FSAF, FreeAnchor,
+   PISA RetinaNet, SSD300, PISA SSD300 and NAS-FCOS files as a narrow
+   model (R50, feat 64, two stacked convs, f32; the SSD files' fixed
+   VGG-16 and head on one 300x300 image in f64) on the card against the
+   CPU: the head outputs, then the loss, its terms and every parameter's
+   gradient, at phase 3's tolerances; K1's forward, bwd-data and
+   bwd-weight against their plain versions at Guided Anchoring's
+   mask-free feature adaption (C = cout = 256, each level's job on its
+   own level, scale 1, bilinear): GA-RetinaNet's 44,800 px and GA-RPN's
+   179,046 (its FPN starts at C2), f32 and bf16; (b) each file at full width, 80 classes, seeded weights:
    ``init_detector`` from a ``save_checkpoint`` file and
    ``inference_detector`` twice (GA-RPN, which the API refuses, through
-   ``detect`` only), ``detect`` at B=2 800x1344 bf16 and 2 train steps,
-   each profiled, with the K1 launches asserted (GA-RetinaNet 2, GA-RPN 1
-   a forward and of each backward kernel a step, the other four 0); (c)
-   GA-RetinaNet through ``lsnet_torch.tools.train`` and
-   ``lsnet_torch.tools.test``, as (10f);
+   ``detect`` only), ``detect`` at B=2 800x1344 bf16 (the SSD files at
+   B=8 300x300) and 2 train steps, each profiled, with the K1 launches
+   asserted (GA-RetinaNet 2, GA-RPN 1 a forward and of each backward
+   kernel a step, the other eleven 0); (c) GA-RetinaNet through
+   ``lsnet_torch.tools.train`` and ``lsnet_torch.tools.test``, as (10f);
+   (d) the SSD300 file the same way (its augmentations, its 300x300
+   canvas, no neck; 360x480 procedural images);
 12. refine taps and the port's user tools: (a) K1's forward, bwd-data and
    bwd-weight at K = 5 (``LSNET_REFINE_TAPS=5``: the plus taps) against
    their plain versions at the R50 bbox file's paired refine call (B=2,
@@ -382,22 +386,40 @@ RP_RUNNER_VAL_HW = [LAND] * 2    # one eval batch
 # feature adaptions (cls, reg), GA-RPN's one; RetinaNet, FCOS, ATSS and
 # GFL run none. GA-RPN's FPN starts at C2: its levels are at strides 4 to
 # 64, so its adaption reads B x 89,523 px (GA-RetinaNet's 22,400 a image)
+# FoveaBox, FSAF, FreeAnchor, PISA RetinaNet and NAS-FCOS on R50 at
+# 800x1344, B=2 as the rest; SSD300 and PISA SSD300 on their VGG-16 with
+# no neck, at 300x300 and their file's B=8; none runs K1
 ZOO_CONFIGS = {
-    "retina": os.path.join(REPO, "configs", "retinanet",
-                           "retinanet_r50_fpn_1x_coco.py"),
-    "ga_retina": os.path.join(REPO, "configs", "guided_anchoring",
-                              "ga_retinanet_r50_fpn_1x_coco.py"),
-    "ga_rpn": os.path.join(REPO, "configs", "guided_anchoring",
-                           "ga_rpn_r50_fpn_1x_coco.py"),
-    "fcos": os.path.join(REPO, "configs", "fcos", "fcos_r50_fpn_1x_coco.py"),
-    "atss": os.path.join(REPO, "configs", "atss", "atss_r50_fpn_1x_coco.py"),
-    "gfl": os.path.join(REPO, "configs", "gfl", "gfl_r50_fpn_1x_coco.py")}
+    name: os.path.join(REPO, "configs", *path.split("/")) for name, path in (
+        ("retina", "retinanet/retinanet_r50_fpn_1x_coco.py"),
+        ("ga_retina", "guided_anchoring/ga_retinanet_r50_fpn_1x_coco.py"),
+        ("ga_rpn", "guided_anchoring/ga_rpn_r50_fpn_1x_coco.py"),
+        ("fcos", "fcos/fcos_r50_fpn_1x_coco.py"),
+        ("atss", "atss/atss_r50_fpn_1x_coco.py"),
+        ("gfl", "gfl/gfl_r50_fpn_1x_coco.py"),
+        ("fovea", "foveabox/fovea_r50_fpn_4x4_1x_coco.py"),
+        ("fsaf", "fsaf/fsaf_r50_fpn_1x_coco.py"),
+        ("free_anchor",
+         "free_anchor/retinanet_free_anchor_r50_fpn_1x_coco.py"),
+        ("pisa_retina", "pisa/pisa_retinanet_r50_fpn_1x_coco.py"),
+        ("ssd", "ssd/ssd300_coco.py"),
+        ("pisa_ssd", "pisa/pisa_ssd300_coco.py"),
+        ("nas_fcos", "nas_fcos/nas_fcos_fcoshead_r50_fpn_1x_coco.py"))}
 ZOO_LABELS = {"retina": "RetinaNet", "ga_retina": "GA-RetinaNet",
               "ga_rpn": "GA-RPN", "fcos": "FCOS", "atss": "ATSS",
-              "gfl": "GFL"}
+              "gfl": "GFL", "fovea": "FoveaBox", "fsaf": "FSAF",
+              "free_anchor": "FreeAnchor", "pisa_retina": "PISA-RetinaNet",
+              "ssd": "SSD300", "pisa_ssd": "PISA-SSD300",
+              "nas_fcos": "NAS-FCOS"}
+ZOO_SSD = ("ssd", "pisa_ssd")
+SSD_B, SSD_HW = 8, (300, 300)
 ZOO_K1_PER_FORWARD = {"ga_retina": 2, "ga_rpn": 1}
 GA_RPN_LEVELS = [(200, 336)] + LEVELS[:4]
 ZOO_TRAIN_STEPS = 2              # counted train steps of phase 11b
+# phase 11d: the SSD300 file's runner on smaller procedural images (its
+# Expand augmentation grows an image up to 4x a side before the crop)
+SSD_RUNNER_TRAIN_HW = [(360, 480), (480, 360)] * 2
+SSD_RUNNER_VAL_HW = [(360, 480)] * 2
 
 
 LOG_PATH = os.environ.get("CHIP_SMOKE_LOG")    # optional copy of the log
@@ -1326,13 +1348,17 @@ def set_classes(cfg, n):
     return head.get("num_classes", 1)
 
 
-def outputs_card_vs_cpu(label, cfg, sampling=fd.TRAIN_SAMPLING):
+def outputs_card_vs_cpu(label, cfg, sampling=fd.TRAIN_SAMPLING,
+                        hw=(96, 128), dtype=torch.float32, batch=2):
     """Phase 3a for one model: the head outputs of ``cfg`` (8 classes)
-    on the card against the CPU, 1e-3 of max(1, max|ref|)."""
+    on the card against the CPU, 1e-3 of max(1, max|ref|), on ``batch``
+    images at ``hw`` in ``dtype``."""
     set_classes(cfg, 8)
-    cpu = unit_bn_scales_(init_model(cfg, device="cpu", seed=1))
-    gpu = unit_bn_scales_(init_model(cfg, device="cuda", seed=1))
-    images = torch.randn(2, 96, 128, 3,
+    cpu = unit_bn_scales_(init_model(cfg, device="cpu", seed=1,
+                                     dtype=dtype))
+    gpu = unit_bn_scales_(init_model(cfg, device="cuda", seed=1,
+                                     dtype=dtype))
+    images = torch.randn(batch, *hw, 3, dtype=dtype,
                          generator=torch.Generator().manual_seed(1))
     with torch.inference_mode():
         want = cpu(images, sampling)
@@ -1349,11 +1375,13 @@ def outputs_card_vs_cpu(label, cfg, sampling=fd.TRAIN_SAMPLING):
 
 
 def drive_main_path(label, cfg, grouped_per_forward, task="bbox", k1=None,
-                    config=None):
-    """Phase 4: a full-width model end to end, B=2 at 800x1344, bf16, with
-    the task's own test settings (those of the ``config`` file where
-    given) and the head's decode (``train.loop.decode_for``); ``k1`` K1
-    launches a forward (K1_PER_FORWARD[task] unless given)."""
+                    config=None, batch=B, hw=(H, W)):
+    """Phase 4: a full-width model end to end, B=2 at 800x1344 (or
+    ``batch`` images at ``hw``), bf16, with the task's own test settings
+    (those of the ``config`` file where given) and the head's decode
+    (``train.loop.decode_for``); ``k1`` K1 launches a forward
+    (K1_PER_FORWARD[task] unless given)."""
+    B, (H, W) = batch, hw
     k1 = K1_PER_FORWARD[task] if k1 is None else k1
     t0 = time.perf_counter()
     model = init_model(cfg, device="cuda", seed=0, dtype=torch.bfloat16)
@@ -1471,19 +1499,21 @@ def check_small_gradients(task):
                           loss_config(task, hw, 8), hw)
 
 
-def gradients_card_vs_cpu(label, cfg, lcfg, hw, sampling=fd.TRAIN_SAMPLING):
+def gradients_card_vs_cpu(label, cfg, lcfg, hw, sampling=fd.TRAIN_SAMPLING,
+                          dtype=torch.float32, batch=2):
     """Phase 3b for one model: the loss (``runner_step.LOSSES`` of the
     config's type), each of its terms and every parameter's gradient of
-    ``cfg`` (8 classes) on the card against the CPU, f32."""
+    ``cfg`` (8 classes) on the card against the CPU, ``batch`` images,
+    the model in ``dtype`` (f32 unless given)."""
     set_classes(cfg, 8)
     loss_fn = runner_step.LOSSES[type(lcfg)]
     grads = {}
     for device in ("cpu", "cuda"):
         model = unit_bn_scales_(init_model(cfg, device=device, seed=1,
-                                           train=True))
-        batch = synthetic_batch(2, hw, 4, 8, 1, device)
-        outs = model(batch["image"], sampling)
-        total, terms = loss_fn(outs, batch, lcfg)
+                                           train=True, dtype=dtype))
+        data = synthetic_batch(batch, hw, 4, 8, 1, device)
+        outs = model(data["image"].to(dtype), sampling)
+        total, terms = loss_fn(outs, data, lcfg)
         names = [n for n, p in model.named_parameters() if p.requires_grad]
         got = torch.autograd.grad(
             total, [p for p in model.parameters() if p.requires_grad])
@@ -1536,15 +1566,16 @@ def zero_launch_counts():
 
 
 def drive_train_path(task, cfg, lcfg=None, k1=None, steps=None,
-                     label=None, grouped=GROUPED_PER_FORWARD,
-                     **optim_kwargs):
+                     label=None, grouped=GROUPED_PER_FORWARD, batch=B,
+                     hw=(H, W), **optim_kwargs):
     """Phase 4b: train steps of the full-width X-101-64x4d-DCN in
     ``task`` (or of the model ``cfg`` names: ``label``, ``grouped``
-    grouped launches a forward), B=2 at 800x1344, bf16 compute over f32
-    master weights; the loss config ``lcfg`` (the task's unless given),
-    ``k1`` K1 launches a forward (K1_PER_FORWARD[task] unless given),
-    ``steps`` counted steps (TRAIN_STEPS unless given), ``optim_kwargs``
-    to the optimizer."""
+    grouped launches a forward), B=2 at 800x1344 (or ``batch`` images at
+    ``hw``), bf16 compute over f32 master weights; the loss config
+    ``lcfg`` (the task's unless given), ``k1`` K1 launches a forward
+    (K1_PER_FORWARD[task] unless given), ``steps`` counted steps
+    (TRAIN_STEPS unless given), ``optim_kwargs`` to the optimizer."""
+    B, (H, W) = batch, hw
     label = label or f"X-101 {task} train"
     num_classes = head_cfg_of(cfg).get("num_classes", 1)
     k1 = K1_PER_FORWARD[task] if k1 is None else k1
@@ -2209,17 +2240,20 @@ def api_weights_(model, seed):
     """Phase 8's seeded weights, in place: ``random_weights_``, then the
     classifier (``pts_cls_out``, RepPoints' ``cls_out``, the dense zoo's
     ``retina_cls`` / ``fcos_cls`` / ``atss_cls`` / ``gfl_cls`` /
-    ``ga_cls``) x CLS_SPREAD
-    (the kept scores then lie far apart: no two of them tie within the
-    card's ~1e-6 differences) and the backbone ``conv_offset`` kernels 0
-    (each backbone sample within a bias of a lattice point, far from a
-    nearest-rounding tie)."""
+    ``fovea_cls`` / ``ga_cls``, SSD's ``cls_conv{i}`` of every level) x
+    CLS_SPREAD (the kept scores then lie far apart: no two of them tie
+    within the card's ~1e-6 differences) and the backbone ``conv_offset``
+    kernels 0 (each backbone sample within a bias of a lattice point, far
+    from a nearest-rounding tie)."""
     apis.random_weights_(model, seed)
-    cls = next(n for n in ("pts_cls_out", "cls_out", "retina_cls",
-                           "fcos_cls", "atss_cls", "gfl_cls", "ga_cls")
-               if hasattr(model.head, n))
+    names = ("pts_cls_out", "cls_out", "retina_cls", "fcos_cls",
+             "atss_cls", "gfl_cls", "fovea_cls", "ga_cls")
+    cls = [n for n in names if hasattr(model.head, n)][:1] or [
+        n for n, _ in model.head.named_children()
+        if n.startswith("cls_conv")]
     with torch.no_grad():
-        getattr(model.head, cls).weight.mul_(CLS_SPREAD)
+        for n in cls:
+            getattr(model.head, n).weight.mul_(CLS_SPREAD)
         for name, m in model.backbone.named_modules():
             if name.endswith("conv_offset"):
                 m.weight.zero_()
@@ -3052,18 +3086,19 @@ def check_reppoints_runner(root):
                              ("loss_pts_init", "loss_pts_refine"), root)
 
 
-def check_file_runner(label, path, k1, loss_keys, root):
+def check_file_runner(label, path, k1, loss_keys, root,
+                      train_hw=RP_RUNNER_TRAIN_HW, val_hw=RP_RUNNER_VAL_HW):
     """A shipped file at full width through ``lsnet_torch.tools.train`` (1
-    epoch of 2 steps on 4 procedural 768x1280 images, an EvalHook on 2
-    more) and ``lsnet_torch.tools.test`` on its checkpoint (metrics
-    within 1e-4 of the hook's); ``k1`` K1 launches of each kind every
-    step and forward in the eval, finite ``loss_keys``. Returns (numbers,
-    launches per step, per eval)."""
+    epoch of 2 steps on 4 procedural images, 768x1280 unless
+    ``train_hw`` says otherwise, an EvalHook on 2 more, ``val_hw``) and
+    ``lsnet_torch.tools.test`` on its checkpoint (metrics within 1e-4 of
+    the hook's); ``k1`` K1 launches of each kind every step and forward
+    in the eval, finite ``loss_keys``. Returns (numbers, launches per
+    step, per eval)."""
     train_root, val_root = (os.path.join(root, n) for n in ("train", "val"))
-    train_ann, _ = make_shapes_coco(train_root, len(RP_RUNNER_TRAIN_HW),
-                                    seed=5, hw=RP_RUNNER_TRAIN_HW)
-    val_ann, _ = make_shapes_coco(val_root, len(RP_RUNNER_VAL_HW), seed=6,
-                                  hw=RP_RUNNER_VAL_HW)
+    train_ann, _ = make_shapes_coco(train_root, len(train_hw), seed=5,
+                                    hw=train_hw)
+    val_ann, _ = make_shapes_coco(val_root, len(val_hw), seed=6, hw=val_hw)
     test_opts, opts = runner_options(train_root, val_root, train_ann,
                                      val_ann)
     work = os.path.join(root, "work")
@@ -3150,10 +3185,23 @@ def zoo_config(name):
     return Config.fromfile(ZOO_CONFIGS[name])
 
 
+def zoo_label(name):
+    return (f"{ZOO_LABELS[name]} "
+            f"{'VGG16' if name in ZOO_SSD else 'R50'}")
+
+
+def zoo_shape(name):
+    """(batch, canvas) of the file's full-width paths."""
+    return (SSD_B, SSD_HW) if name in ZOO_SSD else (B, (H, W))
+
+
 def narrow_zoo_cfg(name):
     """Phase 11a: the shipped file's model (R50) with a narrow neck and
-    head: feat 64, two stacked convs."""
+    head: feat 64, two stacked convs; SSD's VGG-16 and head keep their
+    fixed widths."""
     cfg = zoo_config(name).model.to_dict()
+    if name in ZOO_SSD:
+        return cfg
     cfg["neck"]["out_channels"] = 64
     head = head_cfg_of(cfg)
     head.update(in_channels=64, feat_channels=64)
@@ -3165,17 +3213,25 @@ def narrow_zoo_cfg(name):
 def check_zoo_small():
     """Phase 11a: each file's narrow model on the card against the CPU:
     the head outputs, then the loss, its terms and every parameter's
-    gradient, at phase 3's tolerances."""
+    gradient, at phase 3's tolerances; the SSD files on one 300x300
+    image in f64 (in f32 a few of VGG-16's ReLU and max-pool decisions
+    fall the other way of a rounding at init, and conv4_3's L2 norm
+    divides by small norms: its convs' gradients differ by up to about
+    2 %)."""
     import dataclasses
-    hw = (96, 128)
     for name in ZOO_CONFIGS:
-        label = f"R50-shaped {ZOO_LABELS[name]}"
-        outputs_card_vs_cpu(label, narrow_zoo_cfg(name))
+        label = f"{zoo_label(name)}-shaped"
+        ssd = name in ZOO_SSD
+        hw = SSD_HW if ssd else (96, 128)
+        dtype = torch.float64 if ssd else torch.float32
+        batch = 1 if ssd else 2
+        outputs_card_vs_cpu(label, narrow_zoo_cfg(name), hw=hw, dtype=dtype,
+                            batch=batch)
         cfg = narrow_zoo_cfg(name)
         lcfg = dataclasses.replace(
             runner_loop.dense_cfg_from(zoo_config(name), hw),
             num_classes=set_classes(cfg, 8))
-        gradients_card_vs_cpu(label, cfg, lcfg, hw)
+        gradients_card_vs_cpu(label, cfg, lcfg, hw, dtype=dtype, batch=batch)
 
 
 def check_zoo_kernels():
@@ -3191,16 +3247,18 @@ def check_zoo_kernels():
 
 
 def check_zoo_full(root, name):
-    """Phase 11b: the shipped file at full width (R50, 80 classes, seeded
-    weights): ``init_detector`` from a ``save_checkpoint`` file and
-    ``inference_detector`` twice on a seeded 480x640 image (equal
-    detections; GA-RPN, which ``init_detector`` refuses, only through
-    ``detect``), ``detect`` at B=2 800x1344 bf16, ZOO_TRAIN_STEPS train
-    steps at B=2 bf16 (20 instances an image), each profiled, the K1
+    """Phase 11b: the shipped file at full width (R50 or SSD's VGG-16, 80
+    classes, seeded weights): ``init_detector`` from a
+    ``save_checkpoint`` file and ``inference_detector`` twice on a seeded
+    480x640 image (equal detections; GA-RPN, which ``init_detector``
+    refuses, only through ``detect``), ``detect`` at B=2 800x1344 bf16
+    (the SSD files at their B=8 300x300), ZOO_TRAIN_STEPS train steps
+    at the same shape (20 instances an image), each profiled, the K1
     launches asserted (ZOO_K1_PER_FORWARD a forward and of each kind a
     step). Returns (numbers, launches by path)."""
     cfg = zoo_config(name)
-    label = f"{ZOO_LABELS[name]} R50"
+    label = zoo_label(name)
+    batch, hw = zoo_shape(name)
     k1 = ZOO_K1_PER_FORWARD.get(name, 0)
     by_path, numbers = {}, {}
     if name == "ga_rpn":
@@ -3234,26 +3292,39 @@ def check_zoo_full(root, name):
 
     model_cfg = cfg.model.to_dict()
     run, img_s, launches, peak = drive_main_path(
-        label, model_cfg, 0, "bbox", k1=k1, config=cfg)
-    numbers["detect"] = profile(label, run, B / img_s * 1e3)
+        label, model_cfg, 0, "bbox", k1=k1, config=cfg, batch=batch, hw=hw)
+    numbers["detect"] = profile(label, run, batch / img_s * 1e3)
     numbers["img_per_s"], numbers["peak_memory_bytes"] = img_s, peak
     by_path[label] = {k: v // ITERS for k, v in launches.items()}
     del run
     torch.cuda.empty_cache()
     run, img_s, launches, peak = drive_train_path(
-        "bbox", model_cfg, runner_loop.train_loss_cfg(cfg, (H, W)), k1=k1,
+        "bbox", model_cfg, runner_loop.train_loss_cfg(cfg, hw), k1=k1,
         steps=ZOO_TRAIN_STEPS, label=f"{label} train", grouped=0,
-        warmup_iters=0)
+        warmup_iters=0, batch=batch, hw=hw)
     numbers["train"] = profile(f"{label} train step", run,
-                               B / img_s * 1e3)
+                               batch / img_s * 1e3)
     numbers["train_img_per_s"] = img_s
     numbers["train_peak_memory_bytes"] = peak
     by_path[f"{label} train"] = {k: v // ZOO_TRAIN_STEPS
                                  for k, v in launches.items()}
     del run
     torch.cuda.empty_cache()
+    numbers["batch"], numbers["canvas"] = batch, list(hw)
+    log(f"{label} device ms: detect {numbers['detect']['device_ms']:.3f} "
+        f"a batch of {batch}, train {numbers['train']['device_ms']:.3f} a "
+        "step")
+    log(f"{label} device idle share: detect "
+        f"{numbers['detect']['idle_share']:.3f}, train "
+        f"{numbers['train']['idle_share']:.3f}")
+    log(f"{label} peak memory: detect {peak_gib(numbers, ''):.2f} GiB, "
+        f"train {peak_gib(numbers, 'train_'):.2f} GiB")
     log(f"{label} numbers " + json.dumps(numbers))
     return numbers, by_path
+
+
+def peak_gib(numbers, prefix):
+    return numbers[f"{prefix}peak_memory_bytes"] / 2 ** 30
 
 
 def check_zoo(root):
@@ -3275,6 +3346,12 @@ def check_zoo(root):
         ("loss_loc", "loss_shape", "loss_cls", "loss_bbox"),
         os.path.join(root, "runner"))
     seconds["c"] = time.perf_counter() - t0 - sum(seconds.values())
+    (numbers["runner_ssd"], by_path["runner SSD300 train"],
+     by_path["runner SSD300 eval"]) = check_file_runner(
+        "SSD300", ZOO_CONFIGS["ssd"], 0, ("loss_cls", "loss_bbox"),
+        os.path.join(root, "runner_ssd"), train_hw=SSD_RUNNER_TRAIN_HW,
+        val_hw=SSD_RUNNER_VAL_HW)
+    seconds["d"] = time.perf_counter() - t0 - sum(seconds.values())
     log(f"phase 11 seconds by part {json.dumps(seconds)}")
     numbers["seconds"] = time.perf_counter() - t0
     return numbers, rows, by_path
@@ -3974,11 +4051,12 @@ def main(argv=None):
         zoo_numbers, zoo_rows, zoo_paths = check_zoo(
             os.path.join(root, "dense"))
         by_path.update(zoo_paths)
-        for name, label in ZOO_LABELS.items():
-            e2e[f"{label} R50"] = zoo_numbers[name]["img_per_s"]
-            e2e[f"{label} R50 train"] = zoo_numbers[name]["train_img_per_s"]
-            peaks[f"{label} R50"] = zoo_numbers[name]["peak_memory_bytes"]
-            peaks[f"{label} R50 train"] = \
+        for name in ZOO_LABELS:
+            label = zoo_label(name)
+            e2e[label] = zoo_numbers[name]["img_per_s"]
+            e2e[f"{label} train"] = zoo_numbers[name]["train_img_per_s"]
+            peaks[label] = zoo_numbers[name]["peak_memory_bytes"]
+            peaks[f"{label} train"] = \
                 zoo_numbers[name]["train_peak_memory_bytes"]
         log(f"{smi}: dense " + json.dumps(zoo_numbers)
             + f" (phase 11 in {zoo_numbers['seconds']:.1f}s)")

@@ -52,7 +52,8 @@ def base_anchors(cfg: AnchorConfig, stride: int) -> np.ndarray:
                      xc + 0.5 * ws, yc + 0.5 * hs], axis=1)
 
 
-def _shifted(base: np.ndarray, stride: int, h: int, w: int) -> np.ndarray:
+def shifted_anchors(base: np.ndarray, stride: int, h: int, w: int
+                    ) -> np.ndarray:
     """(h * w * A, 4): ``base`` at every cell origin, cells row-major."""
     xs = np.arange(w, dtype=np.float32) * stride
     ys = np.arange(h, dtype=np.float32) * stride
@@ -68,7 +69,8 @@ def grid_anchors(cfg: AnchorConfig, image_shape: Tuple[int, int]
     """All-level anchors for a padded canvas: (anchors (N_total*A, 4)
     float32, per-level counts)."""
     H, W = image_shape
-    all_anchors = [_shifted(base_anchors(cfg, s), s, -(-H // s), -(-W // s))
+    all_anchors = [shifted_anchors(base_anchors(cfg, s), s, -(-H // s),
+                                   -(-W // s))
                    for s in cfg.strides]
     return (np.concatenate(all_anchors),
             [a.shape[0] for a in all_anchors])
@@ -255,7 +257,7 @@ def ssd_grid_anchors(image_shape: Tuple[int, int], strides: Sequence[int],
     bases = ssd_base_anchors(strides, ratios, basesize_ratio_range,
                              input_size)
     H, W = image_shape
-    all_anchors = [_shifted(base, s, -(-H // s), -(-W // s))
+    all_anchors = [shifted_anchors(base, s, -(-H // s), -(-W // s))
                    for s, base in zip(strides, bases)]
     return (np.concatenate(all_anchors), [a.shape[0] for a in all_anchors],
             [b.shape[0] for b in bases])

@@ -1,26 +1,33 @@
 """Model builders (counterpart of ``lsnet_tpu/models/__init__.py``): config
-dicts with a ``type`` key -> ``nn.Module``s. The port builds ResNet,
-ResNeXt, Res2Net, FPN, LSHead (all four tasks), LSCPVHead, the RepPoints
-family's four heads (RepPointsHead, RepPointsV2Head, DenseRepPointsHead,
-DenseRepPointsV2Head), the dense zoo's RetinaHead, FCOSHead, ATSSHead,
-GFLHead, GARetinaHead and GARPNHead, and their single-stage detectors,
-each an ``LSDetector`` (backbone -> FPN -> head), as in the JAX package;
-the standalone ``RPN`` reads its head from ``rpn_head``."""
+dicts with a ``type`` key -> ``nn.Module``s. The port builds the backbones
+ResNet, ResNeXt, Res2Net and SSDVGG, the necks FPN, NASFCOS_FPN and none
+(SSD's ``neck=None``, an identity), the heads LSHead (all four tasks),
+LSCPVHead, the RepPoints family's four (RepPointsHead, RepPointsV2Head,
+DenseRepPointsHead, DenseRepPointsV2Head) and the dense zoo's RetinaHead,
+RetinaSepBNHead, FreeAnchorRetinaHead and PISARetinaHead (RetinaHead
+modules), FCOSHead, ATSSHead, GFLHead, SSDHead and PISASSDHead (an
+SSDHead), FoveaHead, FSAFHead, GARetinaHead and GARPNHead, and their
+single-stage detectors, each an ``LSDetector`` (backbone -> neck ->
+head), as in the JAX package; the standalone ``RPN`` reads its head from
+``rpn_head``. The two-stage family is ROADMAP Queue 1 "Inherited zoo"."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 from torch import nn
 
+from .backbones.extra import SSDVGG
 from .backbones.resnet import ResNet
 from .detectors.lsnet import LSDetector
-from .heads.dense import (ATSSHead, FCOSHead, GARetinaHead, GARPNHead,
-                          GFLHead, RetinaHead)
+from .heads.dense import (ATSSHead, FCOSHead, FoveaHead, FSAFHead,
+                          GARetinaHead, GARPNHead, GFLHead, RetinaHead,
+                          RetinaSepBNHead, SSDHead)
 from .heads.dense_reppoints import DenseRepPointsHead, DenseRepPointsV2Head
 from .heads.ls_head import LSHead
 from .heads.lscpv_head import LSCPVHead
 from .heads.reppoints import RepPointsHead, RepPointsV2Head
+from .necks.extra import NASFCOSFPN
 from .necks.fpn import FPN
 
 # the single-stage detector types and heads the port builds; as in the JAX
@@ -29,24 +36,42 @@ from .necks.fpn import FPN
 DETECTORS = ("LSDetector", "LSCPVDetector", "RepPointsDetector",
              "RepPointsV2Detector", "DenseRepPointsDetector",
              "DenseRepPointsV2Detector", "RetinaNet", "FCOS", "ATSS", "GFL",
-             "RPN")
+             "SSD", "FOVEA", "FoveaBox", "FSAF", "FreeAnchor", "NASFCOS",
+             "SingleStageDetector", "RPN")
+# the dense zoo's heads by config type (FreeAnchor and PISA build the plain
+# RetinaNet and SSD modules; their losses differ)
+DENSE_KINDS = {"RetinaHead": RetinaHead, "RetinaSepBNHead": RetinaSepBNHead,
+               "FreeAnchorRetinaHead": RetinaHead,
+               "PISARetinaHead": RetinaHead, "FCOSHead": FCOSHead,
+               "ATSSHead": ATSSHead, "GFLHead": GFLHead, "SSDHead": SSDHead,
+               "PISASSDHead": SSDHead, "FoveaHead": FoveaHead,
+               "FSAFHead": FSAFHead}
 HEADS = ("LSHead", "LSCPVHead", "RepPointsHead", "RepPointsV2Head",
-         "DenseRepPointsHead", "DenseRepPointsV2Head", "RetinaHead",
-         "FCOSHead", "ATSSHead", "GFLHead", "GARetinaHead", "GARPNHead")
+         "DenseRepPointsHead", "DenseRepPointsV2Head", "GARetinaHead",
+         "GARPNHead") + tuple(DENSE_KINDS)
 # the dense zoo's settings that the loss and decode read, not the module
 DENSE_SETTINGS = ("anchor_generator", "bbox_coder", "train_cfg", "test_cfg",
                   "strides", "regress_ranges", "norm_groups",
                   "centerness_on_reg", "center_sampling", "norm_on_bbox",
-                  "centerness_branch", "background_label",
-                  "reg_decoded_bbox")
+                  "centerness_branch", "base_edge_list", "scale_ranges",
+                  "sigma", "background_label", "reg_decoded_bbox")
+# FreeAnchor's bag settings (the loss's)
+FREE_ANCHOR_SETTINGS = ("pre_anchor_topk", "bbox_thr", "gamma", "alpha")
+# SSD300's anchor ratios a level: A_l = 2 + 2 * len(ratios)
+SSD_RATIOS = ([2], [2, 3], [2, 3], [2, 3], [2], [2])
+SSD_IN_CHANNELS = (512, 1024, 512, 256, 256, 256)
 GA_SETTINGS = ("approx_anchor_generator", "square_anchor_generator",
                "anchor_coder", "bbox_coder", "loc_filter_thr", "train_cfg",
                "test_cfg", "deform_groups")
 
 
-def build_backbone(cfg: Dict[str, Any]) -> ResNet:
+def build_backbone(cfg: Dict[str, Any]) -> nn.Module:
     cfg = dict(cfg)
     kind = cfg.pop("type")
+    if kind == "SSDVGG":
+        # input_size is the anchors' (the loss reads it); JAX's
+        # build_backbone drops l2_norm_scale
+        return SSDVGG(depth=cfg.get("depth", 16))
     block_type = {"ResNet": "resnet", "ResNeXt": "resnext",
                   "Res2Net": "res2net"}.get(kind)
     if block_type is None:
@@ -62,13 +87,22 @@ def build_backbone(cfg: Dict[str, Any]) -> ResNet:
     return ResNet(block_type=block_type, **cfg)
 
 
-def build_neck(cfg: Dict[str, Any], in_channels: Sequence[int]) -> FPN:
+def build_neck(cfg: Optional[Dict[str, Any]], in_channels: Sequence[int]
+               ) -> nn.Module:
+    """FPN or NASFCOS_FPN on the backbone's widths; ``None`` (SSD's) is
+    the identity."""
+    if cfg is None:
+        return nn.Identity()
     cfg = dict(cfg)
     kind = cfg.pop("type")
-    if kind != "FPN":
-        raise NotImplementedError(f"neck {kind}")
     cfg.pop("in_channels", None)     # taken from the backbone
-    return FPN(in_channels=list(in_channels), **cfg)
+    if kind == "FPN":
+        return FPN(in_channels=list(in_channels), **cfg)
+    if kind in ("NASFCOS_FPN", "NASFCOSFPN"):
+        for k in ("add_extra_convs", "conv_cfg"):
+            cfg.pop(k, None)
+        return NASFCOSFPN(in_channels=list(in_channels), **cfg)
+    raise NotImplementedError(f"neck {kind}")
 
 
 def build_head(cfg: Dict[str, Any]) -> nn.Module:
@@ -104,7 +138,7 @@ def build_head(cfg: Dict[str, Any]) -> nn.Module:
         for k in GA_SETTINGS + ("num_classes",):
             cfg.pop(k, None)
         return GARPNHead(**cfg)
-    if kind in ("RetinaHead", "FCOSHead", "ATSSHead", "GFLHead"):
+    if kind in DENSE_KINDS:
         return _dense_head(kind, cfg)
     if cfg.pop("fuse_towers", False):
         raise NotImplementedError("fuse_towers is a TPU layout option")
@@ -118,23 +152,33 @@ def build_head(cfg: Dict[str, Any]) -> nn.Module:
 
 
 def _dense_head(kind: str, cfg: Dict[str, Any]) -> nn.Module:
-    """RetinaHead / FCOSHead / ATSSHead / GFLHead from a head config (the
-    JAX ``build_head``'s key translation): the anchor generator sets
-    RetinaHead's anchors a cell; FCOSHead keeps ``strides`` and
-    ``centerness_on_reg``; the other settings are the loss's and
-    decode's."""
-    taken = {k: cfg.pop(k) for k in DENSE_SETTINGS if k in cfg}
+    """A dense-zoo head from its config (the JAX ``build_head``'s key
+    translation): the anchor generator sets RetinaHead's and
+    RetinaSepBNHead's anchors a cell (FreeAnchor's and PISA's keep 9) and
+    SSD's per level; FCOSHead keeps ``strides`` and
+    ``centerness_on_reg``; FreeAnchor keeps its GroupNorm towers
+    (``norm_groups``); the other settings are the loss's and decode's."""
+    norm_groups = cfg.get("norm_groups")
+    taken = {k: cfg.pop(k) for k in DENSE_SETTINGS + FREE_ANCHOR_SETTINGS
+             if k in cfg}
     ag = taken.get("anchor_generator")
-    if kind == "RetinaHead" and ag is not None:
+    if kind in ("RetinaHead", "RetinaSepBNHead") and ag is not None:
         cfg["num_base_anchors"] = (len(ag.get("ratios", [0.5, 1, 2]))
                                    * ag.get("scales_per_octave", 3))
+    if kind == "FreeAnchorRetinaHead" and norm_groups is not None:
+        cfg["norm_groups"] = norm_groups
+    if kind in ("SSDHead", "PISASSDHead"):
+        cfg["in_channels"] = tuple(cfg.get("in_channels", SSD_IN_CHANNELS))
+        if ag is not None:
+            # the ratio-1 anchors at both scales + each ratio's pair
+            cfg["num_base_anchors"] = tuple(
+                2 + 2 * len(r) for r in ag.get("ratios", SSD_RATIOS))
     if kind == "FCOSHead":
         if taken.get("strides") is not None:
             cfg["strides"] = tuple(taken["strides"])
         if taken.get("centerness_on_reg") is not None:
             cfg["centerness_on_reg"] = taken["centerness_on_reg"]
-    return {"RetinaHead": RetinaHead, "FCOSHead": FCOSHead,
-            "ATSSHead": ATSSHead, "GFLHead": GFLHead}[kind](**cfg)
+    return DENSE_KINDS[kind](**cfg)
 
 
 def head_cfg_of(model_cfg) -> Dict[str, Any]:
@@ -149,7 +193,7 @@ def build_detector(cfg: Dict[str, Any]) -> LSDetector:
     if cfg["type"] not in DETECTORS:
         raise NotImplementedError(f"detector {cfg['type']}")
     backbone = build_backbone(cfg["backbone"])
-    neck = build_neck(cfg["neck"], backbone.out_channels)
+    neck = build_neck(cfg.get("neck"), backbone.out_channels)
     return LSDetector(backbone, neck, build_head(head_cfg_of(cfg)))
 
 

@@ -1,6 +1,8 @@
 """The dense-head zoo (counterpart of ``lsnet_tpu/models/heads/dense.py``):
-RetinaNet, FCOS, ATSS and GFL, and the two Guided Anchoring heads,
-GA-RPN and GA-RetinaNet.
+RetinaNet (plain or GroupNorm towers, the FreeAnchor and PISA files' head
+too), RetinaNet with shared tower convs and per-level BN
+(``RetinaSepBNHead``), FCOS, ATSS, GFL, SSD, FoveaBox and FSAF, and the
+two Guided Anchoring heads, GA-RPN and GA-RetinaNet.
 
 Forward only: NCHW levels in, a dict of per-level NHWC maps out, like the
 JAX heads; the losses are :mod:`lsnet_torch.core.dense_loss`'s and the
@@ -20,7 +22,10 @@ computes its post-adaption convs densely, as JAX does (the reference's
 Submodule names are the flax names: the towers are flax's auto-named
 ``_Tower_0`` (cls) and ``_Tower_1`` (reg) with ``cls_conv{i}`` /
 ``cls_conv{i}_gn``; the per-level ``scales`` of FCOS, ATSS and GFL and
-the adaption weights (HWIO (3, 3, feat, feat)) are raw parameters.
+the adaption weights (HWIO (3, 3, feat, feat)) are raw parameters. SSD's
+convs are ``cls_conv{i}`` / ``reg_conv{i}`` per level, RetinaSepBNHead's
+``cls_conv{i}`` / ``reg_conv{i}`` (shared) and ``cls_bn{i}_l{l}`` /
+``reg_bn{i}_l{l}`` (per level).
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.flat_deform import TRAIN_SAMPLING, multilevel_modulated_dcn
-from ..layers import nchw, nhwc
+from ..layers import FrozenBatchNorm, nchw, nhwc
 
 Maps = Dict[str, List[torch.Tensor]]
 
@@ -82,13 +87,16 @@ class _TwoTowers(nn.Module):
 
 
 class RetinaHead(_TwoTowers):
-    """Anchor-based focal-loss head, A anchors a cell, plain towers.
-    ``forward`` -> ``cls`` (A * num_classes) and ``reg`` (A * 4)."""
+    """Anchor-based focal-loss head, A anchors a cell; plain towers, or
+    GroupNorm(32) towers where ``norm_groups`` > 0 (the FreeAnchor
+    file's). ``forward`` -> ``cls`` (A * num_classes) and ``reg``
+    (A * 4)."""
 
     def __init__(self, num_classes: int, in_channels: int = 256,
                  feat_channels: int = 256, stacked_convs: int = 4,
-                 num_base_anchors: int = 9):
-        super().__init__(in_channels, feat_channels, stacked_convs, False)
+                 num_base_anchors: int = 9, norm_groups: int = 0):
+        super().__init__(in_channels, feat_channels, stacked_convs,
+                         norm_groups > 0)
         self.retina_cls = conv3(feat_channels,
                                  num_base_anchors * num_classes)
         self.retina_reg = conv3(feat_channels, num_base_anchors * 4)
@@ -99,7 +107,118 @@ class RetinaHead(_TwoTowers):
         for f in feats:
             cf, rf = self.towers(f)
             outs["cls"].append(nhwc(self.retina_cls(cf)))
-            outs["reg"].append(nhwc(self.retina_reg(rf)))
+            outs["reg"].append(nhwc(self._reg_map(self.retina_reg(rf))))
+        return outs
+
+    @staticmethod
+    def _reg_map(reg: torch.Tensor) -> torch.Tensor:
+        return reg
+
+
+class FSAFHead(RetinaHead):
+    """FSAF: RetinaHead with one anchor a cell and ReLU'd (t, b, l, r)
+    distances (the TBLR coder takes positive ones); ``retina_reg``'s bias
+    starts at 0.25."""
+
+    def __init__(self, num_classes: int, in_channels: int = 256,
+                 feat_channels: int = 256, stacked_convs: int = 4):
+        super().__init__(num_classes, in_channels, feat_channels,
+                         stacked_convs, num_base_anchors=1)
+
+    @staticmethod
+    def _reg_map(reg: torch.Tensor) -> torch.Tensor:
+        return F.relu(reg)
+
+
+class FoveaHead(_TwoTowers):
+    """FoveaBox (the JAX head leaves the ``with_deform`` variant out):
+    plain towers, ``fovea_cls`` and log-space (l, t, r, b) ``fovea_reg``
+    in per-level base-edge units."""
+
+    def __init__(self, num_classes: int, in_channels: int = 256,
+                 feat_channels: int = 256, stacked_convs: int = 4):
+        super().__init__(in_channels, feat_channels, stacked_convs, False)
+        self.fovea_cls = conv3(feat_channels, num_classes)
+        self.fovea_reg = conv3(feat_channels, 4)
+
+    def forward(self, feats: Sequence[torch.Tensor],
+                sampling: Mapping[str, str] = TRAIN_SAMPLING) -> Maps:
+        outs: Maps = {"cls": [], "reg": []}
+        for f in feats:
+            cf, rf = self.towers(f)
+            outs["cls"].append(nhwc(self.fovea_cls(cf)))
+            outs["reg"].append(nhwc(self.fovea_reg(rf)))
+        return outs
+
+
+class SSDHead(nn.Module):
+    """SSD: one 3x3 cls conv (A_l * (num_classes + 1), softmax over the
+    classes and background) and one 3x3 reg conv (A_l * 4) on each input
+    level, A_l anchors a cell on level l (4 / 6 / 6 / 6 / 4 / 4 for
+    SSD300)."""
+
+    def __init__(self, num_classes: int,
+                 in_channels: Sequence[int] = (512, 1024, 512, 256, 256,
+                                               256),
+                 num_base_anchors: Sequence[int] = (4, 6, 6, 6, 4, 4)):
+        super().__init__()
+        if len(in_channels) != len(num_base_anchors):
+            raise ValueError(f"SSDHead: {len(in_channels)} input widths, "
+                             f"anchor counts for {len(num_base_anchors)}")
+        for i, (c, a) in enumerate(zip(in_channels, num_base_anchors)):
+            setattr(self, f"cls_conv{i}", conv3(c, a * (num_classes + 1)))
+            setattr(self, f"reg_conv{i}", conv3(c, a * 4))
+        self.num_levels = len(in_channels)
+
+    def forward(self, feats: Sequence[torch.Tensor],
+                sampling: Mapping[str, str] = TRAIN_SAMPLING) -> Maps:
+        if len(feats) != self.num_levels:
+            raise ValueError(f"SSDHead: {len(feats)} levels, convs for "
+                             f"{self.num_levels}")
+        return {"cls": [nhwc(getattr(self, f"cls_conv{i}")(f))
+                        for i, f in enumerate(feats)],
+                "reg": [nhwc(getattr(self, f"reg_conv{i}")(f))
+                        for i, f in enumerate(feats)]}
+
+
+class RetinaSepBNHead(nn.Module):
+    """RetinaNet with tower convs shared by every level and a
+    FrozenBatchNorm of its own for each (conv, level) (the NAS-FPN
+    recipes' head); ``num_ins`` levels."""
+
+    def __init__(self, num_classes: int, in_channels: int = 256,
+                 feat_channels: int = 256, stacked_convs: int = 4,
+                 num_base_anchors: int = 9, num_ins: int = 5):
+        super().__init__()
+        self.stacked_convs, self.num_ins = stacked_convs, num_ins
+        for i in range(stacked_convs):
+            cin = in_channels if i == 0 else feat_channels
+            for b in ("cls", "reg"):
+                setattr(self, f"{b}_conv{i}", conv3(cin, feat_channels))
+                for lvl in range(num_ins):
+                    setattr(self, f"{b}_bn{i}_l{lvl}",
+                            FrozenBatchNorm(feat_channels))
+        self.retina_cls = conv3(feat_channels,
+                                 num_base_anchors * num_classes)
+        self.retina_reg = conv3(feat_channels, num_base_anchors * 4)
+
+    def _tower(self, b: str, lvl: int, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.stacked_convs):
+            x = F.relu(getattr(self, f"{b}_bn{i}_l{lvl}")(
+                getattr(self, f"{b}_conv{i}")(x)))
+        return x
+
+    def forward(self, feats: Sequence[torch.Tensor],
+                sampling: Mapping[str, str] = TRAIN_SAMPLING) -> Maps:
+        if len(feats) != self.num_ins:
+            raise ValueError(f"RetinaSepBNHead: {len(feats)} levels, norms "
+                             f"for {self.num_ins}")
+        outs: Maps = {"cls": [], "reg": []}
+        for lvl, f in enumerate(feats):
+            outs["cls"].append(nhwc(self.retina_cls(
+                self._tower("cls", lvl, f))))
+            outs["reg"].append(nhwc(self.retina_reg(
+                self._tower("reg", lvl, f))))
         return outs
 
 

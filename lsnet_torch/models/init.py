@@ -19,11 +19,17 @@ Each parameter is drawn from the distribution its flax module gives it:
   fan_in);
 * the dense zoo's heads (``models/heads/dense.py``): every convolution
   N(0, 0.01), the focal prior on ``retina_cls``, ``fcos_cls``,
-  ``atss_cls``, ``gfl_cls``, GA-RetinaNet's ``ga_cls`` and both GA heads'
-  ``conv_loc`` (GA-RPN's ``ga_cls`` bias is 0, as in JAX), the
+  ``atss_cls``, ``gfl_cls``, ``fovea_cls``, GA-RetinaNet's ``ga_cls`` and
+  both GA heads' ``conv_loc`` (GA-RPN's ``ga_cls`` bias is 0, as in JAX,
+  and so are SSD's ``cls_conv{i}``), FSAF's ``retina_reg`` bias 0.25, the
   ``adaption_offset*`` convs 0, so every guided-anchor offset starts at
   exactly 0, the raw ``adaption_weight*`` N(0, 0.01), the per-level
   ``scales`` 1;
+* the modules that keep flax's ``nn.Conv`` defaults: every convolution
+  of SSDVGG, and NASFCOSFPN's bare ``adapt_{i}``, ``out_conv`` and
+  ``extra_{k}`` (its cells' ``input{1,2}_conv`` are ConvModules:
+  ``kaiming_init``), LeCun normal (truncated at 2 std, fan_in), biases 0;
+  SSDVGG's ``l2_norm_scale_param`` 20;
 * the RepPoints heads' ``moment_transfer``: 0;
 * ``conv_offset`` of a DCNv2 pack: 0 (``layers.py:146``), so every DCN
   starts as a plain conv;
@@ -47,22 +53,28 @@ from typing import Set
 import torch
 from torch import nn
 
-from .heads.dense import (GARetinaHead, GARPNHead, RetinaHead,
-                          ScaledHead)
+from .backbones.extra import L2_NORM_SCALE, SSDVGG
+from .heads.dense import (FoveaHead, FSAFHead, GARetinaHead, GARPNHead,
+                          RetinaHead, RetinaSepBNHead, ScaledHead, SSDHead)
 from .heads.dense_reppoints import DenseRepPointsHead
 from .heads.ls_head import LSHead
 from .heads.lscpv_head import LSCPVHead
 from .heads.reppoints import RepPointsHead, RepPointsV2Head
-from .layers import (FrozenBatchNorm, ModulatedDeformConvPack,
+from .layers import (ConvModule, FrozenBatchNorm, ModulatedDeformConvPack,
                      PairedPyramidDeformConv, PyramidDeformConv)
+from .necks.extra import NASFCOSFPN
 
 PRIOR_PROB = 0.01
 # head convolutions whose bias starts at the focal prior
 PRIOR_BIASED = ("cls_out", "hem_tl_score_out", "hem_br_score_out",
                 "sem_out", "cont_score_out", "retina_cls", "fcos_cls",
-                "atss_cls", "gfl_cls", "conv_loc")
+                "atss_cls", "gfl_cls", "fovea_cls", "conv_loc")
 # the heads whose convolutions start at N(0, 0.01)
-DENSE_HEADS = (RetinaHead, ScaledHead, GARetinaHead, GARPNHead)
+DENSE_HEADS = (RetinaHead, ScaledHead, GARetinaHead, GARPNHead, FoveaHead,
+               SSDHead, RetinaSepBNHead)
+# FSAF's regression bias at init: 0.25 x the TBLR normaliser 4, one
+# stride each side
+FSAF_REG_BIAS = 0.25
 HEADS = (LSHead, LSCPVHead, RepPointsHead, DenseRepPointsHead) + DENSE_HEADS
 # heads with the corner-pool packs, whose convolutions (name ends) keep
 # the flax defaults: ConvModule's kaiming_init, nn.Conv's lecun_normal
@@ -102,6 +114,15 @@ def init_weights_(model: nn.Module, generator: torch.Generator
                  if isinstance(h, GARetinaHead)}
     cpv_modules = members(CORNER_HEADS)
     normal_deform = members(LSCPVHead)
+    # flax's nn.Conv default (LeCun normal): SSDVGG's convolutions, and
+    # NASFCOSFPN's outside its ConvModules
+    nas = [m for h in model.modules() if isinstance(h, NASFCOSFPN)
+           for m in h.modules()]
+    lecun = members(SSDVGG) | (
+        {id(m) for m in nas if isinstance(m, nn.Conv2d)}
+        - {id(m.conv) for m in nas if isinstance(m, ConvModule)})
+    fsaf_reg = {id(h.retina_reg) for h in model.modules()
+                if isinstance(h, FSAFHead)}
     done: Set[int] = set()
 
     def mark(*ps):
@@ -121,7 +142,7 @@ def init_weights_(model: nn.Module, generator: torch.Generator
             if name.endswith(("conv_offset", "adaption_offset",
                               "adaption_offset_cls", "adaption_offset_reg")):
                 m.weight.zero_()
-            elif cpv and name.endswith(CPV_LECUN):
+            elif (cpv and name.endswith(CPV_LECUN)) or id(m) in lecun:
                 std = math.sqrt(1.0 / (cin * kh * kw)) / TRUNC_STD
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std,
                                       2 * std, generator=generator)
@@ -135,6 +156,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator
                 if id(m) in head_modules and (
                         name.endswith(PRIOR_BIASED) or id(m) in prior_ids):
                     m.bias.fill_(bias_init_with_prob(PRIOR_PROB))
+                if id(m) in fsaf_reg:
+                    m.bias.fill_(FSAF_REG_BIAS)
             mark(m.weight, m.bias)
         elif isinstance(m, ModulatedDeformConvPack):
             k, _, cin_g, _ = m.weight.shape
@@ -151,6 +174,9 @@ def init_weights_(model: nn.Module, generator: torch.Generator
                 else:                               # adaption_weight*
                     _normal_(p, 0.01, generator)
                 mark(p)
+        elif isinstance(m, SSDVGG):
+            m.l2_norm_scale_param.fill_(L2_NORM_SCALE)
+            mark(m.l2_norm_scale_param)
         elif isinstance(m, RepPointsHead) and hasattr(m, "moment_transfer"):
             m.moment_transfer.zero_()
             mark(m.moment_transfer)

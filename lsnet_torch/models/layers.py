@@ -63,16 +63,18 @@ def make_norm(norm_cfg: Optional[dict], channels: int) -> Optional[nn.Module]:
 
 
 class ConvModule(nn.Module):
-    """conv -> norm -> activation."""
+    """conv -> norm -> activation; the conv has a bias where ``bias`` says
+    so, by default only where no norm follows (flax's ``bias="auto"``)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1,
-                 norm_cfg: Optional[dict] = None, act: Optional[str] = "relu"):
+                 norm_cfg: Optional[dict] = None, act: Optional[str] = "relu",
+                 bias: Optional[bool] = None):
         super().__init__()
-        # a bias only where no norm follows
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
                               stride=stride, padding=kernel_size // 2,
-                              bias=norm_cfg is None)
+                              bias=norm_cfg is None if bias is None
+                              else bias)
         self.norm = make_norm(norm_cfg, out_channels)
         if act not in (None, "relu"):
             raise ValueError(f"unknown act {act}")

@@ -28,15 +28,16 @@ with ``lscpv_decode``; RepPointsHead / RepPointsV2Head on
 RepPoints heads on ``dense_reppoints_loss`` / ``dense_reppoints_v2_loss``
 (their pipeline carries the 36-point GT polygons, as the segm task's),
 evaluated by bbox: ``dense_reppoints_decode``'s boxes with zero
-landmarks; the dense zoo's heads (``DENSE_HEAD_KINDS``: RetinaNet, FCOS,
-ATSS, GFL, GA-RetinaNet and the standalone GA-RPN, whose head is the
-``RPN``'s ``rpn_head``) on ``dense_loss`` and ``dense_decode`` with the
-``dense_cfg_from`` settings (a GA-RPN proposal is a label-0 detection).
+landmarks; the dense zoo's heads (``DENSE_HEAD_KINDS``: RetinaNet and
+RetinaSepBN, FCOS, ATSS, GFL, SSD, FoveaBox, FSAF, FreeAnchor, PISA
+RetinaNet and SSD, GA-RetinaNet and the standalone GA-RPN, whose head is
+the ``RPN``'s ``rpn_head``) on ``dense_loss`` and ``dense_decode`` with
+the ``dense_cfg_from`` settings (a GA-RPN proposal is a label-0
+detection).
 
 Left out, as the TPU's own or not yet ported: the compile cache, the
 chunk budget, the device mesh (one card; ``num_hosts`` 1 until ROADMAP
-Queue 1 "Multi-GPU"), the two-stage branch and the rest of the dense
-zoo.
+Queue 1 "Multi-GPU") and the two-stage branch.
 """
 
 from __future__ import annotations
@@ -78,9 +79,14 @@ DENSE_REPPOINTS = ("DenseRepPointsHead", "DenseRepPointsV2Head")
 REPPOINTS = ("RepPointsHead", "RepPointsV2Head")
 IOU_TYPE = {"bbox": "bbox", "segm": "segm", "pose_bbox": "keypoints",
             "pose_kbox": "keypoints"}
-# the dense zoo's heads the port runs, by their loss and decode kind
-DENSE_HEAD_KINDS = {"RetinaHead": "retina", "FCOSHead": "fcos",
-                    "ATSSHead": "atss", "GFLHead": "gfl",
+# the dense zoo's heads, by their loss and decode kind
+DENSE_HEAD_KINDS = {"RetinaHead": "retina", "RetinaSepBNHead": "retina",
+                    "FCOSHead": "fcos", "ATSSHead": "atss",
+                    "GFLHead": "gfl", "SSDHead": "ssd",
+                    "FoveaHead": "fovea", "FSAFHead": "fsaf",
+                    "FreeAnchorRetinaHead": "free_anchor",
+                    "PISARetinaHead": "pisa_retina",
+                    "PISASSDHead": "pisa_ssd",
                     "GARetinaHead": "ga_retina", "GARPNHead": "ga_rpn"}
 
 
@@ -184,19 +190,63 @@ def dense_reppoints_cfg_from(cfg, image_shape) -> DenseRepPointsConfig:
         refine_min_pos_iou=ref_a.get("min_pos_iou", 0.0))
 
 
+def _kind_settings(kind: str, head, tc, assigner) -> Dict[str, Any]:
+    """The SSD, FoveaBox and FSAF fields of JAX's ``dense_cfg_from``:
+    SSD's levels and anchors from its anchor generator, its mining and
+    SmoothL1 from the train config, its stds from the coder; FoveaBox's
+    base edges, scale ranges, sigma and loss settings from the head;
+    FSAF's centre-region scale and TBLR normaliser."""
+    if kind in ("ssd", "pisa_ssd"):
+        ag = head.get("anchor_generator") or {}
+        return dict(
+            strides=tuple(ag.get("strides", (8, 16, 32, 64, 100, 300))),
+            ssd_input_size=ag.get("input_size", 300),
+            ssd_ratios=tuple(tuple(r) for r in ag.get(
+                "ratios", ((2,), (2, 3), (2, 3), (2, 3), (2,), (2,)))),
+            ssd_basesize_ratio_range=tuple(ag.get(
+                "basesize_ratio_range", (0.15, 0.9))),
+            ssd_neg_pos_ratio=tc.get("neg_pos_ratio", 3),
+            ssd_smoothl1_beta=tc.get("smoothl1_beta", 1.0),
+            ssd_stds=tuple((head.get("bbox_coder") or {}).get(
+                "target_stds", (0.1, 0.1, 0.2, 0.2))))
+    if kind == "fovea":
+        loss_cls = head.get("loss_cls") or {}
+        return dict(
+            fovea_base_edges=tuple(head.get("base_edge_list",
+                                            (16, 32, 64, 128, 256))),
+            fovea_scale_ranges=tuple(tuple(r) for r in head.get(
+                "scale_ranges",
+                ((8, 32), (16, 64), (32, 128), (64, 256), (128, 512)))),
+            fovea_sigma=head.get("sigma", 0.4),
+            fovea_alpha=loss_cls.get("alpha", 0.4),
+            fovea_gamma=loss_cls.get("gamma", 1.5),
+            fovea_bbox_weight=(head.get("loss_bbox") or {}).get(
+                "loss_weight", 0.75))
+    if kind == "fsaf":
+        return dict(
+            fsaf_pos_scale=assigner.get("pos_scale", 0.2),
+            fsaf_normalizer=(head.get("bbox_coder") or {}).get(
+                "normalizer", 4.0))
+    return {}
+
+
 def dense_cfg_from(cfg, image_shape) -> DenseLossConfig:
     """The loss / decode config of a dense-zoo file: JAX's
-    ``dense_cfg_from`` for the six ported kinds, with two repairs. An
-    ``assigner=None`` (the FCOS file's) reads as no settings; the JAX
+    ``dense_cfg_from``, with two repairs. An ``assigner=None`` (the FCOS
+    file's, which NAS-FCOS inherits) reads as no settings; the JAX
     function raises on it. The Guided Anchoring heads' levels are the
     ``square_anchor_generator``'s strides; JAX reads the head's
     ``strides``, absent in both GA files, so its default (8, ..., 128)
-    against the GA-RPN file's FPN levels at 4, ..., 64."""
+    against the GA-RPN file's FPN levels at 4, ..., 64. FreeAnchor's bag
+    and PISA's ISR-P / CARL settings are the loss's constants, the
+    shipped files' values (JAX's loss defaults, which its runner leaves
+    unread)."""
     head = head_cfg(cfg)
     kind = DENSE_HEAD_KINDS[head.type]
     tc = cfg.get("train_cfg", {}) or {}
     assigner = tc.get("assigner") or {}
-    strides = head.get("strides")
+    extra = _kind_settings(kind, head, tc, assigner)
+    strides = extra.pop("strides", head.get("strides"))
     if strides is None and kind in ("ga_retina", "ga_rpn"):
         strides = (head.get("square_anchor_generator") or {}).get("strides")
     return DenseLossConfig(
@@ -210,7 +260,8 @@ def dense_cfg_from(cfg, image_shape) -> DenseLossConfig:
         topk=assigner.get("topk", 9),
         regress_ranges=tuple(tuple(r) for r in head.get(
             "regress_ranges",
-            ((-1, 64), (64, 128), (128, 256), (256, 512), (512, 1e8)))))
+            ((-1, 64), (64, 128), (128, 256), (256, 512), (512, 1e8)))),
+        **extra)
 
 
 def train_loss_cfg(cfg, image_shape):
@@ -304,8 +355,8 @@ def check_runnable(cfg) -> None:
         raise NotImplementedError(
             f"{model.type} with {head}: the port runs the single-stage "
             f"detectors {', '.join(sorted(DETECTORS))} with the heads "
-            f"{', '.join(sorted(HEADS))}; the rest of "
-            "the zoo is ROADMAP Queue 1 \"Inherited zoo\"")
+            f"{', '.join(sorted(HEADS))}; the two-stage family and the "
+            "rest of the zoo are ROADMAP Queue 1 \"Inherited zoo\"")
     for split in ("train", "val"):
         kind = cfg.data.get(split, {}).get("type", "CocoDataset")
         if kind != "CocoDataset":

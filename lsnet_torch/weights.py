@@ -8,9 +8,9 @@ The port's modules carry the flax module names, so a variable at
 * ``scale`` (GroupNorm, FrozenBatchNorm): renamed ``weight``;
 * ``bias``, the deformable layers' HWIO ``weight``/``weight_a``/
   ``weight_b``, the RepPoints heads' ``moment_transfer`` (2,), the dense
-  heads' per-level ``scales`` (L,) and the Guided Anchoring heads' HWIO
-  ``adaption_weight``/``adaption_weight_cls``/``adaption_weight_reg``:
-  unchanged;
+  heads' per-level ``scales`` (L,), the Guided Anchoring heads' HWIO
+  ``adaption_weight``/``adaption_weight_cls``/``adaption_weight_reg`` and
+  SSDVGG's ``l2_norm_scale_param`` (512,): unchanged;
 * ``batch_stats`` ``mean``/``var``: the FrozenBatchNorm buffers.
 
 :func:`load_jax_variables` loads strictly: a variable the model does not
@@ -34,7 +34,8 @@ _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                  "moment_transfer": "moment_transfer", "scales": "scales",
                  "adaption_weight": "adaption_weight",
                  "adaption_weight_cls": "adaption_weight_cls",
-                 "adaption_weight_reg": "adaption_weight_reg"}
+                 "adaption_weight_reg": "adaption_weight_reg",
+                 "l2_norm_scale_param": "l2_norm_scale_param"}
 _STAT_LEAVES = {"mean": "mean", "var": "var"}
 
 

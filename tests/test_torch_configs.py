@@ -17,7 +17,10 @@ one, as the JAX runner's ``make_loss_for`` builds it. The five
 ``configs/reppoints`` and ``configs/dense_reppoints`` files read the same,
 build on the ``meta`` device with a head whose state dict has the keys
 and shapes of the JAX head's parameters, and give the JAX runner's loss
-and test configs.
+and test configs. The thirteen dense-zoo files (RetinaNet, GA-RetinaNet,
+GA-RPN, FCOS, ATSS, GFL, FoveaBox, FSAF, FreeAnchor, PISA RetinaNet,
+SSD300, PISA SSD300, NAS-FCOS) read the same and build the same way; the
+two-stage files are refused with the ROADMAP entry they wait for.
 
 ``with_cp`` runs each residual block under ``torch.utils.checkpoint``
 (``remat`` in the JAX package): a narrow ResNeXt with DCN stages gives the
@@ -321,24 +324,34 @@ DENSE_CONFIGS = ["retinanet/retinanet_r50_fpn_1x_coco.py",
                  "guided_anchoring/ga_rpn_r50_fpn_1x_coco.py",
                  "fcos/fcos_r50_fpn_1x_coco.py",
                  "atss/atss_r50_fpn_1x_coco.py",
-                 "gfl/gfl_r50_fpn_1x_coco.py"]
-# files the port still refuses, by the ROADMAP entry it names
-REFUSED = ["foveabox/fovea_r50_fpn_4x4_1x_coco.py",
-           "fsaf/fsaf_r50_fpn_1x_coco.py", "ssd/ssd300_coco.py",
-           "free_anchor/retinanet_free_anchor_r50_fpn_1x_coco.py",
-           "pisa/pisa_retinanet_r50_fpn_1x_coco.py",
-           "nas_fcos/nas_fcos_fcoshead_r50_fpn_1x_coco.py",
-           "faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py",
+                 "gfl/gfl_r50_fpn_1x_coco.py",
+                 "foveabox/fovea_r50_fpn_4x4_1x_coco.py",
+                 "fsaf/fsaf_r50_fpn_1x_coco.py",
+                 "free_anchor/retinanet_free_anchor_r50_fpn_1x_coco.py",
+                 "pisa/pisa_retinanet_r50_fpn_1x_coco.py",
+                 "ssd/ssd300_coco.py", "pisa/pisa_ssd300_coco.py",
+                 "nas_fcos/nas_fcos_fcoshead_r50_fpn_1x_coco.py"]
+# the files whose backbone or neck is not ResNet + FPN: SSD's VGG-16 with
+# no neck, NAS-FCOS's searched FPN
+OWN_BODY = {"ssd/ssd300_coco.py": (300, 300),
+            "pisa/pisa_ssd300_coco.py": (300, 300),
+            "nas_fcos/nas_fcos_fcoshead_r50_fpn_1x_coco.py": (128, 192)}
+SSD_LEVELS = ((4, 512), (2, 1024), (2, 512), (1, 256), (1, 256), (1, 256))
+# files the port still refuses (the two-stage family), by the ROADMAP
+# entry it names
+REFUSED = ["faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py",
            "mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py",
            "cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py"]
 
 
 @pytest.mark.parametrize("name", DENSE_CONFIGS)
 def test_dense_config_builds_with_the_jax_head_parameters(name):
-    """The six dense-zoo files read the same with both loaders, pass
+    """The thirteen dense-zoo files read the same with both loaders, pass
     ``check_runnable``, and build on the ``meta`` device with a head whose
     state dict has the keys and shapes of the JAX head's parameters
-    (``eval_shape`` at full width, on the file's FPN levels)."""
+    (``eval_shape`` at full width, on the file's levels: SSD's six of
+    VGG-16's widths); for SSD and NAS-FCOS the whole detector's state dict
+    has the keys and shapes of the JAX detector's variables."""
     import jax
     import jax.numpy as jnp
     from lsnet_tpu.models import build_head as j_build_head
@@ -350,15 +363,32 @@ def test_dense_config_builds_with_the_jax_head_parameters(name):
     model_cfg = Config.fromfile(path).to_dict()["model"]
     with torch.device("meta"):
         model = build_detector(model_cfg)
-    assert type(model.head).__name__ == head_cfg_of(model_cfg)["type"]
+    kind = head_cfg_of(model_cfg)["type"]
+    # FreeAnchor and PISA build the plain RetinaNet and SSD head modules
+    assert type(model.head).__name__ == {
+        "FreeAnchorRetinaHead": "RetinaHead", "PISARetinaHead": "RetinaHead",
+        "PISASSDHead": "SSDHead"}.get(kind, kind)
     jhead, _ = j_build_head(dict(head_cfg_of(model_cfg)))
-    feats = [jnp.zeros((1, s, s, 256)) for s in (4, 2, 2, 1, 1)]
+    feats = [jnp.zeros((1, s, s, c)) for s, c in (
+        SSD_LEVELS if "ssd" in name else
+        [(s, 256) for s in (4, 2, 2, 1, 1)])]
     shapes = jax.eval_shape(lambda: jhead.init(jax.random.PRNGKey(0),
                                                feats))
     want = {k: tuple(v.shape) for k, v in from_jax_variables(jax.tree.map(
         lambda s: np.zeros(s.shape, np.float32), shapes)).items()}
     got = {k: tuple(v.shape) for k, v in model.head.state_dict().items()}
     assert got == want
+    if name in OWN_BODY:
+        from lsnet_tpu.models import build_detector as j_build_detector
+        jdet, _ = j_build_detector(dict(model_cfg))
+        shapes = jax.eval_shape(lambda: jdet.init(
+            jax.random.PRNGKey(0), jnp.zeros((1, *OWN_BODY[name], 3))))
+        want = {k: tuple(v.shape) for k, v in from_jax_variables(
+            jax.tree.map(lambda s: np.zeros(s.shape, np.float32),
+                         shapes)).items()}
+        assert {k: tuple(v.shape) for k, v in
+                model.state_dict().items()} == want
+        return
     # the neck's extra levels: convs on the input, on the output (FCOS)
     # or, with none named (GA-RPN), the subsampled last output
     extra = model_cfg["neck"].get("add_extra_convs")
