@@ -197,7 +197,23 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    at 800x1344; a narrow model counted alike on the card and the CPU),
    fuse_conv_bn and publish_model (the same detections through
    ``init_detector``), analyze_logs on phase 6's log, browse_dataset,
-   coco_error_analysis and gen_coco_lsvr, one OK line each.
+   coco_error_analysis and gen_coco_lsvr, one OK line each;
+13. the two-stage files and the pose files through the runner: (a) a
+   narrow Faster R-CNN and a narrow Double-Head (R18, FPN 32, 64-wide
+   FCs, f32) on the card against the CPU from one set of weights: the
+   RPN maps, ``roi_forward`` on fixed RoIs of every level, Faster
+   R-CNN's and Dynamic R-CNN's losses and every gradient on the CPU's
+   proposals and samples, the decode on the CPU's proposals (phase 3's
+   tolerances), with the agreement of the card's own selections logged;
+   (b) the shipped Faster R-CNN, Double-Head and Dynamic R-CNN files at
+   full width (R50-FPN, 80 classes, seeded weights): ``init_detector``
+   and ``inference_detector`` twice, ``detect`` at B=2 800x1344 bf16 and
+   2 train steps, each profiled, with no K1 or grouped launch; (c) the
+   X-101-64x4d-DCN pose_bbox and pose_kbox files through
+   ``lsnet_torch.tools.train`` (2 steps on procedural 768x1280 person
+   images) and ``tools.test --eval keypoints``, the launches of every
+   step and eval asserted, every K1 call of the first step held against
+   its plain version.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (all ten kernels) and, last, ``{"ok": true, "device": {...}}``; the
@@ -209,7 +225,8 @@ phase 2e, ``--only accuracy`` for phase 7, ``--only api`` for the Res2Net
 K1 cases of phase 2a and phase 8, ``--only cpv`` for phase 9,
 ``--only reppoints`` for phase 10, ``--only dense`` for phase 11,
 ``--only tools`` for phase 12 (after a narrow runner on the card for
-analyze_logs' log). With
+analyze_logs' log), ``--only two_stage`` for phase 13 (a, b) and
+``--only pose`` for phase 13c. With
 ``CHIP_SMOKE_LOG=<path>`` in the environment it also writes every line it
 prints to that file, each after the seconds since the start. It needs
 the repository
@@ -243,9 +260,10 @@ from lsnet_torch.core.cpv import CPVLossConfig  # noqa: E402
 from lsnet_torch.core.decode import TestConfig  # noqa: E402
 from lsnet_torch.core.loss import LossConfig  # noqa: E402
 from lsnet_torch.core import reppoints as rp  # noqa: E402
+from lsnet_torch.core import two_stage as ts  # noqa: E402
 from lsnet_torch.evalkit import tta  # noqa: E402
 from lsnet_torch.models import (build_backbone, build_detector,  # noqa: E402
-                                head_cfg_of)
+                                head_cfg_of, is_two_stage)
 from lsnet_torch.models.heads.ls_head import branch_pyramid_jobs  # noqa: E402
 from lsnet_torch.models.init import init_weights_  # noqa: E402
 from lsnet_torch.models.layers import (  # noqa: E402
@@ -420,6 +438,29 @@ ZOO_TRAIN_STEPS = 2              # counted train steps of phase 11b
 # Expand augmentation grows an image up to 4x a side before the crop)
 SSD_RUNNER_TRAIN_HW = [(360, 480), (480, 360)] * 2
 SSD_RUNNER_VAL_HW = [(360, 480)] * 2
+
+# phase 13: the two-stage files (R50-FPN, no DCN: no kernel launches) and
+# the pose files through the runner. A seeded classifier's softmax over 81
+# classes gives each class ~1/81 of a proposal: the decode's score
+# threshold goes under it
+TS_CONFIGS = {
+    name: os.path.join(REPO, "configs", *path.split("/")) for name, path in (
+        ("faster", "faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py"),
+        ("double", "double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py"),
+        ("dynamic", "dynamic_rcnn/dynamic_rcnn_r50_fpn_1x.py"))}
+TS_LABELS = {"faster": "Faster R-CNN", "double": "Double-Head",
+             "dynamic": "Dynamic R-CNN"}
+TS_SCORE_THR = 0.005
+TS_TRAIN_STEPS = 2               # counted train steps of phase 13b
+TS_SMALL_HW = (96, 128)
+TS_SMALL = dict(image_shape=TS_SMALL_HW, num_classes=8, nms_pre=300,
+                proposal_count=64, rcnn_num_samples=64, rpn_num_samples=128)
+POSE_RUNNER_CONFIGS = {
+    task: os.path.join(REPO, "configs", "lsnet",
+                       f"lsnet_{task}_x101_fpn_dconv_c3-c5_mstrain_2x_coco.py")
+    for task in ("pose_bbox", "pose_kbox")}
+POSE_RUNNER_TRAIN_HW = [LAND] * 4        # 2 steps of 2 images, aspect 5:3
+POSE_RUNNER_VAL_HW = [LAND] * 2          # one eval batch
 
 
 LOG_PATH = os.environ.get("CHIP_SMOKE_LOG")    # optional copy of the log
@@ -1429,6 +1470,9 @@ def drive_main_path(label, cfg, grouped_per_forward, task="bbox", k1=None,
             or min(n_valid) < 1:
         raise AssertionError(f"{label}: bad detections: {shapes}, valid "
                              f"{n_valid}")
+    if is_two_stage(model):
+        # the decode runs the RoI head on the proposals: no split
+        return run, img_s, launches, peak
     # host-clock split of one batch: forward alone, decode + NMS alone
     with torch.inference_mode():
         t0 = time.perf_counter()
@@ -1567,14 +1611,15 @@ def zero_launch_counts():
 
 def drive_train_path(task, cfg, lcfg=None, k1=None, steps=None,
                      label=None, grouped=GROUPED_PER_FORWARD, batch=B,
-                     hw=(H, W), **optim_kwargs):
+                     hw=(H, W), batch_extra=None, **optim_kwargs):
     """Phase 4b: train steps of the full-width X-101-64x4d-DCN in
     ``task`` (or of the model ``cfg`` names: ``label``, ``grouped``
     grouped launches a forward), B=2 at 800x1344 (or ``batch`` images at
     ``hw``), bf16 compute over f32 master weights; the loss config
     ``lcfg`` (the task's unless given), ``k1`` K1 launches a forward
     (K1_PER_FORWARD[task] unless given), ``steps`` counted steps
-    (TRAIN_STEPS unless given), ``optim_kwargs`` to the optimizer."""
+    (TRAIN_STEPS unless given), ``batch_extra`` more keys of the batch (a
+    full loss's inputs), ``optim_kwargs`` to ``train_detector_step``."""
     B, (H, W) = batch, hw
     label = label or f"X-101 {task} train"
     num_classes = head_cfg_of(cfg).get("num_classes", 1)
@@ -1586,6 +1631,7 @@ def drive_train_path(task, cfg, lcfg=None, k1=None, steps=None,
         model, lcfg or loss_config(task, (H, W), num_classes), base_lr=0.01,
         **optim_kwargs)
     batch = synthetic_batch(B, (H, W), NUM_GT, num_classes, 0, "cuda")
+    batch.update(batch_extra or {})
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     log(f"{label}er built in {time.perf_counter() - t0:.1f}s")
     for _ in range(TRAIN_WARMUP):
@@ -2240,20 +2286,21 @@ def api_weights_(model, seed):
     """Phase 8's seeded weights, in place: ``random_weights_``, then the
     classifier (``pts_cls_out``, RepPoints' ``cls_out``, the dense zoo's
     ``retina_cls`` / ``fcos_cls`` / ``atss_cls`` / ``gfl_cls`` /
-    ``fovea_cls`` / ``ga_cls``, SSD's ``cls_conv{i}`` of every level) x
+    ``fovea_cls`` / ``ga_cls``, SSD's ``cls_conv{i}`` of every level, a
+    two-stage RoI head's ``fc_cls``) x
     CLS_SPREAD (the kept scores then lie far apart: no two of them tie
     within the card's ~1e-6 differences) and the backbone ``conv_offset``
     kernels 0 (each backbone sample within a bias of a lattice point, far
     from a nearest-rounding tie)."""
     apis.random_weights_(model, seed)
+    head = model.bbox_head if is_two_stage(model) else model.head
     names = ("pts_cls_out", "cls_out", "retina_cls", "fcos_cls",
-             "atss_cls", "gfl_cls", "fovea_cls", "ga_cls")
-    cls = [n for n in names if hasattr(model.head, n)][:1] or [
-        n for n, _ in model.head.named_children()
-        if n.startswith("cls_conv")]
+             "atss_cls", "gfl_cls", "fovea_cls", "ga_cls", "fc_cls")
+    cls = [n for n in names if hasattr(head, n)][:1] or [
+        n for n, _ in head.named_children() if n.startswith("cls_conv")]
     with torch.no_grad():
         for n in cls:
-            getattr(model.head, n).weight.mul_(CLS_SPREAD)
+            getattr(head, n).weight.mul_(CLS_SPREAD)
         for name, m in model.backbone.named_modules():
             if name.endswith("conv_offset"):
                 m.weight.zero_()
@@ -3854,16 +3901,363 @@ def check_refine_taps_and_tools(root, log_dir):
     return numbers, rows
 
 
+# ---------------------------------------------------- phase 13: two-stage
+
+def narrow_ts_cfg(name):
+    """Phase 13a: the shipped file's model with an R18 backbone, FPN and
+    RPN 32 wide, 64-wide RoI FCs (and Double-Head convs), 8 classes."""
+    cfg = Config.fromfile(TS_CONFIGS[name]).model.to_dict()
+    cfg["backbone"]["depth"] = 18
+    cfg["neck"].update(in_channels=[64, 128, 256, 512], out_channels=32)
+    cfg["rpn_head"].update(in_channels=32, feat_channels=32)
+    bh = cfg["roi_head"]["bbox_head"]
+    bh.update(fc_out_channels=64, num_classes=8)
+    if "conv_out_channels" in bh:
+        bh["conv_out_channels"] = 64
+    return cfg
+
+
+def ts_fixed_rois(hw):
+    """(24, 5) RoIs of 8 to 400 px a side over both images, so that every
+    level of the extractor takes some."""
+    gen = torch.Generator().manual_seed(2)
+    side = torch.exp(math.log(8) + torch.rand(24, 2, generator=gen)
+                     * (math.log(400) - math.log(8)))
+    xy = torch.rand(24, 2, generator=gen) * torch.tensor(hw[::-1])
+    b = (torch.arange(24) % 2).float()[:, None]
+    return torch.cat([b, xy, xy + side], 1)
+
+
+def grads_rel_err(want, got):
+    """The largest of each gradient's error over its largest entry
+    (floored at 1e-3 of the largest gradient of all), and its name."""
+    top = max(g.abs().max().item() for g in want.values())
+    return max(((got[n] - g).abs().max().item()
+                / max(g.abs().max().item(), 1e-3 * top), n)
+               for n, g in want.items())
+
+
+def check_two_stage_small(name):
+    """Phase 13a for one narrow detector, the card against the CPU from one
+    set of weights (f32, TF32 off, 2 images at 96x128, 4 instances each):
+    the RPN maps, ``roi_forward`` on 24 fixed RoIs of every level, the
+    decode; then the losses and every parameter's gradient of Faster
+    R-CNN's loss and of Dynamic R-CNN's (threshold 0.4, beta 0.5) on the
+    CPU's proposals and sampled RoIs, at phase 3's tolerances. The
+    proposals, the samples and the decode's detections that the card
+    selects from its own maps can differ from the CPU's where a score or
+    IoU lies within rounding of another: they are compared and their
+    agreement logged; the decode is held strictly on the CPU's proposals
+    (``fast_rcnn_decode``), and the end-to-end losses of each device's own
+    selections are logged beside each other. Returns the numbers."""
+    label = f"{TS_LABELS[name]} R18-shaped"
+    cfg = narrow_ts_cfg(name)
+    outputs_card_vs_cpu(label, cfg, hw=TS_SMALL_HW)
+    tscfg = ts.TwoStageConfig(**TS_SMALL)
+    tcfg = TestConfig(image_shape=TS_SMALL_HW, num_classes=8, nms_pre=500,
+                      score_thr=TS_SCORE_THR, nms_iou=0.5, max_per_img=50)
+    rois = ts_fixed_rois(TS_SMALL_HW)
+    res, sampled, cpu_props = {}, {}, None
+    for device in ("cpu", "cuda"):
+        model = unit_bn_scales_(init_model(cfg, device=device, seed=1,
+                                           train=True))
+        data = synthetic_batch(2, TS_SMALL_HW, 4, 8, 1, device)
+        sfs = torch.ones(2, 4, device=device)
+        r = res[device] = {}
+        with torch.no_grad():
+            feats = model.extract(data["image"])
+            r["roi"] = model.roi_forward(feats, rois.to(device))
+            r["props"] = ts.rpn_proposals(model.rpn(feats),
+                                          data["img_shape"], tscfg)
+            if device == "cpu":
+                cpu_props = r["props"]
+                for thr in (None, 0.4):
+                    sampled[thr] = ts.sample_rois(
+                        *cpu_props, data["gt_bboxes"], data["gt_valid"],
+                        data["gt_labels"], tscfg, pos_iou=thr)
+            r["sampled"] = ts.sample_rois(
+                *r["props"], data["gt_bboxes"], data["gt_valid"],
+                data["gt_labels"], tscfg)
+            r["det"] = ts.two_stage_decode(model, data["image"],
+                                           data["img_shape"], sfs, tscfg,
+                                           tcfg, sampling=fd.TRAIN_SAMPLING)
+            r["fast_det"] = ts.fast_rcnn_decode(
+                model, data["image"], *(x.to(device) for x in cpu_props),
+                data["img_shape"], sfs, tscfg, tcfg,
+                sampling=fd.TRAIN_SAMPLING)
+            r["e2e"] = {k: v.item() for k, v in ts.dynamic_rcnn_loss(
+                model, data, tscfg, 0.4, 0.5)[1].items()}
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        params = [p for p in model.parameters() if p.requires_grad]
+        for key, thr, beta in (("two_stage", None, 1.0),
+                               ("dynamic", 0.4, 0.5)):
+            feats = model.extract(data["image"])
+            l_rpn = ts.rpn_loss(model.rpn(feats), data, tscfg)
+            rois_s, *targets = (x.to(device) for x in sampled[thr])
+            cls, reg = model.roi_forward(feats,
+                                         ts.rois_with_batch_idx(rois_s))
+            l_rcnn = ts.rcnn_loss(cls, reg, *targets, tscfg,
+                                  smoothl1_beta=beta)
+            terms = {"loss_rpn_cls": l_rpn[0], "loss_rpn_bbox": l_rpn[1],
+                     "loss_cls": l_rcnn[0], "loss_bbox": l_rcnn[1]}
+            total = sum(terms.values())
+            grads = torch.autograd.grad(total, params)
+            r[key] = (total.item(), {k: v.item() for k, v in terms.items()},
+                      {n: g.cpu() for n, g in zip(names, grads)})
+    c, g = res["cpu"], res["cuda"]
+    worst = max((gv.float().cpu() - cv).abs().max().item()
+                / max(1.0, cv.abs().max().item())
+                for gv, cv in zip(g["roi"], c["roi"]))
+    props_same = torch.equal(g["props"][1].cpu(), c["props"][1]) and (
+        g["props"][0].cpu() - c["props"][0]).abs().max().item() <= 1e-3 * (
+        1.0 + c["props"][0].abs().max().item())
+    samples_same = all(torch.equal(a.cpu(), b) for a, b in zip(
+        (g["sampled"][i] for i in (1, 3, 4)),
+        (c["sampled"][i] for i in (1, 3, 4))))
+    dets = {}
+    for key in ("det", "fast_det"):
+        gd, cd = g[key], c[key]
+        same = torch.equal(gd.valid.cpu(), cd.valid) and torch.equal(
+            gd.labels.cpu()[cd.valid], cd.labels[cd.valid])
+        err = ((gd.bboxes.cpu() - cd.bboxes)[cd.valid].abs().max().item()
+               / max(1.0, cd.bboxes.abs().max().item())
+               if same and cd.valid.any() else float("nan"))
+        dets[key] = {"same_selection": same, "kept": int(cd.valid.sum()),
+                     "box_rel_err": err}
+    log(f"small {label} model, card vs CPU: roi_forward on 24 fixed RoIs "
+        f"max rel err {worst:.3g}; the card's own proposals "
+        f"{'equal' if props_same else 'DIFFER from'} the CPU's, its own "
+        f"samples' labels / positives / validity "
+        f"{'equal' if samples_same else 'DIFFER from'} the CPU's; decode "
+        f"{json.dumps(dets)}")
+    ok = worst <= 1e-3 and dets["fast_det"]["same_selection"] and \
+        dets["fast_det"]["kept"] > 0 and \
+        dets["fast_det"]["box_rel_err"] <= 1e-3
+    numbers = {"roi_forward_rel_err": worst, "proposals_same": props_same,
+               "samples_same": samples_same, "decode": dets}
+    for key in ("two_stage", "dynamic"):
+        (lc, tc, gc), (lg, tg, gg) = c[key], g[key]
+        err, where = grads_rel_err(gc, gg)
+        log(f"small {label} {key} loss on the CPU's samples, card vs CPU: "
+            f"{lg:.6f} vs {lc:.6f}, terms {json.dumps(tg)} vs "
+            f"{json.dumps(tc)}, {len(gc)} gradients, max rel err "
+            f"{err:.3g} ({where})")
+        ok = ok and abs(lg - lc) <= 1e-4 * abs(lc) and err <= 2e-3 and all(
+            abs(tg[k] - v) <= 1e-4 * max(abs(v), 1e-3 * abs(lc))
+            for k, v in tc.items())
+        numbers[f"{key}_grad_rel_err"] = err
+    log(f"small {label} Dynamic R-CNN loss from each device's own "
+        f"selections: card {json.dumps(g['e2e'])}, CPU "
+        f"{json.dumps(c['e2e'])}")
+    if not ok or not all(math.isfinite(v) for v in g["e2e"].values()
+                         if v != float("inf")):
+        raise AssertionError(f"{label}: card disagrees with the CPU")
+    return numbers
+
+
+def check_two_stage_full(root, name):
+    """Phase 13b: the shipped file at full width (R50-FPN, 80 classes,
+    seeded weights, the decode's score threshold TS_SCORE_THR):
+    ``init_detector`` from a ``save_checkpoint`` file and
+    ``inference_detector`` twice on a seeded 480x640 image (equal
+    detections), ``detect`` at B=2 800x1344 bf16 and TS_TRAIN_STEPS train
+    steps (20 instances an image; Dynamic R-CNN at its file's initial
+    threshold and beta), each profiled, with 0 K1 and 0 grouped launches.
+    Returns (numbers, launches by path)."""
+    cfg = Config.fromfile(TS_CONFIGS[name])
+    cfg.merge_from_dict({"test_cfg.rcnn.score_thr": TS_SCORE_THR})
+    label = f"{TS_LABELS[name]} R50"
+    none = dict.fromkeys(launch_counts(), 0)
+    by_path, numbers = {}, {}
+    path = seeded_checkpoint(cfg, os.path.join(root, name))
+    bundle = apis.init_detector(cfg, path)
+    img = api_image(3)
+    first = apis.inference_detector(bundle, img)
+    zero_launch_counts()
+    again = apis.inference_detector(bundle, img)
+    by_path[f"{label} inference_detector"] = launch_counts()
+    if by_path[f"{label} inference_detector"] != none:
+        raise AssertionError(f"{label}: inference_detector launched "
+                             f"{launch_counts()}")
+    same_detections(f"{label} inference_detector, second call", again,
+                    first, atol=0.0)
+    log(f"{label} inference_detector: {len(again['scores'])} detections, "
+        "equal on a second call")
+    del bundle
+    torch.cuda.empty_cache()
+    model_cfg = cfg.model.to_dict()
+    run, img_s, launches, peak = drive_main_path(
+        label, model_cfg, 0, "bbox", k1=0, config=cfg)
+    numbers["detect"] = profile(label, run, B / img_s * 1e3)
+    numbers["img_per_s"], numbers["peak_memory_bytes"] = img_s, peak
+    by_path[label] = {k: v // ITERS for k, v in launches.items()}
+    del run
+    torch.cuda.empty_cache()
+    lcfg = runner_loop.two_stage_cfg_from(cfg, (H, W))
+    extra, loss_kw = {}, {}
+    sched = runner_loop.dynamic_schedule(cfg)
+    if sched is not None:
+        loss_kw["full_loss_fn"] = runner_loop.dynamic_loss(cfg, lcfg)
+        extra = {"dyn_iou_thr": torch.tensor(sched.iou_thr, device="cuda"),
+                 "dyn_beta": torch.tensor(sched.beta, device="cuda")}
+    run, img_s, launches, peak = drive_train_path(
+        "bbox", model_cfg, lcfg, k1=0, steps=TS_TRAIN_STEPS,
+        label=f"{label} train", grouped=0, warmup_iters=0,
+        batch_extra=extra, **loss_kw)
+    numbers["train"] = profile(f"{label} train step", run, B / img_s * 1e3)
+    numbers["train_img_per_s"] = img_s
+    numbers["train_peak_memory_bytes"] = peak
+    by_path[f"{label} train"] = {k: v // TS_TRAIN_STEPS
+                                 for k, v in launches.items()}
+    del run
+    torch.cuda.empty_cache()
+    log(f"{label} device ms: detect {numbers['detect']['device_ms']:.3f} "
+        f"a batch of {B}, train {numbers['train']['device_ms']:.3f} a step")
+    log(f"{label} device idle share: detect "
+        f"{numbers['detect']['idle_share']:.3f}, train "
+        f"{numbers['train']['idle_share']:.3f}")
+    log(f"{label} peak memory: detect {peak_gib(numbers, ''):.2f} GiB, "
+        f"train {peak_gib(numbers, 'train_'):.2f} GiB")
+    return numbers, by_path
+
+
+def check_pose_runner(root, task):
+    """Phase 13c: the shipped X-101-64x4d-DCN pose file at full width
+    through ``lsnet_torch.tools.train`` (1 epoch of 2 steps on 4
+    procedural 768x1280 person images, an EvalHook on 2 more) and
+    ``lsnet_torch.tools.test --eval keypoints`` on its checkpoint (metrics
+    within 1e-4 of the hook's). Launches of every step: phase 4b's for
+    the task (K1 K1_PER_FORWARD[task] of each kind, grouped 30 of each
+    backward kernel), but the grouped forward twice (``with_cp``
+    recomputes the backbone in the backward); of the eval: K1 and 30
+    grouped a batch. Every K1 call of the first train step is held
+    against its plain version. Returns (numbers, launches per step, per
+    eval)."""
+    path = POSE_RUNNER_CONFIGS[task]
+    cfg = Config.fromfile(path)
+    label = f"runner X-101-64x4d-DCN {task}"
+    train_root, val_root = (os.path.join(root, n) for n in ("train", "val"))
+    train_ann, _ = make_shapes_coco(train_root, len(POSE_RUNNER_TRAIN_HW),
+                                    seed=7, pose=True,
+                                    hw=POSE_RUNNER_TRAIN_HW)
+    val_ann, _ = make_shapes_coco(val_root, len(POSE_RUNNER_VAL_HW),
+                                  seed=8, pose=True, hw=POSE_RUNNER_VAL_HW)
+    test_opts = [f"data.val.ann_file={val_ann}",
+                 f"data.val.img_prefix={os.path.join(val_root, 'imgs')}",
+                 "test_cfg.score_thr=0.005"]
+    opts = test_opts + [
+        f"data.train.ann_file={train_ann}",
+        f"data.train.img_prefix={os.path.join(train_root, 'imgs')}",
+        "data.samples_per_gpu=2", "log_interval=1", "evaluation.interval=1",
+        "custom_hooks=[{'type': 'LaunchCountHook'}]"]
+    k1 = K1_PER_FORWARD[task]
+    recompute = 2 if cfg.model.backbone.get("with_cp") else 1
+    want = {**dict.fromkeys(launch_counts(), 0),
+            "deform_gather_contract": k1,
+            "deform_gather_contract_bwd_data": k1,
+            "deform_gather_contract_bwd_weight": k1,
+            "deform_gather_grouped_contract":
+                recompute * GROUPED_PER_FORWARD,
+            "deform_gather_grouped_contract_bwd_data": GROUPED_PER_FORWARD,
+            "deform_gather_grouped_contract_bwd_weight":
+                GROUPED_PER_FORWARD}
+    want_eval = {**dict.fromkeys(launch_counts(), 0),
+                 "deform_gather_contract": k1,
+                 "deform_gather_grouped_contract": GROUPED_PER_FORWARD}
+    work = os.path.join(root, "work")
+    LaunchCountHook.steps.clear()
+    LaunchCountHook.evals.clear()
+    calls, undo = capture_k1_calls(k1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res = train_tool.main([path, "--work-dir", work, "--total-epochs",
+                               "1", "--max-iters-per-epoch", "2",
+                               "--options", *opts])
+    finally:
+        undo()
+        LaunchCountHook.start_backbone = {}
+    train_s = time.perf_counter() - t0
+    steps, evals = list(LaunchCountHook.steps), list(LaunchCountHook.evals)
+    train = log_records(work, "train")
+    val = log_records(work, "val")
+    for r in train:
+        log(f"{label} " + json.dumps(r))
+    if len(train) != 2 or res["step"] != 2 or len(val) != 1 or any(
+            not math.isfinite(r[k]) for r in train
+            for k in ("loss", "grad_norm", "loss_pose_init",
+                      "loss_pose_refine")):
+        raise AssertionError(f"{label}: records {train}, {val}")
+    if steps != [want] * 2:
+        raise AssertionError(f"{label}: launches per step {steps}, want "
+                             f"{want}")
+    if evals != [want_eval]:
+        raise AssertionError(f"{label}: launches per eval {evals}, want "
+                             f"{want_eval}")
+    checked = check_k1_calls(f"{label} train step 1", calls)
+    del calls
+    torch.cuda.empty_cache()
+    metrics = test_tool.main([path, os.path.join(work, "ckpts",
+                                                 "step_2.pt"),
+                              "--eval", "keypoints", "--options",
+                              *test_opts])
+    hook = {k: v for k, v in val[-1].items() if k not in ("mode", "epoch")}
+    log(f"{label} tools.test metrics {json.dumps(metrics)}; EvalHook "
+        f"{json.dumps(hook)}; keypoints_AP {metrics['keypoints_AP']}")
+    if metrics.keys() != hook.keys() or any(
+            not -1.0 <= v <= 1.0 or abs(v - hook[k]) > 1e-4
+            for k, v in metrics.items()):
+        raise AssertionError(f"{label}: tools.test metrics disagree with "
+                             "the EvalHook's")
+    numbers = {"train_and_eval_s": train_s,
+               "train_s_per_iter": [r["time"] for r in train],
+               "losses": [r["loss"] for r in train],
+               "keypoints_AP": metrics["keypoints_AP"],
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "k1_calls_checked": checked}
+    return numbers, steps[0], evals[0]
+
+
+def check_two_stage(root):
+    """Phase 13 (a, b). Returns (numbers, launches by path)."""
+    t0 = time.perf_counter()
+    numbers, by_path = {"small": {}}, {}
+    for name in ("faster", "double"):
+        numbers["small"][name] = check_two_stage_small(name)
+    seconds = {"a": time.perf_counter() - t0}
+    for name in TS_CONFIGS:
+        numbers[name], paths = check_two_stage_full(root, name)
+        by_path.update(paths)
+    seconds["b"] = time.perf_counter() - t0 - sum(seconds.values())
+    log(f"phase 13 (a, b) seconds by part {json.dumps(seconds)}")
+    numbers["seconds"] = time.perf_counter() - t0
+    return numbers, by_path
+
+
+def check_pose(root):
+    """Phase 13c. Returns (numbers, launches by path)."""
+    t0 = time.perf_counter()
+    numbers, by_path = {}, {}
+    for task in POSE_RUNNER_CONFIGS:
+        (numbers[task], by_path[f"runner {task} train"],
+         by_path[f"runner {task} eval"]) = check_pose_runner(
+            os.path.join(root, task), task)
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"phase 13c seconds {numbers['seconds']:.1f}")
+    return numbers, by_path
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["backward", "probes", "accuracy",
                                            "api", "cpv", "reppoints",
-                                           "dense", "tools"],
+                                           "dense", "tools", "two_stage",
+                                           "pose"],
                         default=None,
                         help="run phases 2c and 2d, phase 2e, phase 7, "
                         "phase 2a's Res2Net cases and phase 8, phase 9, "
-                        "phase 10, phase 11 or phase 12 alone; no result "
-                        "line")
+                        "phase 10, phase 11, phase 12, phase 13 (a, b) or "
+                        "phase 13c alone; no result line")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3945,6 +4339,16 @@ def main(argv=None):
         log("dense kernel rows " + json.dumps(rows))
         log("launches per call or step " + json.dumps(by_path))
         log(f"partial run (--only dense) passed in "
+            f"{time.perf_counter() - t_start:.1f}s; no result line")
+        return 0
+    if opts.only in ("two_stage", "pose"):
+        import tempfile
+        run = check_two_stage if opts.only == "two_stage" else check_pose
+        with tempfile.TemporaryDirectory() as root:
+            numbers, by_path = run(root)
+        log(f"{smi}: {opts.only} " + json.dumps(numbers))
+        log("launches per call or step " + json.dumps(by_path))
+        log(f"partial run (--only {opts.only}) passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
         return 0
     if opts.only == "tools":
@@ -4075,6 +4479,22 @@ def main(argv=None):
         by_path["taps 5 detect"] = taps5["launches_detect"]
         by_path["robustness eval"] = \
             tools_numbers["robustness"]["launches_per_eval_batch"]
+        # phase 13: the two-stage files, the pose files through the runner
+        ts_numbers, ts_paths = check_two_stage(os.path.join(root, "ts"))
+        by_path.update(ts_paths)
+        for name, label in TS_LABELS.items():
+            label = f"{label} R50"
+            e2e[label] = ts_numbers[name]["img_per_s"]
+            e2e[f"{label} train"] = ts_numbers[name]["train_img_per_s"]
+            peaks[label] = ts_numbers[name]["peak_memory_bytes"]
+            peaks[f"{label} train"] = \
+                ts_numbers[name]["train_peak_memory_bytes"]
+        log(f"{smi}: two_stage " + json.dumps(ts_numbers)
+            + f" (phase 13 a, b in {ts_numbers['seconds']:.1f}s)")
+        pose_numbers, pose_paths = check_pose(os.path.join(root, "pose"))
+        by_path.update(pose_paths)
+        log(f"{smi}: pose runner " + json.dumps(pose_numbers)
+            + f" (phase 13c in {pose_numbers['seconds']:.1f}s)")
     for name, entry in probe_entries.items():
         by_path.setdefault("lsnet_torch.tools.probe", {})[name] = \
             entry["launches"]

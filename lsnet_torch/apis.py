@@ -6,7 +6,10 @@ and RepPoints v1 / v2 configs. A detector decodes with its head's decode
 landmarks are zeros), except in ``aug_test_simple``, which takes LSNet's
 candidates as JAX's does and so serves the LSNet heads only. The dense
 zoo's RetinaNet, FCOS, ATSS, GFL and GA-RetinaNet files decode with
-``dense_decode`` (zero landmarks). A Dense RepPoints config and a GA-RPN
+``dense_decode`` (zero landmarks). The two-stage Faster R-CNN,
+Double-Head and Dynamic R-CNN files run ``two_stage_decode``
+(``train.loop.forward_decode``: proposals, the RoI head, per-class
+decode and NMS; zero landmarks), as the JAX bundle's two-stage branch. A Dense RepPoints config and a GA-RPN
 config are refused by :func:`init_detector`: the JAX API has no decode
 for the first and reads ``bbox_head``, which an ``RPN`` lacks; both are
 evaluated through ``lsnet_torch.tools.test`` and served by
@@ -59,9 +62,8 @@ from .ops.flat_deform import (INFERENCE_SAMPLING, TRAIN_SAMPLING,
                               sampling_from_spec)
 from .train.checkpoint import refine_taps_env, restore_eval_state
 from .train.loop import (DENSE_REPPOINTS, decode_for,  # noqa: F401
-                         eval_sampling, evaluate_detector, runner_device,
-                         test_cfg_from,
-                         train_detector)
+                         eval_sampling, evaluate_detector, forward_decode,
+                         runner_device, test_cfg_from, train_detector)
 from .train.optim import build_optimizer
 from .train.step import LossCfg, make_train_step
 from .utils.config import Config
@@ -104,21 +106,23 @@ def train_detector_step(model: LSDetector, loss_cfg: LossCfg, *,
                         decay_epochs: Sequence[int] = (8, 11),
                         mixed_precision: bool = True,
                         sampling: Mapping[str, str] = TRAIN_SAMPLING,
-                        **optim_kwargs
+                        full_loss_fn=None, **optim_kwargs
                         ) -> Callable[[Mapping[str, torch.Tensor]],
                                       Dict[str, torch.Tensor]]:
     """``step(batch) -> metrics`` for ``model`` (f32 master weights, from
     ``init_model(..., train=True)``): the reference recipe (SGD 0.9,
     weight decay 1e-4, clip 35, warm-up + step schedule) on the loss of
     ``loss_cfg.task`` (``lscpv_loss`` for a ``CPVLossConfig``, the
-    RepPoints family's for its configs: ``train.step.LOSSES``), bf16
+    RepPoints family's for its configs: ``train.step.LOSSES``;
+    ``two_stage_loss`` for a ``TwoStageConfig``, or ``full_loss_fn``
+    where given, as ``train.step.make_train_step`` takes it), bf16
     compute unless ``mixed_precision=False``. ``optim_kwargs`` go to
     :func:`lsnet_torch.train.optim.build_optimizer`."""
     optimizer, _ = build_optimizer(model.parameters(), base_lr,
                                    steps_per_epoch, decay_epochs,
                                    **optim_kwargs)
     return make_train_step(model, optimizer, loss_cfg, mixed_precision,
-                           sampling)
+                           sampling, full_loss_fn)
 
 
 def detect(model: LSDetector, images: torch.Tensor,
@@ -130,12 +134,12 @@ def detect(model: LSDetector, images: torch.Tensor,
     [h, w]; scale_factors (B, 4); ``sampling`` maps each sampling site to
     its mode (``flat_deform.TRAIN_SAMPLING`` for bilinear everywhere).
     Returns padded Detections of the head's decode
-    (``train.loop.decode_for``, which needs the model's ``config`` file
-    for the RepPoints heads and the dense zoo's)."""
-    decode = decode_for(model, config)
+    (``train.loop.forward_decode``, which needs the model's ``config``
+    file for the RepPoints heads, the dense zoo's and the two-stage
+    detectors)."""
     with torch.inference_mode():
-        outs = model(images, sampling)
-        return decode(outs, img_shapes, scale_factors, test_cfg)
+        return forward_decode(model, images, img_shapes, scale_factors,
+                              test_cfg, sampling, config)
 
 
 # ------------------------------------------------------------ image level
@@ -304,7 +308,7 @@ def aug_test_simple(bundle: DetectorBundle, img: Image,
     concatenated, then ONE class-wise NMS."""
     from .evalkit.tta import bbox_flip, extreme_flip
 
-    kind = type(bundle.model.head).__name__
+    kind = type(getattr(bundle.model, "head", bundle.model)).__name__
     if kind not in ("LSHead", "LSCPVHead"):
         raise NotImplementedError(
             f"aug_test_simple takes LSNet's candidates, which a {kind} "

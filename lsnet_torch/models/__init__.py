@@ -9,7 +9,11 @@ modules), FCOSHead, ATSSHead, GFLHead, SSDHead and PISASSDHead (an
 SSDHead), FoveaHead, FSAFHead, GARetinaHead and GARPNHead, and their
 single-stage detectors, each an ``LSDetector`` (backbone -> neck ->
 head), as in the JAX package; the standalone ``RPN`` reads its head from
-``rpn_head``. The two-stage family is ROADMAP Queue 1 "Inherited zoo"."""
+``rpn_head``. Of the two-stage family it builds Faster R-CNN
+(``FasterRCNN`` / ``TwoStageDetector``, with the Shared2FC head, or with
+the Double-Head RoI head where ``roi_head.type`` is
+``DoubleHeadRoIHead``) and ``FastRCNN``; the rest of the family is
+ROADMAP Queue 1 "Inherited zoo" items 3.2 and 3.3."""
 
 from __future__ import annotations
 
@@ -27,6 +31,9 @@ from .heads.dense_reppoints import DenseRepPointsHead, DenseRepPointsV2Head
 from .heads.ls_head import LSHead
 from .heads.lscpv_head import LSCPVHead
 from .heads.reppoints import RepPointsHead, RepPointsV2Head
+from .heads.two_stage import (DoubleConvFCBBoxHead, DoubleHeadRCNNDetector,
+                              FastRCNNDetector, RPNHead, Shared2FCBBoxHead,
+                              TwoStageDetector)
 from .necks.extra import NASFCOSFPN
 from .necks.fpn import FPN
 
@@ -46,6 +53,13 @@ DENSE_KINDS = {"RetinaHead": RetinaHead, "RetinaSepBNHead": RetinaSepBNHead,
                "ATSSHead": ATSSHead, "GFLHead": GFLHead, "SSDHead": SSDHead,
                "PISASSDHead": SSDHead, "FoveaHead": FoveaHead,
                "FSAFHead": FSAFHead}
+# the two-stage detector types the port builds, and the rest of the
+# family by the ROADMAP Queue 1 "Inherited zoo" item that ports it
+TWO_STAGE = ("FasterRCNN", "TwoStageDetector", "FastRCNN")
+TWO_STAGE_LATER = {"MaskRCNN": "3.2", "MaskScoringRCNN": "3.2",
+                   "PointRend": "3.2", "CascadeRCNN": "3.3",
+                   "GridRCNN": "3.3", "HybridTaskCascade": "3.3",
+                   "HTC": "3.3"}
 HEADS = ("LSHead", "LSCPVHead", "RepPointsHead", "RepPointsV2Head",
          "DenseRepPointsHead", "DenseRepPointsV2Head", "GARetinaHead",
          "GARPNHead") + tuple(DENSE_KINDS)
@@ -182,18 +196,79 @@ def _dense_head(kind: str, cfg: Dict[str, Any]) -> nn.Module:
 
 
 def head_cfg_of(model_cfg) -> Dict[str, Any]:
-    """A ``model`` config's head: its ``bbox_head``, or an ``RPN``'s
-    ``rpn_head`` ({} where there is none)."""
-    return model_cfg.get("rpn_head" if model_cfg.get("type") == "RPN"
-                         else "bbox_head", {})
+    """A ``model`` config's head: its ``bbox_head``, a two-stage
+    detector's ``roi_head.bbox_head`` (the first stage's of a list), or an
+    ``RPN``'s ``rpn_head`` ({} where there is none), as the JAX runner's
+    ``_head_cfg``."""
+    if model_cfg.get("type") == "RPN":
+        return model_cfg.get("rpn_head", {})
+    head = model_cfg.get("bbox_head",
+                         (model_cfg.get("roi_head") or {}).get("bbox_head",
+                                                               {}))
+    if isinstance(head, (list, tuple)):
+        head = head[0] if head else {}
+    return head
 
 
-def build_detector(cfg: Dict[str, Any]) -> LSDetector:
+def is_two_stage(model: nn.Module) -> bool:
+    """Whether the detector is of the two-stage family."""
+    return isinstance(model, FastRCNNDetector)
+
+
+def _two_stage(cfg: Dict[str, Any], backbone: nn.Module,
+               neck: nn.Module) -> nn.Module:
+    """A Faster R-CNN (with the Double-Head RoI head where the config
+    says so) or a Fast R-CNN, as the JAX ``build_detector`` reads it: the
+    RPN's anchors a cell from its anchor generator, the bbox head's
+    widths from ``roi_head.bbox_head``; the RoI features have the neck's
+    width."""
+    kind = cfg["type"]
+    rpn_cfg = dict(cfg.get("rpn_head") or {})
+    ag = rpn_cfg.get("anchor_generator") or {}
+    n_base = (len(ag.get("ratios", [0.5, 1.0, 2.0]))
+              * len(ag.get("scales", [8])))
+    roi_cfg = dict(cfg.get("roi_head") or {})
+    bh = head_cfg_of(cfg)
+    num_classes = bh.get("num_classes", 80)
+    width = (cfg.get("neck") or {}).get("out_channels", 256)
+    agnostic = bh.get("reg_class_agnostic", False)
+    if roi_cfg.get("type") == "DoubleHeadRoIHead":
+        bbox_head = DoubleConvFCBBoxHead(
+            num_classes=num_classes, in_channels=width,
+            num_convs=bh.get("num_convs", 4), num_fcs=bh.get("num_fcs", 2),
+            conv_channels=bh.get("conv_out_channels", 1024),
+            fc_channels=bh.get("fc_out_channels", 1024),
+            reg_class_agnostic=agnostic)
+    else:
+        bbox_head = Shared2FCBBoxHead(
+            num_classes=num_classes, in_channels=width,
+            fc_channels=bh.get("fc_out_channels", 1024),
+            reg_class_agnostic=agnostic)
+    if kind == "FastRCNN":
+        return FastRCNNDetector(backbone, neck, bbox_head)
+    rpn = RPNHead(num_base_anchors=n_base, **{
+        k: v for k, v in rpn_cfg.items()
+        if k in ("in_channels", "feat_channels")})
+    if roi_cfg.get("type") == "DoubleHeadRoIHead":
+        return DoubleHeadRCNNDetector(
+            backbone, neck, rpn, bbox_head,
+            reg_roi_scale_factor=roi_cfg.get("reg_roi_scale_factor", 1.3))
+    return TwoStageDetector(backbone, neck, rpn, bbox_head)
+
+
+def build_detector(cfg: Dict[str, Any]) -> nn.Module:
     """Build the detector from a full ``model`` config dict."""
-    if cfg["type"] not in DETECTORS:
-        raise NotImplementedError(f"detector {cfg['type']}")
+    kind = cfg["type"]
+    if kind in TWO_STAGE_LATER:
+        raise NotImplementedError(
+            f"detector {kind}: ROADMAP Queue 1 \"Inherited zoo\" item "
+            f"{TWO_STAGE_LATER[kind]}")
+    if kind not in DETECTORS + TWO_STAGE:
+        raise NotImplementedError(f"detector {kind}")
     backbone = build_backbone(cfg["backbone"])
     neck = build_neck(cfg.get("neck"), backbone.out_channels)
+    if kind in TWO_STAGE:
+        return _two_stage(cfg, backbone, neck)
     return LSDetector(backbone, neck, build_head(head_cfg_of(cfg)))
 
 

@@ -30,6 +30,11 @@ Each parameter is drawn from the distribution its flax module gives it:
   ``extra_{k}`` (its cells' ``input{1,2}_conv`` are ConvModules:
   ``kaiming_init``), LeCun normal (truncated at 2 std, fan_in), biases 0;
   SSDVGG's ``l2_norm_scale_param`` 20;
+* the two-stage heads (``models/heads/two_stage.py``): the RPN's
+  convolutions N(0, 0.01); the RoI heads' ``nn.Linear``s (flax
+  ``nn.Dense``) LeCun normal (truncated at 2 std, fan_in), but ``fc_cls``
+  N(0, 0.01) and ``fc_reg`` N(0, 0.001); the Double-Head convolutions
+  flax's ``nn.Conv`` default, LeCun normal; every bias 0;
 * the RepPoints heads' ``moment_transfer``: 0;
 * ``conv_offset`` of a DCNv2 pack: 0 (``layers.py:146``), so every DCN
   starts as a plain conv;
@@ -60,6 +65,7 @@ from .heads.dense_reppoints import DenseRepPointsHead
 from .heads.ls_head import LSHead
 from .heads.lscpv_head import LSCPVHead
 from .heads.reppoints import RepPointsHead, RepPointsV2Head
+from .heads.two_stage import DoubleConvFCBBoxHead, RPNHead
 from .layers import (ConvModule, FrozenBatchNorm, ModulatedDeformConvPack,
                      PairedPyramidDeformConv, PyramidDeformConv)
 from .necks.extra import NASFCOSFPN
@@ -75,7 +81,10 @@ DENSE_HEADS = (RetinaHead, ScaledHead, GARetinaHead, GARPNHead, FoveaHead,
 # FSAF's regression bias at init: 0.25 x the TBLR normaliser 4, one
 # stride each side
 FSAF_REG_BIAS = 0.25
-HEADS = (LSHead, LSCPVHead, RepPointsHead, DenseRepPointsHead) + DENSE_HEADS
+HEADS = (LSHead, LSCPVHead, RepPointsHead, DenseRepPointsHead,
+         RPNHead) + DENSE_HEADS
+# the RoI heads' classifier and regressor (flax nn.Dense) and their stds
+DENSE_STD = {"fc_cls": 0.01, "fc_reg": 0.001}
 # heads with the corner-pool packs, whose convolutions (name ends) keep
 # the flax defaults: ConvModule's kaiming_init, nn.Conv's lecun_normal
 CORNER_HEADS = (LSCPVHead, RepPointsV2Head)
@@ -93,6 +102,12 @@ def bias_init_with_prob(prior_prob: float) -> float:
 
 def _normal_(p: torch.Tensor, std: float, gen: torch.Generator) -> None:
     p.copy_(std * torch.randn(p.shape, generator=gen))
+
+
+def _lecun_(p: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """flax's LeCun normal: N(0, 1 / fan_in) truncated at 2 std."""
+    std = math.sqrt(1.0 / fan_in) / TRUNC_STD
+    nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=gen)
 
 
 def _he_fan_out_(p: torch.Tensor, fan_out: int, gen: torch.Generator):
@@ -118,7 +133,7 @@ def init_weights_(model: nn.Module, generator: torch.Generator
     # NASFCOSFPN's outside its ConvModules
     nas = [m for h in model.modules() if isinstance(h, NASFCOSFPN)
            for m in h.modules()]
-    lecun = members(SSDVGG) | (
+    lecun = members(SSDVGG) | members(DoubleConvFCBBoxHead) | (
         {id(m) for m in nas if isinstance(m, nn.Conv2d)}
         - {id(m.conv) for m in nas if isinstance(m, ConvModule)})
     fsaf_reg = {id(h.retina_reg) for h in model.modules()
@@ -143,9 +158,7 @@ def init_weights_(model: nn.Module, generator: torch.Generator
                               "adaption_offset_cls", "adaption_offset_reg")):
                 m.weight.zero_()
             elif (cpv and name.endswith(CPV_LECUN)) or id(m) in lecun:
-                std = math.sqrt(1.0 / (cin * kh * kw)) / TRUNC_STD
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std,
-                                      2 * std, generator=generator)
+                _lecun_(m.weight, cin * kh * kw, generator)
             elif id(m) in head_modules and not (
                     cpv and name.endswith(CPV_KAIMING)):
                 _normal_(m.weight, 0.01, generator)
@@ -158,6 +171,14 @@ def init_weights_(model: nn.Module, generator: torch.Generator
                     m.bias.fill_(bias_init_with_prob(PRIOR_PROB))
                 if id(m) in fsaf_reg:
                     m.bias.fill_(FSAF_REG_BIAS)
+            mark(m.weight, m.bias)
+        elif isinstance(m, nn.Linear):
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in DENSE_STD:
+                _normal_(m.weight, DENSE_STD[leaf], generator)
+            else:
+                _lecun_(m.weight, m.in_features, generator)
+            m.bias.zero_()
             mark(m.weight, m.bias)
         elif isinstance(m, ModulatedDeformConvPack):
             k, _, cin_g, _ = m.weight.shape

@@ -47,26 +47,42 @@ def bilinear_gather(feat: torch.Tensor, ys: torch.Tensor,
                     xs: torch.Tensor) -> torch.Tensor:
     """Zero-padded bilinear sampling: feat (B,H,W,C), ys/xs (B,P) -> (B,P,C)."""
     B, H, W, C = feat.shape
+    boffs = (torch.arange(B, device=feat.device) * (H * W)).view(B, 1)
+    return bilinear_gather_rows(feat.reshape(B * H * W, C), boffs, H, W,
+                                ys, xs)
+
+
+def _clip(v: torch.Tensor, hi) -> torch.Tensor:
+    """``v`` clipped to [0, hi], ``hi`` an int or a tensor."""
+    return (v.clamp(0, hi) if isinstance(hi, int)
+            else torch.minimum(v.clamp(min=0), hi))
+
+
+def bilinear_gather_rows(rows: torch.Tensor, base: torch.Tensor, h, w,
+                         ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """:func:`bilinear_gather` on row-major maps inside one table: rows
+    (R, C); sample set n reads the map of ``h[n]`` x ``w[n]`` rows (ints,
+    or (N, 1) tensors) whose row (0, 0) is ``base[n]`` ((N, 1)); ys/xs
+    (N, P) -> (N, P, C)."""
     ys = ys.float()
     xs = xs.float()
     y0 = torch.floor(ys)
     x0 = torch.floor(xs)
     y0i = y0.long()
     x0i = x0.long()
-    feat2d = feat.reshape(B * H * W, C)
-    boffs = (torch.arange(B, device=feat.device) * (H * W)).view(B, 1)
+    N, C = ys.shape[0], rows.shape[1]
     out = None
     for dy in (0, 1):
         yi = y0i + dy
         wy = tent(ys - y0 - dy, dy)
-        yvalid = (yi >= 0) & (yi < H)
+        yvalid = (yi >= 0) & (yi < h)
         for dx in (0, 1):
             xi = x0i + dx
             wx = tent(xs - x0 - dx, dx)
-            valid = yvalid & (xi >= 0) & (xi < W)
-            flat = yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1) + boffs
-            wt = (wy * wx * valid).to(feat.dtype).unsqueeze(-1)
-            v = feat2d[flat.reshape(-1)].reshape(B, -1, C) * wt
+            valid = yvalid & (xi >= 0) & (xi < w)
+            flat = _clip(yi, h - 1) * w + _clip(xi, w - 1) + base
+            wt = (wy * wx * valid).to(rows.dtype).unsqueeze(-1)
+            v = rows[flat.reshape(-1)].reshape(N, -1, C) * wt
             out = v if out is None else out + v
     return out
 

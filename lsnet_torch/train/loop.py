@@ -33,11 +33,18 @@ RetinaSepBN, FCOS, ATSS, GFL, SSD, FoveaBox, FSAF, FreeAnchor, PISA
 RetinaNet and SSD, GA-RetinaNet and the standalone GA-RPN, whose head is
 the ``RPN``'s ``rpn_head``) on ``dense_loss`` and ``dense_decode`` with
 the ``dense_cfg_from`` settings (a GA-RPN proposal is a label-0
-detection).
+detection). The two-stage files (Faster R-CNN, Double-Head, Dynamic
+R-CNN) train on the full loss ``two_stage_loss`` (Dynamic R-CNN on
+``dynamic_rcnn_loss``, its threshold and beta fed each step from a
+``DynamicRCNNSchedule`` and its statistics popped from the step's
+metrics) and decode with ``two_stage_decode``, with the
+``two_stage_cfg_from`` settings. The datasets come from
+``data.extra.build_dataset``: ``CocoDataset``, and ``CocoPoseDataset``
+(the pose files') as the same dataset.
 
 Left out, as the TPU's own or not yet ported: the compile cache, the
-chunk budget, the device mesh (one card; ``num_hosts`` 1 until ROADMAP
-Queue 1 "Multi-GPU") and the two-stage branch.
+chunk budget and the device mesh (one card; ``num_hosts`` 1 until ROADMAP
+Queue 1 "Multi-GPU").
 """
 
 from __future__ import annotations
@@ -57,11 +64,15 @@ from ..core.dense_reppoints import (DenseRepPointsConfig,
 from ..core.loss import LossConfig
 from ..core.reppoints import (RepPointsConfig, RepPointsV2Config,
                               reppoints_decode, reppoints_v2_decode)
-from ..data.coco import (CocoDataset, DataLoader, DatasetConfig,
-                         batch_to_device, collate_batch)
+from ..core.two_stage import (DynamicRCNNSchedule, TwoStageConfig,
+                              dynamic_rcnn_loss, two_stage_decode)
+from ..data.coco import (DataLoader, DatasetConfig, batch_to_device,
+                         collate_batch)
+from ..data.extra import DATASET_TYPES, build_dataset
 from ..evalkit.evaluator import (coco_gt_from_annotations, detections_to_coco,
                                  evaluate_coco)
-from ..models import DETECTORS, HEADS, build_detector, head_cfg_of
+from ..models import (DETECTORS, HEADS, TWO_STAGE_LATER, build_detector,
+                      head_cfg_of, is_two_stage)
 from ..models.init import init_weights_
 from ..ops.flat_deform import (INFERENCE_SAMPLING, TRAIN_SAMPLING,
                                sampling_from_spec, with_refine_taps)
@@ -88,6 +99,11 @@ DENSE_HEAD_KINDS = {"RetinaHead": "retina", "RetinaSepBNHead": "retina",
                     "PISARetinaHead": "pisa_retina",
                     "PISASSDHead": "pisa_ssd",
                     "GARetinaHead": "ga_retina", "GARPNHead": "ga_rpn"}
+# the two-stage detectors the runner trains (JAX's ``_is_two_stage``, less
+# ROADMAP Queue 1 items 3.2 and 3.3; a Fast R-CNN takes its proposals from
+# outside) and their RoI heads
+TWO_STAGE_RUNNER = ("FasterRCNN", "TwoStageDetector")
+ROI_HEADS = ("StandardRoIHead", "DoubleHeadRoIHead", "DynamicRoIHead")
 
 
 def head_cfg(cfg):
@@ -264,13 +280,72 @@ def dense_cfg_from(cfg, image_shape) -> DenseLossConfig:
         **extra)
 
 
+def two_stage_cfg_from(cfg, image_shape) -> TwoStageConfig:
+    """The settings of a two-stage file, as the JAX runner reads them:
+    the RPN assigner's thresholds and sampler's count, the proposals'
+    ``nms_pre`` / ``max_per_img`` (capped at 512) / NMS IoU from
+    ``train_cfg.rpn_proposal`` (decode too: ``test_cfg.rpn`` is not read),
+    the RoI assigner's ``pos_iou_thr`` and sampler's count and positive
+    fraction, the classes of ``roi_head.bbox_head``."""
+    tc = cfg.get("train_cfg", {}) or {}
+    rpn = tc.get("rpn", {}).get("assigner", {})
+    prop = tc.get("rpn_proposal", {})
+    rcnn = tc.get("rcnn", {})
+    return TwoStageConfig(
+        image_shape=tuple(image_shape),
+        num_classes=head_cfg(cfg).num_classes,
+        rpn_pos_iou=rpn.get("pos_iou_thr", 0.7),
+        rpn_neg_iou=rpn.get("neg_iou_thr", 0.3),
+        rpn_num_samples=tc.get("rpn", {}).get("sampler", {}).get("num", 256),
+        nms_pre=prop.get("nms_pre", 1000),
+        proposal_count=min(prop.get("max_per_img", 512), 512),
+        proposal_nms_iou=prop.get("nms", {}).get("iou_threshold", 0.7),
+        rcnn_pos_iou=rcnn.get("assigner", {}).get("pos_iou_thr", 0.5),
+        rcnn_num_samples=rcnn.get("sampler", {}).get("num", 512),
+        rcnn_pos_fraction=rcnn.get("sampler", {}).get("pos_fraction", 0.25))
+
+
+def is_two_stage_cfg(cfg) -> bool:
+    """Whether a file's detector is of the two-stage family the runner
+    trains (JAX's ``_is_two_stage``)."""
+    return cfg.model.type in TWO_STAGE_RUNNER
+
+
+def dynamic_schedule(cfg) -> Optional[DynamicRCNNSchedule]:
+    """Dynamic R-CNN's schedule from ``train_cfg.rcnn.dynamic_rcnn``
+    where the RoI head is a ``DynamicRoIHead``, else None."""
+    if (cfg.model.get("roi_head") or {}).get("type") != "DynamicRoIHead":
+        return None
+    dyn = (cfg.get("train_cfg", {}) or {}).get("rcnn", {}).get(
+        "dynamic_rcnn", {})
+    return DynamicRCNNSchedule(
+        initial_iou=dyn.get("initial_iou", 0.4),
+        initial_beta=dyn.get("initial_beta", 1.0),
+        update_iter_interval=dyn.get("update_iter_interval", 100))
+
+
+def dynamic_loss(cfg, loss_cfg: TwoStageConfig):
+    """The train step's full loss of a Dynamic R-CNN file: the threshold
+    and beta ride the batch (``dyn_iou_thr``, ``dyn_beta``), as in the JAX
+    runner; ``iou_topk`` / ``beta_topk`` keep ``dynamic_rcnn_loss``'s
+    defaults, which the JAX runner does not read from the file."""
+    def loss(model, batch, sampling):
+        rest = {k: v for k, v in batch.items() if not k.startswith("dyn_")}
+        return dynamic_rcnn_loss(model, rest, loss_cfg, batch["dyn_iou_thr"],
+                                 batch["dyn_beta"], sampling=sampling)
+    return loss
+
+
 def train_loss_cfg(cfg, image_shape):
     """The train step's loss config, by head type: ``CPVLossConfig``
     around the base config for the CPV head (its heatmap, offset and
     semantic terms keep their defaults, as in the JAX runner),
     ``reppoints_cfg_from`` / ``dense_reppoints_cfg_from`` for the
-    RepPoints family, ``dense_cfg_from`` for the dense zoo, else
+    RepPoints family, ``dense_cfg_from`` for the dense zoo,
+    ``two_stage_cfg_from`` for the two-stage files, else
     ``loss_cfg_from``."""
+    if is_two_stage_cfg(cfg):
+        return two_stage_cfg_from(cfg, image_shape)
     kind = head_cfg(cfg).get("type")
     if kind in DENSE_HEAD_KINDS:
         return dense_cfg_from(cfg, image_shape)
@@ -327,9 +402,32 @@ def decode_for(model: torch.nn.Module, config=None) -> Callable[..., Any]:
     return decode
 
 
+def forward_decode(model: torch.nn.Module, images: torch.Tensor,
+                   img_shapes: torch.Tensor, scale_factors: torch.Tensor,
+                   tcfg: TestConfig, sampling: Mapping[str, str],
+                   config=None) -> Detections:
+    """The detector's forward and decode on a batch: ``two_stage_decode``
+    (with ``two_stage_cfg_from`` of the ``config`` file at the test
+    config's canvas) for a two-stage detector, else the forward and
+    :func:`decode_for`'s decode."""
+    if is_two_stage(model):
+        if config is None:
+            raise ValueError("a two-stage decode reads the model's config "
+                             "file; pass it as config")
+        return two_stage_decode(
+            model, images, img_shapes, scale_factors,
+            two_stage_cfg_from(config, tcfg.image_shape), tcfg,
+            sampling=sampling)
+    return decode_for(model, config)(model(images, sampling), img_shapes,
+                                     scale_factors, tcfg)
+
+
 def test_cfg_from(cfg, image_shape) -> TestConfig:
+    """The decode's test settings; a two-stage file's ``test_cfg.rcnn``."""
     head = head_cfg(cfg)
     tc = cfg.test_cfg
+    if "rcnn" in tc:
+        tc = tc.rcnn
     return TestConfig(
         image_shape=tuple(image_shape),
         num_classes=head.get("num_classes", 1),
@@ -351,17 +449,32 @@ def check_runnable(cfg) -> None:
     or dataset the port cannot run yet."""
     model = cfg.model
     head = head_cfg(cfg).get("type")
-    if model.type not in DETECTORS or head not in HEADS:
+    roi_head = (model.get("roi_head") or {}).get("type", "StandardRoIHead")
+    if model.type in TWO_STAGE_LATER:
+        raise NotImplementedError(
+            f"{model.type}: the port runs the two-stage files of Faster "
+            "R-CNN, Double-Head and Dynamic R-CNN; this one is ROADMAP "
+            f"Queue 1 \"Inherited zoo\" item {TWO_STAGE_LATER[model.type]}")
+    if is_two_stage_cfg(cfg):
+        if roi_head not in ROI_HEADS:
+            raise NotImplementedError(
+                f"{model.type} with {roi_head}: the port runs the RoI heads "
+                f"{', '.join(ROI_HEADS)}; the rest of the two-stage family "
+                "is ROADMAP Queue 1 \"Inherited zoo\" items 3.2 and 3.3")
+    elif model.type not in DETECTORS or head not in HEADS:
         raise NotImplementedError(
             f"{model.type} with {head}: the port runs the single-stage "
             f"detectors {', '.join(sorted(DETECTORS))} with the heads "
-            f"{', '.join(sorted(HEADS))}; the two-stage family and the "
-            "rest of the zoo are ROADMAP Queue 1 \"Inherited zoo\"")
+            f"{', '.join(sorted(HEADS))} and the two-stage "
+            f"{', '.join(TWO_STAGE_RUNNER)}; the rest of the zoo is ROADMAP "
+            "Queue 1 \"Inherited zoo\"")
     for split in ("train", "val"):
         kind = cfg.data.get(split, {}).get("type", "CocoDataset")
-        if kind != "CocoDataset":
-            raise NotImplementedError(f"dataset {kind}: data/extra.py is "
-                                      "ROADMAP Queue 1 \"Inherited zoo\"")
+        if kind not in DATASET_TYPES:
+            raise NotImplementedError(
+                f"dataset {kind}: the port reads "
+                f"{', '.join(DATASET_TYPES)}; the rest of data/extra.py is "
+                "ROADMAP Queue 1 \"Inherited zoo\" item 3.4")
 
 
 def head_num_vectors(cfg) -> int:
@@ -391,6 +504,15 @@ def eval_sampling(explicit: Optional[Mapping[str, str]] = None,
     (``LSNET_REFINE_TAPS``), else the ones the checkpoint trained on."""
     modes = explicit if explicit is not None else deploy_sampling(meta)
     return with_refine_taps(modes, deploy_taps(meta, taps))
+
+
+def clip_norm_from(cfg) -> float:
+    """The gradient clip's ``max_norm``: 35 (the JAX runner's default)
+    where the file sets none, and where it sets ``grad_clip=None`` (the
+    schedules of the two-stage and dense files), on which the JAX runner
+    raises ``AttributeError``."""
+    return (cfg.get("optimizer_config", {}).get("grad_clip") or {}).get(
+        "max_norm", 35.0)
 
 
 def runner_device(device) -> torch.device:
@@ -438,7 +560,7 @@ def train_detector(cfg, work_dir: str, *, total_epochs: Optional[int] = None,
 
     data_cfg = cfg.data
     train = data_cfg.train
-    ds = CocoDataset(_dataset_cfg(
+    ds = build_dataset(train.get("type", "CocoDataset"), _dataset_cfg(
         cfg, "train",
         multiscale_mode=train.get("multiscale_mode", "range"),
         ratio_range=train.get("ratio_range"),
@@ -469,8 +591,7 @@ def train_detector(cfg, work_dir: str, *, total_epochs: Optional[int] = None,
         lr_cfg.get("step", [8, 11]),
         momentum=cfg.optimizer.get("momentum", 0.9),
         weight_decay=cfg.optimizer.get("weight_decay", 1e-4),
-        clip_norm=(cfg.get("optimizer_config", {}).get("grad_clip") or {}
-                   ).get("max_norm", 35.0),
+        clip_norm=clip_norm_from(cfg),
         schedule=schedule)
 
     start_epoch = 0
@@ -487,14 +608,17 @@ def train_detector(cfg, work_dir: str, *, total_epochs: Optional[int] = None,
               flush=True)
 
     # one train step per canvas orientation (its loss config holds the
-    # canvas)
+    # canvas); Dynamic R-CNN's threshold and beta ride the batch
     step_fns: Dict[Tuple[int, int], Any] = {}
+    dyn_sched = dynamic_schedule(cfg)
 
     def step_for(canvas_hw):
         if canvas_hw not in step_fns:
+            loss_cfg = train_loss_cfg(cfg, canvas_hw)
             step_fns[canvas_hw] = make_train_step(
-                model, optimizer, train_loss_cfg(cfg, canvas_hw),
-                sampling=sampling)
+                model, optimizer, loss_cfg, sampling=sampling,
+                full_loss_fn=(dynamic_loss(cfg, loss_cfg) if dyn_sched
+                              else None))
         return step_fns[canvas_hw]
 
     hooks = build_hooks(cfg, logger, eval_interval)
@@ -514,7 +638,16 @@ def train_detector(cfg, work_dir: str, *, total_epochs: Optional[int] = None,
             if max_iters_per_epoch and it >= max_iters_per_epoch:
                 break
             canvas_hw = tuple(batch["image"].shape[1:3])
-            metrics = step_for(canvas_hw)(batch_to_device(batch, device))
+            batch = batch_to_device(batch, device)
+            if dyn_sched is not None:
+                batch["dyn_iou_thr"] = torch.tensor(dyn_sched.iou_thr,
+                                                    device=device)
+                batch["dyn_beta"] = torch.tensor(dyn_sched.beta,
+                                                 device=device)
+            metrics = step_for(canvas_hw)(batch)
+            if dyn_sched is not None:
+                dyn_sched.update(float(metrics.pop("stat_iou")),
+                                 float(metrics.pop("stat_beta")))
             ctx.iter = it
             ctx.global_step = optimizer.count
             ctx.lr = float(schedule(optimizer.count))
@@ -541,14 +674,14 @@ def evaluate_detector(cfg, model: torch.nn.Module, canvas, *,
     runs in the dtype and on the device of the model's parameters."""
     check_runnable(cfg)
     task = head_cfg(cfg).get("task", "bbox")
-    ds = CocoDataset(_dataset_cfg(cfg, "val", filter_empty=False),
-                     test_mode=True)
+    ds = build_dataset(cfg.data.val.get("type", "CocoDataset"),
+                       _dataset_cfg(cfg, "val", filter_empty=False),
+                       test_mode=True)
     param = next(model.parameters())
     n = len(ds) if max_images is None else min(max_images, len(ds))
     img_sizes = {info["id"]: (info["height"], info["width"])
                  for info in ds.coco.img_infos}
     label_to_cat = {v: k for k, v in ds.coco.cat_to_label.items()}
-    decode = decode_for(model, cfg)
     land, port = tuple(canvas), (canvas[1], canvas[0])
     groups = {land: [], port: []}
     for i in range(n):
@@ -569,12 +702,11 @@ def evaluate_detector(cfg, model: torch.nn.Module, canvas, *,
                 image = torch.from_numpy(batch["image"]).to(
                     param.device, param.dtype)
                 with torch.inference_mode():
-                    outs = model(image, sampling)
-                    det = decode(
-                        outs,
+                    det = forward_decode(
+                        model, image,
                         torch.from_numpy(batch["img_shape"]).to(param.device),
                         torch.from_numpy(batch["scale_factor"]).to(
-                            param.device), tcfg)
+                            param.device), tcfg, sampling, cfg)
                 dts += detections_to_coco(det, batch["img_id"], label_to_cat,
                                           task=task, img_sizes=img_sizes)
     finally:

@@ -12,6 +12,11 @@ are taken: a ``with_cp`` backbone recomputes its blocks in the backward and
 must see the same copies there. The update is in place (JAX returns a new
 state).
 
+A full loss (JAX's ``make_train_step(..., full_loss_fn=)``) replaces the
+forward and the head's loss: the two-stage detectors' losses call the
+model's ``extract`` / ``rpn`` / ``roi_forward`` themselves, on the bf16
+copies and the bf16 image, and cast to f32 where they assign and sum.
+
 ``grad_norm`` is the global norm before the clip over the trainable
 parameters, the norm the clip sees; the JAX step's metric also counts the
 gradients of the frozen stage, which the port never computes.
@@ -20,7 +25,7 @@ gradients of the frozen stage, which the port never computes.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Mapping, Union
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch.nn.utils.stateless import _reparametrize_module
@@ -34,6 +39,7 @@ from ..core.dense_reppoints import (DenseRepPointsConfig,
 from ..core.loss import LossConfig, lsnet_loss
 from ..core.reppoints import (RepPointsConfig, RepPointsV2Config,
                               reppoints_loss, reppoints_v2_loss)
+from ..core.two_stage import TwoStageConfig, two_stage_loss
 from ..ops.flat_deform import TRAIN_SAMPLING
 from .optim import ClippedSGD
 
@@ -45,7 +51,11 @@ LOSSES = {LossConfig: lsnet_loss, CPVLossConfig: lscpv_loss,
           DenseRepPointsV2Config: dense_reppoints_v2_loss,
           DenseLossConfig: dense_loss}
 LossCfg = Union[LossConfig, CPVLossConfig, RepPointsConfig,
-                DenseRepPointsConfig, DenseLossConfig]
+                DenseRepPointsConfig, DenseLossConfig, TwoStageConfig]
+# full_loss_fn(model, batch, sampling) -> (total, losses)
+FullLoss = Callable[[torch.nn.Module, Mapping[str, torch.Tensor],
+                     Mapping[str, str]],
+                    Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
 def as_f32(outs: Mapping[str, object]) -> Dict[str, object]:
@@ -58,12 +68,16 @@ def as_f32(outs: Mapping[str, object]) -> Dict[str, object]:
 def make_train_step(model: torch.nn.Module, optimizer: ClippedSGD,
                     loss_cfg: LossCfg,
                     mixed_precision: bool = True,
-                    sampling: Mapping[str, str] = TRAIN_SAMPLING
+                    sampling: Mapping[str, str] = TRAIN_SAMPLING,
+                    full_loss_fn: Optional[FullLoss] = None
                     ) -> Callable[[Mapping[str, torch.Tensor]],
                                   Dict[str, torch.Tensor]]:
     """``step(batch) -> metrics``: one update of ``model`` in place.
 
-    The loss is the one ``LOSSES`` names for the config's type:
+    ``full_loss_fn(model, batch, sampling) -> (total, losses)``, where
+    given, is the whole loss; a ``TwoStageConfig`` takes
+    ``two_stage_loss`` by default. Otherwise the loss is the one
+    ``LOSSES`` names for the config's type:
     ``lsnet_loss`` for a ``LossConfig``, ``lscpv_loss`` for a
     ``CPVLossConfig`` (the CPV head), ``reppoints_loss`` /
     ``reppoints_v2_loss`` / ``dense_reppoints_loss`` /
@@ -73,7 +87,10 @@ def make_train_step(model: torch.nn.Module, optimizer: ClippedSGD,
     device.
     metrics: ``loss``, the loss terms and the pre-clip ``grad_norm``, as
     tensors on the device (no synchronisation)."""
-    loss_fn = LOSSES[type(loss_cfg)]
+    if full_loss_fn is None and isinstance(loss_cfg, TwoStageConfig):
+        def full_loss_fn(m, batch, smp):
+            return two_stage_loss(m, batch, loss_cfg, smp)
+    loss_fn = None if full_loss_fn else LOSSES[type(loss_cfg)]
     names = [n for n, p in model.named_parameters() if p.requires_grad]
     masters = dict(model.named_parameters())
     if [id(masters[n]) for n in names] != [id(p) for p in optimizer.params]:
@@ -92,12 +109,16 @@ def make_train_step(model: torch.nn.Module, optimizer: ClippedSGD,
 
     def step(batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         image = batch["image"]
+        if mixed_precision:
+            image = image.to(torch.bfloat16)
         with compute_copies():
-            outs = model(image.to(torch.bfloat16) if mixed_precision
-                         else image, sampling)
-            # assignment and losses in f32
-            outs = as_f32(outs)
-            total, losses = loss_fn(outs, batch, loss_cfg)
+            if full_loss_fn is not None:
+                total, losses = full_loss_fn(model, {**batch, "image": image},
+                                             sampling)
+            else:
+                # assignment and losses in f32
+                outs = as_f32(model(image, sampling))
+                total, losses = loss_fn(outs, batch, loss_cfg)
             grads = torch.autograd.grad(total, optimizer.params)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()

@@ -5,6 +5,8 @@ The port's modules carry the flax module names, so a variable at
 ``head.cls_convs_0.conv.conv_offset.weight``. Leaf rules:
 
 * ``kernel`` (an ``nn.Conv2d``): HWIO -> OIHW, renamed ``weight``;
+* a 2-D ``kernel`` (flax ``nn.Dense``, an ``nn.Linear``): (in, out) ->
+  (out, in), renamed ``weight``;
 * ``scale`` (GroupNorm, FrozenBatchNorm): renamed ``weight``;
 * ``bias``, the deformable layers' HWIO ``weight``/``weight_a``/
   ``weight_b``, the RepPoints heads' ``moment_transfer`` (2,), the dense
@@ -63,7 +65,7 @@ def from_jax_variables(variables: Mapping[str, Any]
                 raise KeyError(f"unknown {coll} leaf {'/'.join(path)}")
             t = torch.from_numpy(np.array(leaf, dtype=np.float32))
             if path[-1] == "kernel":
-                t = t.permute(3, 2, 0, 1)
+                t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.t()
             key = ".".join(path[:-1] + (name,))
             if key in sd:
                 raise KeyError(f"two variables map to {key}")
@@ -85,9 +87,10 @@ def to_jax_variables(model: nn.Module,
     ``model.state_dict()`` (by default the state dict itself; a dict of
     gradients by parameter name works too) -> {"params": tree,
     "batch_stats": tree} of f32 numpy arrays in the flax names and
-    layouts (``nn.Conv2d`` weights OIHW -> HWIO ``kernel``, norm weights
-    -> ``scale``). ``model`` tells a convolution's weight from a norm's
-    or a deformable layer's."""
+    layouts (``nn.Conv2d`` weights OIHW -> HWIO ``kernel``, ``nn.Linear``
+    weights (out, in) -> (in, out) ``kernel``, norm weights -> ``scale``).
+    ``model`` tells a convolution's weight from a linear layer's, a
+    norm's or a deformable layer's."""
     if tensors is None:
         tensors = model.state_dict()
     modules = dict(model.named_modules())
@@ -101,6 +104,8 @@ def to_jax_variables(model: nn.Module,
             coll = "batch_stats"
         elif leaf == "weight" and isinstance(module, nn.Conv2d):
             leaf, arr = "kernel", arr.permute(2, 3, 1, 0)
+        elif leaf == "weight" and isinstance(module, nn.Linear):
+            leaf, arr = "kernel", arr.t()
         elif leaf == "weight" and not hasattr(module, "conv_offset") \
                 and arr.dim() == 1:
             leaf = "scale"

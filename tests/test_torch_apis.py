@@ -5,7 +5,8 @@ package's, on the CPU.
   LSHead at 32 channels, 3 classes, 64x64 canvas) through both packages'
   ``init_detector``; the port's weights from ``random_weights_`` (JAX's
   own init gives no detection at all), carried to JAX by
-  ``weights.to_jax_variables``. On one seeded 48x56 uint8 image (and the
+  ``weights.to_jax_variables`` (JAX's ``init_detector`` then runs with a
+  shape-only ``model.init``: its draws would be replaced). On one seeded 48x56 uint8 image (and the
   same image as a PNG path): ``inference_detector``, ``aug_test`` at two
   scales with flip and ``aug_test_simple`` at the same: the same number
   of detections and labels, boxes and landmarks within 1e-3 pixels,
@@ -24,6 +25,7 @@ The JAX package's sampling policy is process-wide: it is pinned with
 
 import asyncio
 
+import flax.linen
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -66,12 +68,25 @@ def _port_bundle():
     return bundle
 
 
+def _shape_only_init(orig):
+    """flax ``Module.init`` giving zeros of the variables' shapes
+    (``eval_shape``): JAX's ``init_detector`` draws variables that the
+    fixture replaces with the port's at once, and its eager init takes
+    most of the fixture's time."""
+    def init(self, *a, **k):
+        return jax.tree.map(lambda x: jnp.zeros(x.shape, x.dtype),
+                            jax.eval_shape(lambda: orig(self, *a, **k)))
+    return init
+
+
 @pytest.fixture(scope="module")
 def results():
     """The port's bundle and JAX's results on the same weights and image."""
     bundle = _port_bundle()
     img = _image()
     with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(flax.linen.Module, "init",
+                   _shape_only_init(flax.linen.Module.init))
         mp.setattr(jfd, "SAMPLING", ["bilinear"])
         mp.setattr(jfd, "SAMPLING_POLICY", {})
         mp.setattr(jfd, "_SAMPLING_EXPLICIT", [False])

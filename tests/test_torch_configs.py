@@ -19,8 +19,12 @@ build on the ``meta`` device with a head whose state dict has the keys
 and shapes of the JAX head's parameters, and give the JAX runner's loss
 and test configs. The thirteen dense-zoo files (RetinaNet, GA-RetinaNet,
 GA-RPN, FCOS, ATSS, GFL, FoveaBox, FSAF, FreeAnchor, PISA RetinaNet,
-SSD300, PISA SSD300, NAS-FCOS) read the same and build the same way; the
-two-stage files are refused with the ROADMAP entry they wait for.
+SSD300, PISA SSD300, NAS-FCOS) read the same and build the same way, and
+so do the three two-stage files the port runs (Faster R-CNN, Double-Head,
+Dynamic R-CNN), against the whole JAX detector's variables; the other
+seven two-stage files are refused with the ROADMAP item they wait for.
+The six pose files pass ``check_runnable``: their ``CocoPoseDataset`` is
+the COCO dataset of ``data.extra``.
 
 ``with_cp`` runs each residual block under ``torch.utils.checkpoint``
 (``remat`` in the JAX package): a narrow ResNeXt with DCN stages gives the
@@ -337,11 +341,23 @@ OWN_BODY = {"ssd/ssd300_coco.py": (300, 300),
             "pisa/pisa_ssd300_coco.py": (300, 300),
             "nas_fcos/nas_fcos_fcoshead_r50_fpn_1x_coco.py": (128, 192)}
 SSD_LEVELS = ((4, 512), (2, 1024), (2, 512), (1, 256), (1, 256), (1, 256))
-# files the port still refuses (the two-stage family), by the ROADMAP
-# entry it names
-REFUSED = ["faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py",
+# files the port still refuses (the rest of the two-stage family), by the
+# ROADMAP entry it names
+REFUSED = ["grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py",
            "mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py",
            "cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py"]
+# the seven two-stage files still to port, by their Queue 1 item
+TWO_STAGE_LATER = {"mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py": "3.2",
+                   "ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py": "3.2",
+                   "point_rend/point_rend_r50_caffe_fpn_1x_coco.py": "3.2",
+                   "cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py": "3.3",
+                   "grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py": "3.3",
+                   "htc/htc_r50_fpn_1x_coco.py": "3.3",
+                   "detectors/detectors_cascade_rcnn_r50_1x_coco.py": "3.3"}
+# the two-stage files the port runs
+TWO_STAGE = ["faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py",
+             "double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py",
+             "dynamic_rcnn/dynamic_rcnn_r50_fpn_1x.py"]
 
 
 @pytest.mark.parametrize("name", DENSE_CONFIGS)
@@ -404,6 +420,63 @@ def test_rest_of_the_zoo_is_refused_with_its_roadmap_entry(name):
     with pytest.raises(NotImplementedError,
                        match="ROADMAP Queue 1 \"Inherited zoo\""):
         ploop.check_runnable(cfg)
+
+
+@pytest.mark.parametrize("name", sorted(TWO_STAGE_LATER))
+def test_two_stage_files_name_their_queue_item(name):
+    """The seven two-stage files still to port raise in ``check_runnable``
+    and in ``build_detector``, each naming its ROADMAP Queue 1 item."""
+    cfg = PConfig.fromfile(os.path.join(REPO, "configs", name))
+    item = f"\"Inherited zoo\" item {TWO_STAGE_LATER[name]}"
+    with pytest.raises(NotImplementedError, match=item):
+        ploop.check_runnable(cfg)
+    with pytest.raises(NotImplementedError, match=item):
+        build_detector(cfg.model.to_dict())
+
+
+@pytest.mark.parametrize("name", [n for n in CONFIGS if "pose" in n])
+def test_pose_files_are_runnable(name):
+    """The six pose files: their ``CocoPoseDataset`` is a dataset the
+    port reads (``data.extra.DATASET_TYPES``), so ``check_runnable``
+    passes, and the train set the runner builds is a person-only
+    ``CocoDataset``."""
+    from lsnet_torch.data.coco import CocoDataset
+    from lsnet_torch.data.extra import DATASET_TYPES
+    cfg = PConfig.fromfile(_path(name))
+    assert cfg.data.train.type == cfg.data.val.type == "CocoPoseDataset"
+    assert DATASET_TYPES["CocoPoseDataset"] is CocoDataset
+    ploop.check_runnable(cfg)
+    assert ploop.data_task(cfg, "train") == "pose"
+
+
+@pytest.mark.parametrize("name", TWO_STAGE)
+def test_two_stage_file_builds_with_the_jax_detector_variables(name):
+    """The three two-stage files read the same with both loaders, pass
+    ``check_runnable`` and build on the ``meta`` device a detector whose
+    state dict has the keys and shapes of the JAX detector's variables
+    (``eval_shape`` at full width on a 64x64 image): the R50 backbone,
+    the FPN, the RPN and the Shared2FC or Double-Head RoI head."""
+    import jax
+    import jax.numpy as jnp
+    from lsnet_tpu.models import build_detector as j_build_detector
+    from lsnet_torch.weights import from_jax_variables
+    path = os.path.join(REPO, "configs", name)
+    assert PConfig.fromfile(path).to_dict() == Config.fromfile(
+        path).to_dict()
+    ploop.check_runnable(PConfig.fromfile(path))
+    model_cfg = Config.fromfile(path).to_dict()["model"]
+    with torch.device("meta"):
+        model = build_detector(model_cfg)
+    jdet, _ = j_build_detector(dict(model_cfg))
+    shapes = jax.eval_shape(lambda: jdet.init(jax.random.PRNGKey(0),
+                                              jnp.zeros((1, 64, 64, 3))))
+    want = {k: tuple(v.shape) for k, v in from_jax_variables(jax.tree.map(
+        lambda s: np.zeros(s.shape, np.float32), shapes)).items()}
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} \
+        == want
+    assert type(model).__name__ == ("DoubleHeadRCNNDetector"
+                                    if "double" in name
+                                    else "TwoStageDetector")
 
 
 def test_fpn_extra_levels_match_jax():

@@ -166,7 +166,7 @@ def test_lsnet_loss_value_and_gradient(task):
         return j_lsnet_loss(o, {k: jnp.asarray(v) for k, v in batch.items()},
                             JLossConfig(**kw))
 
-    (want, jterms), jgrads = jax.value_and_grad(jf, has_aux=True)(
+    (want, jterms), jgrads = jax.jit(jax.value_and_grad(jf, has_aux=True))(
         {k: [jnp.asarray(x) for x in v] for k, v in outs.items()})
     touts = {k: [t(x).requires_grad_() for x in v] for k, v in outs.items()}
     got, terms = lsnet_loss(touts, {k: t(v) for k, v in batch.items()},
