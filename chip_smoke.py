@@ -213,7 +213,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ``lsnet_torch.tools.train`` (2 steps on procedural 768x1280 person
    images) and ``tools.test --eval keypoints``, the launches of every
    step and eval asserted, every K1 call of the first step held against
-   its plain version.
+   its plain version;
+14. the mask files (Mask R-CNN, Mask Scoring R-CNN, PointRend): (a) a
+   narrow copy of each (R18, FPN 32, 64-wide FCs, 32-wide mask convs, 8
+   classes, f32) on the card against the CPU from one set of weights:
+   ``mask_forward``, ``maskiou_forward`` and ``point_forward`` on fixed
+   RoIs and points, the rasterised targets at 28 and 56, each loss and
+   every gradient on the CPU's samples (and PointRend's points), the mask
+   branch on the CPU's detections (phase 3's tolerances), with the
+   agreement of the card's own selections logged; (b) each shipped file
+   at full width (R50-FPN, 80 classes, seeded weights): ``init_detector``
+   and ``inference_detector`` twice (the masks too), ``detect`` at B=2
+   800x1344 bf16 (boxes and masks) and 2 train steps, each profiled,
+   with no K1 or grouped launch; (c) the Mask R-CNN file through
+   ``tools.train`` (2 steps on procedural 768x1280 images) and ``tools.test
+   --eval bbox segm``, its ``segm_mAP`` printed.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (all ten kernels) and, last, ``{"ok": true, "device": {...}}``; the
@@ -225,8 +239,8 @@ phase 2e, ``--only accuracy`` for phase 7, ``--only api`` for the Res2Net
 K1 cases of phase 2a and phase 8, ``--only cpv`` for phase 9,
 ``--only reppoints`` for phase 10, ``--only dense`` for phase 11,
 ``--only tools`` for phase 12 (after a narrow runner on the card for
-analyze_logs' log), ``--only two_stage`` for phase 13 (a, b) and
-``--only pose`` for phase 13c. With
+analyze_logs' log), ``--only two_stage`` for phase 13 (a, b),
+``--only pose`` for phase 13c and ``--only mask`` for phase 14. With
 ``CHIP_SMOKE_LOG=<path>`` in the environment it also writes every line it
 prints to that file, each after the seconds since the start. It needs
 the repository
@@ -257,7 +271,7 @@ from lsnet_torch.configs import (flagship_r50_cfg,  # noqa: E402
                                  x101_flagship_cfg)
 from lsnet_torch.core import cpv  # noqa: E402
 from lsnet_torch.core.cpv import CPVLossConfig  # noqa: E402
-from lsnet_torch.core.decode import TestConfig  # noqa: E402
+from lsnet_torch.core.decode import Detections, TestConfig  # noqa: E402
 from lsnet_torch.core.loss import LossConfig  # noqa: E402
 from lsnet_torch.core import reppoints as rp  # noqa: E402
 from lsnet_torch.core import two_stage as ts  # noqa: E402
@@ -461,6 +475,16 @@ POSE_RUNNER_CONFIGS = {
     for task in ("pose_bbox", "pose_kbox")}
 POSE_RUNNER_TRAIN_HW = [LAND] * 4        # 2 steps of 2 images, aspect 5:3
 POSE_RUNNER_VAL_HW = [LAND] * 2          # one eval batch
+
+# phase 14: the mask files (R50-FPN, no DCN: no kernel launches)
+MASK_CONFIGS = {
+    name: os.path.join(REPO, "configs", *path.split("/")) for name, path in (
+        ("mask", "mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py"),
+        ("ms", "ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py"),
+        ("point_rend", "point_rend/point_rend_r50_caffe_fpn_1x_coco.py"))}
+MASK_LABELS = {"mask": "Mask R-CNN", "ms": "MS R-CNN",
+               "point_rend": "PointRend"}
+MASK_TRAIN_STEPS = 2             # counted train steps of phase 14b
 
 
 LOG_PATH = os.environ.get("CHIP_SMOKE_LOG")    # optional copy of the log
@@ -1420,7 +1444,8 @@ def drive_main_path(label, cfg, grouped_per_forward, task="bbox", k1=None,
     """Phase 4: a full-width model end to end, B=2 at 800x1344 (or
     ``batch`` images at ``hw``), bf16, with the task's own test settings
     (those of the ``config`` file where given) and the head's decode
-    (``train.loop.decode_for``); ``k1`` K1 launches a forward
+    (``train.loop.decode_for``; a mask detector's also gives its masks,
+    which must be finite probabilities); ``k1`` K1 launches a forward
     (K1_PER_FORWARD[task] unless given)."""
     B, (H, W) = batch, hw
     k1 = K1_PER_FORWARD[task] if k1 is None else k1
@@ -1451,6 +1476,9 @@ def drive_main_path(label, cfg, grouped_per_forward, task="bbox", k1=None,
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     img_s = B * ITERS / dt
+    masks = None
+    if not isinstance(det, Detections):
+        det, masks = det
     n_valid = det.valid.sum(dim=1).tolist()
     log(f"{label} e2e: {img_s:.3f} img/s ({dt / ITERS * 1e3:.2f} ms per "
         f"batch of {B}), peak memory {peak / 2 ** 30:.2f} GiB, launches "
@@ -1470,6 +1498,10 @@ def drive_main_path(label, cfg, grouped_per_forward, task="bbox", k1=None,
             or min(n_valid) < 1:
         raise AssertionError(f"{label}: bad detections: {shapes}, valid "
                              f"{n_valid}")
+    if masks is not None and (
+            tuple(masks.shape[:2]) != (B, tcfg.max_per_img)
+            or not bool(((masks >= 0) & (masks <= 1)).all())):
+        raise AssertionError(f"{label}: bad masks {tuple(masks.shape)}")
     if is_two_stage(model):
         # the decode runs the RoI head on the proposals: no split
         return run, img_s, launches, peak
@@ -4247,17 +4279,405 @@ def check_pose(root):
     return numbers, by_path
 
 
+# ------------------------------------------------------- phase 14: masks
+
+def narrow_mask_cfg(name):
+    """Phase 14a: the shipped mask file's model with an R18 backbone, FPN
+    and RPN 32 wide, 64-wide RoI FCs, 32-wide mask convs, 8 classes."""
+    cfg = Config.fromfile(MASK_CONFIGS[name]).model.to_dict()
+    cfg["backbone"]["depth"] = 18
+    cfg["neck"].update(in_channels=[64, 128, 256, 512], out_channels=32)
+    cfg["rpn_head"].update(in_channels=32, feat_channels=32)
+    cfg["roi_head"]["bbox_head"].update(fc_out_channels=64, num_classes=8)
+    cfg["roi_head"]["mask_head"].update(conv_out_channels=32, num_classes=8)
+    return cfg
+
+
+def condition_mask_weights_(model):
+    """Phase 14a's weights, conditioned as the port's CPU tests condition
+    theirs (``tests/test_torch_mask_rcnn.py``), so that no comparison turns
+    on rounding: the RPN's objectness x 100 (its scores would lie within
+    1e-5 of each other), the mask head's biases 0 and its logits x 1e5
+    (a mask's logits would lie within 1e-3 of their mean), the MaskIoU
+    head's convolutions' and the point head's hidden FCs' biases + 1
+    (thousands of pre-activations would lie within 1e-6 of a ReLU's
+    kink)."""
+    with torch.no_grad():
+        model.rpn_head.rpn_cls.weight.mul_(100.0)
+        for m in model.mask_head.modules():
+            if getattr(m, "bias", None) is not None:
+                m.bias.zero_()
+        model.mask_head.mask_logits.weight.mul_(1e5)
+        for head in ("maskiou_head", "point_head"):
+            layers = getattr(model, head, torch.nn.Module())
+            for n, m in layers.named_children():
+                if n.startswith(("maskiou_conv", "fc")) and n != "fc_logits":
+                    m.bias.add_(1.0)
+    return model
+
+
+def near_edge_cells(polys, rois, size, eps=1e-4):
+    """Cells of ``rasterize_polygon_in_roi``'s grid whose centre lies within
+    ``eps`` px of an edge crossing of its row (f64 on the host): the cells
+    a rounding of the crossing may flip."""
+    p = polys.double().cpu().numpy().reshape(len(polys), -1, 2)
+    r = rois.double().cpu().numpy()
+    frac = (np.arange(size) + 0.5) / size
+    gx = r[:, 0, None] + frac * np.maximum(r[:, 2] - r[:, 0], 1e-3)[:, None]
+    gy = r[:, 1, None] + frac * np.maximum(r[:, 3] - r[:, 1], 1e-3)[:, None]
+    x1, y1 = p[..., 0][:, None], p[..., 1][:, None]
+    x2, y2 = np.roll(x1, -1, -1), np.roll(y1, -1, -1)
+    cond = (y1 <= gy[:, :, None]) != (y2 <= gy[:, :, None])
+    dy = np.where(np.abs(y2 - y1) < 1e-9, 1e-9, y2 - y1)
+    xint = x1 + (gy[:, :, None] - y1) / dy * (x2 - x1)
+    return (cond[:, :, None, :] & (np.abs(
+        xint[:, :, None, :] - gx[:, None, :, None]) < eps)).any(-1)
+
+
+def subdivision_gaps(model, feats, mo, det, steps=2, num_points=784):
+    """PointRend's subdivision on ``det``: (the 112 x 112 logits, each
+    detection's smallest gap over the steps between the num_points-th and
+    the next uncertainty, over its largest coarse |logit|)."""
+    cur = mo.sel
+    scale = cur.abs().amax(dim=(1, 2)).clamp(min=1e-30)
+    gap = torch.full_like(scale, float("inf"))
+    for _ in range(steps):
+        up = ts.resize_bilinear_2x(cur).reshape(len(cur), -1)
+        unc = torch.sort(-up.abs(), dim=1, descending=True).values
+        gap = torch.minimum(gap, (unc[:, num_points - 1]
+                                  - unc[:, num_points]) / scale)
+        cur = ts.point_rend_subdivide(model, feats, mo.rois, mo.logits,
+                                      det.labels.reshape(-1), cur,
+                                      num_points)
+    return cur, gap
+
+
+def mask_terms_on(model, data, tscfg, cpu_st, points=None):
+    """A mask detector's loss terms on its own features and the CPU's
+    samples (``cpu_st``, a ``Stages`` of the CPU) and, for PointRend, the
+    CPU's points; returns (terms, the points)."""
+    dev = data["image"].device
+    feats = model.extract(data["image"])
+    terms = dict(zip(("loss_rpn_cls", "loss_rpn_bbox"),
+                     ts.rpn_loss(model.rpn(feats), data, tscfg)))
+    st = ts.Stages(feats, *(x.to(dev) for x in cpu_st[1:]))
+    terms.update(ts.rcnn_losses(model, st, tscfg))
+    ms = ts.mask_stage(model, data, st)
+    terms["loss_mask"] = ts.mask_loss(ms.logits, ms.rois, ms.labels, ms.pos,
+                                      ms.polys, ms.gt_idx, tscfg, ms.targets)
+    if hasattr(model, "maskiou_head"):
+        terms["loss_mask_iou"] = ts.maskiou_loss(model, st, ms)
+    if hasattr(model, "point_head"):
+        terms["loss_point"], points = ts.point_loss(
+            model, st, ms, points=None if points is None else points.to(dev))
+    return terms, points
+
+
+def check_mask_small(name):
+    """Phase 14a for one narrow mask detector, the card against the CPU
+    from one set of weights (f32, TF32 off, 2 images at 96x128, 4
+    instances each with its 36-point contour; ``condition_mask_weights_``):
+    ``mask_forward`` (and ``maskiou_forward`` / ``point_forward``) on 24
+    fixed RoIs of every level and 24 x 10 fixed points, the targets
+    rasterised at 28 and 56 in the GT boxes, shrunk and grown (equal but
+    for cells within 1e-4 px of an edge crossing), the loss terms and every parameter's gradient on the CPU's
+    proposals, samples and (PointRend) points, and the mask branch on the
+    CPU's detections: the masks, MS R-CNN's rescored scores, PointRend's
+    112 x 112 masks where the 784th and 785th uncertainties lie more than
+    4e-6 of the coarse |logit| apart (the rest counted). The card's own
+    samples, points and detections are compared with the CPU's and
+    logged. Returns the numbers."""
+    label = f"{MASK_LABELS[name]} R18-shaped"
+    cfg = narrow_mask_cfg(name)
+    tscfg = ts.TwoStageConfig(**TS_SMALL)
+    tcfg = TestConfig(image_shape=TS_SMALL_HW, num_classes=8, nms_pre=500,
+                      score_thr=TS_SCORE_THR, nms_iou=0.5, max_per_img=50)
+    rois = ts_fixed_rois(TS_SMALL_HW)
+    points = torch.rand(24, 10, 2, generator=torch.Generator().manual_seed(3))
+    res, cpu = {}, {}
+    for device in ("cpu", "cuda"):
+        model = condition_mask_weights_(unit_bn_scales_(init_model(
+            cfg, device=device, seed=1, train=True)))
+        data = synthetic_batch(2, TS_SMALL_HW, 4, 8, 1, device)
+        sfs = torch.ones(2, 4, device=device)
+        r = res[device] = {}
+        with torch.no_grad():
+            feats = model.extract(data["image"])
+            logits = model.mask_forward(feats, rois.to(device))
+            r["mask_forward"] = logits
+            if name == "ms":
+                r["maskiou_forward"] = model.maskiou_forward(
+                    feats, rois.to(device), logits)
+            if name == "point_rend":
+                r["point_forward"] = model.point_forward(
+                    feats, rois.to(device), points.to(device), logits)
+            # each GT box, shrunk 10 % and grown 15 % a side, over its
+            # own contour
+            polys = data["gt_polygons"].reshape(8, -1).repeat(3, 1)
+            gtb = data["gt_bboxes"].reshape(8, 4)
+            grow = torch.tensor([0.0, -0.1, 0.15], device=device)[:, None,
+                                                                    None]
+            target_rois = (gtb + grow * (gtb[:, 2:] - gtb[:, :2]).repeat(
+                1, 2) * torch.tensor([-1.0, -1.0, 1.0, 1.0],
+                                     device=device)).reshape(24, 4)
+            for size in (28, 56):
+                r[f"targets_{size}"] = ts.rasterize_polygon_in_roi(
+                    polys, target_rois, size)
+            _, own = ts.sample_stages(model, data, tscfg, fd.TRAIN_SAMPLING)
+            r["samples"] = [x.cpu() for x in (own.labels, own.pos,
+                                              own.valid)]
+            if device == "cpu":
+                cpu["st"] = own
+                cpu["det"] = ts.two_stage_decode(
+                    model, data["image"], data["img_shape"], sfs, tscfg,
+                    tcfg, sampling=fd.TRAIN_SAMPLING)
+                cpu["polys"], cpu["target_rois"] = polys, target_rois
+            det = Detections(*(x.to(device) for x in cpu["det"]))
+            mo = ts.mask_outputs(model, feats, det, sfs)
+            r["masks"] = ts.mask_probs(det, mo.sel)
+            if name == "ms":
+                r["scores"] = ts.maskiou_rescore(model, feats, det,
+                                                 mo).scores
+            if name == "point_rend":
+                cur, r["gaps"] = subdivision_gaps(model, feats, mo, det)
+                r["masks"] = ts.mask_probs(det, cur)
+            own_det = ts.MASK_DECODES[type(model).__name__](
+                model, data["image"], data["img_shape"], sfs, tscfg, tcfg,
+                sampling=fd.TRAIN_SAMPLING)[0]
+            r["own_det"] = [x.cpu() for x in (own_det.valid,
+                                              own_det.labels)]
+            r["e2e"] = {k: v.item() for k, v in ts.MASK_LOSSES[
+                type(model).__name__](model, data, tscfg)[1].items()}
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        params = [p for p in model.parameters() if p.requires_grad]
+        terms, pts = mask_terms_on(model, data, tscfg, cpu["st"],
+                                   cpu.get("points"))
+        if device == "cpu" and pts is not None:
+            cpu["points"] = pts.detach()
+        total = sum(terms.values())
+        grads = torch.autograd.grad(total, params)
+        r["loss"] = (total.item(), {k: v.item() for k, v in terms.items()},
+                     {n: g.cpu() for n, g in zip(names, grads)})
+    c, g = res["cpu"], res["cuda"]
+    numbers, ok = {}, True
+    for key in ("mask_forward", "maskiou_forward", "point_forward"):
+        if key in c:
+            numbers[f"{key}_rel_err"] = err = (
+                (g[key].cpu() - c[key]).abs().max().item()
+                / max(1.0, c[key].abs().max().item()))
+            ok = ok and err <= 1e-3
+    for size in (28, 56):
+        differ = (g[f"targets_{size}"].cpu() != c[f"targets_{size}"]).numpy()
+        near = near_edge_cells(cpu["polys"], cpu["target_rois"], size)
+        numbers[f"targets_{size}_cells_inside"] = int(
+            c[f"targets_{size}"].sum())
+        numbers[f"targets_{size}_cells_differing"] = int(differ.sum())
+        numbers[f"targets_{size}_cells_near_an_edge"] = int(near.sum())
+        ok = ok and not (differ & ~near).any()
+    valid = cpu["det"].valid.reshape(-1)
+    held = valid.clone()
+    if name == "point_rend":
+        held &= c["gaps"] > 4e-6
+        numbers["masks_not_held_near_equal_points"] = int(
+            (valid & ~held).sum())
+        ok = ok and (valid & ~held).sum() <= valid.sum() / 5
+    gm = g["masks"].cpu().reshape(-1, *g["masks"].shape[2:])[held]
+    cm = c["masks"].reshape(-1, *c["masks"].shape[2:])[held]
+    numbers["masks_on_cpu_detections_max_abs_err"] = err = (
+        (gm - cm).abs().max().item() if len(cm) else float("nan"))
+    numbers["masks_held"] = int(held.sum())
+    ok = ok and len(cm) > 0 and err <= 1e-3
+    if name == "ms":
+        numbers["rescored_rel_err"] = err = (
+            (g["scores"].cpu() - c["scores"]).abs().max().item()
+            / max(1.0, c["scores"].abs().max().item()))
+        ok = ok and err <= 1e-3
+    numbers["own_samples_same"] = all(
+        torch.equal(a, b) for a, b in zip(g["samples"], c["samples"]))
+    numbers["own_detections_same"] = all(
+        torch.equal(a, b) for a, b in zip(g["own_det"], c["own_det"]))
+    (lc, tc, gc), (lg, tg, gg) = c["loss"], g["loss"]
+    err, where = grads_rel_err(gc, gg)
+    numbers["grad_rel_err"] = err
+    log(f"small {label} model, card vs CPU: {json.dumps(numbers)}")
+    log(f"small {label} loss on the CPU's samples, card vs CPU: {lg:.6f} vs "
+        f"{lc:.6f}, terms {json.dumps(tg)} vs {json.dumps(tc)}, {len(gc)} "
+        f"gradients, max rel err {err:.3g} ({where})")
+    log(f"small {label} loss from each device's own selections: card "
+        f"{json.dumps(g['e2e'])}, CPU {json.dumps(c['e2e'])}")
+    ok = ok and abs(lg - lc) <= 1e-4 * abs(lc) and err <= 2e-3 and all(
+        abs(tg[k] - v) <= 1e-4 * max(abs(v), 1e-3 * abs(lc))
+        for k, v in tc.items()) and tg.keys() == tc.keys()
+    if not ok or not all(math.isfinite(v) for v in g["e2e"].values()):
+        raise AssertionError(f"{label}: card disagrees with the CPU")
+    return numbers
+
+
+def check_mask_full(root, name):
+    """Phase 14b: the shipped mask file at full width (R50-FPN, 80
+    classes, seeded weights, the decode's score threshold TS_SCORE_THR):
+    ``init_detector`` from a ``save_checkpoint`` file and
+    ``inference_detector`` twice on a seeded 480x640 image (equal
+    detections and masks), ``detect`` at B=2 800x1344 bf16 (boxes and
+    masks) and MASK_TRAIN_STEPS train steps (20 instances an image with
+    their 36-point contours), each profiled, with 0 K1 and 0 grouped
+    launches. Returns (numbers, launches by path)."""
+    cfg = Config.fromfile(MASK_CONFIGS[name])
+    cfg.merge_from_dict({"test_cfg.rcnn.score_thr": TS_SCORE_THR})
+    label = f"{MASK_LABELS[name]} R50"
+    none = dict.fromkeys(launch_counts(), 0)
+    by_path, numbers = {}, {}
+    path = seeded_checkpoint(cfg, os.path.join(root, name))
+    bundle = apis.init_detector(cfg, path)
+    img = api_image(3)
+    first = apis.inference_detector(bundle, img)
+    zero_launch_counts()
+    again = apis.inference_detector(bundle, img)
+    by_path[f"{label} inference_detector"] = launch_counts()
+    if by_path[f"{label} inference_detector"] != none:
+        raise AssertionError(f"{label}: inference_detector launched "
+                             f"{launch_counts()}")
+    same_detections(f"{label} inference_detector, second call", again,
+                    first, atol=0.0)
+    side = 112 if name == "point_rend" else 28
+    if again["masks"].shape != (len(again["scores"]), side, side) or \
+            not np.array_equal(again["masks"], first["masks"]):
+        raise AssertionError(f"{label}: inference_detector masks "
+                             f"{again['masks'].shape}")
+    log(f"{label} inference_detector: {len(again['scores'])} detections "
+        f"with {side}x{side} masks, equal on a second call")
+    del bundle
+    torch.cuda.empty_cache()
+    model_cfg = cfg.model.to_dict()
+    run, img_s, launches, peak = drive_main_path(
+        label, model_cfg, 0, "bbox", k1=0, config=cfg)
+    numbers["detect"] = profile(label, run, B / img_s * 1e3)
+    numbers["img_per_s"], numbers["peak_memory_bytes"] = img_s, peak
+    by_path[label] = {k: v // ITERS for k, v in launches.items()}
+    del run
+    torch.cuda.empty_cache()
+    lcfg = runner_loop.two_stage_cfg_from(cfg, (H, W))
+    run, img_s, launches, peak = drive_train_path(
+        "segm", model_cfg, lcfg, k1=0, steps=MASK_TRAIN_STEPS,
+        label=f"{label} train", grouped=0, warmup_iters=0)
+    numbers["train"] = profile(f"{label} train step", run, B / img_s * 1e3)
+    numbers["train_img_per_s"] = img_s
+    numbers["train_peak_memory_bytes"] = peak
+    by_path[f"{label} train"] = {k: v // MASK_TRAIN_STEPS
+                                 for k, v in launches.items()}
+    del run
+    torch.cuda.empty_cache()
+    log(f"{label} device ms: detect {numbers['detect']['device_ms']:.3f} "
+        f"a batch of {B}, train {numbers['train']['device_ms']:.3f} a step")
+    log(f"{label} device idle share: detect "
+        f"{numbers['detect']['idle_share']:.3f}, train "
+        f"{numbers['train']['idle_share']:.3f}")
+    log(f"{label} peak memory: detect {peak_gib(numbers, ''):.2f} GiB, "
+        f"train {peak_gib(numbers, 'train_'):.2f} GiB")
+    return numbers, by_path
+
+
+def check_mask_runner(root):
+    """Phase 14c: the shipped Mask R-CNN file at full width through
+    ``lsnet_torch.tools.train`` (1 epoch of 2 steps on 4 procedural
+    768x1280 images, the segm pipeline's contours, an EvalHook on 2 more)
+    and ``lsnet_torch.tools.test --eval bbox segm`` on its checkpoint (the
+    24 metrics within 1e-4 of the hook's; seeded weights give a segm_mAP
+    of about 0). No K1 or grouped launch in any step or eval. Returns
+    (numbers, launches per step, per eval)."""
+    path = MASK_CONFIGS["mask"]
+    label = "runner Mask R-CNN R50"
+    train_root, val_root = (os.path.join(root, n) for n in ("train", "val"))
+    train_ann, _ = make_shapes_coco(train_root, 4, seed=9, hw=[LAND] * 4)
+    val_ann, _ = make_shapes_coco(val_root, 2, seed=10, hw=[LAND] * 2)
+    test_opts = [f"data.val.ann_file={val_ann}",
+                 f"data.val.img_prefix={os.path.join(val_root, 'imgs')}",
+                 "model.roi_head.bbox_head.num_classes=3",
+                 "model.roi_head.mask_head.num_classes=3",
+                 f"test_cfg.rcnn.score_thr={TS_SCORE_THR}"]
+    opts = test_opts + [
+        f"data.train.ann_file={train_ann}",
+        f"data.train.img_prefix={os.path.join(train_root, 'imgs')}",
+        "data.samples_per_gpu=2", "log_interval=1", "evaluation.interval=1",
+        "custom_hooks=[{'type': 'LaunchCountHook'}]"]
+    none = dict.fromkeys(launch_counts(), 0)
+    work = os.path.join(root, "work")
+    LaunchCountHook.steps.clear()
+    LaunchCountHook.evals.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res = train_tool.main([path, "--work-dir", work, "--total-epochs",
+                               "1", "--max-iters-per-epoch", "2",
+                               "--options", *opts])
+    finally:
+        LaunchCountHook.start_backbone = {}
+    train_s = time.perf_counter() - t0
+    steps, evals = list(LaunchCountHook.steps), list(LaunchCountHook.evals)
+    train = log_records(work, "train")
+    val = log_records(work, "val")
+    for r in train:
+        log(f"{label} " + json.dumps(r))
+    if len(train) != 2 or res["step"] != 2 or len(val) != 1 or any(
+            not math.isfinite(r[k]) for r in train
+            for k in ("loss", "grad_norm", "loss_mask")):
+        raise AssertionError(f"{label}: records {train}, {val}")
+    if steps != [none] * 2 or evals != [none]:
+        raise AssertionError(f"{label}: launches per step {steps}, per "
+                             f"eval {evals}")
+    metrics = test_tool.main([path, os.path.join(work, "ckpts",
+                                                 "step_2.pt"),
+                              "--eval", "bbox", "segm", "--options",
+                              *test_opts])
+    hook = {k: v for k, v in val[-1].items() if k not in ("mode", "epoch")}
+    log(f"{label} tools.test metrics {json.dumps(metrics)}; EvalHook "
+        f"{json.dumps(hook)}")
+    log(f"{label} segm_mAP {metrics.get('segm_mAP')}")
+    if "segm_mAP" not in metrics or metrics.keys() != hook.keys() or any(
+            not -1.0 <= v <= 1.0 or abs(v - hook[k]) > 1e-4
+            for k, v in metrics.items()):
+        raise AssertionError(f"{label}: tools.test metrics disagree with "
+                             "the EvalHook's or lack segm_mAP")
+    numbers = {"train_and_eval_s": train_s,
+               "train_s_per_iter": [r["time"] for r in train],
+               "losses": [r["loss"] for r in train],
+               "segm_mAP": metrics["segm_mAP"],
+               "bbox_mAP": metrics.get("bbox_mAP"),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    return numbers, steps[0], evals[0]
+
+
+def check_mask(root):
+    """Phase 14 (a, b, c). Returns (numbers, launches by path)."""
+    t0 = time.perf_counter()
+    numbers, by_path = {"small": {}}, {}
+    for name in MASK_CONFIGS:
+        numbers["small"][name] = check_mask_small(name)
+    seconds = {"a": time.perf_counter() - t0}
+    for name in MASK_CONFIGS:
+        numbers[name], paths = check_mask_full(root, name)
+        by_path.update(paths)
+    seconds["b"] = time.perf_counter() - t0 - sum(seconds.values())
+    (numbers["runner"], by_path["runner Mask R-CNN train"],
+     by_path["runner Mask R-CNN eval"]) = check_mask_runner(
+        os.path.join(root, "runner"))
+    seconds["c"] = time.perf_counter() - t0 - sum(seconds.values())
+    log(f"phase 14 seconds by part {json.dumps(seconds)}")
+    numbers["seconds"] = time.perf_counter() - t0
+    return numbers, by_path
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["backward", "probes", "accuracy",
                                            "api", "cpv", "reppoints",
                                            "dense", "tools", "two_stage",
-                                           "pose"],
+                                           "pose", "mask"],
                         default=None,
                         help="run phases 2c and 2d, phase 2e, phase 7, "
                         "phase 2a's Res2Net cases and phase 8, phase 9, "
-                        "phase 10, phase 11, phase 12, phase 13 (a, b) or "
-                        "phase 13c alone; no result line")
+                        "phase 10, phase 11, phase 12, phase 13 (a, b), "
+                        "phase 13c or phase 14 alone; no result line")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4341,9 +4761,10 @@ def main(argv=None):
         log(f"partial run (--only dense) passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
         return 0
-    if opts.only in ("two_stage", "pose"):
+    if opts.only in ("two_stage", "pose", "mask"):
         import tempfile
-        run = check_two_stage if opts.only == "two_stage" else check_pose
+        run = {"two_stage": check_two_stage, "pose": check_pose,
+               "mask": check_mask}[opts.only]
         with tempfile.TemporaryDirectory() as root:
             numbers, by_path = run(root)
         log(f"{smi}: {opts.only} " + json.dumps(numbers))
@@ -4495,6 +4916,18 @@ def main(argv=None):
         by_path.update(pose_paths)
         log(f"{smi}: pose runner " + json.dumps(pose_numbers)
             + f" (phase 13c in {pose_numbers['seconds']:.1f}s)")
+        # phase 14: the mask files
+        mask_numbers, mask_paths = check_mask(os.path.join(root, "mask"))
+        by_path.update(mask_paths)
+        for name, label in MASK_LABELS.items():
+            label = f"{label} R50"
+            e2e[label] = mask_numbers[name]["img_per_s"]
+            e2e[f"{label} train"] = mask_numbers[name]["train_img_per_s"]
+            peaks[label] = mask_numbers[name]["peak_memory_bytes"]
+            peaks[f"{label} train"] = \
+                mask_numbers[name]["train_peak_memory_bytes"]
+        log(f"{smi}: mask " + json.dumps(mask_numbers)
+            + f" (phase 14 in {mask_numbers['seconds']:.1f}s)")
     for name, entry in probe_entries.items():
         by_path.setdefault("lsnet_torch.tools.probe", {})[name] = \
             entry["launches"]

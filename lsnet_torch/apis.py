@@ -9,11 +9,15 @@ zoo's RetinaNet, FCOS, ATSS, GFL and GA-RetinaNet files decode with
 ``dense_decode`` (zero landmarks). The two-stage Faster R-CNN,
 Double-Head and Dynamic R-CNN files run ``two_stage_decode``
 (``train.loop.forward_decode``: proposals, the RoI head, per-class
-decode and NMS; zero landmarks), as the JAX bundle's two-stage branch. A Dense RepPoints config and a GA-RPN
-config are refused by :func:`init_detector`: the JAX API has no decode
-for the first and reads ``bbox_head``, which an ``RPN`` lacks; both are
-evaluated through ``lsnet_torch.tools.test`` and served by
-:func:`detect`.
+decode and NMS; zero landmarks), as the JAX bundle's two-stage branch;
+the Mask R-CNN, Mask Scoring R-CNN and PointRend files run their mask
+decodes, and :func:`inference_detector` and :func:`detect` give their
+masks too: the valid detections' 28 x 28 mask probabilities on their
+boxes (112 x 112 for PointRend), as the JAX API's. A Dense RepPoints
+config and a GA-RPN config are refused by :func:`init_detector`: the JAX
+API has no decode for the first and reads ``bbox_head``, which an ``RPN``
+lacks; both are evaluated through ``lsnet_torch.tools.test`` and served
+by :func:`detect`.
 
 The image-level API:
 
@@ -136,7 +140,8 @@ def detect(model: LSDetector, images: torch.Tensor,
     Returns padded Detections of the head's decode
     (``train.loop.forward_decode``, which needs the model's ``config``
     file for the RepPoints heads, the dense zoo's and the two-stage
-    detectors)."""
+    detectors); a mask detector's (Detections, masks (B, K, 28, 28),
+    112 x 112 for PointRend)."""
     with torch.inference_mode():
         return forward_decode(model, images, img_shapes, scale_factors,
                               test_cfg, sampling, config)
@@ -276,15 +281,23 @@ def _augment(img: np.ndarray, scale, flip: bool):
     return nh, nw, sf, augs
 
 
-def _result(det: Detections) -> Dict[str, np.ndarray]:
+def _result(det) -> Dict[str, np.ndarray]:
+    """One image's valid detections as numpy; a mask detector's
+    (Detections, masks) adds ``masks``."""
+    masks = None
+    if not isinstance(det, Detections):
+        det, masks = det
     det = Detections(*(x.cpu().numpy() for x in det))
     valid = det.valid[0]
-    return {"bboxes": det.bboxes[0][valid], "scores": det.scores[0][valid],
-            "labels": det.labels[0][valid],
-            "landmarks": det.landmarks[0][valid]}
+    out = {"bboxes": det.bboxes[0][valid], "scores": det.scores[0][valid],
+           "labels": det.labels[0][valid],
+           "landmarks": det.landmarks[0][valid]}
+    if masks is not None:
+        out["masks"] = masks[0].cpu().numpy()[valid]
+    return out
 
 
-def _dispatch(bundle: DetectorBundle, img: Image) -> Detections:
+def _dispatch(bundle: DetectorBundle, img: Image):
     img = _read(img)
     H, W = img.shape[:2]
     scale = _test_scale(bundle.cfg)

@@ -1,6 +1,6 @@
-"""Two-stage (Faster R-CNN) training and inference logic (counterpart of
+"""Two-stage training and inference logic (counterpart of
 ``lsnet_tpu/core/two_stage.py``, its Faster R-CNN, Double-Head, Dynamic
-R-CNN and Fast R-CNN parts).
+R-CNN, Fast R-CNN, Mask R-CNN, Mask Scoring R-CNN and PointRend parts).
 
 Fixed shapes throughout, as in the JAX package: proposals are padded sets
 of ``proposal_count`` a image with a validity mask, and RoI sampling takes
@@ -13,15 +13,26 @@ values alone are read takes ``torch.topk``, whose values are the same.
 
 The losses and decodes take the detector (a ``TwoStageDetector``,
 ``DoubleHeadRCNNDetector`` or, for :func:`fast_rcnn_decode`, a
-``FastRCNNDetector``) and call its ``extract`` / ``rpn`` / ``roi_forward``
-in turn; ``sampling`` is the backbone's DCN sampling, as everywhere in
-the port. The RPN maps are detached before the proposals.
+``FastRCNNDetector``; a mask detector of ``models.heads.two_stage`` for
+the mask branch's) and call its ``extract`` / ``rpn`` / ``roi_forward``
+(``mask_forward``, ``maskiou_forward``, ``point_forward``) in turn;
+``sampling`` is the backbone's DCN sampling, as everywhere in the port.
+The RPN maps are detached before the proposals.
+
+The mask branch computes each piece once. JAX's ``mask_scoring_rcnn_loss``
+and ``point_rend_loss`` call ``mask_rcnn_loss`` and then run the backbone,
+the RPN, the proposals, the sampling and the mask head again, and its mask
+decodes run the backbone two or three times; every step is deterministic
+and the backbone's BatchNorm is frozen, so the second run gives the same
+numbers, and the gradient of the sum over both uses of one forward is the
+same as JAX's. Mask targets are rasterised from the segm pipeline's
+36-point GT contours (``gt_polygons``), on the device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -147,10 +158,15 @@ def sample_rois(proposals: torch.Tensor, prop_valid: torch.Tensor,
     labels = torch.where(sel_pos, torch.gather(gt_labels.long(), 1, sel_arg),
                          torch.full_like(sel_arg, cfg.num_classes))
     safe_tgt = torch.where(sel_pos[..., None], tgt_gt, rois)
-    # padded zero rois would take log(0) in the deltas
+    # every RoI but a positive encodes the unit box against itself (zero
+    # deltas): a padded zero RoI, or a proposal clipped to zero height at
+    # the image's edge and sampled as a negative, would take log(0 / 0).
+    # JAX keeps the valid negatives' own boxes, so such a negative makes
+    # its loss_bbox NaN (ROADMAP Queue 3); a box of positive size gives
+    # the same zeros either way
     unit = torch.tensor([0.0, 0.0, 1.0, 1.0], dtype=rois.dtype,
                         device=rois.device)
-    safe_rois = torch.where(sel_ok[..., None], rois, unit)
+    safe_rois = torch.where(sel_pos[..., None], rois, unit)
     deltas = bbox2delta(safe_rois,
                         torch.where(sel_pos[..., None], safe_tgt, safe_rois),
                         stds=cfg.rcnn_stds)
@@ -225,11 +241,25 @@ def _detached(maps: Maps) -> Maps:
     return {k: [m.detach() for m in v] for k, v in maps.items()}
 
 
-def _stages(model, batch: Batch, cfg: TwoStageConfig, sampling,
-            pos_iou=None, smoothl1_beta=1.0):
+class Stages(NamedTuple):
+    """What the first stages leave for the RoI heads: the neck's levels,
+    the proposals and the sampled RoIs with their targets."""
+    feats: List[torch.Tensor]     # the neck's NCHW levels
+    props: torch.Tensor           # (B, P, 4) proposals
+    pvalid: torch.Tensor          # (B, P)
+    rois: torch.Tensor            # (B, S, 4) sampled RoIs
+    rois5: torch.Tensor           # (B*S, 5) with their image index
+    labels: torch.Tensor          # (B, S), num_classes the background
+    deltas: torch.Tensor          # (B, S, 4)
+    pos: torch.Tensor             # (B, S)
+    valid: torch.Tensor           # (B, S)
+
+
+def sample_stages(model, batch: Batch, cfg: TwoStageConfig, sampling,
+                  pos_iou=None):
     """backbone + neck once, the RPN loss, proposals from the detached
-    RPN maps, sampling, the RoI head and its loss. Returns (losses,
-    proposals, their validity, sampled deltas, positives)."""
+    RPN maps and the RoI sampling. Returns ({loss_rpn_cls,
+    loss_rpn_bbox}, :class:`Stages`)."""
     feats = model.extract(batch["image"], sampling)
     rpn_outs = model.rpn(feats)
     l_rpn_cls, l_rpn_reg = rpn_loss(rpn_outs, batch, cfg)
@@ -238,19 +268,33 @@ def _stages(model, batch: Batch, cfg: TwoStageConfig, sampling,
     rois, labels, deltas, pos, valid = sample_rois(
         props, pvalid, batch["gt_bboxes"], batch["gt_valid"],
         batch["gt_labels"], cfg, pos_iou=pos_iou)
-    cls_logits, reg = model.roi_forward(feats, rois_with_batch_idx(rois))
-    l_cls, l_reg = rcnn_loss(cls_logits, reg, labels, deltas, pos, valid,
-                             cfg, smoothl1_beta=smoothl1_beta)
-    losses = {"loss_rpn_cls": l_rpn_cls, "loss_rpn_bbox": l_rpn_reg,
-              "loss_cls": l_cls, "loss_bbox": l_reg}
-    return losses, props, pvalid, deltas, pos
+    return ({"loss_rpn_cls": l_rpn_cls, "loss_rpn_bbox": l_rpn_reg},
+            Stages(feats, props, pvalid, rois, rois_with_batch_idx(rois),
+                   labels, deltas, pos, valid))
+
+
+def rcnn_losses(model, st: Stages, cfg: TwoStageConfig, smoothl1_beta=1.0
+                ) -> Dict[str, torch.Tensor]:
+    """The RoI head on the sampled RoIs and its {loss_cls, loss_bbox}."""
+    cls_logits, reg = model.roi_forward(st.feats, st.rois5)
+    l_cls, l_reg = rcnn_loss(cls_logits, reg, st.labels, st.deltas, st.pos,
+                             st.valid, cfg, smoothl1_beta=smoothl1_beta)
+    return {"loss_cls": l_cls, "loss_bbox": l_reg}
+
+
+def _stages(model, batch: Batch, cfg: TwoStageConfig, sampling,
+            pos_iou=None, smoothl1_beta=1.0):
+    """Faster R-CNN's four terms and the :class:`Stages` they came from."""
+    losses, st = sample_stages(model, batch, cfg, sampling, pos_iou)
+    losses.update(rcnn_losses(model, st, cfg, smoothl1_beta))
+    return losses, st
 
 
 def two_stage_loss(model, batch: Batch, cfg: TwoStageConfig,
                    sampling: Mapping[str, str] = TRAIN_SAMPLING):
     """Faster R-CNN's training loss: (total, {loss_rpn_cls,
     loss_rpn_bbox, loss_cls, loss_bbox})."""
-    losses, *_ = _stages(model, batch, cfg, sampling)
+    losses, _ = _stages(model, batch, cfg, sampling)
     return sum(losses.values()), losses
 
 
@@ -267,8 +311,9 @@ def dynamic_rcnn_loss(model, batch: Batch, cfg: TwoStageConfig, iou_thr,
     * ``stat_beta``: the ``beta_topk * B``-th smallest mean(|dx|, |dy|) of
       the positives' targets; with fewer positives the smallest of them
       (JAX's expression), ``inf`` with none."""
-    losses, props, pvalid, deltas, pos = _stages(
-        model, batch, cfg, sampling, pos_iou=iou_thr, smoothl1_beta=beta)
+    losses, st = _stages(model, batch, cfg, sampling, pos_iou=iou_thr,
+                         smoothl1_beta=beta)
+    props, pvalid, deltas, pos = st.props, st.pvalid, st.deltas, st.pos
     with torch.no_grad():
         gts, gvalid = batch["gt_bboxes"], batch["gt_valid"]
         ious = box_iou(props, gts.to(props.dtype))
@@ -362,6 +407,17 @@ def _rcnn_detections(props: torch.Tensor, pvalid: torch.Tensor,
                     device=boxes.device), keep_v)
 
 
+def _detect(model, images, img_shapes, scale_factors, cfg, tcfg, rescale,
+            sampling) -> Tuple[List[torch.Tensor], Detections]:
+    """(the neck's levels, :func:`two_stage_decode`'s detections)."""
+    feats = model.extract(images, sampling)
+    props, pvalid = rpn_proposals(model.rpn(feats), img_shapes, cfg)
+    cls_logits, reg = model.roi_forward(feats, rois_with_batch_idx(props))
+    return feats, _rcnn_detections(props, pvalid, cls_logits, reg,
+                                   img_shapes, scale_factors, cfg, tcfg,
+                                   rescale)
+
+
 def two_stage_decode(model, images: torch.Tensor, img_shapes: torch.Tensor,
                      scale_factors: torch.Tensor, cfg: TwoStageConfig,
                      tcfg: TestConfig, rescale: bool = True,
@@ -369,11 +425,8 @@ def two_stage_decode(model, images: torch.Tensor, img_shapes: torch.Tensor,
                      ) -> Detections:
     """Faster R-CNN's ``simple_test``: proposals -> RoI head -> per-class
     decode and NMS; zero landmarks."""
-    feats = model.extract(images, sampling)
-    props, pvalid = rpn_proposals(model.rpn(feats), img_shapes, cfg)
-    cls_logits, reg = model.roi_forward(feats, rois_with_batch_idx(props))
-    return _rcnn_detections(props, pvalid, cls_logits, reg, img_shapes,
-                            scale_factors, cfg, tcfg, rescale)
+    return _detect(model, images, img_shapes, scale_factors, cfg, tcfg,
+                   rescale, sampling)[1]
 
 
 def fast_rcnn_decode(model, images: torch.Tensor, proposals: torch.Tensor,
@@ -390,3 +443,387 @@ def fast_rcnn_decode(model, images: torch.Tensor, proposals: torch.Tensor,
                                         rois_with_batch_idx(proposals))
     return _rcnn_detections(proposals, prop_valid, cls_logits, reg,
                             img_shapes, scale_factors, cfg, tcfg, rescale)
+
+
+# --------------------------------------------------------------- Mask R-CNN
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to f32, as XLA fuses it (the f64 product of
+    two f32 is exact)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def rasterize_polygon_in_roi(polys: torch.Tensor, rois: torch.Tensor,
+                             out_size: int = 28) -> torch.Tensor:
+    """GT contours -> each RoI's binary mask target, on the device: the
+    crossing number (even-odd) of a ray to +x from each cell centre of
+    the RoI's ``out_size`` x ``out_size`` grid. polys (S, nv*2)
+    xy-interleaved closed contours; rois (S, 4) -> (S, out, out) {0, 1}
+    f32. The edges are taken one at a time (1 / nv of the memory of JAX's
+    (S, out, out, nv) form), with JAX's comparisons, and its products and
+    sums each rounded once as XLA's fused multiply-adds round them: a GT
+    RoI's cell centres lie exactly on a triangle's diagonal, where a
+    second rounding flips cells."""
+    nv = polys.shape[1] // 2
+    px, py = polys[:, 0::2], polys[:, 1::2]
+    w = torch.clamp(rois[:, 2] - rois[:, 0], min=1e-3)
+    h = torch.clamp(rois[:, 3] - rois[:, 1], min=1e-3)
+    # XLA divides by the constant as a product with its f32 reciprocal
+    frac = (torch.arange(out_size, dtype=torch.float32, device=rois.device)
+            + 0.5) * torch.tensor(1.0 / out_size, dtype=torch.float32)
+    gx = _fma(frac[None, :], w[:, None], rois[:, 0, None])    # (S, out)
+    gy = _fma(frac[None, :], h[:, None], rois[:, 1, None])
+    crossings = torch.zeros(rois.shape[0], out_size, out_size,
+                            dtype=torch.int32, device=rois.device)
+    for k in range(nv):
+        x1, y1 = px[:, k, None], py[:, k, None]
+        x2, y2 = px[:, (k + 1) % nv, None], py[:, (k + 1) % nv, None]
+        # an edge's crossing of each row depends on the row alone
+        cond = (y1 <= gy) != (y2 <= gy)                       # (S, out_y)
+        dy = y2 - y1
+        t = (gy - y1) / torch.where(dy.abs() < 1e-9,
+                                    torch.full_like(dy, 1e-9), dy)
+        xint = _fma(t, x2 - x1, x1)
+        crossings += (cond[:, :, None]
+                      & (xint[:, :, None] > gx[:, None, :])).int()
+    return (crossings % 2 == 1).float()
+
+
+def _label_maps(mask_logits: torch.Tensor, labels: torch.Tensor
+                ) -> torch.Tensor:
+    """Each RoI's map of its label (clamped into the classes, as JAX's
+    ``jnp.clip``; background RoIs take the last class): (S, H, W)."""
+    C = mask_logits.shape[-1]
+    idx = labels.long().clamp(0, C - 1)
+    return torch.gather(mask_logits, 3, idx[:, None, None, None].expand(
+        -1, *mask_logits.shape[1:3], 1))[..., 0]
+
+
+def _mask_targets(rois: torch.Tensor, gt_polys: torch.Tensor,
+                  gt_idx: torch.Tensor, size: int) -> torch.Tensor:
+    """The rasterised GT of each RoI's ``gt_idx`` (a padded slot and a
+    negative RoI's -1 read a row too, as JAX's ``jnp.maximum(gt_idx, 0)``;
+    the positives alone weigh in the losses)."""
+    return rasterize_polygon_in_roi(gt_polys[gt_idx.clamp(min=0)].float(),
+                                    rois.float(), size)
+
+
+def mask_loss(mask_logits: torch.Tensor, rois: torch.Tensor,
+              labels: torch.Tensor, pos: torch.Tensor,
+              gt_polys: torch.Tensor, gt_idx: torch.Tensor,
+              cfg: TwoStageConfig,
+              targets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each positive RoI's mean BCE of its label's mask logits against its
+    rasterised GT, over the positives (at least 1). mask_logits (S, 28,
+    28, C); rois (S, 4); labels, pos, gt_idx (S,); gt_polys (M, nv*2);
+    ``targets`` the RoIs' rasterised GT where the caller has them."""
+    if targets is None:
+        targets = _mask_targets(rois, gt_polys, gt_idx, mask_logits.shape[1])
+    sel = _label_maps(mask_logits, labels).float()
+    posf = pos.float()
+    bce = bce_with_logits(sel, targets).mean(dim=(1, 2))
+    return (bce * posf).sum() / torch.clamp(posf.sum(), min=1.0)
+
+
+def _gt_of(rois: torch.Tensor, gts: torch.Tensor, gvalid: torch.Tensor
+           ) -> torch.Tensor:
+    """Each sampled RoI's GT, the argmax of its IoU over the valid GTs
+    (the first of equal IoUs, as ``jnp.argmax``): (B, S)."""
+    ious = box_iou(rois, gts.to(rois.dtype))
+    return torch.where(gvalid[:, None, :], ious,
+                       torch.full_like(ious, -1.0)).argmax(dim=2)
+
+
+class MaskStage(NamedTuple):
+    """The mask branch on the sampled RoIs of one :class:`Stages`."""
+    roi_feats: torch.Tensor       # (B*S, 14, 14, C) NHWC
+    logits: torch.Tensor          # (B*S, 28, 28, num_classes)
+    rois: torch.Tensor            # (B*S, 4)
+    labels: torch.Tensor          # (B*S,)
+    pos: torch.Tensor             # (B*S,)
+    polys: torch.Tensor           # (B*M, nv*2) the batch's GT contours
+    gt_idx: torch.Tensor          # (B*S,) rows of ``polys``
+    targets: torch.Tensor         # (B*S, 28, 28) rasterised GT
+
+
+def mask_stage(model, batch: Batch, st: Stages) -> MaskStage:
+    """The mask head on every sampled RoI (the loss weighs the positives;
+    mmdet runs the head on the positives alone, for the same loss), each
+    RoI's GT contour and its 28 x 28 target."""
+    B, S = st.rois.shape[:2]
+    roi_feats = model.mask_roi_feats(st.feats, st.rois5)
+    logits = model.mask_head(roi_feats)
+    polys = batch["gt_polygons"]
+    M = polys.shape[1]
+    gt_idx = (_gt_of(st.rois, batch["gt_bboxes"], batch["gt_valid"])
+              + torch.arange(B, device=polys.device)[:, None] * M
+              ).reshape(-1)
+    rois = st.rois.reshape(B * S, 4)
+    flat = polys.reshape(B * M, polys.shape[-1])
+    return MaskStage(roi_feats, logits, rois, st.labels.reshape(-1),
+                     st.pos.reshape(-1), flat, gt_idx,
+                     _mask_targets(rois, flat, gt_idx, logits.shape[1]))
+
+
+def _mask_losses(model, batch: Batch, cfg: TwoStageConfig, sampling):
+    """Faster R-CNN's terms and ``loss_mask``; (losses, stages, mask
+    stage)."""
+    losses, st = _stages(model, batch, cfg, sampling)
+    ms = mask_stage(model, batch, st)
+    losses["loss_mask"] = mask_loss(ms.logits, ms.rois, ms.labels, ms.pos,
+                                    ms.polys, ms.gt_idx, cfg, ms.targets)
+    return losses, st, ms
+
+
+def mask_rcnn_loss(model, batch: Batch, cfg: TwoStageConfig,
+                   sampling: Mapping[str, str] = TRAIN_SAMPLING):
+    """Mask R-CNN's training loss: Faster R-CNN's terms and
+    ``loss_mask``; the batch carries the segm pipeline's
+    ``gt_polygons``."""
+    losses, _, _ = _mask_losses(model, batch, cfg, sampling)
+    return sum(losses.values()), losses
+
+
+class MaskOutputs(NamedTuple):
+    """The mask branch on a decode's detections."""
+    rois: torch.Tensor            # (B*K, 5) in network coordinates
+    roi_feats: torch.Tensor       # (B*K, 14, 14, C)
+    logits: torch.Tensor          # (B*K, 28, 28, num_classes)
+    sel: torch.Tensor             # (B*K, 28, 28) each one's label's map
+
+
+def mask_outputs(model, feats: List[torch.Tensor], det: Detections,
+                 scale_factors: torch.Tensor, rescale: bool = True
+                 ) -> MaskOutputs:
+    """The mask head on the detections' boxes (back in network
+    coordinates where the decode rescaled them)."""
+    boxes = det.bboxes
+    if rescale:
+        boxes = boxes * scale_factors[:, None, :]
+    rois = rois_with_batch_idx(boxes)
+    roi_feats = model.mask_roi_feats(feats, rois)
+    logits = model.mask_head(roi_feats)
+    return MaskOutputs(rois, roi_feats, logits,
+                       _label_maps(logits, det.labels.reshape(-1)))
+
+
+def mask_probs(det: Detections, sel: torch.Tensor) -> torch.Tensor:
+    """(B*K, h, w) logits -> (B, K, h, w) f32 probabilities."""
+    B, K = det.bboxes.shape[:2]
+    return torch.sigmoid(sel.float()).reshape(B, K, *sel.shape[1:])
+
+
+def mask_rcnn_decode(model, images: torch.Tensor, img_shapes: torch.Tensor,
+                     scale_factors: torch.Tensor, cfg: TwoStageConfig,
+                     tcfg: TestConfig, rescale: bool = True,
+                     sampling: Mapping[str, str] = INFERENCE_SAMPLING
+                     ) -> Tuple[Detections, torch.Tensor]:
+    """Mask R-CNN's ``simple_test``: :func:`two_stage_decode`'s
+    detections and each one's 28 x 28 mask probabilities of its label, on
+    its box (B, K, 28, 28) f32; the paste into the image is the host's
+    (``evalkit.evaluator.paste_mask``)."""
+    feats, det = _detect(model, images, img_shapes, scale_factors, cfg,
+                         tcfg, rescale, sampling)
+    mo = mask_outputs(model, feats, det, scale_factors, rescale)
+    return det, mask_probs(det, mo.sel)
+
+
+# ------------------------------------------------------ Mask Scoring R-CNN
+
+def mask_iou_targets(mask_logits: torch.Tensor, rois: torch.Tensor,
+                     labels: torch.Tensor, gt_polys: torch.Tensor,
+                     gt_idx: torch.Tensor,
+                     targets: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """The IoU of each RoI's binarised mask (sigmoid > 0.5) of its label
+    with its rasterised GT, on the 28 x 28 grid (mmdet takes area ratios):
+    (S,), without gradient. ``targets`` as in :func:`mask_loss`."""
+    if targets is None:
+        targets = _mask_targets(rois, gt_polys, gt_idx, mask_logits.shape[1])
+    with torch.no_grad():
+        pred = (torch.sigmoid(_label_maps(mask_logits, labels).float())
+                > 0.5).float()
+        inter = (pred * targets).sum(dim=(1, 2))
+        union = torch.clamp(pred.sum(dim=(1, 2)) + targets.sum(dim=(1, 2))
+                            - inter, min=1.0)
+        return inter / union
+
+
+def _label_column(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """x (N, C)'s entry at each row's label, clamped into [0, C)."""
+    idx = labels.long().clamp(0, x.shape[-1] - 1)
+    return torch.gather(x, 1, idx[:, None])[:, 0]
+
+
+def maskiou_loss(model, st: Stages, ms: MaskStage) -> torch.Tensor:
+    """``loss_mask_iou``: 0.5 x the mean over the positives of the squared
+    error of the label's predicted IoU against :func:`mask_iou_targets`.
+    The MaskIoU head reads the mask logits with their gradient, as in
+    JAX."""
+    maskiou = model.maskiou_forward(st.feats, st.rois5, ms.logits,
+                                    roi_feats=ms.roi_feats)
+    iou_t = mask_iou_targets(ms.logits, ms.rois, ms.labels, ms.polys,
+                             ms.gt_idx, ms.targets)
+    iou_p = _label_column(maskiou.float(), ms.labels)
+    posf = ms.pos.float()
+    return 0.5 * ((iou_p - iou_t) ** 2 * posf).sum() / torch.clamp(
+        posf.sum(), min=1.0)
+
+
+def mask_scoring_rcnn_loss(model, batch: Batch, cfg: TwoStageConfig,
+                           sampling: Mapping[str, str] = TRAIN_SAMPLING):
+    """Mask Scoring R-CNN's training loss: Mask R-CNN's terms and
+    ``loss_mask_iou`` (:func:`maskiou_loss`)."""
+    losses, st, ms = _mask_losses(model, batch, cfg, sampling)
+    losses["loss_mask_iou"] = maskiou_loss(model, st, ms)
+    return sum(losses.values()), losses
+
+
+def maskiou_rescore(model, feats: List[torch.Tensor], det: Detections,
+                    mo: MaskOutputs) -> Detections:
+    """Each valid detection's score times its label's predicted mask IoU,
+    clamped to [0, 1]."""
+    B, K = det.bboxes.shape[:2]
+    iou = _label_column(model.maskiou_forward(
+        feats, mo.rois, mo.logits, roi_feats=mo.roi_feats).float(),
+        det.labels.reshape(-1)).reshape(B, K)
+    scores = det.scores * iou.clamp(0.0, 1.0)
+    return det._replace(scores=torch.where(det.valid, scores,
+                                           torch.zeros_like(scores)))
+
+
+def mask_scoring_rcnn_decode(model, images: torch.Tensor,
+                             img_shapes: torch.Tensor,
+                             scale_factors: torch.Tensor,
+                             cfg: TwoStageConfig, tcfg: TestConfig,
+                             rescale: bool = True,
+                             sampling: Mapping[str, str] = INFERENCE_SAMPLING
+                             ) -> Tuple[Detections, torch.Tensor]:
+    """:func:`mask_rcnn_decode` with the scores rescored by the predicted
+    mask IoU (:func:`maskiou_rescore`)."""
+    feats, det = _detect(model, images, img_shapes, scale_factors, cfg,
+                         tcfg, rescale, sampling)
+    mo = mask_outputs(model, feats, det, scale_factors, rescale)
+    return maskiou_rescore(model, feats, det, mo), mask_probs(det, mo.sel)
+
+
+# ---------------------------------------------------------------- PointRend
+
+def _uncertain_points(mask_logits_cls: torch.Tensor, n_points: int
+                      ) -> torch.Tensor:
+    """The ``n_points`` most uncertain (smallest |logit|) cells of each
+    (S, H, W) map, as normalised xy cell centres (S, n, 2); equal
+    uncertainties go to the lower index, as ``lax.top_k``'s (the
+    deterministic stand-in for the reference's random oversampling)."""
+    S, H, W = mask_logits_cls.shape
+    _, idx = _top_stable(-mask_logits_cls.abs().reshape(S, H * W), n_points)
+    # / W and / H as XLA's products with the f32 reciprocals
+    xs = ((idx % W).float() + 0.5) * torch.tensor(1.0 / W)
+    ys = ((idx // W).float() + 0.5) * torch.tensor(1.0 / H)
+    return torch.stack([xs, ys], -1)
+
+
+def point_loss(model, st: Stages, ms: MaskStage, num_points: int = 196,
+               points: Optional[torch.Tensor] = None):
+    """``loss_point``: the point head's BCE at each RoI's ``num_points``
+    most uncertain cells of its label's coarse logits (or at ``points``
+    where given), against the GT rasterised at 56 x 56 and sampled there,
+    over the positives. Returns (loss, the points)."""
+    from ..models.heads.two_stage import point_sample
+    if points is None:
+        points = _uncertain_points(_label_maps(ms.logits.detach(),
+                                               ms.labels), num_points)
+    pt_logits = model.point_forward(st.feats, st.rois5, points, ms.logits)
+    pt_sel = torch.gather(pt_logits, 2, ms.labels.long().clamp(
+        0, pt_logits.shape[-1] - 1)[:, None, None].expand(
+            -1, points.shape[1], 1))[..., 0].float()
+    grid = _mask_targets(ms.rois, ms.polys, ms.gt_idx, 56)
+    tgt = point_sample(grid[..., None], points)[..., 0]
+    posf = ms.pos.float()
+    loss = (bce_with_logits(pt_sel, tgt).mean(-1) * posf).sum() \
+        / torch.clamp(posf.sum(), min=1.0)
+    return loss, points
+
+
+def point_rend_loss(model, batch: Batch, cfg: TwoStageConfig,
+                    sampling: Mapping[str, str] = TRAIN_SAMPLING, *,
+                    num_points: int = 196):
+    """PointRend's training loss: Mask R-CNN's terms and ``loss_point``
+    (:func:`point_loss`)."""
+    losses, st, ms = _mask_losses(model, batch, cfg, sampling)
+    losses["loss_point"] = point_loss(model, st, ms, num_points)[0]
+    return sum(losses.values()), losses
+
+
+def _resize_matrix(n: int, device) -> torch.Tensor:
+    """(2n, n) weights of JAX's 2x bilinear upsampling on one axis
+    (``jax.image.resize``: half-pixel centres, the triangle kernel, the
+    weights renormalised at the edges)."""
+    src = (torch.arange(2 * n, dtype=torch.float32) + 0.5) / 2 - 0.5
+    w = torch.clamp(1 - (src[:, None] - torch.arange(n)[None, :]).abs(),
+                    min=0.0)
+    return (w / w.sum(dim=1, keepdim=True)).to(device)
+
+
+def resize_bilinear_2x(x: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) -> (N, 2H, 2W) as ``jax.image.resize(..., "bilinear")``
+    computes it: rows, then columns, each a product with its weight
+    matrix (on the CPU the same bits at 28 -> 56 and within an ulp at
+    56 -> 112, where ``F.interpolate`` differs in half the cells: each
+    difference can reorder near-equal uncertainties)."""
+    wy = _resize_matrix(x.shape[1], x.device).to(x.dtype)
+    wx = _resize_matrix(x.shape[2], x.device).to(x.dtype)
+    return torch.einsum("now,pw->nop", torch.einsum("nhw,oh->now", x, wy),
+                        wx)
+
+
+def point_rend_subdivide(model, feats: List[torch.Tensor],
+                         rois: torch.Tensor, logits: torch.Tensor,
+                         labels: torch.Tensor, cur: torch.Tensor,
+                         num_points: int) -> torch.Tensor:
+    """One subdivision step of :func:`point_rend_decode`: the (N, H, W)
+    logits of each RoI's label upsampled 2x, and the ``num_points`` most
+    uncertain cells set to the point head's logits there (``logits``, the
+    (N, 28, 28, C) coarse ones)."""
+    labels = labels.long().clamp(0, logits.shape[-1] - 1)
+    cur = resize_bilinear_2x(cur)
+    N, H2, W2 = cur.shape
+    pts = _uncertain_points(cur, num_points)
+    pt_logits = model.point_forward(feats, rois, pts, logits)
+    pt_sel = torch.gather(pt_logits, 2, labels[:, None, None].expand(
+        -1, num_points, 1))[..., 0]
+    xi = (pts[..., 0] * W2).long().clamp(0, W2 - 1)
+    yi = (pts[..., 1] * H2).long().clamp(0, H2 - 1)
+    return cur.reshape(N, H2 * W2).scatter(
+        1, yi * W2 + xi, pt_sel.to(cur.dtype)).reshape(N, H2, W2)
+
+
+def point_rend_decode(model, images: torch.Tensor, img_shapes: torch.Tensor,
+                      scale_factors: torch.Tensor, cfg: TwoStageConfig,
+                      tcfg: TestConfig, rescale: bool = True,
+                      sampling: Mapping[str, str] = INFERENCE_SAMPLING,
+                      subdivision_steps: int = 2, num_points: int = 784
+                      ) -> Tuple[Detections, torch.Tensor]:
+    """PointRend's ``simple_test``: Mask R-CNN's detections; each one's
+    logits of its label refined ``subdivision_steps`` times by
+    :func:`point_rend_subdivide` (the coarse logits stay the 28 x 28
+    ones): (B, K, 112, 112) probabilities."""
+    feats, det = _detect(model, images, img_shapes, scale_factors, cfg,
+                         tcfg, rescale, sampling)
+    mo = mask_outputs(model, feats, det, scale_factors, rescale)
+    cur = mo.sel
+    for _ in range(subdivision_steps):
+        cur = point_rend_subdivide(model, feats, mo.rois, mo.logits,
+                                   det.labels.reshape(-1), cur, num_points)
+    return det, mask_probs(det, cur)
+
+
+# the training loss and the decode of each mask detector, by its class
+# name (``models.heads.two_stage``); the rest of the family runs
+# two_stage_loss and two_stage_decode
+MASK_LOSSES = {"MaskRCNNDetector": mask_rcnn_loss,
+               "MaskScoringRCNNDetector": mask_scoring_rcnn_loss,
+               "PointRendDetector": point_rend_loss}
+MASK_DECODES = {"MaskRCNNDetector": mask_rcnn_decode,
+                "MaskScoringRCNNDetector": mask_scoring_rcnn_decode,
+                "PointRendDetector": point_rend_decode}

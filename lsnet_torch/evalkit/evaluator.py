@@ -8,7 +8,8 @@ Host-side equivalent of the reference result/eval plumbing:
 ``encode_poly_results`` (`core/mask/utils.py:70-85`, polygon -> RLE),
 ``CocoDataset.evaluate`` (`datasets/coco.py:370-506`) and
 ``CocoPoseDataset._kps2json``/``evaluate`` (`datasets/coco_pose.py:226-247,
-383-`).  Consumes the padded on-device :class:`Detections` and produces
+383-`), and the mask detectors' ``get_seg_masks`` paste and segm results
+(:func:`paste_mask`, :func:`mask_detections_to_coco`).  Consumes the padded on-device :class:`Detections` and produces
 COCO-format dicts for :mod:`lsnet_torch.evalkit.cocoeval`.
 """
 
@@ -122,3 +123,69 @@ def evaluate_coco(gts: List[Dict], dts: List[Dict],
                  "AR@1", "AR@10", "AR@100", "AR_s", "AR_m", "AR_l"]
     return {f"{iou_type}_{n}": float(v) for n, v in zip(names, stats)}
 
+
+
+def paste_mask(mask28: np.ndarray, bbox: np.ndarray, img_hw,
+               thr: float = 0.5) -> np.ndarray:
+    """Paste an (oh, ow) mask probability crop into the full image frame
+    (the reference ``FCNMaskHead.get_seg_masks``' bilinear paste): the
+    crop resized to the box rounded to whole pixels, thresholded at
+    ``thr``, the part inside the image kept. -> (H, W) uint8."""
+    H, W = img_hw
+    x1, y1, x2, y2 = bbox
+    w = max(int(round(x2 - x1)), 1)
+    h = max(int(round(y2 - y1)), 1)
+    oh, ow = mask28.shape
+    ys = (np.arange(h) + 0.5) * oh / h - 0.5
+    xs = (np.arange(w) + 0.5) * ow / w - 0.5
+    y0 = np.clip(np.floor(ys).astype(np.int64), 0, oh - 1)
+    x0 = np.clip(np.floor(xs).astype(np.int64), 0, ow - 1)
+    y1i = np.clip(y0 + 1, 0, oh - 1)
+    x1i = np.clip(x0 + 1, 0, ow - 1)
+    wy = np.clip(ys - y0, 0, 1)[:, None]
+    wx = np.clip(xs - x0, 0, 1)[None, :]
+    m = (mask28[y0][:, x0] * (1 - wy) * (1 - wx)
+         + mask28[y0][:, x1i] * (1 - wy) * wx
+         + mask28[y1i][:, x0] * wy * (1 - wx)
+         + mask28[y1i][:, x1i] * wy * wx)
+    out = np.zeros((H, W), np.uint8)
+    ox, oy = int(round(x1)), int(round(y1))
+    sx1, sy1 = max(-ox, 0), max(-oy, 0)
+    dx1, dy1 = max(ox, 0), max(oy, 0)
+    dx2 = min(ox + w, W)
+    dy2 = min(oy + h, H)
+    if dx2 > dx1 and dy2 > dy1:
+        out[dy1:dy2, dx1:dx2] = (
+            m[sy1:sy1 + dy2 - dy1, sx1:sx1 + dx2 - dx1] >= thr)
+    return out
+
+
+def mask_detections_to_coco(det, masks, img_ids: Sequence[int],
+                            label_to_cat: Dict[int, int],
+                            img_sizes: Dict[int, Tuple[int, int]]
+                            ) -> List[Dict]:
+    """A mask detector's valid detections -> COCO segm results: each
+    mask crop pasted into its image (:func:`paste_mask`) and RLE-encoded
+    with the package's codec. ``det`` and ``masks`` (B, K, oh, ow) as
+    numpy or the port's tensors."""
+    bboxes, scores, labels, valid = (_host(det.bboxes), _host(det.scores),
+                                     _host(det.labels), _host(det.valid))
+    masks = _host(masks)
+    dts: List[Dict] = []
+    for b in range(bboxes.shape[0]):
+        img_id = int(img_ids[b])
+        H, W = img_sizes[img_id]
+        for k in range(bboxes.shape[1]):
+            if not valid[b, k]:
+                continue
+            full = paste_mask(masks[b, k], bboxes[b, k], (H, W))
+            r = maskUtils.encode_mask(full)
+            x1, y1, x2, y2 = np.asarray(bboxes[b, k], np.float64)
+            dts.append(dict(
+                image_id=img_id,
+                category_id=label_to_cat[int(labels[b, k])],
+                bbox=[x1, y1, x2 - x1, y2 - y1],
+                score=float(scores[b, k]),
+                segmentation=dict(size=[int(H), int(W)],
+                                  counts=maskUtils.rle_to_string(r))))
+    return dts

@@ -12,8 +12,9 @@ head), as in the JAX package; the standalone ``RPN`` reads its head from
 ``rpn_head``. Of the two-stage family it builds Faster R-CNN
 (``FasterRCNN`` / ``TwoStageDetector``, with the Shared2FC head, or with
 the Double-Head RoI head where ``roi_head.type`` is
-``DoubleHeadRoIHead``) and ``FastRCNN``; the rest of the family is
-ROADMAP Queue 1 "Inherited zoo" items 3.2 and 3.3."""
+``DoubleHeadRoIHead``), ``FastRCNN``, and the mask branch's ``MaskRCNN``,
+``MaskScoringRCNN`` and ``PointRend``; the rest of the family is ROADMAP
+Queue 1 "Inherited zoo" item 3.3."""
 
 from __future__ import annotations
 
@@ -32,8 +33,10 @@ from .heads.ls_head import LSHead
 from .heads.lscpv_head import LSCPVHead
 from .heads.reppoints import RepPointsHead, RepPointsV2Head
 from .heads.two_stage import (DoubleConvFCBBoxHead, DoubleHeadRCNNDetector,
-                              FastRCNNDetector, RPNHead, Shared2FCBBoxHead,
-                              TwoStageDetector)
+                              FastRCNNDetector, FCNMaskHead, MaskIoUHead,
+                              MaskPointHead, MaskRCNNDetector,
+                              MaskScoringRCNNDetector, PointRendDetector,
+                              RPNHead, Shared2FCBBoxHead, TwoStageDetector)
 from .necks.extra import NASFCOSFPN
 from .necks.fpn import FPN
 
@@ -55,11 +58,10 @@ DENSE_KINDS = {"RetinaHead": RetinaHead, "RetinaSepBNHead": RetinaSepBNHead,
                "FSAFHead": FSAFHead}
 # the two-stage detector types the port builds, and the rest of the
 # family by the ROADMAP Queue 1 "Inherited zoo" item that ports it
-TWO_STAGE = ("FasterRCNN", "TwoStageDetector", "FastRCNN")
-TWO_STAGE_LATER = {"MaskRCNN": "3.2", "MaskScoringRCNN": "3.2",
-                   "PointRend": "3.2", "CascadeRCNN": "3.3",
-                   "GridRCNN": "3.3", "HybridTaskCascade": "3.3",
-                   "HTC": "3.3"}
+MASK_RCNN = ("MaskRCNN", "MaskScoringRCNN", "PointRend")
+TWO_STAGE = ("FasterRCNN", "TwoStageDetector", "FastRCNN") + MASK_RCNN
+TWO_STAGE_LATER = {"CascadeRCNN": "3.3", "GridRCNN": "3.3",
+                   "HybridTaskCascade": "3.3", "HTC": "3.3"}
 HEADS = ("LSHead", "LSCPVHead", "RepPointsHead", "RepPointsV2Head",
          "DenseRepPointsHead", "DenseRepPointsV2Head", "GARetinaHead",
          "GARPNHead") + tuple(DENSE_KINDS)
@@ -218,9 +220,13 @@ def is_two_stage(model: nn.Module) -> bool:
 def _two_stage(cfg: Dict[str, Any], backbone: nn.Module,
                neck: nn.Module) -> nn.Module:
     """A Faster R-CNN (with the Double-Head RoI head where the config
-    says so) or a Fast R-CNN, as the JAX ``build_detector`` reads it: the
-    RPN's anchors a cell from its anchor generator, the bbox head's
-    widths from ``roi_head.bbox_head``; the RoI features have the neck's
+    says so), a Fast R-CNN, or a Mask R-CNN, Mask Scoring R-CNN or
+    PointRend, as the JAX ``build_detector`` reads it: the RPN's anchors a
+    cell from its anchor generator, the bbox head's widths from
+    ``roi_head.bbox_head``, the mask head's convs from
+    ``roi_head.mask_head`` (``num_convs``, ``conv_out_channels``); the
+    MaskIoU head and the point head keep their defaults (JAX builds them
+    from ``num_classes`` alone); the RoI features have the neck's
     width."""
     kind = cfg["type"]
     rpn_cfg = dict(cfg.get("rpn_head") or {})
@@ -253,7 +259,21 @@ def _two_stage(cfg: Dict[str, Any], backbone: nn.Module,
         return DoubleHeadRCNNDetector(
             backbone, neck, rpn, bbox_head,
             reg_roi_scale_factor=roi_cfg.get("reg_roi_scale_factor", 1.3))
-    return TwoStageDetector(backbone, neck, rpn, bbox_head)
+    if kind not in MASK_RCNN:
+        return TwoStageDetector(backbone, neck, rpn, bbox_head)
+    mh = roi_cfg.get("mask_head") or {}
+    mask_head = FCNMaskHead(num_classes=num_classes, in_channels=width,
+                            conv_channels=mh.get("conv_out_channels", 256),
+                            num_convs=mh.get("num_convs", 4))
+    if kind == "MaskScoringRCNN":
+        return MaskScoringRCNNDetector(
+            backbone, neck, rpn, bbox_head, mask_head,
+            MaskIoUHead(num_classes=num_classes, in_channels=width))
+    if kind == "PointRend":
+        return PointRendDetector(
+            backbone, neck, rpn, bbox_head, mask_head,
+            MaskPointHead(num_classes=num_classes, in_channels=width))
+    return MaskRCNNDetector(backbone, neck, rpn, bbox_head, mask_head)
 
 
 def build_detector(cfg: Dict[str, Any]) -> nn.Module:

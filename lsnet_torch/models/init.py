@@ -35,6 +35,10 @@ Each parameter is drawn from the distribution its flax module gives it:
   ``nn.Dense``) LeCun normal (truncated at 2 std, fan_in), but ``fc_cls``
   N(0, 0.01) and ``fc_reg`` N(0, 0.001); the Double-Head convolutions
   flax's ``nn.Conv`` default, LeCun normal; every bias 0;
+* the mask branch (the same file): ``mask_conv*`` and ``maskiou_conv*``
+  N(0, 0.01), ``mask_logits`` N(0, 0.001); ``mask_upsample`` (flax's
+  ``nn.ConvTranspose`` default), the MaskIoU head's FCs and the point
+  head's FCs LeCun normal (fan_in); every bias 0;
 * the RepPoints heads' ``moment_transfer``: 0;
 * ``conv_offset`` of a DCNv2 pack: 0 (``layers.py:146``), so every DCN
   starts as a plain conv;
@@ -65,7 +69,8 @@ from .heads.dense_reppoints import DenseRepPointsHead
 from .heads.ls_head import LSHead
 from .heads.lscpv_head import LSCPVHead
 from .heads.reppoints import RepPointsHead, RepPointsV2Head
-from .heads.two_stage import DoubleConvFCBBoxHead, RPNHead
+from .heads.two_stage import (DoubleConvFCBBoxHead, FCNMaskHead,
+                              MaskIoUHead, RPNHead)
 from .layers import (ConvModule, FrozenBatchNorm, ModulatedDeformConvPack,
                      PairedPyramidDeformConv, PyramidDeformConv)
 from .necks.extra import NASFCOSFPN
@@ -82,7 +87,9 @@ DENSE_HEADS = (RetinaHead, ScaledHead, GARetinaHead, GARPNHead, FoveaHead,
 # stride each side
 FSAF_REG_BIAS = 0.25
 HEADS = (LSHead, LSCPVHead, RepPointsHead, DenseRepPointsHead,
-         RPNHead) + DENSE_HEADS
+         RPNHead, FCNMaskHead, MaskIoUHead) + DENSE_HEADS
+# head convolutions that start at another std than N(0, 0.01)
+CONV_STD = {"mask_logits": 0.001}
 # the RoI heads' classifier and regressor (flax nn.Dense) and their stds
 DENSE_STD = {"fc_cls": 0.01, "fc_reg": 0.001}
 # heads with the corner-pool packs, whose convolutions (name ends) keep
@@ -161,7 +168,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator
                 _lecun_(m.weight, cin * kh * kw, generator)
             elif id(m) in head_modules and not (
                     cpv and name.endswith(CPV_KAIMING)):
-                _normal_(m.weight, 0.01, generator)
+                _normal_(m.weight, CONV_STD.get(name.rsplit(".", 1)[-1],
+                                                0.01), generator)
             else:
                 _he_fan_out_(m.weight, cout * kh * kw, generator)
             if m.bias is not None:
@@ -171,6 +179,11 @@ def init_weights_(model: nn.Module, generator: torch.Generator
                     m.bias.fill_(bias_init_with_prob(PRIOR_PROB))
                 if id(m) in fsaf_reg:
                     m.bias.fill_(FSAF_REG_BIAS)
+            mark(m.weight, m.bias)
+        elif isinstance(m, nn.ConvTranspose2d):
+            cin, _, kh, kw = m.weight.shape             # IOHW
+            _lecun_(m.weight, cin * kh * kw, generator)
+            m.bias.zero_()
             mark(m.weight, m.bias)
         elif isinstance(m, nn.Linear):
             leaf = name.rsplit(".", 1)[-1]

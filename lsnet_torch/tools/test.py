@@ -8,7 +8,9 @@ The model is built from the config, takes the checkpoint's f32 master
 weights and runs with the sampling the checkpoint deploys with (its
 meta), at the refine taps it trained on unless ``LSNET_REFINE_TAPS`` is
 set. ``--eval`` names the metric (bbox, segm or keypoints); it must be
-the task's own. ``--options`` overrides the config as in
+the task's own, and for a mask detector (Mask R-CNN, MS R-CNN,
+PointRend) bbox, segm or both: its evaluation scores both, as the JAX
+tool's does. ``--options`` overrides the config as in
 ``lsnet_torch.tools.train`` (the JAX ``tools/test.py`` has no such
 option), so a run and its test can share the same overrides. It runs on
 the card unless ``--device cpu`` is given.
@@ -34,6 +36,7 @@ def main(argv=None):
 
     from ..models import build_detector
     from ..train.checkpoint import refine_taps_env, restore_eval_state
+    from ..models import MASK_RCNN
     from ..train.loop import (IOU_TYPE, check_runnable, eval_sampling,
                               evaluate_detector, head_cfg, runner_device)
     from ..utils.config import Config
@@ -44,9 +47,11 @@ def main(argv=None):
         cfg.merge_from_dict(parse_options(args.options))
     check_runnable(cfg)
     iou_type = IOU_TYPE[head_cfg(cfg).get("task", "bbox")]
-    if args.eval and args.eval != [iou_type]:
-        raise ValueError(f"--eval {args.eval}: this config's task is "
-                         f"scored by {iou_type!r}")
+    scored = {iou_type, "segm"} if cfg.model.type in MASK_RCNN \
+        else {iou_type}
+    if args.eval and not set(args.eval) <= scored:
+        raise ValueError(f"--eval {args.eval}: this config is scored by "
+                         f"{sorted(scored)}")
     device = runner_device(args.device)
     model = build_detector(cfg.model.to_dict())
     state, meta = restore_eval_state(args.checkpoint)

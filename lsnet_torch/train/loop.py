@@ -38,7 +38,12 @@ R-CNN) train on the full loss ``two_stage_loss`` (Dynamic R-CNN on
 ``dynamic_rcnn_loss``, its threshold and beta fed each step from a
 ``DynamicRCNNSchedule`` and its statistics popped from the step's
 metrics) and decode with ``two_stage_decode``, with the
-``two_stage_cfg_from`` settings. The datasets come from
+``two_stage_cfg_from`` settings; the mask files (Mask R-CNN, Mask Scoring
+R-CNN, PointRend) train on ``mask_rcnn_loss`` / ``mask_scoring_rcnn_loss``
+/ ``point_rend_loss`` over the segm pipeline's 36-point GT contours, and
+decode with ``mask_rcnn_decode`` / ``mask_scoring_rcnn_decode`` /
+``point_rend_decode``: their evaluation scores the boxes (``bbox_*``) and
+the pasted masks (``segm_*``), as the JAX runner's. The datasets come from
 ``data.extra.build_dataset``: ``CocoDataset``, and ``CocoPoseDataset``
 (the pose files') as the same dataset.
 
@@ -64,15 +69,16 @@ from ..core.dense_reppoints import (DenseRepPointsConfig,
 from ..core.loss import LossConfig
 from ..core.reppoints import (RepPointsConfig, RepPointsV2Config,
                               reppoints_decode, reppoints_v2_decode)
-from ..core.two_stage import (DynamicRCNNSchedule, TwoStageConfig,
-                              dynamic_rcnn_loss, two_stage_decode)
+from ..core.two_stage import (MASK_DECODES, DynamicRCNNSchedule,
+                              TwoStageConfig, dynamic_rcnn_loss,
+                              two_stage_decode)
 from ..data.coco import (DataLoader, DatasetConfig, batch_to_device,
                          collate_batch)
 from ..data.extra import DATASET_TYPES, build_dataset
 from ..evalkit.evaluator import (coco_gt_from_annotations, detections_to_coco,
-                                 evaluate_coco)
-from ..models import (DETECTORS, HEADS, TWO_STAGE_LATER, build_detector,
-                      head_cfg_of, is_two_stage)
+                                 evaluate_coco, mask_detections_to_coco)
+from ..models import (DETECTORS, HEADS, MASK_RCNN, TWO_STAGE_LATER,
+                      build_detector, head_cfg_of, is_two_stage)
 from ..models.init import init_weights_
 from ..ops.flat_deform import (INFERENCE_SAMPLING, TRAIN_SAMPLING,
                                sampling_from_spec, with_refine_taps)
@@ -100,9 +106,9 @@ DENSE_HEAD_KINDS = {"RetinaHead": "retina", "RetinaSepBNHead": "retina",
                     "PISASSDHead": "pisa_ssd",
                     "GARetinaHead": "ga_retina", "GARPNHead": "ga_rpn"}
 # the two-stage detectors the runner trains (JAX's ``_is_two_stage``, less
-# ROADMAP Queue 1 items 3.2 and 3.3; a Fast R-CNN takes its proposals from
+# ROADMAP Queue 1 item 3.3; a Fast R-CNN takes its proposals from
 # outside) and their RoI heads
-TWO_STAGE_RUNNER = ("FasterRCNN", "TwoStageDetector")
+TWO_STAGE_RUNNER = ("FasterRCNN", "TwoStageDetector") + MASK_RCNN
 ROI_HEADS = ("StandardRoIHead", "DoubleHeadRoIHead", "DynamicRoIHead")
 
 
@@ -405,16 +411,19 @@ def decode_for(model: torch.nn.Module, config=None) -> Callable[..., Any]:
 def forward_decode(model: torch.nn.Module, images: torch.Tensor,
                    img_shapes: torch.Tensor, scale_factors: torch.Tensor,
                    tcfg: TestConfig, sampling: Mapping[str, str],
-                   config=None) -> Detections:
+                   config=None):
     """The detector's forward and decode on a batch: ``two_stage_decode``
     (with ``two_stage_cfg_from`` of the ``config`` file at the test
-    config's canvas) for a two-stage detector, else the forward and
-    :func:`decode_for`'s decode."""
+    config's canvas) for a two-stage detector, or the mask detectors'
+    decode (``core.two_stage.MASK_DECODES``), which gives (Detections,
+    masks (B, K, 28, 28), 112 x 112 for PointRend) as JAX's does; else the
+    forward and :func:`decode_for`'s decode."""
     if is_two_stage(model):
         if config is None:
             raise ValueError("a two-stage decode reads the model's config "
                              "file; pass it as config")
-        return two_stage_decode(
+        decode = MASK_DECODES.get(type(model).__name__, two_stage_decode)
+        return decode(
             model, images, img_shapes, scale_factors,
             two_stage_cfg_from(config, tcfg.image_shape), tcfg,
             sampling=sampling)
@@ -453,14 +462,15 @@ def check_runnable(cfg) -> None:
     if model.type in TWO_STAGE_LATER:
         raise NotImplementedError(
             f"{model.type}: the port runs the two-stage files of Faster "
-            "R-CNN, Double-Head and Dynamic R-CNN; this one is ROADMAP "
-            f"Queue 1 \"Inherited zoo\" item {TWO_STAGE_LATER[model.type]}")
+            "R-CNN, Double-Head, Dynamic R-CNN, Mask R-CNN, Mask Scoring "
+            "R-CNN and PointRend; this one is ROADMAP Queue 1 \"Inherited "
+            f"zoo\" item {TWO_STAGE_LATER[model.type]}")
     if is_two_stage_cfg(cfg):
         if roi_head not in ROI_HEADS:
             raise NotImplementedError(
                 f"{model.type} with {roi_head}: the port runs the RoI heads "
                 f"{', '.join(ROI_HEADS)}; the rest of the two-stage family "
-                "is ROADMAP Queue 1 \"Inherited zoo\" items 3.2 and 3.3")
+                "is ROADMAP Queue 1 \"Inherited zoo\" item 3.3")
     elif model.type not in DETECTORS or head not in HEADS:
         raise NotImplementedError(
             f"{model.type} with {head}: the port runs the single-stage "
@@ -477,21 +487,28 @@ def check_runnable(cfg) -> None:
                 "ROADMAP Queue 1 \"Inherited zoo\" item 3.4")
 
 
+def _polygon_trained(cfg) -> bool:
+    """Whether the file's loss reads the segm task's 36-point GT
+    polygons: Dense RepPoints and the mask detectors."""
+    return (head_cfg(cfg).get("type") in DENSE_REPPOINTS
+            or cfg.model.type in MASK_RCNN)
+
+
 def head_num_vectors(cfg) -> int:
-    """The pipeline's ``num_vectors``: the head's, or 36 for Dense
-    RepPoints, whose loss reads the segm task's 36-point GT polygons."""
-    head = head_cfg(cfg)
-    return head.get("num_vectors",
-                    36 if head.get("type") in DENSE_REPPOINTS else 4)
+    """The pipeline's ``num_vectors``: the head's, or 36 where the loss
+    reads the segm task's GT polygons (Dense RepPoints; the mask targets
+    of Mask R-CNN, MS R-CNN and PointRend, as JAX's ``_head_num_vectors``)."""
+    return head_cfg(cfg).get("num_vectors",
+                             36 if _polygon_trained(cfg) else 4)
 
 
 def data_task(cfg, split: str) -> str:
-    """The pipeline's task: the head's, except that Dense RepPoints trains
-    on the segm task's polygons (and evaluates by bbox)."""
-    head = head_cfg(cfg)
-    if split == "train" and head.get("type") in DENSE_REPPOINTS:
+    """The pipeline's task: the head's, except that Dense RepPoints and the
+    mask detectors train on the segm task's polygons (and evaluate on the
+    head's task: bbox, and segm from the masks)."""
+    if split == "train" and _polygon_trained(cfg):
         return "segm"
-    return DATA_TASK[head.get("task", "bbox")]
+    return DATA_TASK[head_cfg(cfg).get("task", "bbox")]
 
 
 def eval_sampling(explicit: Optional[Mapping[str, str]] = None,
@@ -667,7 +684,9 @@ def evaluate_detector(cfg, model: torch.nn.Module, canvas, *,
                       batch_size: int = 8, max_images: Optional[int] = None,
                       sampling: Mapping[str, str] = INFERENCE_SAMPLING
                       ) -> Dict[str, float]:
-    """COCO metrics of ``model`` on ``cfg.data.val``.
+    """COCO metrics of ``model`` on ``cfg.data.val``: the head task's, and
+    for a mask detector also the pasted masks' ``segm_*`` (as the JAX
+    runner's).
 
     Images are grouped by orientation, so each batch pads onto one canvas
     (``canvas`` is the landscape one, portrait its transpose). The forward
@@ -689,7 +708,7 @@ def evaluate_detector(cfg, model: torch.nn.Module, canvas, *,
         groups[port if info["height"] > info["width"] else land].append(i)
     was_training = model.training
     model.eval()
-    dts = []
+    dts, segm_dts = [], []
     try:
         for cv, idx_list in groups.items():
             tcfg = test_cfg_from(cfg, cv)
@@ -707,6 +726,11 @@ def evaluate_detector(cfg, model: torch.nn.Module, canvas, *,
                         torch.from_numpy(batch["img_shape"]).to(param.device),
                         torch.from_numpy(batch["scale_factor"]).to(
                             param.device), tcfg, sampling, cfg)
+                if isinstance(det, tuple) and not isinstance(det,
+                                                             Detections):
+                    det, masks = det
+                    segm_dts += mask_detections_to_coco(
+                        det, masks, batch["img_id"], label_to_cat, img_sizes)
                 dts += detections_to_coco(det, batch["img_id"], label_to_cat,
                                           task=task, img_sizes=img_sizes)
     finally:
@@ -715,5 +739,14 @@ def evaluate_detector(cfg, model: torch.nn.Module, canvas, *,
     gts = [g for g in coco_gt_from_annotations(ds.coco, task=task)
            if g["image_id"] in eval_ids]
     dts = [d for d in dts if d["image_id"] in eval_ids]
-    return evaluate_coco(gts, dts, img_sizes, iou_type=IOU_TYPE[task])
+    metrics = evaluate_coco(gts, dts, img_sizes, iou_type=IOU_TYPE[task])
+    if cfg.model.type in MASK_RCNN:
+        segm_gts = [g for g in coco_gt_from_annotations(ds.coco, task="segm")
+                    if g["image_id"] in eval_ids]
+        segm_dts = [d for d in segm_dts if d["image_id"] in eval_ids]
+        # mmdet's names (segm_mAP, ...); JAX's runner prefixes them once
+        # more (segm_segm_mAP, ROADMAP Queue 3)
+        metrics.update(evaluate_coco(segm_gts, segm_dts, img_sizes,
+                                     iou_type="segm"))
+    return metrics
 

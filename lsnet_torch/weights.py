@@ -5,6 +5,12 @@ The port's modules carry the flax module names, so a variable at
 ``head.cls_convs_0.conv.conv_offset.weight``. Leaf rules:
 
 * ``kernel`` (an ``nn.Conv2d``): HWIO -> OIHW, renamed ``weight``;
+* ``kernel`` of a flax ``nn.ConvTranspose`` (the modules named in
+  ``TRANSPOSED_CONVS``, each an ``nn.ConvTranspose2d``): flipped in both
+  spatial axes, then HWIO -> IOHW, renamed ``weight``. flax's
+  ``transpose_kernel=False`` (its default) correlates the dilated input
+  with the kernel as it is, where ``nn.ConvTranspose2d`` scatters each
+  input through the kernel: the two agree with the kernel flipped;
 * a 2-D ``kernel`` (flax ``nn.Dense``, an ``nn.Linear``): (in, out) ->
   (out, in), renamed ``weight``;
 * ``scale`` (GroupNorm, FrozenBatchNorm): renamed ``weight``;
@@ -39,6 +45,8 @@ _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                  "adaption_weight_reg": "adaption_weight_reg",
                  "l2_norm_scale_param": "l2_norm_scale_param"}
 _STAT_LEAVES = {"mean": "mean", "var": "var"}
+# the flax nn.ConvTranspose modules, by name (FCNMaskHead's upsampling)
+TRANSPOSED_CONVS = ("mask_upsample",)
 
 
 def _walk(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
@@ -64,7 +72,10 @@ def from_jax_variables(variables: Mapping[str, Any]
             if name is None:
                 raise KeyError(f"unknown {coll} leaf {'/'.join(path)}")
             t = torch.from_numpy(np.array(leaf, dtype=np.float32))
-            if path[-1] == "kernel":
+            if path[-1] == "kernel" and len(path) > 1 \
+                    and path[-2] in TRANSPOSED_CONVS:
+                t = t.flip(0, 1).permute(2, 3, 0, 1)
+            elif path[-1] == "kernel":
                 t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.t()
             key = ".".join(path[:-1] + (name,))
             if key in sd:
@@ -87,8 +98,10 @@ def to_jax_variables(model: nn.Module,
     ``model.state_dict()`` (by default the state dict itself; a dict of
     gradients by parameter name works too) -> {"params": tree,
     "batch_stats": tree} of f32 numpy arrays in the flax names and
-    layouts (``nn.Conv2d`` weights OIHW -> HWIO ``kernel``, ``nn.Linear``
-    weights (out, in) -> (in, out) ``kernel``, norm weights -> ``scale``).
+    layouts (``nn.Conv2d`` weights OIHW -> HWIO ``kernel``,
+    ``nn.ConvTranspose2d`` weights IOHW -> HWIO flipped in both spatial
+    axes, ``nn.Linear`` weights (out, in) -> (in, out) ``kernel``, norm
+    weights -> ``scale``).
     ``model`` tells a convolution's weight from a linear layer's, a
     norm's or a deformable layer's."""
     if tensors is None:
@@ -102,6 +115,8 @@ def to_jax_variables(model: nn.Module,
         coll = "params"
         if leaf in _STAT_LEAVES:
             coll = "batch_stats"
+        elif leaf == "weight" and isinstance(module, nn.ConvTranspose2d):
+            leaf, arr = "kernel", arr.permute(2, 3, 0, 1).flip(0, 1)
         elif leaf == "weight" and isinstance(module, nn.Conv2d):
             leaf, arr = "kernel", arr.permute(2, 3, 1, 0)
         elif leaf == "weight" and isinstance(module, nn.Linear):

@@ -20,9 +20,11 @@ and shapes of the JAX head's parameters, and give the JAX runner's loss
 and test configs. The thirteen dense-zoo files (RetinaNet, GA-RetinaNet,
 GA-RPN, FCOS, ATSS, GFL, FoveaBox, FSAF, FreeAnchor, PISA RetinaNet,
 SSD300, PISA SSD300, NAS-FCOS) read the same and build the same way, and
-so do the three two-stage files the port runs (Faster R-CNN, Double-Head,
-Dynamic R-CNN), against the whole JAX detector's variables; the other
-seven two-stage files are refused with the ROADMAP item they wait for.
+so do the six two-stage files the port runs (Faster R-CNN, Double-Head,
+Dynamic R-CNN, Mask R-CNN, Mask Scoring R-CNN, PointRend), against the
+whole JAX detector's variables; the mask files' runner settings equal the
+JAX runner's, and the settings it leaves unread are recorded; the other
+four two-stage files are refused with the ROADMAP item they wait for.
 The six pose files pass ``check_runnable``: their ``CocoPoseDataset`` is
 the COCO dataset of ``data.extra``.
 
@@ -344,20 +346,22 @@ SSD_LEVELS = ((4, 512), (2, 1024), (2, 512), (1, 256), (1, 256), (1, 256))
 # files the port still refuses (the rest of the two-stage family), by the
 # ROADMAP entry it names
 REFUSED = ["grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py",
-           "mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py",
+           "htc/htc_r50_fpn_1x_coco.py",
            "cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py"]
-# the seven two-stage files still to port, by their Queue 1 item
-TWO_STAGE_LATER = {"mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py": "3.2",
-                   "ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py": "3.2",
-                   "point_rend/point_rend_r50_caffe_fpn_1x_coco.py": "3.2",
-                   "cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py": "3.3",
+# the four two-stage files still to port, by their Queue 1 item
+TWO_STAGE_LATER = {"cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py": "3.3",
                    "grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py": "3.3",
                    "htc/htc_r50_fpn_1x_coco.py": "3.3",
                    "detectors/detectors_cascade_rcnn_r50_1x_coco.py": "3.3"}
+# the mask files, by the port's detector class
+MASK_FILES = {"mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py": "MaskRCNNDetector",
+              "ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py": "MaskScoringRCNNDetector",
+              "point_rend/point_rend_r50_caffe_fpn_1x_coco.py":
+                  "PointRendDetector"}
 # the two-stage files the port runs
 TWO_STAGE = ["faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py",
              "double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py",
-             "dynamic_rcnn/dynamic_rcnn_r50_fpn_1x.py"]
+             "dynamic_rcnn/dynamic_rcnn_r50_fpn_1x.py"] + list(MASK_FILES)
 
 
 @pytest.mark.parametrize("name", DENSE_CONFIGS)
@@ -424,7 +428,7 @@ def test_rest_of_the_zoo_is_refused_with_its_roadmap_entry(name):
 
 @pytest.mark.parametrize("name", sorted(TWO_STAGE_LATER))
 def test_two_stage_files_name_their_queue_item(name):
-    """The seven two-stage files still to port raise in ``check_runnable``
+    """The four two-stage files still to port raise in ``check_runnable``
     and in ``build_detector``, each naming its ROADMAP Queue 1 item."""
     cfg = PConfig.fromfile(os.path.join(REPO, "configs", name))
     item = f"\"Inherited zoo\" item {TWO_STAGE_LATER[name]}"
@@ -451,11 +455,13 @@ def test_pose_files_are_runnable(name):
 
 @pytest.mark.parametrize("name", TWO_STAGE)
 def test_two_stage_file_builds_with_the_jax_detector_variables(name):
-    """The three two-stage files read the same with both loaders, pass
+    """The six two-stage files read the same with both loaders, pass
     ``check_runnable`` and build on the ``meta`` device a detector whose
     state dict has the keys and shapes of the JAX detector's variables
     (``eval_shape`` at full width on a 64x64 image): the R50 backbone,
-    the FPN, the RPN and the Shared2FC or Double-Head RoI head."""
+    the FPN, the RPN, the Shared2FC or Double-Head RoI head, and the mask,
+    MaskIoU and point heads (``mask_upsample``'s kernel laid out by the
+    transposed-convolution rule)."""
     import jax
     import jax.numpy as jnp
     from lsnet_tpu.models import build_detector as j_build_detector
@@ -474,9 +480,82 @@ def test_two_stage_file_builds_with_the_jax_detector_variables(name):
         lambda s: np.zeros(s.shape, np.float32), shapes)).items()}
     assert {k: tuple(v.shape) for k, v in model.state_dict().items()} \
         == want
-    assert type(model).__name__ == ("DoubleHeadRCNNDetector"
-                                    if "double" in name
-                                    else "TwoStageDetector")
+    assert type(model).__name__ == MASK_FILES.get(name, (
+        "DoubleHeadRCNNDetector" if "double" in name else "TwoStageDetector"))
+
+
+@pytest.mark.parametrize("name", sorted(MASK_FILES))
+def test_file_settings_match_the_jax_runner(name):
+    """The mask files' runner settings (``two_stage_cfg_from``,
+    ``test_cfg_from``, the pipeline's task and contour length) equal the
+    JAX runner's, field by field, and the settings that the JAX runner
+    leaves unread or reads otherwise than mmdet, which the port follows:
+
+    * the mask extractor's RoIAlign ``sampling_ratio=0`` is dropped: it
+      samples 2 x 2 a bin, at 14 x 14;
+    * the mask head runs on every sampled RoI and the loss on the
+      positives (mmdet runs it on the positives: the same loss);
+    * mask targets are rasterised from the segm pipeline's 36-point
+      contours (mmdet crops GT masks);
+    * MS R-CNN: the file has no ``mask_iou_head``; the MaskIoU head keeps
+      JAX's fixed widths (256 convs, 1024 FCs), its IoU targets come from
+      the 28 x 28 grids (mmdet's from area ratios), the loss weight is a
+      fixed 0.5;
+    * PointRend: the mask head is ``FCNMaskHead`` (the reference's is a
+      ``CoarseMaskHead``); it trains on the 196 most uncertain points,
+      chosen deterministically (the reference oversamples at random), and
+      decodes in 2 subdivision steps of 784 points to 112 x 112;
+    * the paste threshold is a fixed 0.5 (the file sets no
+      ``mask_thr_binary``);
+    * ``optimizer_config.grad_clip=None``: the JAX runner raises
+      ``AttributeError`` on it; the port clips at 35 (ROADMAP Queue 3).
+    """
+    import dataclasses
+    import inspect
+    from lsnet_torch.core import two_stage as pts
+    from lsnet_torch.evalkit.evaluator import paste_mask
+    from lsnet_torch.ops.roi import multilevel_roi_align
+    path = os.path.join(REPO, "configs", name)
+    pc, jc = PConfig.fromfile(path), Config.fromfile(path)
+    assert pc.to_dict() == jc.to_dict()
+    ploop.check_runnable(pc)
+    for hw in ((800, 1344), (1344, 800)):
+        assert dataclasses.asdict(ploop.two_stage_cfg_from(pc, hw)) == \
+            dataclasses.asdict(jloop.two_stage_cfg_from(jc, hw))
+        assert dataclasses.asdict(ploop.test_cfg_from(pc, hw)) == \
+            dataclasses.asdict(jloop.test_cfg_from(jc, hw))
+    head = jloop._head_cfg(jc)
+    assert ploop.head_num_vectors(pc) == jloop._head_num_vectors(jc, head) \
+        == 36
+    assert ploop.data_task(pc, "train") == "segm"
+    assert ploop.data_task(pc, "val") == "bbox"
+    roi = pc.model.roi_head
+    assert roi.mask_roi_extractor.roi_layer.sampling_ratio == 0
+    assert roi.mask_roi_extractor.roi_layer.output_size == 14
+    assert inspect.signature(multilevel_roi_align).parameters[
+        "sampling_ratio"].default == 2
+    assert "mask_iou_head" not in roi and "point_head" not in roi
+    assert roi.mask_head.type == "FCNMaskHead"
+    with torch.device("meta"):
+        model = build_detector(pc.model.to_dict())
+    assert type(model).__name__ == MASK_FILES[name]
+    assert type(model.mask_head).__name__ == "FCNMaskHead"
+    if name.startswith("ms_rcnn"):
+        iou = model.maskiou_head
+        assert (iou.maskiou_conv0.out_channels, iou.maskiou_fc0.out_features
+                ) == (256, 1024)
+    defaults = {k: v.default for k, v in inspect.signature(
+        pts.point_rend_decode).parameters.items()}
+    assert (defaults["subdivision_steps"], defaults["num_points"]) == (2, 784)
+    assert inspect.signature(pts.point_rend_loss).parameters[
+        "num_points"].default == 196
+    assert "mask_thr_binary" not in pc.test_cfg.rcnn
+    assert inspect.signature(paste_mask).parameters["thr"].default == 0.5
+    assert pc.optimizer_config.grad_clip is None
+    with pytest.raises(AttributeError):
+        jc.get("optimizer_config", {}).get("grad_clip", {}).get(
+            "max_norm", 35.0)
+    assert ploop.clip_norm_from(pc) == 35.0
 
 
 def test_fpn_extra_levels_match_jax():

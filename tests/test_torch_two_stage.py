@@ -459,6 +459,43 @@ def test_sample_rois_breaks_ties_as_jax():
     assert pos[0].sum() == 6 > pos[1].sum() and (~pos & valid).any()
 
 
+def test_degenerate_negative_keeps_loss_bbox_finite():
+    """ROADMAP Queue 3: a valid proposal clipped to zero height at the
+    image's edge, sampled as a negative, gets NaN deltas from JAX's
+    ``sample_rois`` (log(0 / 0)), and JAX's ``rcnn_loss`` gives a NaN
+    ``loss_bbox`` (NaN x 0); the port encodes every RoI but a positive as
+    the unit box (zero deltas): its deltas equal JAX's elsewhere, and its
+    losses equal JAX's on JAX's deltas with the NaN rows set to 0."""
+    cfg = dict(image_shape=HW, num_classes=3, rcnn_num_samples=8)
+    props = np.array([[[0, 0, 96, 0], [8, 8, 40, 40], [50, 30, 90, 60],
+                       [10, 8, 41, 42]]], np.float32)
+    pvalid = np.ones((1, 4), bool)
+    gt = np.array([[[8, 8, 40, 40], [0, 0, 0, 0]]], np.float32)
+    gvalid = np.array([[True, False]])
+    labels = np.array([[2, 0]], np.int32)
+    jcfg, pcfg = jts.TwoStageConfig(**cfg), pts.TwoStageConfig(**cfg)
+    j = [np.asarray(x) for x in jax.jit(
+        lambda *a: jts.sample_rois(*a, jcfg))(props, pvalid, gt, gvalid,
+                                             labels)]
+    got = pts.sample_rois(t(props), t(pvalid), t(gt), t(gvalid), t(labels),
+                          pcfg)
+    nan = np.isnan(j[2]).any(-1)
+    assert nan.any() and not j[3][nan].any() and j[4][nan].all()
+    assert np.isfinite(got[2].numpy()).all()
+    np.testing.assert_array_equal(got[2].numpy()[nan], 0.0)
+    assert_close(got[2][torch.from_numpy(~nan)], j[2][~nan], rel=1e-5)
+    rng = np.random.RandomState(9)
+    cls = rng.randn(8, 4).astype(np.float32)
+    reg = rng.randn(8, 12).astype(np.float32)
+    want = jts.rcnn_loss(cls, reg, j[1], j[2], j[3], j[4], jcfg)
+    assert np.isnan(float(want[1]))
+    want = jts.rcnn_loss(cls, reg, j[1], np.nan_to_num(j[2]), j[3], j[4],
+                         jcfg)
+    for g, w_ in zip(pts.rcnn_loss(t(cls), t(reg), got[1], got[2], got[3],
+                                   got[4], pcfg), want):
+        assert abs(g.item() - float(w_)) <= 1e-5 * abs(float(w_))
+
+
 def test_rpn_and_rcnn_losses_match_jax(slice_):
     """``rpn_loss`` on the port's own RPN maps, ``rcnn_loss`` on JAX's
     sampled RoIs and logits: 1e-4 relative."""
