@@ -227,7 +227,22 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    800x1344 bf16 (boxes and masks) and 2 train steps, each profiled,
    with no K1 or grouped launch; (c) the Mask R-CNN file through
    ``tools.train`` (2 steps on procedural 768x1280 images) and ``tools.test
-   --eval bbox segm``, its ``segm_mAP`` printed.
+   --eval bbox segm``, its ``segm_mAP`` printed;
+15. the cascade family (Cascade R-CNN, Grid R-CNN, HTC, DetectoRS): (a) a
+   narrow copy of each (R18, DetectoRS' SAC ResNet-50 at base 16 and its
+   RFP, FPN 32, 64-wide FCs, 8 classes, f32) on the card against the CPU
+   from one set of weights: the heads on fixed RoIs (the three stages,
+   the grid head, HTC's semantic head and mask stages, DetectoRS' neck),
+   the grid and semantic targets, each loss and every gradient on the
+   CPU's proposals, samples and refined stages, the decode's pieces on
+   the CPU's selections (phase 3's tolerances), with the agreement of
+   the card's own selections logged; (b) each shipped file at full width
+   (seeded weights): ``init_detector`` and ``inference_detector`` twice
+   (HTC's masks too), ``detect`` at B=2 800x1344 bf16 (HTC's boxes and
+   masks) and 2 train steps, each profiled, with no K1 or grouped
+   launch; (c) the HTC file through ``tools.train`` (2 steps on
+   procedural 768x1280 images) and ``tools.test --eval bbox segm``, its
+   ``segm_mAP`` printed.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (all ten kernels) and, last, ``{"ok": true, "device": {...}}``; the
@@ -240,7 +255,8 @@ K1 cases of phase 2a and phase 8, ``--only cpv`` for phase 9,
 ``--only reppoints`` for phase 10, ``--only dense`` for phase 11,
 ``--only tools`` for phase 12 (after a narrow runner on the card for
 analyze_logs' log), ``--only two_stage`` for phase 13 (a, b),
-``--only pose`` for phase 13c and ``--only mask`` for phase 14. With
+``--only pose`` for phase 13c, ``--only mask`` for phase 14 and
+``--only cascade`` for phase 15. With
 ``CHIP_SMOKE_LOG=<path>`` in the environment it also writes every line it
 prints to that file, each after the seconds since the start. It needs
 the repository
@@ -485,6 +501,26 @@ MASK_CONFIGS = {
 MASK_LABELS = {"mask": "Mask R-CNN", "ms": "MS R-CNN",
                "point_rend": "PointRend"}
 MASK_TRAIN_STEPS = 2             # counted train steps of phase 14b
+
+# phase 15: the cascade family (R50, no DCN: no kernel launches; DetectoRS'
+# SAC convs are plain convolutions, as in the JAX package)
+CASCADE_CONFIGS = {
+    name: os.path.join(REPO, "configs", *path.split("/")) for name, path in (
+        ("cascade", "cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py"),
+        ("grid", "grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py"),
+        ("htc", "htc/htc_r50_fpn_1x_coco.py"),
+        ("detectors", "detectors/detectors_cascade_rcnn_r50_1x_coco.py"))}
+CASCADE_LABELS = {"cascade": "Cascade R-CNN", "grid": "Grid R-CNN",
+                  "htc": "HTC", "detectors": "DetectoRS"}
+CASCADE_TRAIN_STEPS = 2          # counted train steps of phase 15b
+GRID_GAP = 1e-5                  # phase 15a: a heatmap's top-2 gap held
+GRID_REPEAT = 1e-4               # phase 15b: px between two calls' votes
+# Grid R-CNN's per-point ConvTranspose2d runs, by cuDNN's default choice,
+# cudnn::detail::dgrad_engine after a scalePackedTensor_kernel of its
+# output: a data-gradient kernel that adds into its output, the pattern of
+# cuDNN's algorithm 0, which cuDNN documents as not deterministic. Under
+# cudnn.deterministic an implicit-GEMM dgrad takes its place (15b logs
+# both kernel sets and the repeat, ``deterministic_repeat``)
 
 
 LOG_PATH = os.environ.get("CHIP_SMOKE_LOG")    # optional copy of the log
@@ -4087,22 +4123,26 @@ def check_two_stage_small(name):
     return numbers
 
 
-def check_two_stage_full(root, name):
-    """Phase 13b: the shipped file at full width (R50-FPN, 80 classes,
-    seeded weights, the decode's score threshold TS_SCORE_THR):
-    ``init_detector`` from a ``save_checkpoint`` file and
-    ``inference_detector`` twice on a seeded 480x640 image (equal
-    detections), ``detect`` at B=2 800x1344 bf16 and TS_TRAIN_STEPS train
-    steps (20 instances an image; Dynamic R-CNN at its file's initial
-    threshold and beta), each profiled, with 0 K1 and 0 grouped launches.
-    Returns (numbers, launches by path)."""
-    cfg = Config.fromfile(TS_CONFIGS[name])
+def check_full_file(root, path, label, steps, side=None, repeat_atol=0.0):
+    """Phases 13b, 14b and 15b: one shipped two-stage file at full width
+    (R50-FPN, DetectoRS' SAC ResNet-50 and RFP, 80 classes, seeded
+    weights, the decode's score threshold TS_SCORE_THR): ``init_detector``
+    from a ``save_checkpoint`` file under ``root`` and
+    ``inference_detector`` twice on a seeded 480x640 image (the second
+    call's boxes within ``repeat_atol`` px of the first's; its ``side`` x
+    ``side`` masks equal, where the file has masks), ``detect`` at B=2
+    800x1344 bf16 and ``steps`` train steps (20 instances an image, with
+    their 36-point contours where the file has masks; Dynamic R-CNN at
+    its file's initial threshold and beta), each profiled, with 0 K1 and
+    0 grouped launches. A file that does not repeat bit for bit
+    (``repeat_atol`` > 0) is called twice more under
+    ``cudnn.deterministic`` (``deterministic_repeat``). Returns (numbers,
+    launches by path)."""
+    cfg = Config.fromfile(path)
     cfg.merge_from_dict({"test_cfg.rcnn.score_thr": TS_SCORE_THR})
-    label = f"{TS_LABELS[name]} R50"
     none = dict.fromkeys(launch_counts(), 0)
     by_path, numbers = {}, {}
-    path = seeded_checkpoint(cfg, os.path.join(root, name))
-    bundle = apis.init_detector(cfg, path)
+    bundle = apis.init_detector(cfg, seeded_checkpoint(cfg, root))
     img = api_image(3)
     first = apis.inference_detector(bundle, img)
     zero_launch_counts()
@@ -4111,10 +4151,19 @@ def check_two_stage_full(root, name):
     if by_path[f"{label} inference_detector"] != none:
         raise AssertionError(f"{label}: inference_detector launched "
                              f"{launch_counts()}")
-    same_detections(f"{label} inference_detector, second call", again,
-                    first, atol=0.0)
-    log(f"{label} inference_detector: {len(again['scores'])} detections, "
-        "equal on a second call")
+    numbers["repeat_px"] = err = same_detections(
+        f"{label} inference_detector, second call", again, first,
+        atol=repeat_atol)
+    if side and (again["masks"].shape != (len(again["scores"]), side, side)
+                 or not np.array_equal(again["masks"], first["masks"])):
+        raise AssertionError(f"{label}: inference_detector masks "
+                             f"{again['masks'].shape}")
+    log(f"{label} inference_detector: {len(again['scores'])} detections"
+        f"{f' with {side}x{side} masks' if side else ''}, a second call's "
+        f"boxes within {err:.3g} px")
+    if repeat_atol:
+        numbers["repeat_px_cudnn_deterministic"] = deterministic_repeat(
+            label, bundle, img, repeat_atol)
     del bundle
     torch.cuda.empty_cache()
     model_cfg = cfg.model.to_dict()
@@ -4133,14 +4182,13 @@ def check_two_stage_full(root, name):
         extra = {"dyn_iou_thr": torch.tensor(sched.iou_thr, device="cuda"),
                  "dyn_beta": torch.tensor(sched.beta, device="cuda")}
     run, img_s, launches, peak = drive_train_path(
-        "bbox", model_cfg, lcfg, k1=0, steps=TS_TRAIN_STEPS,
+        "segm" if side else "bbox", model_cfg, lcfg, k1=0, steps=steps,
         label=f"{label} train", grouped=0, warmup_iters=0,
         batch_extra=extra, **loss_kw)
     numbers["train"] = profile(f"{label} train step", run, B / img_s * 1e3)
     numbers["train_img_per_s"] = img_s
     numbers["train_peak_memory_bytes"] = peak
-    by_path[f"{label} train"] = {k: v // TS_TRAIN_STEPS
-                                 for k, v in launches.items()}
+    by_path[f"{label} train"] = {k: v // steps for k, v in launches.items()}
     del run
     torch.cuda.empty_cache()
     log(f"{label} device ms: detect {numbers['detect']['device_ms']:.3f} "
@@ -4151,6 +4199,41 @@ def check_two_stage_full(root, name):
     log(f"{label} peak memory: detect {peak_gib(numbers, ''):.2f} GiB, "
         f"train {peak_gib(numbers, 'train_'):.2f} GiB")
     return numbers, by_path
+
+
+def device_kernels(run):
+    """The names of the kernels one call of ``run`` launches."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if dev_us(e) > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def deterministic_repeat(label, bundle, img, atol):
+    """Two more ``inference_detector`` calls with
+    ``torch.backends.cudnn.deterministic`` set: the px between their
+    boxes, and the kernels that one call launches only without the flag
+    or only with it (the algorithms cuDNN picks differently). Returns the
+    px."""
+    call = (lambda: apis.inference_detector(bundle, img))
+    free = device_kernels(call)
+    torch.backends.cudnn.deterministic = True
+    try:
+        first = call()
+        err = same_detections(f"{label} inference_detector under "
+                              "cudnn.deterministic", call(), first,
+                              atol=atol)
+        pinned = device_kernels(call)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    log(f"{label} inference_detector under cudnn.deterministic: a second "
+        f"call's boxes within {err:.3g} px; kernels only without the flag "
+        f"{sorted(k[:120] for k in free - pinned)}, only with it "
+        f"{sorted(k[:120] for k in pinned - free)}")
+    return err
 
 
 def check_pose_runner(root, task):
@@ -4258,7 +4341,9 @@ def check_two_stage(root):
         numbers["small"][name] = check_two_stage_small(name)
     seconds = {"a": time.perf_counter() - t0}
     for name in TS_CONFIGS:
-        numbers[name], paths = check_two_stage_full(root, name)
+        numbers[name], paths = check_full_file(
+            os.path.join(root, name), TS_CONFIGS[name],
+            f"{TS_LABELS[name]} R50", TS_TRAIN_STEPS)
         by_path.update(paths)
     seconds["b"] = time.perf_counter() - t0 - sum(seconds.values())
     log(f"phase 13 (a, b) seconds by part {json.dumps(seconds)}")
@@ -4441,12 +4526,12 @@ def check_mask_small(name):
             if name == "point_rend":
                 cur, r["gaps"] = subdivision_gaps(model, feats, mo, det)
                 r["masks"] = ts.mask_probs(det, cur)
-            own_det = ts.MASK_DECODES[type(model).__name__](
+            own_det = ts.TWO_STAGE_DECODES[type(model).__name__](
                 model, data["image"], data["img_shape"], sfs, tscfg, tcfg,
                 sampling=fd.TRAIN_SAMPLING)[0]
             r["own_det"] = [x.cpu() for x in (own_det.valid,
                                               own_det.labels)]
-            r["e2e"] = {k: v.item() for k, v in ts.MASK_LOSSES[
+            r["e2e"] = {k: v.item() for k, v in ts.TWO_STAGE_LOSSES[
                 type(model).__name__](model, data, tscfg)[1].items()}
         names = [n for n, p in model.named_parameters() if p.requires_grad]
         params = [p for p in model.parameters() if p.requires_grad]
@@ -4513,83 +4598,93 @@ def check_mask_small(name):
     return numbers
 
 
-def check_mask_full(root, name):
-    """Phase 14b: the shipped mask file at full width (R50-FPN, 80
-    classes, seeded weights, the decode's score threshold TS_SCORE_THR):
-    ``init_detector`` from a ``save_checkpoint`` file and
-    ``inference_detector`` twice on a seeded 480x640 image (equal
-    detections and masks), ``detect`` at B=2 800x1344 bf16 (boxes and
-    masks) and MASK_TRAIN_STEPS train steps (20 instances an image with
-    their 36-point contours), each profiled, with 0 K1 and 0 grouped
-    launches. Returns (numbers, launches by path)."""
-    cfg = Config.fromfile(MASK_CONFIGS[name])
-    cfg.merge_from_dict({"test_cfg.rcnn.score_thr": TS_SCORE_THR})
-    label = f"{MASK_LABELS[name]} R50"
-    none = dict.fromkeys(launch_counts(), 0)
-    by_path, numbers = {}, {}
-    path = seeded_checkpoint(cfg, os.path.join(root, name))
-    bundle = apis.init_detector(cfg, path)
-    img = api_image(3)
-    first = apis.inference_detector(bundle, img)
-    zero_launch_counts()
-    again = apis.inference_detector(bundle, img)
-    by_path[f"{label} inference_detector"] = launch_counts()
-    if by_path[f"{label} inference_detector"] != none:
-        raise AssertionError(f"{label}: inference_detector launched "
-                             f"{launch_counts()}")
-    same_detections(f"{label} inference_detector, second call", again,
-                    first, atol=0.0)
-    side = 112 if name == "point_rend" else 28
-    if again["masks"].shape != (len(again["scores"]), side, side) or \
-            not np.array_equal(again["masks"], first["masks"]):
-        raise AssertionError(f"{label}: inference_detector masks "
-                             f"{again['masks'].shape}")
-    log(f"{label} inference_detector: {len(again['scores'])} detections "
-        f"with {side}x{side} masks, equal on a second call")
-    del bundle
-    torch.cuda.empty_cache()
-    model_cfg = cfg.model.to_dict()
-    run, img_s, launches, peak = drive_main_path(
-        label, model_cfg, 0, "bbox", k1=0, config=cfg)
-    numbers["detect"] = profile(label, run, B / img_s * 1e3)
-    numbers["img_per_s"], numbers["peak_memory_bytes"] = img_s, peak
-    by_path[label] = {k: v // ITERS for k, v in launches.items()}
-    del run
-    torch.cuda.empty_cache()
-    lcfg = runner_loop.two_stage_cfg_from(cfg, (H, W))
-    run, img_s, launches, peak = drive_train_path(
-        "segm", model_cfg, lcfg, k1=0, steps=MASK_TRAIN_STEPS,
-        label=f"{label} train", grouped=0, warmup_iters=0)
-    numbers["train"] = profile(f"{label} train step", run, B / img_s * 1e3)
-    numbers["train_img_per_s"] = img_s
-    numbers["train_peak_memory_bytes"] = peak
-    by_path[f"{label} train"] = {k: v // MASK_TRAIN_STEPS
-                                 for k, v in launches.items()}
-    del run
-    torch.cuda.empty_cache()
-    log(f"{label} device ms: detect {numbers['detect']['device_ms']:.3f} "
-        f"a batch of {B}, train {numbers['train']['device_ms']:.3f} a step")
-    log(f"{label} device idle share: detect "
-        f"{numbers['detect']['idle_share']:.3f}, train "
-        f"{numbers['train']['idle_share']:.3f}")
-    log(f"{label} peak memory: detect {peak_gib(numbers, ''):.2f} GiB, "
-        f"train {peak_gib(numbers, 'train_'):.2f} GiB")
-    return numbers, by_path
+@runner_hooks.HOOKS.register_module()
+class ProfileIterHook(runner_hooks.Hook):
+    """Phases 14c and 15c: a profile of the runner's second iteration
+    (its batch, step and hooks), host and device, from the end of the
+    first iteration's hooks to the end of the second's: the wall seconds,
+    the device's kernel ms, the top kernels by device time and the top
+    host operators by their own host time."""
+    priority = 99
+    seen, result = 0, {}
+    _prof = _t0 = None
+
+    def after_iter(self, ctx):
+        from torch.profiler import ProfilerActivity, profile as tprofile
+        cls = ProfileIterHook
+        cls.seen += 1
+        torch.cuda.synchronize()
+        if cls.seen == 1:
+            cls._prof = tprofile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA])
+            cls._prof.start()
+            cls._t0 = time.perf_counter()
+        elif cls.seen == 2:
+            wall = time.perf_counter() - cls._t0
+            cls._prof.stop()
+            events = cls._prof.key_averages()
+            cls._prof = None
+            kernels = [e for e in events if dev_us(e) > 0
+                       and e.device_type == torch.autograd.DeviceType.CUDA]
+            host = [e for e in events if e.self_cpu_time_total > 0]
+            cls.result = {
+                "wall_s": wall,
+                "device_ms": sum(dev_us(e) for e in kernels) / 1e3,
+                "top_kernels": [
+                    [e.key[:90], dev_us(e) / 1e3, e.count]
+                    for e in sorted(kernels, key=dev_us, reverse=True)[:8]],
+                "top_host_ops": [
+                    [e.key[:60], e.self_cpu_time_total / 1e3, e.count]
+                    for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                                    reverse=True)[:8]]}
 
 
-def check_mask_runner(root):
-    """Phase 14c: the shipped Mask R-CNN file at full width through
+def counting_cascade_stages(seen):
+    """Wraps ``ts.cascade_stage`` so that each call appends (stage, its
+    sampled RoIs, their refined boxes, valid, positive) to ``seen``;
+    returns the undo."""
+    orig = ts.cascade_stage
+
+    def counted(model, batch, cfg, feats, st, s, *args):
+        out = orig(model, batch, cfg, feats, st, s, *args)
+        seen.append((s, st.rois.detach(), out[1].detach(), st.valid,
+                     st.pos))
+        return out
+    ts.cascade_stage = counted
+    return lambda: setattr(ts, "cascade_stage", orig)
+
+
+def cascade_box_counts(seen):
+    """Each call of ``counting_cascade_stages``' list: the stage, its
+    valid sampled RoIs, its positives, and the valid RoIs and refined
+    boxes of zero width or height, or under 1 px."""
+    out = []
+    for s, rois, refined, valid, pos in seen:
+        row = {"stage": s, "valid": int(valid.sum()),
+               "pos": int((pos & valid).sum())}
+        for name, boxes in (("rois", rois), ("refined", refined)):
+            wh = (boxes[..., 2:] - boxes[..., :2]).amin(-1)
+            row[f"{name}_zero_size"] = int(((wh <= 0) & valid).sum())
+            row[f"{name}_under_1px"] = int(((wh < 1) & valid).sum())
+        out.append(row)
+    return out
+
+
+def check_segm_runner(root, path, label, seeds, finite):
+    """Phases 14c and 15c: a shipped mask file at full width through
     ``lsnet_torch.tools.train`` (1 epoch of 2 steps on 4 procedural
-    768x1280 images, the segm pipeline's contours, an EvalHook on 2 more)
-    and ``lsnet_torch.tools.test --eval bbox segm`` on its checkpoint (the
-    24 metrics within 1e-4 of the hook's; seeded weights give a segm_mAP
-    of about 0). No K1 or grouped launch in any step or eval. Returns
+    768x1280 images made from ``seeds[0]``, the segm pipeline's contours,
+    an EvalHook on 2 more from ``seeds[1]``; the log's ``finite`` keys
+    finite) and ``lsnet_torch.tools.test --eval bbox segm`` on its
+    checkpoint (the 24 metrics within 1e-4 of the hook's; seeded weights
+    give a segm_mAP of about 0). No K1 or grouped launch in any step or
+    eval. The second iteration is profiled (``ProfileIterHook``); a
+    cascade's stages are counted (``cascade_box_counts``). Returns
     (numbers, launches per step, per eval)."""
-    path = MASK_CONFIGS["mask"]
-    label = "runner Mask R-CNN R50"
     train_root, val_root = (os.path.join(root, n) for n in ("train", "val"))
-    train_ann, _ = make_shapes_coco(train_root, 4, seed=9, hw=[LAND] * 4)
-    val_ann, _ = make_shapes_coco(val_root, 2, seed=10, hw=[LAND] * 2)
+    train_ann, _ = make_shapes_coco(train_root, 4, seed=seeds[0],
+                                    hw=[LAND] * 4)
+    val_ann, _ = make_shapes_coco(val_root, 2, seed=seeds[1], hw=[LAND] * 2)
     test_opts = [f"data.val.ann_file={val_ann}",
                  f"data.val.img_prefix={os.path.join(val_root, 'imgs')}",
                  "model.roi_head.bbox_head.num_classes=3",
@@ -4599,11 +4694,15 @@ def check_mask_runner(root):
         f"data.train.ann_file={train_ann}",
         f"data.train.img_prefix={os.path.join(train_root, 'imgs')}",
         "data.samples_per_gpu=2", "log_interval=1", "evaluation.interval=1",
-        "custom_hooks=[{'type': 'LaunchCountHook'}]"]
+        "custom_hooks=[{'type': 'LaunchCountHook'}, "
+        "{'type': 'ProfileIterHook'}]"]
     none = dict.fromkeys(launch_counts(), 0)
     work = os.path.join(root, "work")
     LaunchCountHook.steps.clear()
     LaunchCountHook.evals.clear()
+    ProfileIterHook.seen, ProfileIterHook.result = 0, {}
+    seen = []
+    undo = counting_cascade_stages(seen)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
@@ -4611,6 +4710,7 @@ def check_mask_runner(root):
                                "1", "--max-iters-per-epoch", "2",
                                "--options", *opts])
     finally:
+        undo()
         LaunchCountHook.start_backbone = {}
     train_s = time.perf_counter() - t0
     steps, evals = list(LaunchCountHook.steps), list(LaunchCountHook.evals)
@@ -4618,13 +4718,20 @@ def check_mask_runner(root):
     val = log_records(work, "val")
     for r in train:
         log(f"{label} " + json.dumps(r))
+    prof = ProfileIterHook.result
+    log(f"{label} second iteration profiled: {json.dumps(prof)}")
+    counts = cascade_box_counts(seen)
+    if counts:
+        log(f"{label} cascade stages, each call: {json.dumps(counts)}")
     if len(train) != 2 or res["step"] != 2 or len(val) != 1 or any(
-            not math.isfinite(r[k]) for r in train
-            for k in ("loss", "grad_norm", "loss_mask")):
+            not math.isfinite(r[k]) for r in train for k in finite):
         raise AssertionError(f"{label}: records {train}, {val}")
     if steps != [none] * 2 or evals != [none]:
         raise AssertionError(f"{label}: launches per step {steps}, per "
                              f"eval {evals}")
+    if not prof.get("top_kernels"):
+        raise AssertionError(f"{label}: the profile of the second "
+                             "iteration has no device records")
     metrics = test_tool.main([path, os.path.join(work, "ckpts",
                                                  "step_2.pt"),
                               "--eval", "bbox", "segm", "--options",
@@ -4643,7 +4750,8 @@ def check_mask_runner(root):
                "losses": [r["loss"] for r in train],
                "segm_mAP": metrics["segm_mAP"],
                "bbox_mAP": metrics.get("bbox_mAP"),
-               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "second_iteration": prof, "cascade_stages": counts}
     return numbers, steps[0], evals[0]
 
 
@@ -4655,14 +4763,306 @@ def check_mask(root):
         numbers["small"][name] = check_mask_small(name)
     seconds = {"a": time.perf_counter() - t0}
     for name in MASK_CONFIGS:
-        numbers[name], paths = check_mask_full(root, name)
+        numbers[name], paths = check_full_file(
+            os.path.join(root, name), MASK_CONFIGS[name],
+            f"{MASK_LABELS[name]} R50", MASK_TRAIN_STEPS,
+            side=112 if name == "point_rend" else 28)
         by_path.update(paths)
     seconds["b"] = time.perf_counter() - t0 - sum(seconds.values())
     (numbers["runner"], by_path["runner Mask R-CNN train"],
-     by_path["runner Mask R-CNN eval"]) = check_mask_runner(
-        os.path.join(root, "runner"))
+     by_path["runner Mask R-CNN eval"]) = check_segm_runner(
+        os.path.join(root, "runner"), MASK_CONFIGS["mask"],
+        "runner Mask R-CNN R50", (9, 10), ("loss", "grad_norm", "loss_mask"))
     seconds["c"] = time.perf_counter() - t0 - sum(seconds.values())
     log(f"phase 14 seconds by part {json.dumps(seconds)}")
+    numbers["seconds"] = time.perf_counter() - t0
+    return numbers, by_path
+
+
+def narrow_cascade_cfg(name):
+    """Phase 15a: the shipped file's model with an R18 backbone
+    (DetectoRS: its SAC ResNet-50 at ``base_channels=16``), FPN (RFP) and
+    RPN 32 wide, 64-wide RoI FCs in each stage, 8 classes; Grid R-CNN's
+    head 2 convs of 9 x 16 channels, HTC's mask heads 32 wide (its
+    information flow adds them to the 32-wide RoI features)."""
+    cfg = Config.fromfile(CASCADE_CONFIGS[name]).model.to_dict()
+    if name == "detectors":
+        cfg["backbone"]["base_channels"] = 16
+    else:
+        cfg["backbone"]["depth"] = 18
+    cfg["neck"].update(in_channels=[64, 128, 256, 512], out_channels=32)
+    cfg["rpn_head"].update(in_channels=32, feat_channels=32)
+    roi = cfg["roi_head"]
+    heads = roi["bbox_head"]
+    for h in heads if isinstance(heads, list) else [heads]:
+        h.update(in_channels=32, fc_out_channels=64, num_classes=8)
+    if name == "grid":
+        roi["grid_head"].update(num_convs=2, point_feat_channels=16)
+    if name == "htc":
+        roi["mask_head"].update(conv_out_channels=32, num_classes=8)
+    return cfg
+
+
+def condition_cascade_weights_(model):
+    """Phase 15a's weights, conditioned as the port's CPU tests condition
+    theirs (``tests/test_torch_cascade.py``, ``test_torch_grid_htc.py``),
+    so that no comparison turns on rounding: the RPN's objectness x 100,
+    each stage's classifier x 100 (the decode's mean scores would lie
+    within 1e-7 of each other), Grid R-CNN's ``deconv2_g*`` x 30 (a
+    heatmap's logits would lie within 0.2 of each other; the tests' x 300
+    saturates these seeded weights' sigmoids into ties at 1)."""
+    with torch.no_grad():
+        model.rpn_head.rpn_cls.weight.mul_(100.0)
+        for name in ("bbox_head", "bbox_head2", "bbox_head3"):
+            head = getattr(model, name, None)
+            if head is not None:
+                head.fc_cls.weight.mul_(100.0)
+        grid = getattr(model, "grid_head", None)
+        for g in range(grid.G if grid is not None else 0):
+            getattr(grid, f"deconv2_g{g}").weight.mul_(30.0)
+    return model
+
+
+def rel_err(got, want):
+    """max |got - want| over max(1, max |want|), over two (nested) lists
+    of tensors or two tensors."""
+    if isinstance(want, torch.Tensor):
+        return ((got.float().cpu() - want.float().cpu()).abs().max().item()
+                / max(1.0, want.abs().max().item()))
+    if isinstance(want, dict):
+        return max(rel_err(got[k], w) for k, w in want.items())
+    return max(rel_err(g, w) for g, w in zip(got, want))
+
+
+def cascade_heads(model, name, feats, rois):
+    """Phase 15a's heads on fixed RoIs: the three stages' (HTC's with the
+    semantic embedding, and its semantic head and mask stages, each after
+    the one before's features), Grid R-CNN's heatmaps, DetectoRS' neck
+    levels too."""
+    out = {}
+    if name == "detectors":
+        out["extract"] = list(feats)
+    if name == "grid":
+        out["grid_forward"] = model.grid_forward(feats, rois)
+        return out
+    sem = ()
+    if name == "htc":
+        out["semantic"] = model.semantic(feats)
+        sem = (out["semantic"][1],)
+    last = None
+    for s in range(3):
+        out[f"stage{s}"] = model.roi_forward_stage(feats, rois, s, *sem)
+        if sem:
+            m, last = model.mask_forward_stage(feats, rois, s, sem[0], last)
+            out[f"mask{s}"] = (m, last)
+    return out
+
+
+def cascade_terms_on(model, name, data, tscfg, cpu):
+    """A cascade-family detector's loss terms on its own features and the
+    CPU's samples (``cpu``: each stage's (samples, refined boxes) as the
+    CPU drew them, or Grid R-CNN's one ``Stages``); each stage refines
+    its RoIs by this device's deltas (``ts.cascade_stage``)."""
+    dev = data["image"].device
+    feats = model.extract(data["image"])
+    terms = dict(zip(("loss_rpn_cls", "loss_rpn_bbox"),
+                     ts.rpn_loss(model.rpn(feats), data, tscfg)))
+    if name == "grid":
+        st = ts.Stages(feats, *(x.to(dev) for x in cpu[1:]))
+        terms.update(ts.rcnn_losses(model, st, tscfg))
+        terms["loss_grid"] = ts.grid_loss(model, data, st)
+        return terms
+    sem_logits, sem_feat = (model.semantic(feats) if name == "htc"
+                            else (None, None))
+    last = None
+    for s, (st, _) in enumerate(cpu):
+        st = ts.Stages(feats, *(x.to(dev) for x in st[1:]))
+        stage_terms, _, last = ts.cascade_stage(model, data, tscfg, feats,
+                                                st, s, sem_feat, last)
+        terms.update(stage_terms)
+    if sem_logits is not None:
+        terms["loss_semantic_seg"] = ts.semantic_loss(sem_logits, data,
+                                                      tscfg)
+    return terms
+
+
+def grid_hot_gaps(model, feats, det):
+    """Each detection's smallest gap, over its points, between the hottest
+    and the next hottest cell of its fused heatmap."""
+    out = model.grid_forward(feats, ts.rois_with_batch_idx(det.bboxes))
+    hm = torch.sigmoid(out["fused"].float()).permute(0, 3, 1, 2).flatten(2)
+    top = torch.topk(hm, 2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).amin(-1).reshape(det.valid.shape)
+
+
+def check_cascade_small(name):
+    """Phase 15a for one narrow detector of the cascade family, the card
+    against the CPU from one set of weights (f32, TF32 off, 2 images at
+    96x128, 4 instances each with its 36-point contour;
+    ``condition_cascade_weights_``): the heads on 24 fixed RoIs of every
+    level (``cascade_heads``), the targets in the GT boxes shrunk 10 % and
+    grown 15 % a side (Grid R-CNN's) or HTC's semantic map, equal; the
+    loss terms and every parameter's gradient on the CPU's samples of
+    each stage (``cascade_terms_on``); the decode's
+    pieces on the CPU's selections: the cascade's refined boxes and mean
+    scores on its proposals, HTC's masks and Grid R-CNN's vote on its
+    detections (the boxes whose heatmaps' two hottest cells lie more than
+    GRID_GAP apart; the rest counted, under a fifth). The card's own
+    selections are compared with the CPU's and logged. Returns the
+    numbers."""
+    label = f"{CASCADE_LABELS[name]} narrow"
+    cfg = narrow_cascade_cfg(name)
+    tscfg = ts.TwoStageConfig(**TS_SMALL)
+    tcfg = TestConfig(image_shape=TS_SMALL_HW, num_classes=8, nms_pre=500,
+                      score_thr=TS_SCORE_THR, nms_iou=0.5, max_per_img=50)
+    rois = ts_fixed_rois(TS_SMALL_HW)
+    res, cpu = {}, {}
+    for device in ("cpu", "cuda"):
+        model = condition_cascade_weights_(unit_bn_scales_(init_model(
+            cfg, device=device, seed=1, train=True)))
+        data = synthetic_batch(2, TS_SMALL_HW, 4, 8, 1, device)
+        sfs = torch.ones(2, 4, device=device)
+        r = res[device] = {}
+        with torch.no_grad():
+            feats = model.extract(data["image"])
+            r["heads"] = cascade_heads(model, name, feats, rois.to(device))
+            sem = (r["heads"]["semantic"][1] if name == "htc" else None)
+            if name == "grid":
+                gtb = data["gt_bboxes"].reshape(8, 4)
+                grow = torch.tensor([0.0, -0.1, 0.15], device=device)
+                target_rois = (gtb[None] + grow[:, None, None] * (
+                    gtb[:, 2:] - gtb[:, :2]).repeat(1, 2) * torch.tensor(
+                        [-1.0, -1.0, 1.0, 1.0], device=device)).reshape(
+                            24, 4)
+                r["targets"] = ts.grid_targets(target_rois, gtb.repeat(3, 1))
+            if name == "htc":
+                r["targets"] = ts.semantic_targets(
+                    data, tscfg, *r["heads"]["semantic"][0].shape[1:3])
+            _, own_feats, props, pvalid = ts.rpn_stage(
+                model, data, tscfg, fd.TRAIN_SAMPLING)
+            if device == "cpu":
+                cpu["props"] = (props, pvalid)
+            if name == "grid":
+                own = ts.sample_stage(own_feats, props, pvalid, data, tscfg)
+                r["samples"] = [[x.cpu() for x in (own.labels, own.pos,
+                                                    own.valid)]]
+                feats_, det = ts._detect(model, data["image"],
+                                         data["img_shape"], sfs, tscfg, tcfg,
+                                         False, fd.TRAIN_SAMPLING)
+                if device == "cpu":
+                    cpu["sel"], cpu["det"] = own, det
+                cdet = Detections(*(x.to(device) for x in cpu["det"]))
+                r["decode"] = ts.grid_refine(model, feats, cdet,
+                                             data["img_shape"], sfs)
+                r["gaps"] = grid_hot_gaps(model, feats, cdet).cpu()
+                own_det = ts.grid_refine(model, feats_, det,
+                                         data["img_shape"], sfs)
+            else:
+                _, _, drawn = ts.cascade_stages(
+                    model, data, tscfg, own_feats, props, pvalid,
+                    torch.zeros((), device=device), sem)
+                r["samples"] = [[x.cpu() for x in (st.labels, st.pos,
+                                                    st.valid)]
+                                for st, _ in drawn]
+                if device == "cpu":
+                    cpu["sel"] = drawn
+                cp = [x.to(device) for x in cpu["props"]]
+                boxes, probs = ts.cascade_refine(model, feats, *cp, sem)
+                r["decode"] = [boxes, probs]
+                own_det = ts.TWO_STAGE_DECODES[type(model).__name__](
+                    model, data["image"], data["img_shape"], sfs, tscfg,
+                    tcfg, sampling=fd.TRAIN_SAMPLING)
+                if name == "htc":
+                    own_det = own_det[0]
+                    if device == "cpu":
+                        cpu["det"] = own_det
+                    cdet = Detections(*(x.to(device) for x in cpu["det"]))
+                    r["masks"] = ts.htc_masks(model, feats, cdet, sfs, sem)
+            r["own_det"] = [x.cpu() for x in (own_det.valid,
+                                              own_det.labels)]
+            r["e2e"] = {k: v.item() for k, v in ts.TWO_STAGE_LOSSES[
+                type(model).__name__](model, data, tscfg)[1].items()}
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        params = [p for p in model.parameters() if p.requires_grad]
+        terms = cascade_terms_on(model, name, data, tscfg, cpu["sel"])
+        total = sum(terms.values())
+        grads = torch.autograd.grad(total, params)
+        r["loss"] = (total.item(), {k: v.item() for k, v in terms.items()},
+                     {n: g.cpu() for n, g in zip(names, grads)})
+    c, g = res["cpu"], res["cuda"]
+    numbers = {"heads_rel_err": rel_err(g["heads"], c["heads"])}
+    ok = numbers["heads_rel_err"] <= 1e-3
+    if "targets" in c:
+        numbers["targets_set"] = int((c["targets"] > 0).sum()) if \
+            name == "grid" else int((c["targets"] < 8).sum())
+        numbers["targets_same"] = torch.equal(g["targets"].cpu(),
+                                              c["targets"])
+        ok = ok and numbers["targets_same"] and numbers["targets_set"] > 0
+    if name == "grid":
+        valid = cpu["det"].valid
+        held = valid & (c["gaps"] > GRID_GAP)
+        numbers["vote_not_held_near_equal_cells"] = int(
+            (valid & ~held).sum())
+        numbers["vote_held"] = int(held.sum())
+        numbers["vote_rel_err"] = err = rel_err(
+            g["decode"].bboxes.cpu()[held], c["decode"].bboxes[held])
+        ok = ok and held.sum() > 0 and err <= 1e-3 and \
+            (valid & ~held).sum() <= valid.sum() / 5
+    else:
+        numbers["refine_rel_err"] = err = rel_err(g["decode"], c["decode"])
+        ok = ok and err <= 1e-3
+    if name == "htc":
+        valid = cpu["det"].valid
+        numbers["masks_on_cpu_detections_rel_err"] = err = rel_err(
+            g["masks"].cpu()[valid], c["masks"][valid])
+        numbers["masks_held"] = int(valid.sum())
+        ok = ok and valid.any() and err <= 1e-3
+    numbers["own_samples_same"] = all(
+        torch.equal(a, b) for sa, sb in zip(g["samples"], c["samples"])
+        for a, b in zip(sa, sb))
+    numbers["own_detections_same"] = all(
+        torch.equal(a, b) for a, b in zip(g["own_det"], c["own_det"]))
+    (lc, tc, gc), (lg, tg, gg) = c["loss"], g["loss"]
+    err, where = grads_rel_err(gc, gg)
+    numbers["grad_rel_err"] = err
+    log(f"small {label} model, card vs CPU: {json.dumps(numbers)}")
+    log(f"small {label} loss on the CPU's selections, card vs CPU: {lg:.6f} "
+        f"vs {lc:.6f}, terms {json.dumps(tg)} vs {json.dumps(tc)}, "
+        f"{len(gc)} gradients, max rel err {err:.3g} ({where})")
+    log(f"small {label} loss from each device's own selections: card "
+        f"{json.dumps(g['e2e'])}, CPU {json.dumps(c['e2e'])}")
+    ok = ok and abs(lg - lc) <= 1e-4 * abs(lc) and err <= 2e-3 and all(
+        abs(tg[k] - v) <= 1e-4 * max(abs(v), 1e-3 * abs(lc))
+        for k, v in tc.items()) and tg.keys() == tc.keys()
+    if not ok or not all(math.isfinite(v) for v in g["e2e"].values()):
+        raise AssertionError(f"{label}: card disagrees with the CPU")
+    return numbers
+
+
+def check_cascade(root):
+    """Phase 15 (a, b, c). Returns (numbers, launches by path)."""
+    t0 = time.perf_counter()
+    numbers, by_path = {"small": {}}, {}
+    for name in CASCADE_CONFIGS:
+        numbers["small"][name] = check_cascade_small(name)
+    seconds = {"a": time.perf_counter() - t0}
+    for name in CASCADE_CONFIGS:
+        # Grid R-CNN's voted boxes repeat within GRID_REPEAT px on the
+        # card, not bit for bit (the rest of the family's do)
+        numbers[name], paths = check_full_file(
+            os.path.join(root, name), CASCADE_CONFIGS[name],
+            f"{CASCADE_LABELS[name]} R50", CASCADE_TRAIN_STEPS,
+            side=28 if name == "htc" else None,
+            repeat_atol=GRID_REPEAT if name == "grid" else 0.0)
+        by_path.update(paths)
+    seconds["b"] = time.perf_counter() - t0 - sum(seconds.values())
+    (numbers["runner"], by_path["runner HTC train"],
+     by_path["runner HTC eval"]) = check_segm_runner(
+        os.path.join(root, "runner"), CASCADE_CONFIGS["htc"],
+        "runner HTC R50", (11, 12),
+        ("loss", "grad_norm", "s2.loss_mask", "loss_semantic_seg"))
+    seconds["c"] = time.perf_counter() - t0 - sum(seconds.values())
+    log(f"phase 15 seconds by part {json.dumps(seconds)}")
     numbers["seconds"] = time.perf_counter() - t0
     return numbers, by_path
 
@@ -4672,12 +5072,13 @@ def main(argv=None):
     parser.add_argument("--only", choices=["backward", "probes", "accuracy",
                                            "api", "cpv", "reppoints",
                                            "dense", "tools", "two_stage",
-                                           "pose", "mask"],
+                                           "pose", "mask", "cascade"],
                         default=None,
                         help="run phases 2c and 2d, phase 2e, phase 7, "
                         "phase 2a's Res2Net cases and phase 8, phase 9, "
                         "phase 10, phase 11, phase 12, phase 13 (a, b), "
-                        "phase 13c or phase 14 alone; no result line")
+                        "phase 13c, phase 14 or phase 15 alone; no result "
+                        "line")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4761,10 +5162,10 @@ def main(argv=None):
         log(f"partial run (--only dense) passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
         return 0
-    if opts.only in ("two_stage", "pose", "mask"):
+    if opts.only in ("two_stage", "pose", "mask", "cascade"):
         import tempfile
         run = {"two_stage": check_two_stage, "pose": check_pose,
-               "mask": check_mask}[opts.only]
+               "mask": check_mask, "cascade": check_cascade}[opts.only]
         with tempfile.TemporaryDirectory() as root:
             numbers, by_path = run(root)
         log(f"{smi}: {opts.only} " + json.dumps(numbers))
@@ -4928,6 +5329,18 @@ def main(argv=None):
                 mask_numbers[name]["train_peak_memory_bytes"]
         log(f"{smi}: mask " + json.dumps(mask_numbers)
             + f" (phase 14 in {mask_numbers['seconds']:.1f}s)")
+        # phase 15: the cascade family
+        cas_numbers, cas_paths = check_cascade(os.path.join(root, "cascade"))
+        by_path.update(cas_paths)
+        for name, label in CASCADE_LABELS.items():
+            label = f"{label} R50"
+            e2e[label] = cas_numbers[name]["img_per_s"]
+            e2e[f"{label} train"] = cas_numbers[name]["train_img_per_s"]
+            peaks[label] = cas_numbers[name]["peak_memory_bytes"]
+            peaks[f"{label} train"] = \
+                cas_numbers[name]["train_peak_memory_bytes"]
+        log(f"{smi}: cascade " + json.dumps(cas_numbers)
+            + f" (phase 15 in {cas_numbers['seconds']:.1f}s)")
     for name, entry in probe_entries.items():
         by_path.setdefault("lsnet_torch.tools.probe", {})[name] = \
             entry["launches"]

@@ -10,10 +10,12 @@ zoo's RetinaNet, FCOS, ATSS, GFL and GA-RetinaNet files decode with
 Double-Head and Dynamic R-CNN files run ``two_stage_decode``
 (``train.loop.forward_decode``: proposals, the RoI head, per-class
 decode and NMS; zero landmarks), as the JAX bundle's two-stage branch;
-the Mask R-CNN, Mask Scoring R-CNN and PointRend files run their mask
-decodes, and :func:`inference_detector` and :func:`detect` give their
-masks too: the valid detections' 28 x 28 mask probabilities on their
-boxes (112 x 112 for PointRend), as the JAX API's. A Dense RepPoints
+the Cascade R-CNN, DetectoRS and Grid R-CNN files run
+``cascade_rcnn_decode`` / ``grid_rcnn_decode``; the Mask R-CNN, Mask
+Scoring R-CNN, PointRend and HTC files run their mask decodes, and
+:func:`inference_detector` and :func:`detect` give their masks too: the
+valid detections' 28 x 28 mask probabilities on their boxes (112 x 112
+for PointRend), as the JAX API's. A Dense RepPoints
 config and a GA-RPN config are refused by :func:`init_detector`: the JAX
 API has no decode for the first and reads ``bbox_head``, which an ``RPN``
 lacks; both are evaluated through ``lsnet_torch.tools.test`` and served

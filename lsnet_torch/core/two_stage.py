@@ -1,6 +1,7 @@
 """Two-stage training and inference logic (counterpart of
-``lsnet_tpu/core/two_stage.py``, its Faster R-CNN, Double-Head, Dynamic
-R-CNN, Fast R-CNN, Mask R-CNN, Mask Scoring R-CNN and PointRend parts).
+``lsnet_tpu/core/two_stage.py``: Faster R-CNN, Double-Head, Dynamic R-CNN,
+Fast R-CNN, Mask R-CNN, Mask Scoring R-CNN, PointRend, Cascade R-CNN
+(DetectoRS too), Grid R-CNN and HTC).
 
 Fixed shapes throughout, as in the JAX package: proposals are padded sets
 of ``proposal_count`` a image with a validity mask, and RoI sampling takes
@@ -26,11 +27,22 @@ decodes run the backbone two or three times; every step is deterministic
 and the backbone's BatchNorm is frozen, so the second run gives the same
 numbers, and the gradient of the sum over both uses of one forward is the
 same as JAX's. Mask targets are rasterised from the segm pipeline's
-36-point GT contours (``gt_polygons``), on the device.
+36-point GT contours (``gt_polygons``), on the device. So do Grid R-CNN's
+loss and decode (JAX runs the backbone again for the grid head) and the
+HTC decode's mask heads (JAX extracts each stage's RoI features again).
+
+The cascade (Cascade R-CNN, DetectoRS and HTC) samples each of its three
+stages from the one before's boxes: stage s samples at
+``CASCADE_IOUS[s]`` and encodes at ``CASCADE_STDS[s]``, its terms weigh
+``CASCADE_WEIGHTS[s]``, and its detached class-agnostic deltas, decoded
+and clipped to the canvas, are the next stage's proposals, all valid
+where the stage's samples were. These three are fixed, as in the JAX
+package; they equal the shipped files' values.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
@@ -40,8 +52,8 @@ import torch
 from ..ops.flat_deform import INFERENCE_SAMPLING, TRAIN_SAMPLING
 from ..ops.nms import NEG_INF, _top_stable, batched_nms, box_iou, nms
 from ..models.losses.common import bce_with_logits
-from .anchors import (AnchorConfig, anchor_valid_flags, bbox2delta,
-                      delta2bbox, grid_anchors_on)
+from .anchors import (AnchorConfig, _clip_boxes, anchor_valid_flags,
+                      bbox2delta, delta2bbox, grid_anchors_on)
 from .assign import max_iou_assign
 from .decode import Detections, TestConfig
 from .dense_loss import _flatten
@@ -255,22 +267,37 @@ class Stages(NamedTuple):
     valid: torch.Tensor           # (B, S)
 
 
-def sample_stages(model, batch: Batch, cfg: TwoStageConfig, sampling,
-                  pos_iou=None):
-    """backbone + neck once, the RPN loss, proposals from the detached
-    RPN maps and the RoI sampling. Returns ({loss_rpn_cls,
-    loss_rpn_bbox}, :class:`Stages`)."""
+def rpn_stage(model, batch: Batch, cfg: TwoStageConfig, sampling):
+    """backbone + neck once, the RPN loss and proposals from the detached
+    RPN maps: ({loss_rpn_cls, loss_rpn_bbox}, the neck's levels,
+    proposals (B, P, 4), valid (B, P))."""
     feats = model.extract(batch["image"], sampling)
     rpn_outs = model.rpn(feats)
     l_rpn_cls, l_rpn_reg = rpn_loss(rpn_outs, batch, cfg)
     props, pvalid = rpn_proposals(_detached(rpn_outs), batch["img_shape"],
                                   cfg)
+    return ({"loss_rpn_cls": l_rpn_cls, "loss_rpn_bbox": l_rpn_reg}, feats,
+            props, pvalid)
+
+
+def sample_stage(feats: List[torch.Tensor], props: torch.Tensor,
+                 pvalid: torch.Tensor, batch: Batch, cfg: TwoStageConfig,
+                 pos_iou=None) -> Stages:
+    """The RoI sampling of ``props`` as a :class:`Stages`."""
     rois, labels, deltas, pos, valid = sample_rois(
         props, pvalid, batch["gt_bboxes"], batch["gt_valid"],
         batch["gt_labels"], cfg, pos_iou=pos_iou)
-    return ({"loss_rpn_cls": l_rpn_cls, "loss_rpn_bbox": l_rpn_reg},
-            Stages(feats, props, pvalid, rois, rois_with_batch_idx(rois),
-                   labels, deltas, pos, valid))
+    return Stages(feats, props, pvalid, rois, rois_with_batch_idx(rois),
+                  labels, deltas, pos, valid)
+
+
+def sample_stages(model, batch: Batch, cfg: TwoStageConfig, sampling,
+                  pos_iou=None):
+    """backbone + neck once, the RPN loss, proposals from the detached
+    RPN maps and the RoI sampling. Returns ({loss_rpn_cls,
+    loss_rpn_bbox}, :class:`Stages`)."""
+    losses, feats, props, pvalid = rpn_stage(model, batch, cfg, sampling)
+    return losses, sample_stage(feats, props, pvalid, batch, cfg, pos_iou)
 
 
 def rcnn_losses(model, st: Stages, cfg: TwoStageConfig, smoothl1_beta=1.0
@@ -369,6 +396,34 @@ class DynamicRCNNSchedule:
         return self.iou_thr, self.beta
 
 
+def _nms_detections(flat_boxes: torch.Tensor, flat_scores: torch.Tensor,
+                    flat_labels: torch.Tensor, tcfg: TestConfig
+                    ) -> Detections:
+    """(B, N) candidates: the scores over ``score_thr``, the top
+    ``nms_pre`` and class-wise NMS; zero landmarks."""
+    cand = torch.where(flat_scores > tcfg.score_thr, flat_scores,
+                       torch.full_like(flat_scores, NEG_INF))
+    k = min(tcfg.nms_pre, cand.shape[1])
+    top_s, top_i = _top_stable(cand, k)
+    top_boxes = _rows(flat_boxes, top_i)
+    top_labels = torch.gather(flat_labels, 1, top_i)
+    keep_idx, keep_s, keep_v = batched_nms(top_boxes, top_s, top_labels,
+                                           tcfg.nms_iou, tcfg.max_per_img)
+    z = keep_v[..., None].to(flat_boxes.dtype)
+    B = flat_boxes.shape[0]
+    return Detections(
+        _rows(top_boxes, keep_idx) * z,
+        torch.where(keep_v, keep_s, torch.zeros_like(keep_s)),
+        (torch.gather(top_labels, 1, keep_idx) * keep_v).to(torch.int32),
+        torch.zeros(B, tcfg.max_per_img, 8, dtype=flat_boxes.dtype,
+                    device=flat_boxes.device), keep_v)
+
+
+def _class_labels(B: int, P: int, C: int, device) -> torch.Tensor:
+    """(B, P*C): class c of candidate p at p*C + c."""
+    return torch.arange(C, device=device).repeat(P).expand(B, -1)
+
+
 def _rcnn_detections(props: torch.Tensor, pvalid: torch.Tensor,
                      cls_logits: torch.Tensor, reg: torch.Tensor,
                      img_shapes: torch.Tensor, scale_factors: torch.Tensor,
@@ -386,25 +441,9 @@ def _rcnn_detections(props: torch.Tensor, pvalid: torch.Tensor,
                        max_shape=img_shapes[:, None, :])
     if rescale:
         boxes = boxes / scale_factors[:, None, None, :]
-    flat_boxes = boxes.reshape(B, P * C, 4)
-    flat_scores = probs.reshape(B, P * C)
-    flat_labels = torch.arange(C, device=props.device).repeat(P).expand(
-        B, -1)
-    cand = torch.where(flat_scores > tcfg.score_thr, flat_scores,
-                       torch.full_like(flat_scores, NEG_INF))
-    k = min(tcfg.nms_pre, P * C)
-    top_s, top_i = _top_stable(cand, k)
-    top_boxes = _rows(flat_boxes, top_i)
-    top_labels = torch.gather(flat_labels, 1, top_i)
-    keep_idx, keep_s, keep_v = batched_nms(top_boxes, top_s, top_labels,
-                                           tcfg.nms_iou, tcfg.max_per_img)
-    z = keep_v[..., None].to(boxes.dtype)
-    return Detections(
-        _rows(top_boxes, keep_idx) * z,
-        torch.where(keep_v, keep_s, torch.zeros_like(keep_s)),
-        (torch.gather(top_labels, 1, keep_idx) * keep_v).to(torch.int32),
-        torch.zeros(B, tcfg.max_per_img, 8, dtype=boxes.dtype,
-                    device=boxes.device), keep_v)
+    return _nms_detections(boxes.reshape(B, P * C, 4),
+                           probs.reshape(B, P * C),
+                           _class_labels(B, P, C, props.device), tcfg)
 
 
 def _detect(model, images, img_shapes, scale_factors, cfg, tcfg, rescale,
@@ -818,12 +857,408 @@ def point_rend_decode(model, images: torch.Tensor, img_shapes: torch.Tensor,
     return det, mask_probs(det, cur)
 
 
-# the training loss and the decode of each mask detector, by its class
-# name (``models.heads.two_stage``); the rest of the family runs
-# two_stage_loss and two_stage_decode
-MASK_LOSSES = {"MaskRCNNDetector": mask_rcnn_loss,
-               "MaskScoringRCNNDetector": mask_scoring_rcnn_loss,
-               "PointRendDetector": point_rend_loss}
-MASK_DECODES = {"MaskRCNNDetector": mask_rcnn_decode,
-                "MaskScoringRCNNDetector": mask_scoring_rcnn_decode,
-                "PointRendDetector": point_rend_decode}
+# ------------------------------------------------------------ Cascade R-CNN
+
+CASCADE_IOUS = (0.5, 0.6, 0.7)
+CASCADE_WEIGHTS = (1.0, 0.5, 0.25)
+CASCADE_STDS = ((0.1, 0.1, 0.2, 0.2), (0.05, 0.05, 0.1, 0.1),
+                (0.033, 0.033, 0.067, 0.067))
+
+
+def cascade_stage_cfg(cfg: TwoStageConfig, stage: int) -> TwoStageConfig:
+    """``cfg`` with stage ``stage``'s positive IoU and stds."""
+    return dataclasses.replace(cfg, rcnn_pos_iou=CASCADE_IOUS[stage],
+                               rcnn_stds=CASCADE_STDS[stage])
+
+
+def _refine(rois: torch.Tensor, reg: torch.Tensor, stage: int,
+            max_shape=None) -> torch.Tensor:
+    """(B, S, 4) rois moved by their (B*S, 4) class-agnostic deltas at
+    stage ``stage``'s stds, clipped to ``max_shape`` where given."""
+    B, S, _ = rois.shape
+    return delta2bbox(rois.reshape(B * S, 4), reg.float(),
+                      stds=CASCADE_STDS[stage],
+                      max_shape=max_shape).reshape(B, S, 4)
+
+
+def cascade_stage(model, batch: Batch, cfg: TwoStageConfig,
+                  feats: List[torch.Tensor], st: Stages, s: int,
+                  sem_feat: Optional[torch.Tensor] = None,
+                  last: Optional[torch.Tensor] = None):
+    """Stage ``s`` of a training loss (JAX ``_cascade_stage_loss`` and
+    ``htc_loss``'s body) on its samples ``st``: its head's CE and SmoothL1
+    (``rcnn_loss`` over all sampled RoIs, its one class-agnostic box)
+    weighted ``CASCADE_WEIGHTS[s]``, then its RoIs refined by its detached
+    deltas and clipped to the canvas. With ``sem_feat`` (HTC), the
+    semantic embedding's RoI features join the bbox head's, and the
+    stage's mask head runs on the refined boxes, after the stage before's
+    features ``last``, against the GT contours of the GTs they overlap
+    most, with the stage's labels and positives (JAX's interleaved order).
+    Returns ({s{s}.loss_cls, s{s}.loss_bbox[, s{s}.loss_mask]} weighted,
+    the refined boxes (B, S, 4), the mask head's features)."""
+    scfg = cascade_stage_cfg(cfg, s)
+    sem = () if sem_feat is None else (sem_feat,)
+    cls_logits, reg = model.roi_forward_stage(feats, st.rois5, s, *sem)
+    l_cls, l_reg = rcnn_loss(cls_logits, reg, st.labels, st.deltas, st.pos,
+                             st.valid, scfg)
+    w = CASCADE_WEIGHTS[s]
+    terms = {f"s{s}.loss_cls": l_cls * w, f"s{s}.loss_bbox": l_reg * w}
+    refined = _refine(st.rois, reg.detach(), s, cfg.image_shape)
+    if sem_feat is None:
+        return terms, refined, last
+    mask_logits, last = model.mask_forward_stage(
+        feats, rois_with_batch_idx(refined), s, sem_feat, last)
+    polys = batch["gt_polygons"]
+    B, M = polys.shape[:2]
+    gt_idx = (_gt_of(refined, batch["gt_bboxes"], batch["gt_valid"])
+              + torch.arange(B, device=polys.device)[:, None] * M)
+    terms[f"s{s}.loss_mask"] = mask_loss(
+        mask_logits, refined.reshape(-1, 4), st.labels.reshape(-1),
+        st.pos.reshape(-1), polys.reshape(B * M, polys.shape[-1]),
+        gt_idx.reshape(-1), scfg) * w
+    return terms, refined, last
+
+
+def cascade_stages(model, batch: Batch, cfg: TwoStageConfig,
+                   feats: List[torch.Tensor], props: torch.Tensor,
+                   pvalid: torch.Tensor, total: torch.Tensor,
+                   sem_feat: Optional[torch.Tensor] = None):
+    """The three cascade stages of a training loss (JAX
+    ``cascade_rcnn_loss`` / ``htc_loss``): each samples the one before's
+    refined boxes (stage 0 the proposals) at its own IoU and stds and runs
+    :func:`cascade_stage`. Returns (``total`` plus the weighted terms,
+    {s{s}.loss_cls, s{s}.loss_bbox[, s{s}.loss_mask]}, each stage's
+    (samples, refined boxes))."""
+    terms: Dict[str, torch.Tensor] = {}
+    drawn: List[Tuple[Stages, torch.Tensor]] = []
+    last = None
+    for s in range(3):
+        st = sample_stage(feats, props, pvalid, batch,
+                          cascade_stage_cfg(cfg, s))
+        stage_terms, props, last = cascade_stage(model, batch, cfg, feats,
+                                                 st, s, sem_feat, last)
+        pvalid = st.valid
+        terms.update(stage_terms)
+        total = total + sum(stage_terms.values())
+        drawn.append((st, props))
+    return total, terms, drawn
+
+
+def cascade_rcnn_loss(model, batch: Batch, cfg: TwoStageConfig,
+                      sampling: Mapping[str, str] = TRAIN_SAMPLING):
+    """Cascade R-CNN's (and DetectoRS') training loss: (total,
+    {loss_rpn_cls, loss_rpn_bbox, s0.loss_cls, s0.loss_bbox, ...,
+    s2.loss_bbox}), the stages' terms weighted (:func:`cascade_stages`)."""
+    losses, feats, props, pvalid = rpn_stage(model, batch, cfg, sampling)
+    total, terms, _ = cascade_stages(
+        model, batch, cfg, feats, props, pvalid,
+        losses["loss_rpn_cls"] + losses["loss_rpn_bbox"])
+    return total, {**losses, **terms}
+
+
+def cascade_refine(model, feats: List[torch.Tensor], props: torch.Tensor,
+                   pvalid: torch.Tensor,
+                   sem_feat: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cascade's inference: the proposals moved by each stage's deltas
+    in turn (unclipped), and the mean of the three stages' softmax scores,
+    each on the boxes it saw (the running ensemble; mmdet scores the last
+    boxes again). Returns (boxes (B, P, 4), class scores (B, P, C), zero
+    where the proposal is not valid)."""
+    B, P, _ = props.shape
+    sem = () if sem_feat is None else (sem_feat,)
+    scores = 0.0
+    for s in range(3):
+        cls_logits, reg = model.roi_forward_stage(
+            feats, rois_with_batch_idx(props), s, *sem)
+        scores = scores + torch.softmax(cls_logits.float(), dim=-1)
+        props = _refine(props, reg, s)
+    probs = (scores / 3.0).reshape(B, P, -1)[..., :-1]
+    return props, probs * pvalid[..., None].to(probs.dtype)
+
+
+def cascade_detections(boxes: torch.Tensor, probs: torch.Tensor,
+                       img_shapes: torch.Tensor, scale_factors: torch.Tensor,
+                       tcfg: TestConfig, rescale: bool = True) -> Detections:
+    """Each box clipped to its image (and rescaled), one candidate per
+    class with the box's score of it, class-wise NMS."""
+    B, P, C = probs.shape
+    boxes = torch.stack(_clip_boxes(*boxes.unbind(-1), img_shapes), -1)
+    if rescale:
+        boxes = boxes / scale_factors[:, None, :]
+    return _nms_detections(
+        boxes.repeat_interleave(C, dim=1), probs.reshape(B, P * C),
+        _class_labels(B, P, C, boxes.device), tcfg)
+
+
+def cascade_rcnn_decode(model, images: torch.Tensor,
+                        img_shapes: torch.Tensor,
+                        scale_factors: torch.Tensor, cfg: TwoStageConfig,
+                        tcfg: TestConfig, rescale: bool = True,
+                        sampling: Mapping[str, str] = INFERENCE_SAMPLING
+                        ) -> Detections:
+    """Cascade R-CNN's ``simple_test``: the proposals through
+    :func:`cascade_refine`, then :func:`cascade_detections`."""
+    feats = model.extract(images, sampling)
+    props, pvalid = rpn_proposals(model.rpn(feats), img_shapes, cfg)
+    boxes, probs = cascade_refine(model, feats, props, pvalid)
+    return cascade_detections(boxes, probs, img_shapes, scale_factors, tcfg,
+                              rescale)
+
+
+# --------------------------------------------------------------- Grid R-CNN
+
+def grid_sub_regions(grid_points: int, whole: int
+                     ) -> Tuple[List[Tuple[int, int]], int]:
+    """Each grid point's half-size sub-region origin (x, y) in the
+    ``whole`` map, and the half size (Grid R-CNN Plus, reference
+    ``grid_head.py:189-219``; JAX ``_grid_sub_regions``)."""
+    gs = int(round(grid_points ** 0.5))
+    half = whole // 4 * 2
+
+    def origin(k: int) -> int:
+        if k == 0:
+            return 0
+        if k == gs - 1:
+            return half
+        return max(int((k / (gs - 1) - 0.25) * whole), 0)
+    return [(origin(i // gs), origin(i % gs))
+            for i in range(grid_points)], half
+
+
+def _expanded(boxes: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(x1, y1, w, h) of each box grown by half its size a side."""
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    return boxes[..., 0] - w / 2, boxes[..., 1] - h / 2, w, h
+
+
+def grid_targets(pos_bboxes: torch.Tensor, gt_bboxes: torch.Tensor,
+                 grid_points: int = 9, whole: int = 56,
+                 radius: int = 1) -> torch.Tensor:
+    """Each RoI's grid-point targets (JAX ``grid_targets``, reference
+    ``grid_head.get_targets``): in the RoI grown by half its size a side,
+    mapped onto a ``whole`` x ``whole`` map, point j of the GT box (its
+    corners, edge centres and centre) lies in cell floor(.); its target is
+    a disk of ``radius`` cells about that cell, in the point's half-size
+    sub-region, where the grown RoI is wider and taller than sqrt(G) px.
+    (S, 4), (S, 4) -> (S, half, half, G) f32."""
+    gs = int(round(grid_points ** 0.5))
+    regions, half = grid_sub_regions(grid_points, whole)
+    x1, y1, _, _ = _expanded(pos_bboxes)
+    x2 = pos_bboxes[:, 2] + (pos_bboxes[:, 2] - pos_bboxes[:, 0]) / 2
+    y2 = pos_bboxes[:, 3] + (pos_bboxes[:, 3] - pos_bboxes[:, 1]) / 2
+    w = torch.clamp(x2 - x1, min=1e-6)
+    h = torch.clamp(y2 - y1, min=1e-6)
+    big = (w > gs) & (h > gs)
+    cells = torch.arange(half, device=pos_bboxes.device)
+    maps = []
+    for j in range(grid_points):
+        fx = 1 - (j // gs) / (gs - 1)
+        fy = 1 - (j % gs) / (gs - 1)
+        px = fx * gt_bboxes[:, 0] + (1 - fx) * gt_bboxes[:, 2]
+        py = fy * gt_bboxes[:, 1] + (1 - fy) * gt_bboxes[:, 3]
+        cx = torch.floor((px - x1) / w * whole).long() - regions[j][0]
+        cy = torch.floor((py - y1) / h * whole).long() - regions[j][1]
+        d2 = ((cells[None, None, :] - cx[:, None, None]) ** 2
+              + (cells[None, :, None] - cy[:, None, None]) ** 2)
+        maps.append(((d2 <= radius ** 2) & big[:, None, None]).float())
+    return torch.stack(maps, dim=-1)
+
+
+def grid_loss(model, batch: Batch, st: Stages, grid_points: int = 9,
+              loss_weight: float = 15.0) -> torch.Tensor:
+    """``loss_grid``: the grid head on the sampled RoIs, the mean BCE of
+    its fused and of its unfused heatmaps against :func:`grid_targets` of
+    each RoI's GT (the one it overlaps most), each over the positives,
+    summed, times ``loss_weight`` (JAX's fixed 15)."""
+    B, S = st.rois.shape[:2]
+    out = model.grid_forward(st.feats, st.rois5)
+    gts = batch["gt_bboxes"].to(st.rois.dtype)
+    gt = _rows(gts, _gt_of(st.rois, gts, batch["gt_valid"]))
+    tgt = grid_targets(st.rois.reshape(B * S, 4), gt.reshape(B * S, 4),
+                       grid_points)
+    posf = st.pos.reshape(-1).float()
+    n_pos = torch.clamp(posf.sum(), min=1.0)
+    loss = 0.0
+    for key in ("fused", "unfused"):
+        bce = bce_with_logits(out[key].float(), tgt).mean(dim=(1, 2, 3))
+        loss = loss + (bce * posf).sum() / n_pos
+    return loss * loss_weight
+
+
+def grid_rcnn_loss(model, batch: Batch, cfg: TwoStageConfig,
+                   sampling: Mapping[str, str] = TRAIN_SAMPLING, *,
+                   grid_points: int = 9, loss_weight: float = 15.0):
+    """Grid R-CNN's training loss: Faster R-CNN's four terms and
+    ``loss_grid`` (:func:`grid_loss`) on the same samples."""
+    losses, st = _stages(model, batch, cfg, sampling)
+    total = sum(losses.values())
+    losses["loss_grid"] = grid_loss(model, batch, st, grid_points,
+                                    loss_weight)
+    return total + losses["loss_grid"], losses
+
+
+def grid_refine(model, feats: List[torch.Tensor], det: Detections,
+                img_shapes: torch.Tensor, scale_factors: torch.Tensor,
+                rescale: bool = True, grid_points: int = 9) -> Detections:
+    """The detections' boxes (network coordinates) re-localised by the
+    grid head's fused heatmaps (reference ``grid_head.get_bboxes``): each
+    point's hottest cell (the first of equal maxima) in its sub-region,
+    mapped into the box grown by half its size a side; each edge the
+    heat-weighted mean of its sqrt(G) points' coordinate; clipped to the
+    image, rescaled, zero where not valid."""
+    boxes = det.bboxes
+    B, K = boxes.shape[:2]
+    out = model.grid_forward(feats, rois_with_batch_idx(boxes))
+    hm = torch.sigmoid(out["fused"].float())
+    R, hh, ww, G = hm.shape
+    gs = int(round(grid_points ** 0.5))
+    regions, _ = grid_sub_regions(grid_points, hh * 2)
+    flat = hm.permute(0, 3, 1, 2).reshape(R, G, hh * ww)
+    score, posn = flat.amax(dim=-1), flat.argmax(dim=-1)
+    rx, ry = (torch.tensor([r[i] for r in regions], dtype=torch.float32,
+                           device=hm.device) for i in (0, 1))
+    xs = (posn % ww).float() + rx
+    ys = (posn // ww).float() + ry
+    x1, y1, w, h = _expanded(boxes.reshape(R, 4).float())
+    whole = float(hh * 2)
+    ax = (xs + 0.5) / whole * (2 * w)[:, None] + x1[:, None]
+    ay = (ys + 0.5) / whole * (2 * h)[:, None] + y1[:, None]
+
+    def vote(vals, idx):
+        s = score[:, idx]
+        return (vals[:, idx] * s).sum(-1) / torch.clamp(s.sum(-1), min=1e-6)
+    new = torch.stack([
+        vote(ax, list(range(gs))),
+        vote(ay, [i * gs for i in range(gs)]),
+        vote(ax, [grid_points - gs + i for i in range(gs)]),
+        vote(ay, [(i + 1) * gs - 1 for i in range(gs)])],
+        -1).reshape(B, K, 4)
+    new = torch.stack(_clip_boxes(*new.unbind(-1), img_shapes), -1)
+    if rescale:
+        new = new / scale_factors[:, None, :]
+    return det._replace(bboxes=new * det.valid[..., None].to(new.dtype))
+
+
+def grid_rcnn_decode(model, images: torch.Tensor, img_shapes: torch.Tensor,
+                     scale_factors: torch.Tensor, cfg: TwoStageConfig,
+                     tcfg: TestConfig, rescale: bool = True,
+                     sampling: Mapping[str, str] = INFERENCE_SAMPLING,
+                     grid_points: int = 9) -> Detections:
+    """Grid R-CNN's ``simple_test``: :func:`two_stage_decode`'s detections
+    (not rescaled), their boxes re-localised by :func:`grid_refine`."""
+    feats, det = _detect(model, images, img_shapes, scale_factors, cfg,
+                         tcfg, False, sampling)
+    return grid_refine(model, feats, det, img_shapes, scale_factors,
+                       rescale, grid_points)
+
+
+# ---------------------------------------------------------------------- HTC
+
+def _nearest_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """NHWC x resized to (h, w) as ``jax.image.resize(method="nearest")``:
+    half-pixel centres, source index floor((i + 0.5) * in / out)."""
+    H, W = x.shape[1:3]
+    ri = ((2 * torch.arange(h, device=x.device) + 1) * H) // (2 * h)
+    ci = ((2 * torch.arange(w, device=x.device) + 1) * W) // (2 * w)
+    return x.index_select(1, ri).index_select(2, ci)
+
+
+def semantic_targets(batch: Batch, cfg: TwoStageConfig, h: int, w: int
+                     ) -> torch.Tensor:
+    """HTC's semantic class map (B, h, w) (JAX ``htc_loss``): the GT
+    boxes' class maps at stride 8 (``core.cpv.make_sem_targets``),
+    resized to (h, w) by nearest, each cell the first class set there,
+    ``num_classes`` (the background) where none is. The reference trains
+    on COCO-stuff maps, which a detection set lacks."""
+    from .cpv import make_sem_targets
+    sem_map, _ = make_sem_targets(batch["gt_bboxes"].float(),
+                                  batch["gt_labels"], batch["gt_valid"],
+                                  cfg.image_shape, cfg.num_classes)
+    tgt = _nearest_resize(sem_map, h, w)
+    return torch.where(tgt.amax(dim=-1) > 0, tgt.argmax(dim=-1),
+                       torch.full(tgt.shape[:-1], cfg.num_classes,
+                                  dtype=torch.long, device=tgt.device))
+
+
+def semantic_loss(sem_logits: torch.Tensor, batch: Batch,
+                  cfg: TwoStageConfig, weight: float = 0.2) -> torch.Tensor:
+    """``loss_semantic_seg``: the mean over the cells of the semantic
+    logits' (B, h, w, C + 1) CE against :func:`semantic_targets`, times
+    ``weight``."""
+    tgt = semantic_targets(batch, cfg, *sem_logits.shape[1:3])
+    logp = torch.log_softmax(sem_logits.float(), dim=-1)
+    return -torch.gather(logp, 3, tgt[..., None]).mean() * weight
+
+
+def htc_loss(model, batch: Batch, cfg: TwoStageConfig,
+             sampling: Mapping[str, str] = TRAIN_SAMPLING, *,
+             sem_loss_weight: float = 0.2):
+    """HTC's training loss: the RPN's terms, the three stages with their
+    mask heads (:func:`cascade_stages` with the semantic embedding), and
+    ``loss_semantic_seg`` (:func:`semantic_loss`); the batch carries the
+    segm pipeline's ``gt_polygons``."""
+    losses, feats, props, pvalid = rpn_stage(model, batch, cfg, sampling)
+    sem_logits, sem_feat = model.semantic(feats)
+    total, terms, _ = cascade_stages(
+        model, batch, cfg, feats, props, pvalid,
+        losses["loss_rpn_cls"] + losses["loss_rpn_bbox"], sem_feat)
+    losses.update(terms)
+    losses["loss_semantic_seg"] = semantic_loss(sem_logits, batch, cfg,
+                                                sem_loss_weight)
+    return total + losses["loss_semantic_seg"], losses
+
+
+def htc_masks(model, feats: List[torch.Tensor], det: Detections,
+              scale_factors: torch.Tensor, sem_feat: torch.Tensor,
+              rescale: bool = True) -> torch.Tensor:
+    """The mean of the three stages' sigmoid masks of each detection's
+    label, on its box (network coordinates; the RoI features taken once),
+    each stage after the one before's features: (B, K, 28, 28) f32."""
+    boxes = det.bboxes
+    if rescale:
+        boxes = boxes * scale_factors[:, None, :]
+    roi_feats = model.mask_roi_feats(feats, rois_with_batch_idx(boxes),
+                                     sem_feat)
+    probs, last = 0.0, None
+    for s in range(3):
+        logits, last = model.mask_head_stage(s, roi_feats, last)
+        probs = probs + torch.sigmoid(logits.float())
+    sel = _label_maps(probs / 3.0, det.labels.reshape(-1))
+    return sel.reshape(*boxes.shape[:2], *sel.shape[1:])
+
+
+def htc_decode(model, images: torch.Tensor, img_shapes: torch.Tensor,
+               scale_factors: torch.Tensor, cfg: TwoStageConfig,
+               tcfg: TestConfig, rescale: bool = True,
+               sampling: Mapping[str, str] = INFERENCE_SAMPLING
+               ) -> Tuple[Detections, torch.Tensor]:
+    """HTC's ``simple_test``: the cascade's detections with the semantic
+    embedding (:func:`cascade_refine`, :func:`cascade_detections`) and
+    their masks (:func:`htc_masks`)."""
+    feats = model.extract(images, sampling)
+    props, pvalid = rpn_proposals(model.rpn(feats), img_shapes, cfg)
+    _, sem_feat = model.semantic(feats)
+    boxes, probs = cascade_refine(model, feats, props, pvalid, sem_feat)
+    det = cascade_detections(boxes, probs, img_shapes, scale_factors, tcfg,
+                             rescale)
+    return det, htc_masks(model, feats, det, scale_factors, sem_feat,
+                          rescale)
+
+
+# the training loss and the decode of each detector of the family that
+# does not run two_stage_loss and two_stage_decode, by its class name
+# (``models.heads.two_stage``); the mask detectors' decodes give masks
+TWO_STAGE_LOSSES = {"MaskRCNNDetector": mask_rcnn_loss,
+                    "MaskScoringRCNNDetector": mask_scoring_rcnn_loss,
+                    "PointRendDetector": point_rend_loss,
+                    "HTCDetector": htc_loss,
+                    "CascadeRCNNDetector": cascade_rcnn_loss,
+                    "GridRCNNDetector": grid_rcnn_loss}
+TWO_STAGE_DECODES = {"MaskRCNNDetector": mask_rcnn_decode,
+                     "MaskScoringRCNNDetector": mask_scoring_rcnn_decode,
+                     "PointRendDetector": point_rend_decode,
+                     "HTCDetector": htc_decode,
+                     "CascadeRCNNDetector": cascade_rcnn_decode,
+                     "GridRCNNDetector": grid_rcnn_decode}

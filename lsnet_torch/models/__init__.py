@@ -1,7 +1,8 @@
 """Model builders (counterpart of ``lsnet_tpu/models/__init__.py``): config
 dicts with a ``type`` key -> ``nn.Module``s. The port builds the backbones
-ResNet, ResNeXt, Res2Net and SSDVGG, the necks FPN, NASFCOS_FPN and none
-(SSD's ``neck=None``, an identity), the heads LSHead (all four tasks),
+ResNet, ResNeXt, Res2Net, SSDVGG and DetectoRS' ResNet and ResNeXt (SAC
+stages), the necks FPN, NASFCOS_FPN, RFP and none (SSD's ``neck=None``, an
+identity), the heads LSHead (all four tasks),
 LSCPVHead, the RepPoints family's four (RepPointsHead, RepPointsV2Head,
 DenseRepPointsHead, DenseRepPointsV2Head) and the dense zoo's RetinaHead,
 RetinaSepBNHead, FreeAnchorRetinaHead and PISARetinaHead (RetinaHead
@@ -9,12 +10,15 @@ modules), FCOSHead, ATSSHead, GFLHead, SSDHead and PISASSDHead (an
 SSDHead), FoveaHead, FSAFHead, GARetinaHead and GARPNHead, and their
 single-stage detectors, each an ``LSDetector`` (backbone -> neck ->
 head), as in the JAX package; the standalone ``RPN`` reads its head from
-``rpn_head``. Of the two-stage family it builds Faster R-CNN
-(``FasterRCNN`` / ``TwoStageDetector``, with the Shared2FC head, or with
-the Double-Head RoI head where ``roi_head.type`` is
-``DoubleHeadRoIHead``), ``FastRCNN``, and the mask branch's ``MaskRCNN``,
-``MaskScoringRCNN`` and ``PointRend``; the rest of the family is ROADMAP
-Queue 1 "Inherited zoo" item 3.3."""
+``rpn_head``. Of the two-stage family it builds every type the JAX
+package builds: Faster R-CNN (``FasterRCNN`` / ``TwoStageDetector``,
+with the Shared2FC head, or with the Double-Head RoI head where
+``roi_head.type`` is ``DoubleHeadRoIHead``), ``FastRCNN``, the mask
+branch's ``MaskRCNN``, ``MaskScoringRCNN`` and ``PointRend``, and
+``CascadeRCNN`` (DetectoRS too), ``GridRCNN`` and ``HybridTaskCascade``
+/ ``HTC``. The JAX package's other backbones and necks (HRNet, MobileNet,
+RegNet, HourglassNet; PAFPN, BFP, NASFPN, HRFPN, FPN_CARAFE) are ROADMAP
+Queue 1 "Inherited zoo" item 3.4."""
 
 from __future__ import annotations
 
@@ -32,12 +36,14 @@ from .heads.dense_reppoints import DenseRepPointsHead, DenseRepPointsV2Head
 from .heads.ls_head import LSHead
 from .heads.lscpv_head import LSCPVHead
 from .heads.reppoints import RepPointsHead, RepPointsV2Head
-from .heads.two_stage import (DoubleConvFCBBoxHead, DoubleHeadRCNNDetector,
-                              FastRCNNDetector, FCNMaskHead, MaskIoUHead,
-                              MaskPointHead, MaskRCNNDetector,
+from .heads.two_stage import (CascadeRCNNDetector, DoubleConvFCBBoxHead,
+                              DoubleHeadRCNNDetector, FastRCNNDetector,
+                              FCNMaskHead, FusedSemanticHead, GridHead,
+                              GridRCNNDetector, HTCDetector, HTCMaskHead,
+                              MaskIoUHead, MaskPointHead, MaskRCNNDetector,
                               MaskScoringRCNNDetector, PointRendDetector,
                               RPNHead, Shared2FCBBoxHead, TwoStageDetector)
-from .necks.extra import NASFCOSFPN
+from .necks.extra import NASFCOSFPN, RFP
 from .necks.fpn import FPN
 
 # the single-stage detector types and heads the port builds; as in the JAX
@@ -56,12 +62,21 @@ DENSE_KINDS = {"RetinaHead": RetinaHead, "RetinaSepBNHead": RetinaSepBNHead,
                "ATSSHead": ATSSHead, "GFLHead": GFLHead, "SSDHead": SSDHead,
                "PISASSDHead": SSDHead, "FoveaHead": FoveaHead,
                "FSAFHead": FSAFHead}
-# the two-stage detector types the port builds, and the rest of the
-# family by the ROADMAP Queue 1 "Inherited zoo" item that ports it
-MASK_RCNN = ("MaskRCNN", "MaskScoringRCNN", "PointRend")
-TWO_STAGE = ("FasterRCNN", "TwoStageDetector", "FastRCNN") + MASK_RCNN
-TWO_STAGE_LATER = {"CascadeRCNN": "3.3", "GridRCNN": "3.3",
-                   "HybridTaskCascade": "3.3", "HTC": "3.3"}
+# the two-stage detector types the port builds: HTC's names, and the
+# types whose decodes give masks
+HTC = ("HybridTaskCascade", "HTC")
+MASK_TYPES = ("MaskRCNN", "MaskScoringRCNN", "PointRend") + HTC
+TWO_STAGE = ("FasterRCNN", "TwoStageDetector", "FastRCNN", "CascadeRCNN",
+             "GridRCNN") + MASK_TYPES
+# the backbone and neck types the port builds (None: SSD's identity neck)
+RESNET_KINDS = {"ResNet": "resnet", "ResNeXt": "resnext",
+                "Res2Net": "res2net", "DetectoRS_ResNet": "resnet",
+                "DetectoRSResNet": "resnet", "DetectoRS_ResNeXt": "resnext",
+                "DetectoRSResNeXt": "resnext"}
+BACKBONES = ("SSDVGG",) + tuple(RESNET_KINDS)
+NECKS = (None, "FPN", "NASFCOS_FPN", "NASFCOSFPN", "RFP")
+# what the port does not build yet
+LATER = "ROADMAP Queue 1 \"Inherited zoo\" item 3.4"
 HEADS = ("LSHead", "LSCPVHead", "RepPointsHead", "RepPointsV2Head",
          "DenseRepPointsHead", "DenseRepPointsV2Head", "GARetinaHead",
          "GARPNHead") + tuple(DENSE_KINDS)
@@ -88,10 +103,9 @@ def build_backbone(cfg: Dict[str, Any]) -> nn.Module:
         # input_size is the anchors' (the loss reads it); JAX's
         # build_backbone drops l2_norm_scale
         return SSDVGG(depth=cfg.get("depth", 16))
-    block_type = {"ResNet": "resnet", "ResNeXt": "resnext",
-                  "Res2Net": "res2net"}.get(kind)
+    block_type = RESNET_KINDS.get(kind)
     if block_type is None:
-        raise NotImplementedError(f"backbone {kind}")
+        raise NotImplementedError(f"backbone {kind}: {LATER}")
     if kind == "Res2Net":
         cfg.setdefault("base_width", 26)
         cfg.setdefault("deep_stem", True)   # res2net101_v1d pretrain layout
@@ -100,13 +114,21 @@ def build_backbone(cfg: Dict[str, Any]) -> nn.Module:
         cfg.pop(k, None)     # BN is always FrozenBatchNorm; pytorch style
     if cfg.pop("dcn", None) is not None and "stage_with_dcn" not in cfg:
         cfg["stage_with_dcn"] = (False, True, True, True)
+    if cfg.pop("sac", None) is not None and "stage_with_sac" not in cfg:
+        cfg["stage_with_sac"] = (False, True, True, True)
+    if kind.startswith("DetectoRS"):
+        # ConvAWS on the other convs, the image input and the RFP widths
+        # are not read, as in the JAX package (ROADMAP Queue 3)
+        for k in ("conv_cfg", "output_img", "rfp_inplanes"):
+            cfg.pop(k, None)
     return ResNet(block_type=block_type, **cfg)
 
 
 def build_neck(cfg: Optional[Dict[str, Any]], in_channels: Sequence[int]
                ) -> nn.Module:
-    """FPN or NASFCOS_FPN on the backbone's widths; ``None`` (SSD's) is
-    the identity."""
+    """FPN, NASFCOS_FPN or RFP on the backbone's widths; ``None`` (SSD's)
+    is the identity. RFP's ``rfp_backbone`` and ASPP settings are not
+    read, as in the JAX package (it unrolls the recursion at the neck)."""
     if cfg is None:
         return nn.Identity()
     cfg = dict(cfg)
@@ -118,7 +140,12 @@ def build_neck(cfg: Optional[Dict[str, Any]], in_channels: Sequence[int]
         for k in ("add_extra_convs", "conv_cfg"):
             cfg.pop(k, None)
         return NASFCOSFPN(in_channels=list(in_channels), **cfg)
-    raise NotImplementedError(f"neck {kind}")
+    if kind == "RFP":
+        for k in ("rfp_backbone", "aspp_out_channels", "aspp_dilations",
+                  "add_extra_convs"):
+            cfg.pop(k, None)
+        return RFP(in_channels=list(in_channels), **cfg)
+    raise NotImplementedError(f"neck {kind}: {LATER}")
 
 
 def build_head(cfg: Dict[str, Any]) -> nn.Module:
@@ -219,15 +246,16 @@ def is_two_stage(model: nn.Module) -> bool:
 
 def _two_stage(cfg: Dict[str, Any], backbone: nn.Module,
                neck: nn.Module) -> nn.Module:
-    """A Faster R-CNN (with the Double-Head RoI head where the config
-    says so), a Fast R-CNN, or a Mask R-CNN, Mask Scoring R-CNN or
-    PointRend, as the JAX ``build_detector`` reads it: the RPN's anchors a
-    cell from its anchor generator, the bbox head's widths from
-    ``roi_head.bbox_head``, the mask head's convs from
-    ``roi_head.mask_head`` (``num_convs``, ``conv_out_channels``); the
-    MaskIoU head and the point head keep their defaults (JAX builds them
-    from ``num_classes`` alone); the RoI features have the neck's
-    width."""
+    """A two-stage detector as the JAX ``build_detector`` reads it: the
+    RPN's anchors a cell from its anchor generator, the bbox head's widths
+    from ``roi_head.bbox_head`` (a cascade's first stage), the mask head's
+    convs from ``roi_head.mask_head`` (``num_convs``,
+    ``conv_out_channels``), the grid head's from ``roi_head.grid_head``;
+    the MaskIoU head, the point head and HTC's semantic head keep their
+    defaults (JAX builds them from ``num_classes`` alone, the semantic
+    head at the neck's width); a cascade's three heads are
+    class-agnostic whatever the file says; the RoI features have the
+    neck's width."""
     kind = cfg["type"]
     rpn_cfg = dict(cfg.get("rpn_head") or {})
     ag = rpn_cfg.get("anchor_generator") or {}
@@ -236,8 +264,15 @@ def _two_stage(cfg: Dict[str, Any], backbone: nn.Module,
     roi_cfg = dict(cfg.get("roi_head") or {})
     bh = head_cfg_of(cfg)
     num_classes = bh.get("num_classes", 80)
-    width = (cfg.get("neck") or {}).get("out_channels", 256)
+    neck_cfg = cfg.get("neck") or {}
+    width = neck_cfg.get("out_channels", 256)
     agnostic = bh.get("reg_class_agnostic", False)
+
+    def shared2fc(agnostic=agnostic):
+        return Shared2FCBBoxHead(
+            num_classes=num_classes, in_channels=width,
+            fc_channels=bh.get("fc_out_channels", 1024),
+            reg_class_agnostic=agnostic)
     if roi_cfg.get("type") == "DoubleHeadRoIHead":
         bbox_head = DoubleConvFCBBoxHead(
             num_classes=num_classes, in_channels=width,
@@ -245,11 +280,10 @@ def _two_stage(cfg: Dict[str, Any], backbone: nn.Module,
             conv_channels=bh.get("conv_out_channels", 1024),
             fc_channels=bh.get("fc_out_channels", 1024),
             reg_class_agnostic=agnostic)
+    elif kind in ("CascadeRCNN",) + HTC:
+        bbox_head = shared2fc(agnostic=True)
     else:
-        bbox_head = Shared2FCBBoxHead(
-            num_classes=num_classes, in_channels=width,
-            fc_channels=bh.get("fc_out_channels", 1024),
-            reg_class_agnostic=agnostic)
+        bbox_head = shared2fc()
     if kind == "FastRCNN":
         return FastRCNNDetector(backbone, neck, bbox_head)
     rpn = RPNHead(num_base_anchors=n_base, **{
@@ -259,12 +293,30 @@ def _two_stage(cfg: Dict[str, Any], backbone: nn.Module,
         return DoubleHeadRCNNDetector(
             backbone, neck, rpn, bbox_head,
             reg_roi_scale_factor=roi_cfg.get("reg_roi_scale_factor", 1.3))
-    if kind not in MASK_RCNN:
+    if kind == "CascadeRCNN":
+        return CascadeRCNNDetector(backbone, neck, rpn, bbox_head,
+                                   shared2fc(True), shared2fc(True))
+    if kind == "GridRCNN":
+        gh = roi_cfg.get("grid_head") or {}
+        return GridRCNNDetector(backbone, neck, rpn, bbox_head, GridHead(
+            in_channels=width, grid_points=gh.get("grid_points", 9),
+            num_convs=gh.get("num_convs", 8),
+            point_feat_channels=gh.get("point_feat_channels", 64)))
+    if kind not in MASK_TYPES:
         return TwoStageDetector(backbone, neck, rpn, bbox_head)
     mh = roi_cfg.get("mask_head") or {}
-    mask_head = FCNMaskHead(num_classes=num_classes, in_channels=width,
-                            conv_channels=mh.get("conv_out_channels", 256),
-                            num_convs=mh.get("num_convs", 4))
+    mask_kw = dict(num_classes=num_classes, in_channels=width,
+                   conv_channels=mh.get("conv_out_channels", 256),
+                   num_convs=mh.get("num_convs", 4))
+    if kind in HTC:
+        return HTCDetector(
+            backbone, neck, rpn,
+            (bbox_head, shared2fc(True), shared2fc(True)),
+            [HTCMaskHead(**mask_kw, with_res=st > 0) for st in range(3)],
+            FusedSemanticHead(num_classes, in_channels=width,
+                              num_levels=neck_cfg.get("num_outs", 5),
+                              conv_channels=width))
+    mask_head = FCNMaskHead(**mask_kw)
     if kind == "MaskScoringRCNN":
         return MaskScoringRCNNDetector(
             backbone, neck, rpn, bbox_head, mask_head,
@@ -279,12 +331,11 @@ def _two_stage(cfg: Dict[str, Any], backbone: nn.Module,
 def build_detector(cfg: Dict[str, Any]) -> nn.Module:
     """Build the detector from a full ``model`` config dict."""
     kind = cfg["type"]
-    if kind in TWO_STAGE_LATER:
-        raise NotImplementedError(
-            f"detector {kind}: ROADMAP Queue 1 \"Inherited zoo\" item "
-            f"{TWO_STAGE_LATER[kind]}")
     if kind not in DETECTORS + TWO_STAGE:
-        raise NotImplementedError(f"detector {kind}")
+        raise NotImplementedError(
+            f"detector {kind}: the port builds {', '.join(DETECTORS)} and "
+            f"{', '.join(TWO_STAGE)}, the types of every shipped file under "
+            f"configs/; the rest is {LATER}")
     backbone = build_backbone(cfg["backbone"])
     neck = build_neck(cfg.get("neck"), backbone.out_channels)
     if kind in TWO_STAGE:

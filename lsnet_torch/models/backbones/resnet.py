@@ -11,7 +11,10 @@ has a projection shortcut and the widths scale with ``base_channels``
 ``block_type="resnext"`` gives the bottleneck ``groups`` and
 ``base_width`` (conv2 width ``int(planes * (base_width / base_channels))
 * groups``): conv2 is a grouped DCN in the DCN stages and a
-``GroupedConv`` elsewhere. ``block_type="res2net"`` gives the Res2Net
+``GroupedConv`` elsewhere. ``stage_with_sac`` (DetectoRS' backbones)
+makes conv2 of those stages' bottlenecks an ``SAConv`` (Switchable
+Atrous Convolution, grouped in a ResNeXt), outside the DCN stages.
+``block_type="res2net"`` gives the Res2Net
 bottle2neck (``scales``, ``base_width``; 3x3 width ``floor(planes *
 (base_width / base_channels))``) and ``deep_stem`` the v1d stem of three
 3x3 convs. ``with_cp`` (the configs' activation checkpointing, ``remat``
@@ -32,7 +35,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.flat_deform import TRAIN_SAMPLING
-from ..layers import FrozenBatchNorm, GroupedConv, ModulatedDeformConvPack
+from ..layers import (FrozenBatchNorm, GroupedConv, ModulatedDeformConvPack,
+                      SAConv)
 
 ARCH_SETTINGS = {
     18: ("basic", (2, 2, 2, 2)),
@@ -78,7 +82,8 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, use_dcn: bool = False,
                  groups: int = 1, base_width: int = 4,
-                 base_channels: int = 64, dilation: int = 1):
+                 base_channels: int = 64, dilation: int = 1,
+                 use_sac: bool = False):
         super().__init__()
         width = (planes if groups == 1
                  else int(planes * (base_width / base_channels)) * groups)
@@ -90,6 +95,8 @@ class Bottleneck(nn.Module):
                 width, width, 3, stride=stride, padding=dilation,
                 dilation=dilation, groups=groups, use_bias=False,
                 site="backbone")
+        elif use_sac:
+            self.conv2 = SAConv(width, width, 3, stride, dilation, groups)
         elif groups > 1:
             self.conv2 = GroupedConv(width, width, 3, stride, dilation,
                                      groups=groups)
@@ -187,6 +194,8 @@ class ResNet(nn.Module):
                  frozen_stages: int = -1,
                  stage_with_dcn: Sequence[bool] = (False, False, False,
                                                    False),
+                 stage_with_sac: Sequence[bool] = (False, False, False,
+                                                   False),
                  block_type: str = "resnet", groups: int = 1,
                  base_width: int = 4, scales: int = 4,
                  base_channels: int = 64, deep_stem: bool = False,
@@ -232,7 +241,8 @@ class ResNet(nn.Module):
                 else:
                     block = Bottleneck(inplanes, planes, stride, bi == 0,
                                        stage_with_dcn[si], groups,
-                                       base_width, base_channels, dilation)
+                                       base_width, base_channels, dilation,
+                                       stage_with_sac[si])
                 setattr(self, name, block)
                 inplanes = planes * block.expansion
                 names.append(name)

@@ -18,7 +18,15 @@ Mask R-CNN, Mask Scoring R-CNN and PointRend parts):
   (``maskiou_forward``): each RoI's per-class mask IoU;
 * :func:`point_sample`, :class:`MaskPointHead` and
   :class:`PointRendDetector` (``point_forward``): PointRend's point MLP
-  on P2's features and the coarse logits at given points.
+  on P2's features and the coarse logits at given points;
+* :class:`CascadeRCNNDetector` (Cascade R-CNN and DetectoRS): three
+  class-agnostic Shared2FC heads ``bbox_head``, ``bbox_head2``,
+  ``bbox_head3`` (``roi_forward_stage``);
+* :class:`GridHead` and :class:`GridRCNNDetector` (``grid_forward``):
+  Grid R-CNN's per-point heatmaps from 14x14 RoI features;
+* :class:`FusedSemanticHead`, :class:`HTCMaskHead` and
+  :class:`HTCDetector`: Hybrid Task Cascade's semantic branch, its mask
+  heads with the previous stage's features, and its three stages.
 
 The backbone and neck take and give NCHW, as in :class:`LSDetector`; the
 RPN maps are NHWC, and RoI features stay NHWC up to the flatten, so the
@@ -28,12 +36,15 @@ kernel transposed (``weights.py``); so does the MaskIoU head's first FC
 the flax names; the Double-Head convs are ``{block}_conv`` /
 ``{block}_bn``. ``mask_upsample`` is an ``nn.ConvTranspose2d``: flax's
 ``nn.ConvTranspose`` does not flip its kernel, so the bridge flips it in
-both spatial axes (``weights.py``).
+both spatial axes (``weights.py``); so are Grid R-CNN's per-point
+``deconv1_g{g}`` / ``deconv2_g{g}`` (4x4, stride 2, flax's ``"SAME"``:
+padding 1) and HTC's ``mask_upsample``. The GroupNorms of
+``GridHead`` take flax's default epsilon, 1e-6.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +53,7 @@ from torch import nn
 from ...ops.flat_deform import TRAIN_SAMPLING
 from ...ops.roi import multilevel_roi_align
 from ..layers import FrozenBatchNorm, nchw, nhwc
+from ..necks.extra import bilinear_to
 
 STRIDES = (4, 8, 16, 32, 64)
 
@@ -434,3 +446,279 @@ class PointRendDetector(MaskRCNNDetector):
         fine = _clamped_bilinear(f0.reshape(B * H * W, C), bidx * (H * W),
                                  H, W, py, px)
         return self.point_head(fine, point_sample(coarse_logits, points))
+
+
+class CascadeRCNNDetector(TwoStageDetector):
+    """Cascade R-CNN (reference ``detectors/cascade_rcnn.py`` +
+    ``cascade_roi_head.py``), and DetectoRS with its own backbone and
+    neck: three bbox heads, each refining the boxes of the one before at
+    a higher IoU; class-agnostic deltas. ``bbox_head`` is stage 0's, so
+    ``roi_forward`` is stage 0's too."""
+
+    def __init__(self, backbone: nn.Module, neck: nn.Module,
+                 rpn_head: nn.Module, bbox_head: nn.Module,
+                 bbox_head2: nn.Module, bbox_head3: nn.Module,
+                 strides: Sequence[int] = STRIDES):
+        super().__init__(backbone, neck, rpn_head, bbox_head, strides)
+        self.bbox_head2 = bbox_head2
+        self.bbox_head3 = bbox_head3
+
+    def stage_head(self, stage: int) -> nn.Module:
+        return (self.bbox_head, self.bbox_head2, self.bbox_head3)[stage]
+
+    def roi_forward_stage(self, feats: Sequence[torch.Tensor],
+                          rois: torch.Tensor, stage: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(cls logits, class-agnostic deltas (N, 4)) of stage ``stage``'s
+        head on the (N, 5) rois."""
+        return self.stage_head(stage)(multilevel_roi_align(
+            [nhwc(f) for f in feats], rois, self.strides))
+
+
+def grid_neighbors(grid_points: int) -> List[Tuple[int, ...]]:
+    """Each grid point's neighbours on the sqrt(G) x sqrt(G) grid: above,
+    left, right, below (JAX ``GridHead.neighbors``)."""
+    gs = int(round(grid_points ** 0.5))
+    out = []
+    for i in range(gs):
+        for j in range(gs):
+            n = []
+            if i > 0:
+                n.append((i - 1) * gs + j)
+            if j > 0:
+                n.append(i * gs + j - 1)
+            if j < gs - 1:
+                n.append(i * gs + j + 1)
+            if i < gs - 1:
+                n.append((i + 1) * gs + j)
+            out.append(tuple(n))
+    return out
+
+
+class GridHead(nn.Module):
+    """Grid R-CNN's grid head (reference ``grid_head.py:11-219``; JAX
+    ``GridHead``): NHWC (N, 14, 14, in_channels) RoI features ->
+    ``num_convs`` conv 3x3 (the first at stride 2) + GroupNorm(4G) + ReLU
+    to G x ``point_feat_channels`` channels, G slices of c; the first- and
+    second-order fusion of each point's slice with its neighbours' (a 5x5
+    depthwise conv ``{fo,so}_{i}_{j}_dw`` then a 1x1 ``_pw`` per edge);
+    then, for the fused and the unfused slices alike, the per-point 4x4
+    stride-2 transposed convs ``deconv1_g{g}`` (c -> c), GroupNorm(G) +
+    ReLU over all G slices, and ``deconv2_g{g}`` (c -> 1): {"fused",
+    "unfused"} heatmap logits (N, 28, 28, G). The transposed convs are
+    shared between the two."""
+
+    def __init__(self, in_channels: int = 256, grid_points: int = 9,
+                 num_convs: int = 8, point_feat_channels: int = 64):
+        super().__init__()
+        G, c = grid_points, point_feat_channels
+        self.G, self.c, self.num_convs = G, c, num_convs
+        self.nbrs = grid_neighbors(G)
+        for i in range(num_convs):
+            setattr(self, f"conv{i}", nn.Conv2d(
+                in_channels if i == 0 else G * c, G * c, 3,
+                stride=2 if i == 0 else 1, padding=1))
+            setattr(self, f"gn{i}", nn.GroupNorm(4 * G, G * c, eps=1e-6))
+        for prefix in ("fo", "so"):
+            for i, pts in enumerate(self.nbrs):
+                for j in range(len(pts)):
+                    name = f"{prefix}_{i}_{j}"
+                    setattr(self, f"{name}_dw",
+                            nn.Conv2d(c, c, 5, padding=2, groups=c))
+                    setattr(self, f"{name}_pw", nn.Conv2d(c, c, 1))
+        for g in range(G):
+            setattr(self, f"deconv1_g{g}",
+                    nn.ConvTranspose2d(c, c, 4, stride=2, padding=1))
+            setattr(self, f"deconv2_g{g}",
+                    nn.ConvTranspose2d(c, 1, 4, stride=2, padding=1))
+        self.deconv1_gn = nn.GroupNorm(G, G * c, eps=1e-6)
+
+    def _slice(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        return x[:, i * self.c:(i + 1) * self.c]
+
+    def _fuse(self, prefix: str, x: torch.Tensor,
+              src: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        out = []
+        for i, pts in enumerate(self.nbrs):
+            acc = self._slice(x, i)
+            for j, p in enumerate(pts):
+                h = getattr(self, f"{prefix}_{i}_{j}_dw")(src[p])
+                acc = acc + getattr(self, f"{prefix}_{i}_{j}_pw")(h)
+            out.append(acc)
+        return out
+
+    def _heatmap(self, x: torch.Tensor) -> torch.Tensor:
+        h = torch.cat([getattr(self, f"deconv1_g{g}")(self._slice(x, g))
+                       for g in range(self.G)], dim=1)
+        h = F.relu(self.deconv1_gn(h))
+        return nhwc(torch.cat([getattr(self, f"deconv2_g{g}")(
+            self._slice(h, g)) for g in range(self.G)], dim=1))
+
+    def forward(self, roi_feats: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = nchw(roi_feats)
+        for i in range(self.num_convs):
+            x = F.relu(getattr(self, f"gn{i}")(getattr(self, f"conv{i}")(x)))
+        slices = [self._slice(x, i) for i in range(self.G)]
+        x_fo = self._fuse("fo", x, slices)
+        x_so = self._fuse("so", x, x_fo)
+        return {"fused": self._heatmap(torch.cat(x_so, dim=1)),
+                "unfused": self._heatmap(x)}
+
+
+class GridRCNNDetector(TwoStageDetector):
+    """Grid R-CNN (reference ``detectors/grid_rcnn.py``): Faster R-CNN
+    whose boxes the decode re-localises from the grid head's heatmaps;
+    ``grid_forward`` runs it on each RoI's 14x14 features of its level."""
+
+    def __init__(self, backbone: nn.Module, neck: nn.Module,
+                 rpn_head: nn.Module, bbox_head: nn.Module,
+                 grid_head: nn.Module, strides: Sequence[int] = STRIDES):
+        super().__init__(backbone, neck, rpn_head, bbox_head, strides)
+        self.grid_head = grid_head
+
+    def grid_forward(self, feats: Sequence[torch.Tensor], rois: torch.Tensor
+                     ) -> Dict[str, torch.Tensor]:
+        return self.grid_head(multilevel_roi_align(
+            [nhwc(f) for f in feats], rois, self.strides, out_size=(14, 14)))
+
+
+class FusedSemanticHead(nn.Module):
+    """HTC's fused semantic head (reference ``fused_semantic_head.py``;
+    JAX ``FusedSemanticHead``): a 1x1 ``lateral_{i}`` + ReLU on each
+    level, the others resized to the ``fusion_level`` (stride 8) as
+    ``jax.image.resize(method="bilinear")`` does (antialiased where a
+    level shrinks: level 0) and summed, ``num_convs`` conv 3x3 + ReLU,
+    then a 1x1 ``conv_embedding`` + ReLU and 1x1 ``conv_logits`` (C + 1).
+    NCHW levels -> (logits, embedding), both NHWC."""
+
+    def __init__(self, num_classes: int, in_channels: int = 256,
+                 num_levels: int = 5, fusion_level: int = 1,
+                 num_convs: int = 4, conv_channels: int = 256):
+        super().__init__()
+        self.fusion_level, self.num_convs = fusion_level, num_convs
+        for i in range(num_levels):
+            setattr(self, f"lateral_{i}",
+                    nn.Conv2d(in_channels, conv_channels, 1))
+        for i in range(num_convs):
+            setattr(self, f"conv{i}", nn.Conv2d(conv_channels, conv_channels,
+                                                3, padding=1))
+        self.conv_embedding = nn.Conv2d(conv_channels, conv_channels, 1)
+        self.conv_logits = nn.Conv2d(conv_channels, num_classes + 1, 1)
+
+    def forward(self, feats: Sequence[torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        fl = self.fusion_level
+        x = F.relu(getattr(self, f"lateral_{fl}")(feats[fl]))
+        th, tw = x.shape[-2:]
+        for i, f in enumerate(feats):
+            if i != fl:
+                x = x + bilinear_to(
+                    F.relu(getattr(self, f"lateral_{i}")(f)), th, tw)
+        for i in range(self.num_convs):
+            x = F.relu(getattr(self, f"conv{i}")(x))
+        return (nhwc(self.conv_logits(x)),
+                nhwc(F.relu(self.conv_embedding(x))))
+
+
+class HTCMaskHead(nn.Module):
+    """HTC's mask head with the mask information flow (reference
+    ``htc_mask_head.py``; JAX ``HTCMaskHead``): NHWC (N, 14, 14, C) RoI
+    features, plus ReLU(``conv_res`` (1x1) of the previous stage's
+    features) where ``with_res`` (stages 2 and 3: flax creates
+    ``conv_res`` only where it is called), ``num_convs`` conv 3x3 + ReLU,
+    a 2x2 stride-2 transposed conv + ReLU and 1x1 per-class logits.
+    Returns (logits (N, 28, 28, num_classes) NHWC, the features after the
+    convs (N, conv_channels, 14, 14) NCHW: the next stage's
+    ``last_feat``)."""
+
+    def __init__(self, num_classes: int, in_channels: int = 256,
+                 conv_channels: int = 256, num_convs: int = 4,
+                 with_res: bool = False):
+        super().__init__()
+        self.num_convs = num_convs
+        if with_res:
+            self.conv_res = nn.Conv2d(conv_channels, conv_channels, 1)
+        for i in range(num_convs):
+            setattr(self, f"mask_conv{i}", nn.Conv2d(
+                in_channels if i == 0 else conv_channels, conv_channels, 3,
+                padding=1))
+        width = conv_channels if num_convs else in_channels
+        self.mask_upsample = nn.ConvTranspose2d(width, conv_channels, 2,
+                                                stride=2)
+        self.mask_logits = nn.Conv2d(conv_channels, num_classes, 1)
+
+    def forward(self, roi_feats: torch.Tensor,
+                last_feat: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = nchw(roi_feats)
+        if last_feat is not None:
+            x = x + F.relu(self.conv_res(last_feat))
+        for i in range(self.num_convs):
+            x = F.relu(getattr(self, f"mask_conv{i}")(x))
+        logits = self.mask_logits(F.relu(self.mask_upsample(x)))
+        return nhwc(logits), x
+
+
+class HTCDetector(CascadeRCNNDetector):
+    """Hybrid Task Cascade (reference ``detectors/htc.py`` +
+    ``htc_roi_head.py``; JAX ``HTCDetector``): the three cascade stages,
+    a mask head a stage (``mask_head1`` .. ``mask_head3``, each after the
+    first taking the one before's features) and the semantic branch,
+    whose embedding's RoI features (one map at stride 8) add to the bbox
+    heads' (7x7) and the mask heads' (14x14)."""
+
+    def __init__(self, backbone: nn.Module, neck: nn.Module,
+                 rpn_head: nn.Module, bbox_heads: Sequence[nn.Module],
+                 mask_heads: Sequence[nn.Module], semantic_head: nn.Module,
+                 strides: Sequence[int] = STRIDES):
+        super().__init__(backbone, neck, rpn_head, *bbox_heads,
+                         strides=strides)
+        self.mask_head1, self.mask_head2, self.mask_head3 = mask_heads
+        self.semantic_head = semantic_head
+
+    def semantic(self, feats: Sequence[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(semantic logits, embedding), NHWC at stride 8."""
+        return self.semantic_head(feats)
+
+    def _sem_roi(self, sem_feat: torch.Tensor, rois: torch.Tensor,
+                 out_size: Tuple[int, int]) -> torch.Tensor:
+        return multilevel_roi_align([sem_feat], rois, (8,),
+                                    out_size=out_size)
+
+    def roi_forward_stage(self, feats: Sequence[torch.Tensor],
+                          rois: torch.Tensor, stage: int,
+                          sem_feat: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        roi_feats = multilevel_roi_align([nhwc(f) for f in feats], rois,
+                                         self.strides)
+        if sem_feat is not None:
+            roi_feats = roi_feats + self._sem_roi(sem_feat, rois, (7, 7))
+        return self.stage_head(stage)(roi_feats)
+
+    def mask_roi_feats(self, feats: Sequence[torch.Tensor],
+                       rois: torch.Tensor,
+                       sem_feat: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        """(N, 14, 14, C) NHWC RoIAlign of the rois on their levels, plus
+        the semantic embedding's where given."""
+        roi_feats = multilevel_roi_align([nhwc(f) for f in feats], rois,
+                                         self.strides, out_size=(14, 14))
+        if sem_feat is not None:
+            roi_feats = roi_feats + self._sem_roi(sem_feat, rois, (14, 14))
+        return roi_feats
+
+    def mask_head_stage(self, stage: int, roi_feats: torch.Tensor,
+                        last_feat: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        head = (self.mask_head1, self.mask_head2, self.mask_head3)[stage]
+        return head(roi_feats, last_feat)
+
+    def mask_forward_stage(self, feats: Sequence[torch.Tensor],
+                           rois: torch.Tensor, stage: int,
+                           sem_feat: Optional[torch.Tensor] = None,
+                           last_feat: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stage ``stage``'s (mask logits, features) of the rois."""
+        return self.mask_head_stage(
+            stage, self.mask_roi_feats(feats, rois, sem_feat), last_feat)

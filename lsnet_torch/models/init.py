@@ -39,6 +39,18 @@ Each parameter is drawn from the distribution its flax module gives it:
   N(0, 0.01), ``mask_logits`` N(0, 0.001); ``mask_upsample`` (flax's
   ``nn.ConvTranspose`` default), the MaskIoU head's FCs and the point
   head's FCs LeCun normal (fan_in); every bias 0;
+* the cascade's heads (Cascade R-CNN, DetectoRS, HTC): the RoI heads'
+  rules; Grid R-CNN's ``GridHead`` and HTC's ``FusedSemanticHead``: flax's
+  ``nn.Conv`` / ``nn.ConvTranspose`` defaults, LeCun normal (fan_in: a
+  depthwise 5x5 has 25); HTC's ``HTCMaskHead``: ``mask_conv*`` N(0, 0.01),
+  ``mask_logits`` N(0, 0.001), ``conv_res`` and ``mask_upsample`` LeCun
+  normal; every bias 0;
+* ``SAConv`` (DetectoRS' backbone): ``weight`` ``kaiming_init``, He
+  normal over fan_out (k x k x cout), ``weight_diff`` 0, ``aws_gamma`` 1,
+  ``aws_beta`` 0, ``pre_context`` and ``post_context`` 0 (kernel and
+  bias), ``switch`` kernel 0 and bias 1 (``layers.py:304-365``): every SAC
+  starts as the standardised conv at its own dilation;
+* RFP's convolutions (ConvModules): ``kaiming_init``;
 * the RepPoints heads' ``moment_transfer``: 0;
 * ``conv_offset`` of a DCNv2 pack: 0 (``layers.py:146``), so every DCN
   starts as a plain conv;
@@ -70,9 +82,10 @@ from .heads.ls_head import LSHead
 from .heads.lscpv_head import LSCPVHead
 from .heads.reppoints import RepPointsHead, RepPointsV2Head
 from .heads.two_stage import (DoubleConvFCBBoxHead, FCNMaskHead,
+                              FusedSemanticHead, GridHead, HTCMaskHead,
                               MaskIoUHead, RPNHead)
 from .layers import (ConvModule, FrozenBatchNorm, ModulatedDeformConvPack,
-                     PairedPyramidDeformConv, PyramidDeformConv)
+                     PairedPyramidDeformConv, PyramidDeformConv, SAConv)
 from .necks.extra import NASFCOSFPN
 
 PRIOR_PROB = 0.01
@@ -87,7 +100,7 @@ DENSE_HEADS = (RetinaHead, ScaledHead, GARetinaHead, GARPNHead, FoveaHead,
 # stride each side
 FSAF_REG_BIAS = 0.25
 HEADS = (LSHead, LSCPVHead, RepPointsHead, DenseRepPointsHead,
-         RPNHead, FCNMaskHead, MaskIoUHead) + DENSE_HEADS
+         RPNHead, FCNMaskHead, MaskIoUHead, HTCMaskHead) + DENSE_HEADS
 # head convolutions that start at another std than N(0, 0.01)
 CONV_STD = {"mask_logits": 0.001}
 # the RoI heads' classifier and regressor (flax nn.Dense) and their stds
@@ -140,9 +153,17 @@ def init_weights_(model: nn.Module, generator: torch.Generator
     # NASFCOSFPN's outside its ConvModules
     nas = [m for h in model.modules() if isinstance(h, NASFCOSFPN)
            for m in h.modules()]
-    lecun = members(SSDVGG) | members(DoubleConvFCBBoxHead) | (
+    lecun = members(SSDVGG) | members(DoubleConvFCBBoxHead) | members(
+        (GridHead, FusedSemanticHead)) | (
         {id(m) for m in nas if isinstance(m, nn.Conv2d)}
-        - {id(m.conv) for m in nas if isinstance(m, ConvModule)})
+        - {id(m.conv) for m in nas if isinstance(m, ConvModule)}) | {
+        id(h.conv_res) for h in model.modules()
+        if isinstance(h, HTCMaskHead) and hasattr(h, "conv_res")}
+    # SAConv's context convs start at 0, its switch with bias 1
+    sac = [m for m in model.modules() if isinstance(m, SAConv)]
+    sac_zero = {id(c) for m in sac
+                for c in (m.pre_context, m.switch, m.post_context)}
+    switches = {id(m.switch) for m in sac}
     fsaf_reg = {id(h.retina_reg) for h in model.modules()
                 if isinstance(h, FSAFHead)}
     done: Set[int] = set()
@@ -162,7 +183,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator
             cpv = id(m) in cpv_modules
             cout, cin, kh, kw = m.weight.shape          # OIHW
             if name.endswith(("conv_offset", "adaption_offset",
-                              "adaption_offset_cls", "adaption_offset_reg")):
+                              "adaption_offset_cls", "adaption_offset_reg")
+                             ) or id(m) in sac_zero:
                 m.weight.zero_()
             elif (cpv and name.endswith(CPV_LECUN)) or id(m) in lecun:
                 _lecun_(m.weight, cin * kh * kw, generator)
@@ -179,6 +201,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator
                     m.bias.fill_(bias_init_with_prob(PRIOR_PROB))
                 if id(m) in fsaf_reg:
                     m.bias.fill_(FSAF_REG_BIAS)
+                if id(m) in switches:
+                    m.bias.fill_(1.0)
             mark(m.weight, m.bias)
         elif isinstance(m, nn.ConvTranspose2d):
             cin, _, kh, kw = m.weight.shape             # IOHW
@@ -208,6 +232,13 @@ def init_weights_(model: nn.Module, generator: torch.Generator
                 else:                               # adaption_weight*
                     _normal_(p, 0.01, generator)
                 mark(p)
+        elif isinstance(m, SAConv):
+            k, _, _, cout = m.weight.shape              # HWIO
+            _he_fan_out_(m.weight, k * k * cout, generator)
+            m.weight_diff.zero_()
+            m.aws_gamma.fill_(1.0)
+            m.aws_beta.zero_()
+            mark(m.weight, m.weight_diff, m.aws_gamma, m.aws_beta)
         elif isinstance(m, SSDVGG):
             m.l2_norm_scale_param.fill_(L2_NORM_SCALE)
             mark(m.l2_norm_scale_param)

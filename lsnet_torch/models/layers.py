@@ -216,3 +216,70 @@ class GroupedConv(nn.Conv2d):
         super().__init__(in_channels, out_channels, kernel_size,
                          stride=stride, padding=kernel_size // 2 * dilation,
                          dilation=dilation, groups=groups, bias=False)
+
+
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """NCHW x padded by ``pad`` on each side of H and W, mirrored about
+    the edge rows (``jnp.pad(mode="reflect")``, numpy's rule: a side
+    shorter than ``pad + 1`` reflects again, a side of 1 repeats)."""
+    def index(n: int) -> torch.Tensor:
+        i = torch.arange(-pad, n + pad, device=x.device)
+        if n == 1:
+            return torch.zeros_like(i)
+        i = i.remainder(2 * (n - 1))
+        return torch.where(i >= n, 2 * (n - 1) - i, i)
+    return x.index_select(2, index(x.shape[2])).index_select(
+        3, index(x.shape[3]))
+
+
+class SAConv(nn.Module):
+    """Switchable Atrous Convolution (DetectoRS; JAX ``SAConv``,
+    ``lsnet_tpu/models/layers.py:304-365``), NCHW in and out:
+
+    * the HWIO ``weight`` (k, k, cin/groups, cout) standardised over
+      (k, k, cin/groups) per output channel (AWS: the population std plus
+      1e-5, as ``jnp.std``), then ``aws_gamma`` x + ``aws_beta``, both
+      (1, 1, 1, cout);
+    * the input plus ``pre_context`` (1x1) of its global mean;
+    * the switch: ``switch`` (1x1 at the conv's stride) on the input's
+      5x5 mean, reflect-padded;
+    * one conv at dilation d with the standardised weight and one at 3d
+      with it plus ``weight_diff`` (HWIO), mixed by the switch;
+    * the mix plus ``post_context`` (1x1) of its global mean.
+
+    The two convs are bias-free and take ``groups``. The reference's
+    ``use_deform`` is not read, as the JAX module does not read it: both
+    convs are plain."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, dilation: int = 1,
+                 groups: int = 1):
+        super().__init__()
+        k = kernel_size
+        self.stride, self.dilation, self.groups = stride, dilation, groups
+        self.weight = nn.Parameter(torch.zeros(k, k, in_channels // groups,
+                                               out_channels))
+        self.aws_gamma = nn.Parameter(torch.ones(1, 1, 1, out_channels))
+        self.aws_beta = nn.Parameter(torch.zeros(1, 1, 1, out_channels))
+        self.weight_diff = nn.Parameter(torch.zeros_like(self.weight))
+        self.pre_context = nn.Conv2d(in_channels, in_channels, 1)
+        self.switch = nn.Conv2d(in_channels, 1, 1, stride=stride)
+        self.post_context = nn.Conv2d(out_channels, out_channels, 1)
+
+    def _conv(self, x: torch.Tensor, w: torch.Tensor,
+              dilation: int) -> torch.Tensor:
+        return F.conv2d(x, w.permute(3, 2, 0, 1).to(x.dtype), None,
+                        self.stride, dilation * (w.shape[0] // 2), dilation,
+                        self.groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        mean = w.mean(dim=(0, 1, 2), keepdim=True)
+        std = w.std(dim=(0, 1, 2), keepdim=True, correction=0) + 1e-5
+        w_std = self.aws_gamma * (w - mean) / std + self.aws_beta
+        x = x + self.pre_context(x.mean(dim=(2, 3), keepdim=True))
+        switch = self.switch(F.avg_pool2d(reflect_pad(x, 2), 5, stride=1))
+        out_s = self._conv(x, w_std, self.dilation)
+        out_l = self._conv(x, w_std + self.weight_diff, 3 * self.dilation)
+        out = switch * out_s + (1.0 - switch) * out_l
+        return out + self.post_context(out.mean(dim=(2, 3), keepdim=True))

@@ -1,10 +1,12 @@
-"""The NAS-FCOS FPN (counterpart of ``_NASFCOSConcatCell`` and
-``NASFCOSFPN`` in ``lsnet_tpu/models/necks/extra.py``; that file's other
-necks are not ported).
+"""The NAS-FCOS FPN and DetectoRS' recursive feature pyramid
+(counterparts of ``_NASFCOSConcatCell``, ``NASFCOSFPN`` and ``RFP`` in
+``lsnet_tpu/models/necks/extra.py``; that file's other necks are ROADMAP
+Queue 1 "Inherited zoo" item 3.4).
 
 NCHW in and out; submodule names are the flax ones (``adapt_{i}``,
 ``adapt_bn_{i}``, the cells ``c22_1`` ... ``c61`` with ``input1_conv`` /
-``input2_conv`` / ``bn`` / ``out_conv``, ``extra_{k}``).
+``input2_conv`` / ``bn`` / ``out_conv``, ``extra_{k}``; RFP's ``fpn``,
+``fpn_step{s}``, ``rfp_agg_s{s}_{i}``, ``rfp_gate_s{s}_{i}``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..layers import ConvModule, FrozenBatchNorm
-from .fpn import upsample_nearest_to
+from .fpn import FPN, upsample_nearest_to
 
 # the searched DAG: (cell, first input, second input, 3x3 conv on the
 # first, on the second); inputs index the adapted levels, then the cells
@@ -124,3 +126,55 @@ class NASFCOSFPN(nn.Module):
             x = getattr(self, f"extra_{k}")(x)
             ret.append(x)
         return tuple(ret)
+
+
+class RFP(nn.Module):
+    """DetectoRS' Recursive Feature Pyramid as the JAX package builds it
+    (``lsnet_tpu/models/necks/extra.py:265-310``): the reference feeds the
+    FPN's outputs back into the backbone's stages; JAX, and so the port,
+    unrolls the recursion at the neck. An FPN ``fpn`` (extra levels by
+    convs on the last input); then, for each of the ``rfp_steps - 1``
+    further steps s, each used input plus ``rfp_agg_s{s}_{i}`` (1x1 to the
+    input's width, with bias) of output i, a second FPN ``fpn_step{s+1}``
+    on those, and each level mixed by a gate, sigmoid(``rfp_gate_s{s}_{i}``
+    (1x1 to one channel) of the new output): gate x new + (1 - gate) x
+    old. NCHW in and out."""
+
+    def __init__(self, in_channels: Sequence[int], out_channels: int = 256,
+                 num_outs: int = 5, rfp_steps: int = 2, start_level: int = 0,
+                 norm_cfg: Optional[dict] = None):
+        super().__init__()
+        self.in_channels = list(in_channels)
+        self.start_level, self.rfp_steps = start_level, rfp_steps
+        self.n_used = len(self.in_channels) - start_level
+
+        def fpn():
+            return FPN(self.in_channels, out_channels, num_outs, start_level,
+                       add_extra_convs="on_input", norm_cfg=norm_cfg)
+        self.fpn = fpn()
+        for s in range(rfp_steps - 1):
+            for i in range(self.n_used):
+                setattr(self, f"rfp_agg_s{s}_{i}", ConvModule(
+                    out_channels, self.in_channels[start_level + i], 1,
+                    act=None))
+            setattr(self, f"fpn_step{s + 1}", fpn())
+            for i in range(num_outs):
+                setattr(self, f"rfp_gate_s{s}_{i}", ConvModule(
+                    out_channels, 1, 1, act=None))
+
+    def forward(self, inputs: Sequence[torch.Tensor]
+                ) -> Tuple[torch.Tensor, ...]:
+        outs = self.fpn(inputs)
+        for s in range(self.rfp_steps - 1):
+            fed = list(inputs)
+            for i in range(self.n_used):
+                j = self.start_level + i
+                fed[j] = inputs[j] + getattr(self, f"rfp_agg_s{s}_{i}")(
+                    outs[i])
+            new = getattr(self, f"fpn_step{s + 1}")(fed)
+            fused = []
+            for i, (o, n) in enumerate(zip(outs, new)):
+                gate = torch.sigmoid(getattr(self, f"rfp_gate_s{s}_{i}")(n))
+                fused.append(gate * n + (1 - gate) * o)
+            outs = tuple(fused)
+        return outs

@@ -9,7 +9,7 @@ weights and runs with the sampling the checkpoint deploys with (its
 meta), at the refine taps it trained on unless ``LSNET_REFINE_TAPS`` is
 set. ``--eval`` names the metric (bbox, segm or keypoints); it must be
 the task's own, and for a mask detector (Mask R-CNN, MS R-CNN,
-PointRend) bbox, segm or both: its evaluation scores both, as the JAX
+PointRend, HTC) bbox, segm or both: its evaluation scores both, as the JAX
 tool's does. ``--options`` overrides the config as in
 ``lsnet_torch.tools.train`` (the JAX ``tools/test.py`` has no such
 option), so a run and its test can share the same overrides. It runs on
@@ -36,7 +36,7 @@ def main(argv=None):
 
     from ..models import build_detector
     from ..train.checkpoint import refine_taps_env, restore_eval_state
-    from ..models import MASK_RCNN
+    from ..models import MASK_TYPES
     from ..train.loop import (IOU_TYPE, check_runnable, eval_sampling,
                               evaluate_detector, head_cfg, runner_device)
     from ..utils.config import Config
@@ -47,7 +47,7 @@ def main(argv=None):
         cfg.merge_from_dict(parse_options(args.options))
     check_runnable(cfg)
     iou_type = IOU_TYPE[head_cfg(cfg).get("task", "bbox")]
-    scored = {iou_type, "segm"} if cfg.model.type in MASK_RCNN \
+    scored = {iou_type, "segm"} if cfg.model.type in MASK_TYPES \
         else {iou_type}
     if args.eval and not set(args.eval) <= scored:
         raise ValueError(f"--eval {args.eval}: this config is scored by "

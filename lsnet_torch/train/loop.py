@@ -43,7 +43,11 @@ R-CNN, PointRend) train on ``mask_rcnn_loss`` / ``mask_scoring_rcnn_loss``
 / ``point_rend_loss`` over the segm pipeline's 36-point GT contours, and
 decode with ``mask_rcnn_decode`` / ``mask_scoring_rcnn_decode`` /
 ``point_rend_decode``: their evaluation scores the boxes (``bbox_*``) and
-the pasted masks (``segm_*``), as the JAX runner's. The datasets come from
+the pasted masks (``segm_*``), as the JAX runner's; the cascade files
+(Cascade R-CNN, DetectoRS) train on ``cascade_rcnn_loss`` and decode with
+``cascade_rcnn_decode``, Grid R-CNN on ``grid_rcnn_loss`` /
+``grid_rcnn_decode``, and HTC on ``htc_loss`` over the GT contours, and
+``htc_decode`` scores its boxes and masks. The datasets come from
 ``data.extra.build_dataset``: ``CocoDataset``, and ``CocoPoseDataset``
 (the pose files') as the same dataset.
 
@@ -69,7 +73,7 @@ from ..core.dense_reppoints import (DenseRepPointsConfig,
 from ..core.loss import LossConfig
 from ..core.reppoints import (RepPointsConfig, RepPointsV2Config,
                               reppoints_decode, reppoints_v2_decode)
-from ..core.two_stage import (MASK_DECODES, DynamicRCNNSchedule,
+from ..core.two_stage import (TWO_STAGE_DECODES, DynamicRCNNSchedule,
                               TwoStageConfig, dynamic_rcnn_loss,
                               two_stage_decode)
 from ..data.coco import (DataLoader, DatasetConfig, batch_to_device,
@@ -77,8 +81,8 @@ from ..data.coco import (DataLoader, DatasetConfig, batch_to_device,
 from ..data.extra import DATASET_TYPES, build_dataset
 from ..evalkit.evaluator import (coco_gt_from_annotations, detections_to_coco,
                                  evaluate_coco, mask_detections_to_coco)
-from ..models import (DETECTORS, HEADS, MASK_RCNN, TWO_STAGE_LATER,
-                      build_detector, head_cfg_of, is_two_stage)
+from ..models import (BACKBONES, DETECTORS, HEADS, LATER, MASK_TYPES, NECKS,
+                      TWO_STAGE, build_detector, head_cfg_of, is_two_stage)
 from ..models.init import init_weights_
 from ..ops.flat_deform import (INFERENCE_SAMPLING, TRAIN_SAMPLING,
                                sampling_from_spec, with_refine_taps)
@@ -105,11 +109,11 @@ DENSE_HEAD_KINDS = {"RetinaHead": "retina", "RetinaSepBNHead": "retina",
                     "PISARetinaHead": "pisa_retina",
                     "PISASSDHead": "pisa_ssd",
                     "GARetinaHead": "ga_retina", "GARPNHead": "ga_rpn"}
-# the two-stage detectors the runner trains (JAX's ``_is_two_stage``, less
-# ROADMAP Queue 1 item 3.3; a Fast R-CNN takes its proposals from
-# outside) and their RoI heads
-TWO_STAGE_RUNNER = ("FasterRCNN", "TwoStageDetector") + MASK_RCNN
-ROI_HEADS = ("StandardRoIHead", "DoubleHeadRoIHead", "DynamicRoIHead")
+# the two-stage detectors the runner trains (JAX's ``_is_two_stage``; a
+# Fast R-CNN takes its proposals from outside) and their RoI heads
+TWO_STAGE_RUNNER = tuple(t for t in TWO_STAGE if t != "FastRCNN")
+ROI_HEADS = ("StandardRoIHead", "DoubleHeadRoIHead", "DynamicRoIHead",
+             "CascadeRoIHead")
 
 
 def head_cfg(cfg):
@@ -292,11 +296,15 @@ def two_stage_cfg_from(cfg, image_shape) -> TwoStageConfig:
     ``nms_pre`` / ``max_per_img`` (capped at 512) / NMS IoU from
     ``train_cfg.rpn_proposal`` (decode too: ``test_cfg.rpn`` is not read),
     the RoI assigner's ``pos_iou_thr`` and sampler's count and positive
-    fraction, the classes of ``roi_head.bbox_head``."""
+    fraction (a cascade file's first stage's: the stages' thresholds are
+    ``core.two_stage.CASCADE_IOUS``), the classes of
+    ``roi_head.bbox_head`` (a cascade's first)."""
     tc = cfg.get("train_cfg", {}) or {}
     rpn = tc.get("rpn", {}).get("assigner", {})
     prop = tc.get("rpn_proposal", {})
     rcnn = tc.get("rcnn", {})
+    if isinstance(rcnn, (list, tuple)):
+        rcnn = rcnn[0] if rcnn else {}
     return TwoStageConfig(
         image_shape=tuple(image_shape),
         num_classes=head_cfg(cfg).num_classes,
@@ -414,15 +422,17 @@ def forward_decode(model: torch.nn.Module, images: torch.Tensor,
                    config=None):
     """The detector's forward and decode on a batch: ``two_stage_decode``
     (with ``two_stage_cfg_from`` of the ``config`` file at the test
-    config's canvas) for a two-stage detector, or the mask detectors'
-    decode (``core.two_stage.MASK_DECODES``), which gives (Detections,
-    masks (B, K, 28, 28), 112 x 112 for PointRend) as JAX's does; else the
-    forward and :func:`decode_for`'s decode."""
+    config's canvas) for a two-stage detector, or its own decode
+    (``core.two_stage.TWO_STAGE_DECODES``: the cascade's, Grid R-CNN's, and the mask
+    detectors', which give (Detections, masks (B, K, 28, 28), 112 x 112
+    for PointRend) as JAX's do); else the forward and :func:`decode_for`'s
+    decode."""
     if is_two_stage(model):
         if config is None:
             raise ValueError("a two-stage decode reads the model's config "
                              "file; pass it as config")
-        decode = MASK_DECODES.get(type(model).__name__, two_stage_decode)
+        decode = TWO_STAGE_DECODES.get(type(model).__name__,
+                                       two_stage_decode)
         return decode(
             model, images, img_shapes, scale_factors,
             two_stage_cfg_from(config, tcfg.image_shape), tcfg,
@@ -454,50 +464,52 @@ def test_cfg_from(cfg, image_shape) -> TestConfig:
 
 
 def check_runnable(cfg) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP entry of a model
-    or dataset the port cannot run yet."""
+    """Raise ``NotImplementedError`` naming the ROADMAP entry (Queue 1
+    "Inherited zoo" item 3.4) of a model or dataset the port cannot run
+    yet."""
     model = cfg.model
     head = head_cfg(cfg).get("type")
     roi_head = (model.get("roi_head") or {}).get("type", "StandardRoIHead")
-    if model.type in TWO_STAGE_LATER:
-        raise NotImplementedError(
-            f"{model.type}: the port runs the two-stage files of Faster "
-            "R-CNN, Double-Head, Dynamic R-CNN, Mask R-CNN, Mask Scoring "
-            "R-CNN and PointRend; this one is ROADMAP Queue 1 \"Inherited "
-            f"zoo\" item {TWO_STAGE_LATER[model.type]}")
     if is_two_stage_cfg(cfg):
         if roi_head not in ROI_HEADS:
             raise NotImplementedError(
                 f"{model.type} with {roi_head}: the port runs the RoI heads "
-                f"{', '.join(ROI_HEADS)}; the rest of the two-stage family "
-                "is ROADMAP Queue 1 \"Inherited zoo\" item 3.3")
+                f"{', '.join(ROI_HEADS)}; the rest is {LATER}")
     elif model.type not in DETECTORS or head not in HEADS:
         raise NotImplementedError(
             f"{model.type} with {head}: the port runs the single-stage "
             f"detectors {', '.join(sorted(DETECTORS))} with the heads "
             f"{', '.join(sorted(HEADS))} and the two-stage "
-            f"{', '.join(TWO_STAGE_RUNNER)}; the rest of the zoo is ROADMAP "
-            "Queue 1 \"Inherited zoo\"")
+            f"{', '.join(TWO_STAGE_RUNNER)}, which run every shipped file "
+            f"under configs/; the rest of the zoo is {LATER}")
+    backbone = (model.get("backbone") or {}).get("type")
+    neck = (model.get("neck") or {}).get("type")
+    if backbone not in BACKBONES or neck not in NECKS:
+        raise NotImplementedError(
+            f"{model.type} on {backbone} and {neck}: the port builds the "
+            f"backbones {', '.join(BACKBONES)} and the necks "
+            f"{', '.join(str(n) for n in NECKS)}; the rest is {LATER}")
     for split in ("train", "val"):
         kind = cfg.data.get(split, {}).get("type", "CocoDataset")
         if kind not in DATASET_TYPES:
             raise NotImplementedError(
                 f"dataset {kind}: the port reads "
                 f"{', '.join(DATASET_TYPES)}; the rest of data/extra.py is "
-                "ROADMAP Queue 1 \"Inherited zoo\" item 3.4")
+                f"{LATER}")
 
 
 def _polygon_trained(cfg) -> bool:
     """Whether the file's loss reads the segm task's 36-point GT
-    polygons: Dense RepPoints and the mask detectors."""
+    polygons: Dense RepPoints and the mask detectors (HTC's too)."""
     return (head_cfg(cfg).get("type") in DENSE_REPPOINTS
-            or cfg.model.type in MASK_RCNN)
+            or cfg.model.type in MASK_TYPES)
 
 
 def head_num_vectors(cfg) -> int:
     """The pipeline's ``num_vectors``: the head's, or 36 where the loss
     reads the segm task's GT polygons (Dense RepPoints; the mask targets
-    of Mask R-CNN, MS R-CNN and PointRend, as JAX's ``_head_num_vectors``)."""
+    of Mask R-CNN, MS R-CNN, PointRend and HTC, as JAX's
+    ``_head_num_vectors``)."""
     return head_cfg(cfg).get("num_vectors",
                              36 if _polygon_trained(cfg) else 4)
 
@@ -740,7 +752,7 @@ def evaluate_detector(cfg, model: torch.nn.Module, canvas, *,
            if g["image_id"] in eval_ids]
     dts = [d for d in dts if d["image_id"] in eval_ids]
     metrics = evaluate_coco(gts, dts, img_sizes, iou_type=IOU_TYPE[task])
-    if cfg.model.type in MASK_RCNN:
+    if cfg.model.type in MASK_TYPES:
         segm_gts = [g for g in coco_gt_from_annotations(ds.coco, task="segm")
                     if g["image_id"] in eval_ids]
         segm_dts = [d for d in segm_dts if d["image_id"] in eval_ids]

@@ -39,7 +39,8 @@ from ..core.dense_reppoints import (DenseRepPointsConfig,
 from ..core.loss import LossConfig, lsnet_loss
 from ..core.reppoints import (RepPointsConfig, RepPointsV2Config,
                               reppoints_loss, reppoints_v2_loss)
-from ..core.two_stage import MASK_LOSSES, TwoStageConfig, two_stage_loss
+from ..core.two_stage import (TWO_STAGE_LOSSES, TwoStageConfig,
+                              two_stage_loss)
 from ..ops.flat_deform import TRAIN_SAMPLING
 from .optim import ClippedSGD
 
@@ -75,9 +76,10 @@ def make_train_step(model: torch.nn.Module, optimizer: ClippedSGD,
     """``step(batch) -> metrics``: one update of ``model`` in place.
 
     ``full_loss_fn(model, batch, sampling) -> (total, losses)``, where
-    given, is the whole loss; a ``TwoStageConfig`` takes the mask
-    detectors' loss (``core.two_stage.MASK_LOSSES``: ``mask_rcnn_loss``,
-    ``mask_scoring_rcnn_loss``, ``point_rend_loss``) or else
+    given, is the whole loss; a ``TwoStageConfig`` takes the detector's
+    own loss (``core.two_stage.TWO_STAGE_LOSSES``: ``mask_rcnn_loss``,
+    ``mask_scoring_rcnn_loss``, ``point_rend_loss``,
+    ``cascade_rcnn_loss``, ``grid_rcnn_loss``, ``htc_loss``) or else
     ``two_stage_loss`` by default. Otherwise the loss is the one
     ``LOSSES`` names for the config's type:
     ``lsnet_loss`` for a ``LossConfig``, ``lscpv_loss`` for a
@@ -90,7 +92,7 @@ def make_train_step(model: torch.nn.Module, optimizer: ClippedSGD,
     metrics: ``loss``, the loss terms and the pre-clip ``grad_norm``, as
     tensors on the device (no synchronisation)."""
     if full_loss_fn is None and isinstance(loss_cfg, TwoStageConfig):
-        ts_loss = MASK_LOSSES.get(type(model).__name__, two_stage_loss)
+        ts_loss = TWO_STAGE_LOSSES.get(type(model).__name__, two_stage_loss)
 
         def full_loss_fn(m, batch, smp):
             return ts_loss(m, batch, loss_cfg, smp)

@@ -5,8 +5,9 @@ The port's modules carry the flax module names, so a variable at
 ``head.cls_convs_0.conv.conv_offset.weight``. Leaf rules:
 
 * ``kernel`` (an ``nn.Conv2d``): HWIO -> OIHW, renamed ``weight``;
-* ``kernel`` of a flax ``nn.ConvTranspose`` (the modules named in
-  ``TRANSPOSED_CONVS``, each an ``nn.ConvTranspose2d``): flipped in both
+* ``kernel`` of a flax ``nn.ConvTranspose`` (the modules whose name
+  matches a pattern of ``TRANSPOSED_CONVS``, each an
+  ``nn.ConvTranspose2d``): flipped in both
   spatial axes, then HWIO -> IOHW, renamed ``weight``. flax's
   ``transpose_kernel=False`` (its default) correlates the dilated input
   with the kernel as it is, where ``nn.ConvTranspose2d`` scatters each
@@ -18,7 +19,9 @@ The port's modules carry the flax module names, so a variable at
   ``weight_b``, the RepPoints heads' ``moment_transfer`` (2,), the dense
   heads' per-level ``scales`` (L,), the Guided Anchoring heads' HWIO
   ``adaption_weight``/``adaption_weight_cls``/``adaption_weight_reg`` and
-  SSDVGG's ``l2_norm_scale_param`` (512,): unchanged;
+  SSDVGG's ``l2_norm_scale_param`` (512,), and ``SAConv``'s HWIO
+  ``weight``/``weight_diff`` and (1, 1, 1, cout) ``aws_gamma``/
+  ``aws_beta``: unchanged;
 * ``batch_stats`` ``mean``/``var``: the FrozenBatchNorm buffers.
 
 :func:`load_jax_variables` loads strictly: a variable the model does not
@@ -32,6 +35,8 @@ from __future__ import annotations
 from collections import OrderedDict
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
+from fnmatch import fnmatchcase
+
 import numpy as np
 import torch
 from torch import nn
@@ -43,10 +48,18 @@ _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                  "adaption_weight": "adaption_weight",
                  "adaption_weight_cls": "adaption_weight_cls",
                  "adaption_weight_reg": "adaption_weight_reg",
-                 "l2_norm_scale_param": "l2_norm_scale_param"}
+                 "l2_norm_scale_param": "l2_norm_scale_param",
+                 "weight_diff": "weight_diff", "aws_gamma": "aws_gamma",
+                 "aws_beta": "aws_beta"}
 _STAT_LEAVES = {"mean": "mean", "var": "var"}
-# the flax nn.ConvTranspose modules, by name (FCNMaskHead's upsampling)
-TRANSPOSED_CONVS = ("mask_upsample",)
+# the flax nn.ConvTranspose modules, by name pattern: the mask heads'
+# upsampling (FCNMaskHead, HTCMaskHead) and GridHead's per-point deconvs
+TRANSPOSED_CONVS = ("mask_upsample", "deconv1_g*", "deconv2_g*")
+
+
+def is_transposed_conv(name: str) -> bool:
+    """Whether a flax module of this name is an ``nn.ConvTranspose``."""
+    return any(fnmatchcase(name, p) for p in TRANSPOSED_CONVS)
 
 
 def _walk(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
@@ -73,7 +86,7 @@ def from_jax_variables(variables: Mapping[str, Any]
                 raise KeyError(f"unknown {coll} leaf {'/'.join(path)}")
             t = torch.from_numpy(np.array(leaf, dtype=np.float32))
             if path[-1] == "kernel" and len(path) > 1 \
-                    and path[-2] in TRANSPOSED_CONVS:
+                    and is_transposed_conv(path[-2]):
                 t = t.flip(0, 1).permute(2, 3, 0, 1)
             elif path[-1] == "kernel":
                 t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.t()

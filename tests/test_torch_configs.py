@@ -20,11 +20,13 @@ and shapes of the JAX head's parameters, and give the JAX runner's loss
 and test configs. The thirteen dense-zoo files (RetinaNet, GA-RetinaNet,
 GA-RPN, FCOS, ATSS, GFL, FoveaBox, FSAF, FreeAnchor, PISA RetinaNet,
 SSD300, PISA SSD300, NAS-FCOS) read the same and build the same way, and
-so do the six two-stage files the port runs (Faster R-CNN, Double-Head,
-Dynamic R-CNN, Mask R-CNN, Mask Scoring R-CNN, PointRend), against the
-whole JAX detector's variables; the mask files' runner settings equal the
-JAX runner's, and the settings it leaves unread are recorded; the other
-four two-stage files are refused with the ROADMAP item they wait for.
+so do the ten two-stage files the port runs (Faster R-CNN, Double-Head,
+Dynamic R-CNN, Mask R-CNN, Mask Scoring R-CNN, PointRend, Cascade R-CNN,
+Grid R-CNN, HTC, DetectoRS), against the whole JAX detector's variables;
+the mask and cascade files' runner settings equal the JAX runner's, and
+the settings it leaves unread are recorded. Every shipped file now runs;
+configs with the backbones and necks that no file uses (ROADMAP Queue 1
+"Inherited zoo" item 3.4) are refused with that item.
 The six pose files pass ``check_runnable``: their ``CocoPoseDataset`` is
 the COCO dataset of ``data.extra``.
 
@@ -343,16 +345,25 @@ OWN_BODY = {"ssd/ssd300_coco.py": (300, 300),
             "pisa/pisa_ssd300_coco.py": (300, 300),
             "nas_fcos/nas_fcos_fcoshead_r50_fpn_1x_coco.py": (128, 192)}
 SSD_LEVELS = ((4, 512), (2, 1024), (2, 512), (1, 256), (1, 256), (1, 256))
-# files the port still refuses (the rest of the two-stage family), by the
-# ROADMAP entry it names
-REFUSED = ["grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py",
-           "htc/htc_r50_fpn_1x_coco.py",
-           "cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py"]
-# the four two-stage files still to port, by their Queue 1 item
-TWO_STAGE_LATER = {"cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py": "3.3",
-                   "grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py": "3.3",
-                   "htc/htc_r50_fpn_1x_coco.py": "3.3",
-                   "detectors/detectors_cascade_rcnn_r50_1x_coco.py": "3.3"}
+# configs the port still refuses: a shipped file with a backbone or neck
+# that only ROADMAP Queue 1 "Inherited zoo" item 3.4 ports, by (base file,
+# the model key replaced, its type)
+FASTER = "faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py"
+REFUSED = {"regnet_backbone": (FASTER, "backbone", "RegNet"),
+           "pafpn_neck": (FASTER, "neck", "PAFPN"),
+           "hrnet_backbone": (FASTER, "backbone", "HRNet")}
+# more of item 3.4's, which build_detector refuses too
+LATER = {"mobilenet_backbone": (FASTER, "backbone", "MobileNetV2"),
+         "hourglass_backbone": (FASTER, "backbone", "HourglassNet"),
+         "bfp_neck": (FASTER, "neck", "BFP"),
+         "nasfpn_neck": (FASTER, "neck", "NASFPN")}
+# the cascade family's files, by the port's detector class
+CASCADE_FILES = {
+    "cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py": "CascadeRCNNDetector",
+    "grid_rcnn/grid_rcnn_r50_fpn_gn-head_2x_coco.py": "GridRCNNDetector",
+    "htc/htc_r50_fpn_1x_coco.py": "HTCDetector",
+    "detectors/detectors_cascade_rcnn_r50_1x_coco.py":
+        "CascadeRCNNDetector"}
 # the mask files, by the port's detector class
 MASK_FILES = {"mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py": "MaskRCNNDetector",
               "ms_rcnn/ms_rcnn_r50_fpn_1x_coco.py": "MaskScoringRCNNDetector",
@@ -361,7 +372,8 @@ MASK_FILES = {"mask_rcnn/mask_rcnn_r50_fpn_1x_coco.py": "MaskRCNNDetector",
 # the two-stage files the port runs
 TWO_STAGE = ["faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py",
              "double_heads/dh_faster_rcnn_r50_fpn_1x_coco.py",
-             "dynamic_rcnn/dynamic_rcnn_r50_fpn_1x.py"] + list(MASK_FILES)
+             "dynamic_rcnn/dynamic_rcnn_r50_fpn_1x.py"] + list(
+                 MASK_FILES) + list(CASCADE_FILES)
 
 
 @pytest.mark.parametrize("name", DENSE_CONFIGS)
@@ -418,24 +430,37 @@ def test_dense_config_builds_with_the_jax_head_parameters(name):
         assert model.neck.extra_0.conv.weight.shape[1] == 256
 
 
-@pytest.mark.parametrize("name", REFUSED)
+def _later_cfg(case):
+    """A shipped file with its backbone or neck replaced by a type of
+    ROADMAP Queue 1 "Inherited zoo" item 3.4."""
+    base, key, kind = {**REFUSED, **LATER}[case]
+    cfg = PConfig.fromfile(os.path.join(REPO, "configs", base))
+    cfg.merge_from_dict({f"model.{key}.type": kind})
+    return cfg
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
 def test_rest_of_the_zoo_is_refused_with_its_roadmap_entry(name):
-    cfg = PConfig.fromfile(os.path.join(REPO, "configs", name))
+    """A RegNet or HRNet backbone, a PAFPN neck: ``check_runnable``
+    raises, naming the ROADMAP entry."""
     with pytest.raises(NotImplementedError,
                        match="ROADMAP Queue 1 \"Inherited zoo\""):
-        ploop.check_runnable(cfg)
+        ploop.check_runnable(_later_cfg(name))
 
 
-@pytest.mark.parametrize("name", sorted(TWO_STAGE_LATER))
+@pytest.mark.parametrize("name", sorted(LATER))
 def test_two_stage_files_name_their_queue_item(name):
-    """The four two-stage files still to port raise in ``check_runnable``
-    and in ``build_detector``, each naming its ROADMAP Queue 1 item."""
-    cfg = PConfig.fromfile(os.path.join(REPO, "configs", name))
-    item = f"\"Inherited zoo\" item {TWO_STAGE_LATER[name]}"
+    """Every shipped file runs (``TWO_STAGE``); a two-stage file on a
+    backbone or neck of the rest of the zoo (MobileNetV2, HourglassNet,
+    BFP, NASFPN) raises in ``check_runnable`` and in ``build_detector``,
+    each naming ROADMAP Queue 1 item 3.4."""
+    cfg = _later_cfg(name)
+    item = "\"Inherited zoo\" item 3.4"
     with pytest.raises(NotImplementedError, match=item):
         ploop.check_runnable(cfg)
     with pytest.raises(NotImplementedError, match=item):
-        build_detector(cfg.model.to_dict())
+        with torch.device("meta"):
+            build_detector(cfg.model.to_dict())
 
 
 @pytest.mark.parametrize("name", [n for n in CONFIGS if "pose" in n])
@@ -455,13 +480,14 @@ def test_pose_files_are_runnable(name):
 
 @pytest.mark.parametrize("name", TWO_STAGE)
 def test_two_stage_file_builds_with_the_jax_detector_variables(name):
-    """The six two-stage files read the same with both loaders, pass
+    """The ten two-stage files read the same with both loaders, pass
     ``check_runnable`` and build on the ``meta`` device a detector whose
     state dict has the keys and shapes of the JAX detector's variables
-    (``eval_shape`` at full width on a 64x64 image): the R50 backbone,
-    the FPN, the RPN, the Shared2FC or Double-Head RoI head, and the mask,
-    MaskIoU and point heads (``mask_upsample``'s kernel laid out by the
-    transposed-convolution rule)."""
+    (``eval_shape`` at full width on a 64x64 image): the R50 backbone
+    (DetectoRS': its SAC stages), the FPN (DetectoRS' RFP), the RPN, the
+    Shared2FC or Double-Head RoI head (the cascades' three), and the
+    mask, MaskIoU, point, grid, semantic and HTC mask heads (the
+    transposed convolutions' kernels laid out by their rule)."""
     import jax
     import jax.numpy as jnp
     from lsnet_tpu.models import build_detector as j_build_detector
@@ -480,8 +506,9 @@ def test_two_stage_file_builds_with_the_jax_detector_variables(name):
         lambda s: np.zeros(s.shape, np.float32), shapes)).items()}
     assert {k: tuple(v.shape) for k, v in model.state_dict().items()} \
         == want
-    assert type(model).__name__ == MASK_FILES.get(name, (
-        "DoubleHeadRCNNDetector" if "double" in name else "TwoStageDetector"))
+    assert type(model).__name__ == {**MASK_FILES, **CASCADE_FILES}.get(
+        name, ("DoubleHeadRCNNDetector" if "double" in name
+               else "TwoStageDetector"))
 
 
 @pytest.mark.parametrize("name", sorted(MASK_FILES))
@@ -588,3 +615,90 @@ def test_fpn_extra_levels_match_jax():
         assert len(got) == len(want) == 6
         for g, w_ in zip(got, want):
             assert_close(g.permute(0, 2, 3, 1), np.asarray(w_))
+
+
+@pytest.mark.parametrize("name", sorted(CASCADE_FILES))
+def test_cascade_file_settings_match_the_jax_runner(name):
+    """The cascade family's runner settings (``two_stage_cfg_from``, a
+    cascade file's from its first stage, ``test_cfg_from``, the
+    pipeline's task and contour length) equal the JAX runner's, field by
+    field, and the settings that the JAX runner leaves unread, which the
+    port follows:
+
+    * Cascade R-CNN and DetectoRS: the stages' IoUs, loss weights and
+      stds are the fixed ``CASCADE_IOUS`` / ``CASCADE_WEIGHTS`` /
+      ``CASCADE_STDS`` (equal to the file's), the heads class-agnostic,
+      their SmoothL1 at beta 1 (``rcnn_loss``'s);
+    * DetectoRS: ``conv_cfg=ConvAWS`` is dropped (the bottlenecks' other
+      convs are plain ``nn.Conv2d``), the SAC's ``use_deform`` too (its two
+      convs are plain, no offsets), and RFP's ``rfp_backbone`` and ASPP
+      (the recursion is unrolled at the neck, two FPNs and a gate);
+    * Grid R-CNN: the grid loss weight is a fixed 15 (no ``loss_grid`` in
+      the file);
+    * HTC: the file is Mask R-CNN's with ``type='HybridTaskCascade'``;
+      the three stages and the semantic branch are fixed (its targets are
+      the GT boxes' class maps, weight 0.2: a detection set has no
+      COCO-stuff maps), the mask heads ``HTCMaskHead``s;
+    * ``optimizer_config.grad_clip=None``: the JAX runner raises
+      ``AttributeError`` on it; the port clips at 35 (ROADMAP Queue 3).
+    """
+    import dataclasses
+    import inspect
+    from lsnet_torch.core import two_stage as pts
+    path = os.path.join(REPO, "configs", name)
+    pc, jc = PConfig.fromfile(path), Config.fromfile(path)
+    assert pc.to_dict() == jc.to_dict()
+    ploop.check_runnable(pc)
+    for hw in ((800, 1344), (1344, 800)):
+        assert dataclasses.asdict(ploop.two_stage_cfg_from(pc, hw)) == \
+            dataclasses.asdict(jloop.two_stage_cfg_from(jc, hw))
+        assert dataclasses.asdict(ploop.test_cfg_from(pc, hw)) == \
+            dataclasses.asdict(jloop.test_cfg_from(jc, hw))
+    htc = name.startswith("htc")
+    head = jloop._head_cfg(jc)
+    assert ploop.head_num_vectors(pc) == jloop._head_num_vectors(jc, head) \
+        == (36 if htc else 4)
+    assert ploop.data_task(pc, "train") == ("segm" if htc else "bbox")
+    with torch.device("meta"):
+        model = build_detector(pc.model.to_dict())
+    assert type(model).__name__ == CASCADE_FILES[name]
+    roi = pc.model.roi_head
+    if isinstance(roi.bbox_head, (list, tuple)):
+        assert [r.assigner.pos_iou_thr for r in pc.train_cfg.rcnn] == \
+            list(pts.CASCADE_IOUS)
+        assert tuple(roi.stage_loss_weights) == pts.CASCADE_WEIGHTS
+        assert [tuple(h.bbox_coder.target_stds) for h in roi.bbox_head] \
+            == list(pts.CASCADE_STDS)
+        assert all(h.reg_class_agnostic and h.loss_bbox.beta == 1.0
+                   for h in roi.bbox_head)
+        assert inspect.signature(pts.rcnn_loss).parameters[
+            "smoothl1_beta"].default == 1.0
+    if name.startswith("detectors"):
+        from lsnet_torch.models.layers import SAConv
+        bb, neck = pc.model.backbone, pc.model.neck
+        assert bb.conv_cfg.type == "ConvAWS" and bb.sac.use_deform
+        assert isinstance(model.backbone.layer1_0.conv2, torch.nn.Conv2d)
+        sac = model.backbone.layer2_0.conv2
+        assert isinstance(sac, SAConv) and not hasattr(sac, "conv_offset")
+        assert "rfp_backbone" in neck and neck.rfp_steps == 2
+        assert not any("aspp" in n for n, _ in model.neck.named_modules())
+        assert hasattr(model.neck, "fpn_step1") and not hasattr(
+            model.neck, "fpn_step2")
+    if name.startswith("grid"):
+        assert "loss_grid" not in roi.grid_head
+        assert inspect.signature(pts.grid_rcnn_loss).parameters[
+            "loss_weight"].default == 15.0
+        assert model.grid_head.G == roi.grid_head.grid_points == 9
+    if htc:
+        assert roi.type == "StandardRoIHead" and roi.mask_head.type == \
+            "FCNMaskHead"
+        assert "semantic_head" not in roi
+        assert inspect.signature(pts.htc_loss).parameters[
+            "sem_loss_weight"].default == 0.2
+        assert type(model.mask_head3).__name__ == "HTCMaskHead"
+        assert not hasattr(model.mask_head1, "conv_res")
+    assert pc.optimizer_config.grad_clip is None
+    with pytest.raises(AttributeError):
+        jc.get("optimizer_config", {}).get("grad_clip", {}).get(
+            "max_norm", 35.0)
+    assert ploop.clip_norm_from(pc) == 35.0
