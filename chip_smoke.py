@@ -242,7 +242,22 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    masks) and 2 train steps, each profiled, with no K1 or grouped
    launch; (c) the HTC file through ``tools.train`` (2 steps on
    procedural 768x1280 images) and ``tools.test --eval bbox segm``, its
-   ``segm_mAP`` printed.
+   ``segm_mAP`` printed;
+16. the rest of the zoo (HRNet, RegNet, HourglassNet, MobileNetV2; PAFPN,
+   BFP, NAS-FPN, HRFPN, FPN_CARAFE): (a) a narrow copy of each of the five
+   compositions of ``lsnet_torch.configs`` (HRNet at 8-64, RegNet at
+   w0 24, R18, necks 32, NAS-FPN 2 stages, 8 classes, f32, 128x256) on
+   the card against the CPU from one set of weights, as phase 13a (the
+   Faster R-CNNs) or 11a (the RetinaNets) checks a file, and the narrow
+   hourglass, MobileNetV2 (0.5) and BFP: outputs and every gradient of a
+   seeded cotangent; (b) each composition at full width (seeded weights):
+   ``init_detector`` and ``inference_detector`` twice, ``detect`` at B=2
+   bf16 and 2 train steps, each profiled, with no K1 or grouped launch,
+   at 800x1344 (RegNet, PAFPN), 832x1344 (HRNet and CARAFE: their pools
+   floor, the anchors' grids ceil) or 640x640 (NAS-FPN); (c)
+   HourglassNet-104 at 511x511, MobileNetV2 (1.0) and BFP on the R50
+   FPN's outputs at 800x1344, B=2, bf16: forward and backward, finite,
+   profiled, peak memory.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (all ten kernels) and, last, ``{"ok": true, "device": {...}}``; the
@@ -255,8 +270,8 @@ K1 cases of phase 2a and phase 8, ``--only cpv`` for phase 9,
 ``--only reppoints`` for phase 10, ``--only dense`` for phase 11,
 ``--only tools`` for phase 12 (after a narrow runner on the card for
 analyze_logs' log), ``--only two_stage`` for phase 13 (a, b),
-``--only pose`` for phase 13c, ``--only mask`` for phase 14 and
-``--only cascade`` for phase 15. With
+``--only pose`` for phase 13c, ``--only mask`` for phase 14,
+``--only cascade`` for phase 15 and ``--only zoo_rest`` for phase 16. With
 ``CHIP_SMOKE_LOG=<path>`` in the environment it also writes every line it
 prints to that file, each after the seconds since the start. It needs
 the repository
@@ -293,7 +308,7 @@ from lsnet_torch.core import reppoints as rp  # noqa: E402
 from lsnet_torch.core import two_stage as ts  # noqa: E402
 from lsnet_torch.evalkit import tta  # noqa: E402
 from lsnet_torch.models import (build_backbone, build_detector,  # noqa: E402
-                                head_cfg_of, is_two_stage)
+                                build_neck, head_cfg_of, is_two_stage)
 from lsnet_torch.models.heads.ls_head import branch_pyramid_jobs  # noqa: E402
 from lsnet_torch.models.init import init_weights_  # noqa: E402
 from lsnet_torch.models.layers import (  # noqa: E402
@@ -521,6 +536,34 @@ GRID_REPEAT = 1e-4               # phase 15b: px between two calls' votes
 # cuDNN's algorithm 0, which cuDNN documents as not deterministic. Under
 # cudnn.deterministic an implicit-GEMM dgrad takes its place (15b logs
 # both kernel sets and the repeat, ``deterministic_repeat``)
+
+# phase 16: the five compositions of lsnet_torch.configs (no DCN: no kernel
+# launches), their full-width canvas (HRNet's and CARAFE's pyramids pool
+# by floor: a multiple of 64; NAS-FPN's 640x640 crop), and the narrow
+# widths of 16a (the CPU tests' HRNet and RegNet)
+ZOO_REST_LABELS = {
+    "faster_rcnn_hrnetv2p_w32": "Faster R-CNN HRNetV2p-W32 HRFPN",
+    "retinanet_regnetx_3.2gf": "RetinaNet RegNetX-3.2GF",
+    "faster_rcnn_r50_pafpn": "Faster R-CNN R50 PAFPN",
+    "faster_rcnn_r50_fpn_carafe": "Faster R-CNN R50 FPN_CARAFE",
+    "retinanet_r50_nasfpn": "RetinaNet R50 NAS-FPN"}
+ZOO_REST_HW = {"faster_rcnn_hrnetv2p_w32": configs.CANVAS_64,
+               "faster_rcnn_r50_fpn_carafe": configs.CANVAS_64,
+               "retinanet_r50_nasfpn": (640, 640)}
+ZOO_REST_TRAIN_STEPS = 2         # counted train steps of phase 16b
+ZOO_REST_SMALL_HW = (128, 256)   # every stride-128 cell whole
+NARROW_HRNET = dict(
+    stage1=dict(num_modules=1, num_branches=1, block="BOTTLENECK",
+                num_blocks=(2,), num_channels=(16,)),
+    stage2=dict(num_modules=1, num_branches=2, block="BASIC",
+                num_blocks=(2, 2), num_channels=(8, 16)),
+    stage3=dict(num_modules=1, num_branches=3, block="BASIC",
+                num_blocks=(2, 2, 2), num_channels=(8, 16, 32)),
+    stage4=dict(num_modules=1, num_branches=4, block="BASIC",
+                num_blocks=(2, 2, 2, 2), num_channels=(8, 16, 32, 64)))
+NARROW_REGNET = dict(w0=24, wa=24.48, wm=2.54, depth=8, group_w=8)
+HOURGLASS_HW = (511, 511)        # CornerNet's input
+ZOO_REST_MODULE_ITERS = 3        # timed forward + backward of 16c
 
 
 LOG_PATH = os.environ.get("CHIP_SMOKE_LOG")    # optional copy of the log
@@ -4005,9 +4048,13 @@ def grads_rel_err(want, got):
                for n, g in want.items())
 
 
-def check_two_stage_small(name):
-    """Phase 13a for one narrow detector, the card against the CPU from one
-    set of weights (f32, TF32 off, 2 images at 96x128, 4 instances each):
+def check_two_stage_small(name, label=None, cfg=None, hw=TS_SMALL_HW,
+                          condition=None):
+    """Phase 13a for one narrow detector (``narrow_ts_cfg(name)``, or the
+    model dict ``cfg`` under ``label``, its weights conditioned by
+    ``condition``: phase 16a), the card against the CPU from one set of
+    weights (f32, TF32 off, 2 images at ``hw``, 96x128 unless given, 4
+    instances each):
     the RPN maps, ``roi_forward`` on 24 fixed RoIs of every level, the
     decode; then the losses and every parameter's gradient of Faster
     R-CNN's loss and of Dynamic R-CNN's (threshold 0.4, beta 0.5) on the
@@ -4018,18 +4065,20 @@ def check_two_stage_small(name):
     agreement logged; the decode is held strictly on the CPU's proposals
     (``fast_rcnn_decode``), and the end-to-end losses of each device's own
     selections are logged beside each other. Returns the numbers."""
-    label = f"{TS_LABELS[name]} R18-shaped"
-    cfg = narrow_ts_cfg(name)
-    outputs_card_vs_cpu(label, cfg, hw=TS_SMALL_HW)
-    tscfg = ts.TwoStageConfig(**TS_SMALL)
-    tcfg = TestConfig(image_shape=TS_SMALL_HW, num_classes=8, nms_pre=500,
+    label = label or f"{TS_LABELS[name]} R18-shaped"
+    cfg = cfg or narrow_ts_cfg(name)
+    outputs_card_vs_cpu(label, cfg, hw=hw)
+    tscfg = ts.TwoStageConfig(**dict(TS_SMALL, image_shape=hw))
+    tcfg = TestConfig(image_shape=hw, num_classes=8, nms_pre=500,
                       score_thr=TS_SCORE_THR, nms_iou=0.5, max_per_img=50)
-    rois = ts_fixed_rois(TS_SMALL_HW)
+    rois = ts_fixed_rois(hw)
     res, sampled, cpu_props = {}, {}, None
     for device in ("cpu", "cuda"):
         model = unit_bn_scales_(init_model(cfg, device=device, seed=1,
                                            train=True))
-        data = synthetic_batch(2, TS_SMALL_HW, 4, 8, 1, device)
+        if condition is not None:
+            condition(model)
+        data = synthetic_batch(2, hw, 4, 8, 1, device)
         sfs = torch.ones(2, 4, device=device)
         r = res[device] = {}
         with torch.no_grad():
@@ -4123,23 +4172,28 @@ def check_two_stage_small(name):
     return numbers
 
 
-def check_full_file(root, path, label, steps, side=None, repeat_atol=0.0):
-    """Phases 13b, 14b and 15b: one shipped two-stage file at full width
-    (R50-FPN, DetectoRS' SAC ResNet-50 and RFP, 80 classes, seeded
-    weights, the decode's score threshold TS_SCORE_THR): ``init_detector``
+def check_full_file(root, path, label, steps, side=None, repeat_atol=0.0,
+                    hw=(H, W)):
+    """Phases 13b, 14b, 15b and 16b: one shipped two-stage file, or a
+    composition's ``Config`` (``path``; 16b's RetinaNets too), at full
+    width (R50-FPN, DetectoRS' SAC ResNet-50 and RFP, 80 classes, seeded
+    weights, a two-stage decode's score threshold TS_SCORE_THR):
+    ``init_detector``
     from a ``save_checkpoint`` file under ``root`` and
     ``inference_detector`` twice on a seeded 480x640 image (the second
     call's boxes within ``repeat_atol`` px of the first's; its ``side`` x
     ``side`` masks equal, where the file has masks), ``detect`` at B=2
-    800x1344 bf16 and ``steps`` train steps (20 instances an image, with
+    bf16 on ``hw`` (800x1344 unless given) and ``steps`` train steps (20
+    instances an image, with
     their 36-point contours where the file has masks; Dynamic R-CNN at
     its file's initial threshold and beta), each profiled, with 0 K1 and
     0 grouped launches. A file that does not repeat bit for bit
     (``repeat_atol`` > 0) is called twice more under
     ``cudnn.deterministic`` (``deterministic_repeat``). Returns (numbers,
     launches by path)."""
-    cfg = Config.fromfile(path)
-    cfg.merge_from_dict({"test_cfg.rcnn.score_thr": TS_SCORE_THR})
+    cfg = path if isinstance(path, Config) else Config.fromfile(path)
+    if runner_loop.is_two_stage_cfg(cfg):
+        cfg.merge_from_dict({"test_cfg.rcnn.score_thr": TS_SCORE_THR})
     none = dict.fromkeys(launch_counts(), 0)
     by_path, numbers = {}, {}
     bundle = apis.init_detector(cfg, seeded_checkpoint(cfg, root))
@@ -4168,13 +4222,13 @@ def check_full_file(root, path, label, steps, side=None, repeat_atol=0.0):
     torch.cuda.empty_cache()
     model_cfg = cfg.model.to_dict()
     run, img_s, launches, peak = drive_main_path(
-        label, model_cfg, 0, "bbox", k1=0, config=cfg)
+        label, model_cfg, 0, "bbox", k1=0, config=cfg, hw=hw)
     numbers["detect"] = profile(label, run, B / img_s * 1e3)
     numbers["img_per_s"], numbers["peak_memory_bytes"] = img_s, peak
     by_path[label] = {k: v // ITERS for k, v in launches.items()}
     del run
     torch.cuda.empty_cache()
-    lcfg = runner_loop.two_stage_cfg_from(cfg, (H, W))
+    lcfg = runner_loop.train_loss_cfg(cfg, hw)
     extra, loss_kw = {}, {}
     sched = runner_loop.dynamic_schedule(cfg)
     if sched is not None:
@@ -4183,7 +4237,7 @@ def check_full_file(root, path, label, steps, side=None, repeat_atol=0.0):
                  "dyn_beta": torch.tensor(sched.beta, device="cuda")}
     run, img_s, launches, peak = drive_train_path(
         "segm" if side else "bbox", model_cfg, lcfg, k1=0, steps=steps,
-        label=f"{label} train", grouped=0, warmup_iters=0,
+        label=f"{label} train", grouped=0, warmup_iters=0, hw=hw,
         batch_extra=extra, **loss_kw)
     numbers["train"] = profile(f"{label} train step", run, B / img_s * 1e3)
     numbers["train_img_per_s"] = img_s
@@ -4804,9 +4858,9 @@ def narrow_cascade_cfg(name):
 
 
 def condition_cascade_weights_(model):
-    """Phase 15a's weights, conditioned as the port's CPU tests condition
-    theirs (``tests/test_torch_cascade.py``, ``test_torch_grid_htc.py``),
-    so that no comparison turns on rounding: the RPN's objectness x 100,
+    """Phase 15a's and 16a's weights, conditioned as the port's CPU tests
+    condition theirs (``tests/test_torch_cascade.py``,
+    ``test_torch_grid_htc.py``), so that no comparison turns on rounding: the RPN's objectness x 100,
     each stage's classifier x 100 (the decode's mean scores would lie
     within 1e-7 of each other), Grid R-CNN's ``deconv2_g*`` x 30 (a
     heatmap's logits would lie within 0.2 of each other; the tests' x 300
@@ -5067,18 +5121,240 @@ def check_cascade(root):
     return numbers, by_path
 
 
+# ----------------------------------------------- phase 16: the zoo's rest
+
+def narrow_zoo_rest_cfg(name):
+    """Phase 16a: a composition's model at narrow width: HRNet at the CPU
+    tests' widths (NARROW_HRNET), RegNet at w0 24 (NARROW_REGNET) with a
+    16-wide stem, ResNet at depth 18; the neck, RPN and dense head 32
+    wide (NAS-FPN 2 stages, the RetinaNet head 2 convs), 64-wide RoI FCs,
+    8 classes."""
+    cfg = configs.COMPOSITIONS[name]().model.to_dict()
+    bb = cfg["backbone"]
+    if bb["type"] == "HRNet":
+        bb["extra"] = NARROW_HRNET
+    elif bb["type"] == "RegNet":
+        bb.update(arch=NARROW_REGNET, stem_channels=16)
+    else:
+        bb["depth"] = 18
+    with torch.device("meta"):
+        widths = build_backbone(dict(bb)).out_channels
+    cfg["neck"].update(in_channels=widths, out_channels=32)
+    if cfg["neck"]["type"] == "NASFPN":
+        cfg["neck"]["stack_times"] = 2
+    if "rpn_head" in cfg:
+        cfg["rpn_head"].update(in_channels=32, feat_channels=32)
+        cfg["roi_head"]["bbox_head"].update(in_channels=32,
+                                            fc_out_channels=64,
+                                            num_classes=8)
+    else:
+        cfg["bbox_head"].update(in_channels=32, feat_channels=32,
+                                stacked_convs=2, num_classes=8)
+    return cfg
+
+
+def check_zoo_rest_small(name):
+    """Phase 16a for one composition: the narrow model on the card
+    against the CPU at 128x256, f32: a Faster R-CNN as phase 13a checks
+    a file (``check_two_stage_small``, its RPN objectness and classifier
+    x 100 as phase 15a's), a RetinaNet as phase 11a does
+    (``outputs_card_vs_cpu``, ``gradients_card_vs_cpu`` on its
+    ``dense_cfg_from`` loss)."""
+    import dataclasses
+    label = f"{ZOO_REST_LABELS[name]}-shaped"
+    cfg = narrow_zoo_rest_cfg(name)
+    hw = ZOO_REST_SMALL_HW
+    if "rpn_head" in cfg:
+        # the narrow HRNet's mean class scores lie within rounding of each
+        # other: the decode's boxes would turn on it
+        return check_two_stage_small(name, label, cfg, hw,
+                                     condition=condition_cascade_weights_)
+    outputs_card_vs_cpu(label, cfg, hw=hw)
+    lcfg = dataclasses.replace(runner_loop.dense_cfg_from(
+        configs.COMPOSITIONS[name](), hw), num_classes=set_classes(cfg, 8))
+    gradients_card_vs_cpu(label, cfg, lcfg, hw)
+    return {}
+
+
+def zoo_rest_modules(narrow):
+    """Phase 16's three module-only pieces: (label, module, NHWC input
+    shapes, what feeds BFP). Narrow (16a): the hourglass at
+    ``downsample_times`` 2 (16, 16, 32), MobileNetV2 at 0.5, BFP at 32
+    channels on five levels of 64x96 to 4x6. Full width (16c):
+    HourglassNet-104 at 511x511, MobileNetV2 (1.0, outputs 1, 2, 4, 6)
+    and BFP (256, ``refine_level`` 2) on the R50 FPN's five levels at
+    800x1344, B=2."""
+    if narrow:
+        return [("HourglassNet-shaped", build_backbone(dict(
+                    type="HourglassNet", downsample_times=2,
+                    stage_channels=(16, 16, 32), stage_blocks=(1, 1, 1),
+                    feat_channel=16)), [(2, 64, 96, 3)]),
+                ("MobileNetV2-shaped", build_backbone(dict(
+                    type="MobileNetV2", widen_factor=0.5)),
+                 [(2, 64, 96, 3)]),
+                ("BFP-shaped", build_neck(dict(type="BFP", out_channels=32),
+                                          [32] * 5),
+                 [(2, 64 >> i, 96 >> i, 32) for i in range(5)])]
+    return [("HourglassNet-104", build_backbone(dict(type="HourglassNet")),
+             [(B, *HOURGLASS_HW, 3)]),
+            ("MobileNetV2", build_backbone(dict(
+                type="MobileNetV2", widen_factor=1.0,
+                out_indices=(1, 2, 4, 6))), [(B, H, W, 3)]),
+            ("BFP", build_neck(dict(type="BFP", out_channels=256),
+                               [256] * 5),
+             [(B, -(-H // s), -(-W // s), 256) for s in (4, 8, 16, 32, 64)])]
+
+
+def module_inputs(shapes, device, dtype, seed=1):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(*shape, generator=gen).permute(0, 3, 1, 2).to(
+        device, dtype) for shape in shapes]
+
+
+def run_module(module, xs):
+    """A backbone on its one image, a neck on its levels."""
+    return module(xs if len(xs) > 1 else xs[0])
+
+
+def check_zoo_rest_modules_small():
+    """Phase 16a for the three module-only pieces: each narrow module on
+    the card against the CPU from one set of weights (the training init
+    with FrozenBatchNorm scales 1), f32: its outputs (1e-3 of max(1,
+    max|ref|)) and every parameter's and input's gradient of sum(outputs
+    x a seeded cotangent) (2e-3 of each gradient's largest entry, floored
+    at 1e-3 of the largest of all)."""
+    numbers = {}
+    for label, module, shapes in zoo_rest_modules(narrow=True):
+        init_weights_(module, torch.Generator().manual_seed(1))
+        unit_bn_scales_(module)
+        res = {}
+        for device in ("cpu", "cuda"):
+            m = module.to(device)
+            xs = [x.requires_grad_(True) for x in module_inputs(
+                shapes, device, torch.float32)]
+            outs = run_module(m, xs)
+            gen = torch.Generator().manual_seed(2)
+            cots = [torch.randn(o.shape, generator=gen).to(device)
+                    for o in outs]
+            names = [n for n, _ in m.named_parameters()]
+            grads = torch.autograd.grad(
+                outs, xs + list(m.parameters()), cots)
+            res[device] = ([o.detach().cpu() for o in outs], {
+                n: g.cpu() for n, g in zip(
+                    [f"input{i}" for i in range(len(xs))] + names, grads)})
+        (oc, gc), (og, gg) = res["cpu"], res["cuda"]
+        out_err = max((g - c).abs().max().item()
+                      / max(1.0, c.abs().max().item())
+                      for g, c in zip(og, oc))
+        grad_err, where = grads_rel_err(gc, gg)
+        log(f"small {label} module, card vs CPU: {len(oc)} outputs max rel "
+            f"err {out_err:.3g}, {len(gc)} gradients max rel err "
+            f"{grad_err:.3g} ({where})")
+        if out_err > 1e-3 or grad_err > 2e-3:
+            raise AssertionError(f"{label}: card disagrees with the CPU")
+        numbers[label] = {"output_rel_err": out_err,
+                          "grad_rel_err": grad_err}
+    return numbers
+
+
+def check_zoo_rest_module_full(label, module, shapes, feed=None):
+    """Phase 16c for one module at full width, bf16 (parameters and
+    inputs), on the card: ZOO_REST_MODULE_ITERS forward + backward passes
+    of sum(mean of each output) timed on the host clock after a warm-up
+    pass, one profiled; the outputs and every gradient finite, no kernel
+    of the port launched. ``feed`` makes the inputs (BFP's: the R50
+    FPN's outputs). Returns the numbers."""
+    init_weights_(module, torch.Generator().manual_seed(0))
+    module = module.to("cuda", torch.bfloat16).train()
+    xs = (feed() if feed else module_inputs(shapes, "cuda", torch.bfloat16))
+    xs = [x.detach().requires_grad_(True) for x in xs]
+    params = [p for p in module.parameters() if p.requires_grad]
+
+    def run():
+        outs = run_module(module, xs)
+        loss = sum(o.float().mean() for o in outs)
+        return outs, torch.autograd.grad(loss, xs + params)
+
+    outs, grads = run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(ZOO_REST_MODULE_ITERS):
+        outs, grads = run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / ZOO_REST_MODULE_ITERS * 1e3
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    bad = [i for i, x in enumerate(list(outs) + list(grads))
+           if not bool(torch.isfinite(x).all())]
+    if bad or any(launches.values()):
+        raise AssertionError(f"{label}: non-finite tensors {bad}, "
+                             f"launches {launches}")
+    numbers = {"profile": profile(f"{label} forward + backward", run, ms),
+               "host_ms": ms, "peak_memory_bytes": peak,
+               "outputs": [list(o.shape) for o in outs]}
+    log(f"{label} forward + backward at {[list(x.shape) for x in xs]}: "
+        f"{ms:.2f} ms on the host clock, device "
+        f"{numbers['profile']['device_ms']:.3f} ms, idle "
+        f"{numbers['profile']['idle_share']:.3f}, peak "
+        f"{peak / 2 ** 30:.2f} GiB, outputs {numbers['outputs']}")
+    return numbers
+
+
+def r50_fpn_levels():
+    """The R50 FPN's five levels (the shipped Faster R-CNN file's backbone
+    and neck, seeded weights, bf16) of B seeded 800x1344 images."""
+    cfg = Config.fromfile(TS_CONFIGS["faster"]).model.to_dict()
+    backbone = build_backbone(cfg["backbone"])
+    neck = build_neck(cfg["neck"], backbone.out_channels)
+    body = apis.random_weights_(torch.nn.Sequential(backbone, neck), 0)
+    body = body.to("cuda", torch.bfloat16).eval()
+    (x,) = module_inputs([(B, H, W, 3)], "cuda", torch.bfloat16)
+    with torch.no_grad():
+        return list(neck(backbone(x)))
+
+
+def check_zoo_rest(root):
+    """Phase 16 (a, b, c). Returns (numbers, launches by path)."""
+    t0 = time.perf_counter()
+    numbers, by_path = {"small": {}}, {}
+    for name in ZOO_REST_LABELS:
+        numbers["small"][name] = check_zoo_rest_small(name)
+    numbers["small"]["modules"] = check_zoo_rest_modules_small()
+    seconds = {"a": time.perf_counter() - t0}
+    for name, label in ZOO_REST_LABELS.items():
+        numbers[name], paths = check_full_file(
+            os.path.join(root, name), configs.COMPOSITIONS[name](), label,
+            ZOO_REST_TRAIN_STEPS, hw=ZOO_REST_HW.get(name, (H, W)))
+        numbers[name]["canvas"] = list(ZOO_REST_HW.get(name, (H, W)))
+        by_path.update(paths)
+    seconds["b"] = time.perf_counter() - t0 - sum(seconds.values())
+    for label, module, shapes in zoo_rest_modules(narrow=False):
+        numbers[label] = check_zoo_rest_module_full(
+            label, module, shapes,
+            feed=r50_fpn_levels if label == "BFP" else None)
+        by_path[f"{label} forward + backward"] = dict.fromkeys(
+            launch_counts(), 0)
+        torch.cuda.empty_cache()
+    seconds["c"] = time.perf_counter() - t0 - sum(seconds.values())
+    log(f"phase 16 seconds by part {json.dumps(seconds)}")
+    numbers["seconds"] = time.perf_counter() - t0
+    return numbers, by_path
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["backward", "probes", "accuracy",
                                            "api", "cpv", "reppoints",
                                            "dense", "tools", "two_stage",
-                                           "pose", "mask", "cascade"],
+                                           "pose", "mask", "cascade",
+                                           "zoo_rest"],
                         default=None,
                         help="run phases 2c and 2d, phase 2e, phase 7, "
                         "phase 2a's Res2Net cases and phase 8, phase 9, "
                         "phase 10, phase 11, phase 12, phase 13 (a, b), "
-                        "phase 13c, phase 14 or phase 15 alone; no result "
-                        "line")
+                        "phase 13c, phase 14, phase 15 or phase 16 alone; "
+                        "no result line")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5162,10 +5438,11 @@ def main(argv=None):
         log(f"partial run (--only dense) passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
         return 0
-    if opts.only in ("two_stage", "pose", "mask", "cascade"):
+    if opts.only in ("two_stage", "pose", "mask", "cascade", "zoo_rest"):
         import tempfile
         run = {"two_stage": check_two_stage, "pose": check_pose,
-               "mask": check_mask, "cascade": check_cascade}[opts.only]
+               "mask": check_mask, "cascade": check_cascade,
+               "zoo_rest": check_zoo_rest}[opts.only]
         with tempfile.TemporaryDirectory() as root:
             numbers, by_path = run(root)
         log(f"{smi}: {opts.only} " + json.dumps(numbers))
@@ -5341,6 +5618,18 @@ def main(argv=None):
                 cas_numbers[name]["train_peak_memory_bytes"]
         log(f"{smi}: cascade " + json.dumps(cas_numbers)
             + f" (phase 15 in {cas_numbers['seconds']:.1f}s)")
+        # phase 16: the rest of the zoo
+        rest_numbers, rest_paths = check_zoo_rest(os.path.join(root,
+                                                               "zoo_rest"))
+        by_path.update(rest_paths)
+        for name, label in ZOO_REST_LABELS.items():
+            e2e[label] = rest_numbers[name]["img_per_s"]
+            e2e[f"{label} train"] = rest_numbers[name]["train_img_per_s"]
+            peaks[label] = rest_numbers[name]["peak_memory_bytes"]
+            peaks[f"{label} train"] = \
+                rest_numbers[name]["train_peak_memory_bytes"]
+        log(f"{smi}: zoo_rest " + json.dumps(rest_numbers)
+            + f" (phase 16 in {rest_numbers['seconds']:.1f}s)")
     for name, entry in probe_entries.items():
         by_path.setdefault("lsnet_torch.tools.probe", {})[name] = \
             entry["launches"]

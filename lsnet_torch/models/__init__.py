@@ -1,24 +1,25 @@
 """Model builders (counterpart of ``lsnet_tpu/models/__init__.py``): config
-dicts with a ``type`` key -> ``nn.Module``s. The port builds the backbones
-ResNet, ResNeXt, Res2Net, SSDVGG and DetectoRS' ResNet and ResNeXt (SAC
-stages), the necks FPN, NASFCOS_FPN, RFP and none (SSD's ``neck=None``, an
-identity), the heads LSHead (all four tasks),
-LSCPVHead, the RepPoints family's four (RepPointsHead, RepPointsV2Head,
-DenseRepPointsHead, DenseRepPointsV2Head) and the dense zoo's RetinaHead,
-RetinaSepBNHead, FreeAnchorRetinaHead and PISARetinaHead (RetinaHead
-modules), FCOSHead, ATSSHead, GFLHead, SSDHead and PISASSDHead (an
-SSDHead), FoveaHead, FSAFHead, GARetinaHead and GARPNHead, and their
-single-stage detectors, each an ``LSDetector`` (backbone -> neck ->
-head), as in the JAX package; the standalone ``RPN`` reads its head from
-``rpn_head``. Of the two-stage family it builds every type the JAX
-package builds: Faster R-CNN (``FasterRCNN`` / ``TwoStageDetector``,
-with the Shared2FC head, or with the Double-Head RoI head where
-``roi_head.type`` is ``DoubleHeadRoIHead``), ``FastRCNN``, the mask
-branch's ``MaskRCNN``, ``MaskScoringRCNN`` and ``PointRend``, and
-``CascadeRCNN`` (DetectoRS too), ``GridRCNN`` and ``HybridTaskCascade``
-/ ``HTC``. The JAX package's other backbones and necks (HRNet, MobileNet,
-RegNet, HourglassNet; PAFPN, BFP, NASFPN, HRFPN, FPN_CARAFE) are ROADMAP
-Queue 1 "Inherited zoo" item 3.4."""
+dicts with a ``type`` key -> ``nn.Module``s. The port builds every type
+the JAX package's builders name: the backbones ResNet, ResNeXt, Res2Net,
+SSDVGG, DetectoRS' ResNet and ResNeXt (SAC stages), HRNet, RegNet,
+HourglassNet and MobileNetV2; the necks FPN, PAFPN, BFP, NASFPN,
+NASFCOS_FPN, HRFPN, FPN_CARAFE, RFP and none (SSD's ``neck=None``, an
+identity); the heads LSHead (all four tasks), LSCPVHead, the RepPoints
+family's four (RepPointsHead, RepPointsV2Head, DenseRepPointsHead,
+DenseRepPointsV2Head) and the dense zoo's RetinaHead, RetinaSepBNHead,
+FreeAnchorRetinaHead and PISARetinaHead (RetinaHead modules), FCOSHead,
+ATSSHead, GFLHead, SSDHead and PISASSDHead (an SSDHead), FoveaHead,
+FSAFHead, GARetinaHead and GARPNHead, and their single-stage detectors,
+each an ``LSDetector`` (backbone -> neck -> head), as in the JAX package;
+the standalone ``RPN`` reads its head from ``rpn_head``. Of the two-stage
+family: Faster R-CNN (``FasterRCNN`` / ``TwoStageDetector``, with the
+Shared2FC head, or with the Double-Head RoI head where ``roi_head.type``
+is ``DoubleHeadRoIHead``), ``FastRCNN``, the mask branch's ``MaskRCNN``,
+``MaskScoringRCNN`` and ``PointRend``, and ``CascadeRCNN`` (DetectoRS
+too), ``GridRCNN`` and ``HybridTaskCascade`` / ``HTC``. Each backbone
+has ``out_channels``, the widths ``build_neck`` gives the neck. BFP
+builds, as in JAX, from one neck dict: Libra R-CNN's ``[FPN, BFP]``
+neck list does not (JAX's ``build_neck`` takes one dict)."""
 
 from __future__ import annotations
 
@@ -26,7 +27,9 @@ from typing import Any, Dict, Optional, Sequence
 
 from torch import nn
 
-from .backbones.extra import SSDVGG
+from .backbones.extra import SSDVGG, HourglassNet, RegNet
+from .backbones.hrnet import HRNet
+from .backbones.mobilenet import MobileNetV2
 from .backbones.resnet import ResNet
 from .detectors.lsnet import LSDetector
 from .heads.dense import (ATSSHead, FCOSHead, FoveaHead, FSAFHead,
@@ -43,7 +46,8 @@ from .heads.two_stage import (CascadeRCNNDetector, DoubleConvFCBBoxHead,
                               MaskIoUHead, MaskPointHead, MaskRCNNDetector,
                               MaskScoringRCNNDetector, PointRendDetector,
                               RPNHead, Shared2FCBBoxHead, TwoStageDetector)
-from .necks.extra import NASFCOSFPN, RFP
+from .necks.extra import (BFP, HRFPN, NASFCOSFPN, NASFPN, PAFPN, RFP,
+                          FPNCarafe)
 from .necks.fpn import FPN
 
 # the single-stage detector types and heads the port builds; as in the JAX
@@ -73,10 +77,35 @@ RESNET_KINDS = {"ResNet": "resnet", "ResNeXt": "resnext",
                 "Res2Net": "res2net", "DetectoRS_ResNet": "resnet",
                 "DetectoRSResNet": "resnet", "DetectoRS_ResNeXt": "resnext",
                 "DetectoRSResNeXt": "resnext"}
-BACKBONES = ("SSDVGG",) + tuple(RESNET_KINDS)
-NECKS = (None, "FPN", "NASFCOS_FPN", "NASFCOSFPN", "RFP")
-# what the port does not build yet
-LATER = "ROADMAP Queue 1 \"Inherited zoo\" item 3.4"
+# the other backbones, and the keys JAX's build_backbone drops for each
+# (``with_cp`` first becomes JAX's ``remat``, which none of them reads)
+ZOO_BACKBONES = {
+    "HRNet": (HRNet, ("num_stages", "stage_with_dcn", "strides",
+                      "dilations", "out_indices", "groups", "base_width",
+                      "scales")),
+    "RegNet": (RegNet, ("num_stages", "stage_with_dcn", "strides",
+                        "dilations")),
+    "HourglassNet": (HourglassNet, ("num_stages", "stage_with_dcn",
+                                    "strides", "dilations", "out_indices")),
+    "MobileNetV2": (MobileNetV2, ("num_stages", "stage_with_dcn", "strides",
+                                  "dilations"))}
+BACKBONES = ("SSDVGG",) + tuple(RESNET_KINDS) + tuple(ZOO_BACKBONES)
+# the necks by config type, and the keys JAX's build_neck drops for each
+# (None, SSD's, is the identity)
+NECK_KINDS = {
+    "FPN": (FPN, ()), "PAFPN": (PAFPN, ()), "BFP": (BFP, ()),
+    "NASFPN": (NASFPN, ("add_extra_convs",)),
+    "NASFCOS_FPN": (NASFCOSFPN, ("add_extra_convs", "conv_cfg")),
+    "NASFCOSFPN": (NASFCOSFPN, ("add_extra_convs", "conv_cfg")),
+    "HRFPN": (HRFPN, ()),
+    "FPN_CARAFE": (FPNCarafe, ("upsample_cfg", "order")),
+    "FPNCarafe": (FPNCarafe, ("upsample_cfg", "order")),
+    "RFP": (RFP, ("rfp_backbone", "aspp_out_channels", "aspp_dilations",
+                  "add_extra_convs"))}
+NECKS = (None,) + tuple(NECK_KINDS)
+# what the port does not run yet: the data half of the zoo
+LATER = ("ROADMAP Queue 1 \"Inherited zoo\" item 3.4 (its data half: "
+         "data/extra.py's other datasets and eval_map)")
 HEADS = ("LSHead", "LSCPVHead", "RepPointsHead", "RepPointsV2Head",
          "DenseRepPointsHead", "DenseRepPointsV2Head", "GARetinaHead",
          "GARPNHead") + tuple(DENSE_KINDS)
@@ -103,12 +132,6 @@ def build_backbone(cfg: Dict[str, Any]) -> nn.Module:
         # input_size is the anchors' (the loss reads it); JAX's
         # build_backbone drops l2_norm_scale
         return SSDVGG(depth=cfg.get("depth", 16))
-    block_type = RESNET_KINDS.get(kind)
-    if block_type is None:
-        raise NotImplementedError(f"backbone {kind}: {LATER}")
-    if kind == "Res2Net":
-        cfg.setdefault("base_width", 26)
-        cfg.setdefault("deep_stem", True)   # res2net101_v1d pretrain layout
     for k in ("pretrained", "norm_cfg", "norm_eval", "style",
               "zero_init_residual"):
         cfg.pop(k, None)     # BN is always FrozenBatchNorm; pytorch style
@@ -116,6 +139,19 @@ def build_backbone(cfg: Dict[str, Any]) -> nn.Module:
         cfg["stage_with_dcn"] = (False, True, True, True)
     if cfg.pop("sac", None) is not None and "stage_with_sac" not in cfg:
         cfg["stage_with_sac"] = (False, True, True, True)
+    if kind in ZOO_BACKBONES:
+        cls, dropped = ZOO_BACKBONES[kind]
+        for k in dropped + ("with_cp",):
+            cfg.pop(k, None)
+        return cls(**cfg)
+    block_type = RESNET_KINDS.get(kind)
+    if block_type is None:
+        raise NotImplementedError(
+            f"backbone {kind}: the port builds {', '.join(BACKBONES)}, "
+            "every type the JAX package's build_backbone names")
+    if kind == "Res2Net":
+        cfg.setdefault("base_width", 26)
+        cfg.setdefault("deep_stem", True)   # res2net101_v1d pretrain layout
     if kind.startswith("DetectoRS"):
         # ConvAWS on the other convs, the image input and the RFP widths
         # are not read, as in the JAX package (ROADMAP Queue 3)
@@ -126,26 +162,25 @@ def build_backbone(cfg: Dict[str, Any]) -> nn.Module:
 
 def build_neck(cfg: Optional[Dict[str, Any]], in_channels: Sequence[int]
                ) -> nn.Module:
-    """FPN, NASFCOS_FPN or RFP on the backbone's widths; ``None`` (SSD's)
-    is the identity. RFP's ``rfp_backbone`` and ASPP settings are not
-    read, as in the JAX package (it unrolls the recursion at the neck)."""
+    """A neck on the backbone's widths; ``None`` (SSD's) is the identity.
+    The keys JAX's ``build_neck`` drops are dropped: NASFPN's and
+    NASFCOS_FPN's ``add_extra_convs``, FPN_CARAFE's ``upsample_cfg`` and
+    ``order`` (its CARAFE settings are the module's defaults), RFP's
+    ``rfp_backbone`` and ASPP settings (it unrolls the recursion at the
+    neck)."""
     if cfg is None:
         return nn.Identity()
     cfg = dict(cfg)
     kind = cfg.pop("type")
     cfg.pop("in_channels", None)     # taken from the backbone
-    if kind == "FPN":
-        return FPN(in_channels=list(in_channels), **cfg)
-    if kind in ("NASFCOS_FPN", "NASFCOSFPN"):
-        for k in ("add_extra_convs", "conv_cfg"):
-            cfg.pop(k, None)
-        return NASFCOSFPN(in_channels=list(in_channels), **cfg)
-    if kind == "RFP":
-        for k in ("rfp_backbone", "aspp_out_channels", "aspp_dilations",
-                  "add_extra_convs"):
-            cfg.pop(k, None)
-        return RFP(in_channels=list(in_channels), **cfg)
-    raise NotImplementedError(f"neck {kind}: {LATER}")
+    if kind not in NECK_KINDS:
+        raise NotImplementedError(
+            f"neck {kind}: the port builds {', '.join(map(str, NECKS))}, "
+            "every type the JAX package's build_neck names")
+    cls, dropped = NECK_KINDS[kind]
+    for k in dropped:
+        cfg.pop(k, None)
+    return cls(in_channels=list(in_channels), **cfg)
 
 
 def build_head(cfg: Dict[str, Any]) -> nn.Module:
@@ -334,8 +369,8 @@ def build_detector(cfg: Dict[str, Any]) -> nn.Module:
     if kind not in DETECTORS + TWO_STAGE:
         raise NotImplementedError(
             f"detector {kind}: the port builds {', '.join(DETECTORS)} and "
-            f"{', '.join(TWO_STAGE)}, the types of every shipped file under "
-            f"configs/; the rest is {LATER}")
+            f"{', '.join(TWO_STAGE)}, every type the JAX package's "
+            "build_detector builds")
     backbone = build_backbone(cfg["backbone"])
     neck = build_neck(cfg.get("neck"), backbone.out_channels)
     if kind in TWO_STAGE:

@@ -5,6 +5,10 @@ Each parameter is drawn from the distribution its flax module gives it:
 
 * ``nn.Conv2d`` of the backbone and the neck (``GroupedConv`` included):
   ``kaiming_init``, He normal over fan_out (``lsnet_tpu/models/layers.py:28``);
+  so every convolution of HRNet, RegNet (grouped), HourglassNet and
+  MobileNetV2 (depthwise: fan_out k x k x cout), and the ConvModules of
+  PAFPN, BFP, NAS-FPN, HRFPN and FPN_CARAFE (bias 0), as JAX's ``_conv``
+  and ``ConvModule`` draw them;
 * ``nn.Conv2d`` of the head: N(0, 0.01) (``normal_init``, ``:32``), the
   classifier's bias at the focal prior ``bias_init_with_prob(0.01)``
   (``:42``; ``ls_head.py:268-269``; in LSCPVHead and RepPointsV2Head also

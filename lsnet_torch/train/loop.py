@@ -47,8 +47,11 @@ the pasted masks (``segm_*``), as the JAX runner's; the cascade files
 (Cascade R-CNN, DetectoRS) train on ``cascade_rcnn_loss`` and decode with
 ``cascade_rcnn_decode``, Grid R-CNN on ``grid_rcnn_loss`` /
 ``grid_rcnn_decode``, and HTC on ``htc_loss`` over the GT contours, and
-``htc_decode`` scores its boxes and masks. The datasets come from
-``data.extra.build_dataset``: ``CocoDataset``, and ``CocoPoseDataset``
+``htc_decode`` scores its boxes and masks. Any of the backbones and
+necks ``models.BACKBONES`` and ``models.NECKS`` name runs under these
+detectors (``lsnet_torch.configs`` has five published compositions:
+HRNet + HRFPN, RegNet, PAFPN, FPN_CARAFE and NAS-FPN). The datasets come
+from ``data.extra.build_dataset``: ``CocoDataset``, and ``CocoPoseDataset``
 (the pose files') as the same dataset.
 
 Left out, as the TPU's own or not yet ported: the compile cache, the
@@ -464,9 +467,10 @@ def test_cfg_from(cfg, image_shape) -> TestConfig:
 
 
 def check_runnable(cfg) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP entry (Queue 1
-    "Inherited zoo" item 3.4) of a model or dataset the port cannot run
-    yet."""
+    """Raise ``NotImplementedError`` for a model the port does not run
+    (one that no builder of the JAX package names either), naming what
+    it runs, or a dataset it does not read yet, naming the ROADMAP entry
+    (Queue 1 "Inherited zoo" item 3.4, its data half)."""
     model = cfg.model
     head = head_cfg(cfg).get("type")
     roi_head = (model.get("roi_head") or {}).get("type", "StandardRoIHead")
@@ -474,21 +478,22 @@ def check_runnable(cfg) -> None:
         if roi_head not in ROI_HEADS:
             raise NotImplementedError(
                 f"{model.type} with {roi_head}: the port runs the RoI heads "
-                f"{', '.join(ROI_HEADS)}; the rest is {LATER}")
+                f"{', '.join(ROI_HEADS)}")
     elif model.type not in DETECTORS or head not in HEADS:
         raise NotImplementedError(
             f"{model.type} with {head}: the port runs the single-stage "
             f"detectors {', '.join(sorted(DETECTORS))} with the heads "
             f"{', '.join(sorted(HEADS))} and the two-stage "
             f"{', '.join(TWO_STAGE_RUNNER)}, which run every shipped file "
-            f"under configs/; the rest of the zoo is {LATER}")
+            "under configs/")
     backbone = (model.get("backbone") or {}).get("type")
     neck = (model.get("neck") or {}).get("type")
     if backbone not in BACKBONES or neck not in NECKS:
         raise NotImplementedError(
             f"{model.type} on {backbone} and {neck}: the port builds the "
             f"backbones {', '.join(BACKBONES)} and the necks "
-            f"{', '.join(str(n) for n in NECKS)}; the rest is {LATER}")
+            f"{', '.join(str(n) for n in NECKS)}, every type the JAX "
+            "package's builders name")
     for split in ("train", "val"):
         kind = cfg.data.get(split, {}).get("type", "CocoDataset")
         if kind not in DATASET_TYPES:

@@ -24,9 +24,12 @@ so do the ten two-stage files the port runs (Faster R-CNN, Double-Head,
 Dynamic R-CNN, Mask R-CNN, Mask Scoring R-CNN, PointRend, Cascade R-CNN,
 Grid R-CNN, HTC, DetectoRS), against the whole JAX detector's variables;
 the mask and cascade files' runner settings equal the JAX runner's, and
-the settings it leaves unread are recorded. Every shipped file now runs;
-configs with the backbones and necks that no file uses (ROADMAP Queue 1
-"Inherited zoo" item 3.4) are refused with that item.
+the settings it leaves unread are recorded. Every shipped file now runs,
+and so do the backbones and necks that no file uses (ROADMAP Queue 1
+"Inherited zoo" item 3.4's model half): their five published
+compositions (``lsnet_torch.configs``) and the Faster R-CNN file on
+MobileNetV2, HourglassNet-104 or BFP pass ``check_runnable`` and build
+on the ``meta`` device.
 The six pose files pass ``check_runnable``: their ``CocoPoseDataset`` is
 the COCO dataset of ``data.extra``.
 
@@ -345,18 +348,27 @@ OWN_BODY = {"ssd/ssd300_coco.py": (300, 300),
             "pisa/pisa_ssd300_coco.py": (300, 300),
             "nas_fcos/nas_fcos_fcoshead_r50_fpn_1x_coco.py": (128, 192)}
 SSD_LEVELS = ((4, 512), (2, 1024), (2, 512), (1, 256), (1, 256), (1, 256))
-# configs the port still refuses: a shipped file with a backbone or neck
-# that only ROADMAP Queue 1 "Inherited zoo" item 3.4 ports, by (base file,
-# the model key replaced, its type)
+# the rest of the zoo (ROADMAP Queue 1 "Inherited zoo" item 3.4's model
+# half): a backbone or neck type, by case, and the config that carries it:
+# a composition of ``lsnet_torch.configs``, or, for the three without one
+# that JAX's builder can serve (CornerNet's head, SSDLite's neck and
+# Libra R-CNN's neck list are not in JAX), the shipped Faster R-CNN file
+# with the module's full-width settings
 FASTER = "faster_rcnn/faster_rcnn_r50_fpn_1x_coco.py"
-REFUSED = {"regnet_backbone": (FASTER, "backbone", "RegNet"),
-           "pafpn_neck": (FASTER, "neck", "PAFPN"),
-           "hrnet_backbone": (FASTER, "backbone", "HRNet")}
-# more of item 3.4's, which build_detector refuses too
-LATER = {"mobilenet_backbone": (FASTER, "backbone", "MobileNetV2"),
-         "hourglass_backbone": (FASTER, "backbone", "HourglassNet"),
-         "bfp_neck": (FASTER, "neck", "BFP"),
-         "nasfpn_neck": (FASTER, "neck", "NASFPN")}
+REFUSED = {"regnet_backbone": ("retinanet_regnetx_3.2gf", "backbone",
+                               "RegNet"),
+           "pafpn_neck": ("faster_rcnn_r50_pafpn", "neck", "PAFPN"),
+           "hrnet_backbone": ("faster_rcnn_hrnetv2p_w32", "backbone",
+                              "HRNet")}
+LATER = {"mobilenet_backbone": (FASTER, "backbone", dict(
+             type="MobileNetV2", widen_factor=1.0, out_indices=(1, 2, 4, 6))),
+         "hourglass_backbone": (FASTER, "backbone", dict(
+             type="HourglassNet")),
+         "bfp_neck": (FASTER, "neck", dict(type="BFP", in_channels=256,
+                                           out_channels=256,
+                                           refine_level=2,
+                                           refine_type="conv")),
+         "nasfpn_neck": ("retinanet_r50_nasfpn", "neck", "NASFPN")}
 # the cascade family's files, by the port's detector class
 CASCADE_FILES = {
     "cascade_rcnn/cascade_rcnn_r50_fpn_1x_coco.py": "CascadeRCNNDetector",
@@ -431,36 +443,58 @@ def test_dense_config_builds_with_the_jax_head_parameters(name):
 
 
 def _later_cfg(case):
-    """A shipped file with its backbone or neck replaced by a type of
-    ROADMAP Queue 1 "Inherited zoo" item 3.4."""
+    """The config of one case of the rest of the zoo: a composition, or
+    the Faster R-CNN file with its backbone or neck replaced whole."""
+    from lsnet_torch import configs
     base, key, kind = {**REFUSED, **LATER}[case]
+    if base in configs.COMPOSITIONS:
+        cfg = configs.COMPOSITIONS[base]()
+        assert cfg.model[key].type == kind
+        return cfg
     cfg = PConfig.fromfile(os.path.join(REPO, "configs", base))
-    cfg.merge_from_dict({f"model.{key}.type": kind})
+    cfg.merge_from_dict({f"model.{key}": dict(kind, _delete_=True)})
     return cfg
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_rest_of_the_zoo_is_refused_with_its_roadmap_entry(name):
-    """A RegNet or HRNet backbone, a PAFPN neck: ``check_runnable``
-    raises, naming the ROADMAP entry."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 \"Inherited zoo\""):
-        ploop.check_runnable(_later_cfg(name))
+    """A RegNet or HRNet backbone, a PAFPN neck, each in its published
+    composition (``lsnet_torch.configs``): ``check_runnable`` admits it
+    (no ROADMAP entry is named: the model half of Queue 1 "Inherited zoo"
+    item 3.4 is ported) and ``build_detector`` builds it on the ``meta``
+    device with the backbone's widths (RegNetX-3.2GF's 96 to 1008,
+    HRNetV2p-W32's 32 to 256) and the neck's type."""
+    from lsnet_torch.models import NECK_KINDS, ZOO_BACKBONES
+    cfg = _later_cfg(name)
+    ploop.check_runnable(cfg)
+    with torch.device("meta"):
+        model = build_detector(cfg.model.to_dict())
+    _, key, kind = REFUSED[name]
+    built = {**ZOO_BACKBONES, **NECK_KINDS}[kind][0]
+    assert type(getattr(model, key)).__name__ == built.__name__
+    assert model.backbone.out_channels == {
+        "regnet_backbone": [96, 192, 432, 1008],
+        "hrnet_backbone": [32, 64, 128, 256]}.get(
+            name, [256, 512, 1024, 2048])
 
 
 @pytest.mark.parametrize("name", sorted(LATER))
 def test_two_stage_files_name_their_queue_item(name):
-    """Every shipped file runs (``TWO_STAGE``); a two-stage file on a
-    backbone or neck of the rest of the zoo (MobileNetV2, HourglassNet,
-    BFP, NASFPN) raises in ``check_runnable`` and in ``build_detector``,
-    each naming ROADMAP Queue 1 item 3.4."""
+    """A two-stage file on MobileNetV2 (1.0, outputs 1, 2, 4, 6),
+    HourglassNet-104 or BFP, and the NAS-FPN RetinaNet composition:
+    ``check_runnable`` admits each and ``build_detector`` builds it on
+    the ``meta`` device; the only refusal left of item 3.4 names its data
+    half (``models.LATER``)."""
+    from lsnet_torch.models import LATER as LATER_ITEM
     cfg = _later_cfg(name)
-    item = "\"Inherited zoo\" item 3.4"
-    with pytest.raises(NotImplementedError, match=item):
-        ploop.check_runnable(cfg)
-    with pytest.raises(NotImplementedError, match=item):
-        with torch.device("meta"):
-            build_detector(cfg.model.to_dict())
+    ploop.check_runnable(cfg)
+    with torch.device("meta"):
+        model = build_detector(cfg.model.to_dict())
+    assert {"mobilenet_backbone": [24, 32, 96, 320],
+            "hourglass_backbone": [256, 256]}.get(
+        name, [256, 512, 1024, 2048]) == model.backbone.out_channels
+    assert "\"Inherited zoo\" item 3.4" in LATER_ITEM
+    assert "data half" in LATER_ITEM
 
 
 @pytest.mark.parametrize("name", [n for n in CONFIGS if "pose" in n])

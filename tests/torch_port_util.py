@@ -11,6 +11,17 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+# HRNet at the narrow stage widths of ``tests/test_backbones_necks.py``
+HRNET_EXTRA = dict(
+    stage1=dict(num_modules=1, num_branches=1, block="BOTTLENECK",
+                num_blocks=(2,), num_channels=(16,)),
+    stage2=dict(num_modules=1, num_branches=2, block="BASIC",
+                num_blocks=(2, 2), num_channels=(8, 16)),
+    stage3=dict(num_modules=1, num_branches=3, block="BASIC",
+                num_blocks=(2, 2, 2), num_channels=(8, 16, 32)),
+    stage4=dict(num_modules=1, num_branches=4, block="BASIC",
+                num_blocks=(2, 2, 2, 2), num_channels=(8, 16, 32, 64)))
+
 
 def mint_variables(module, *example_inputs, seed=0):
     """Numpy variables for a flax module, shaped by ``eval_shape``."""
@@ -203,3 +214,79 @@ def write_narrow_config(path, ann_file, img_prefix, hw=(64, 96), **extra):
         for k, v in cfg.items():
             f.write(f"{k} = {v!r}\n")
     return path
+
+
+def jax_vjp_fn(module):
+    """One jitted function of a flax module: (variables, inputs,
+    cotangents) -> (outputs, the VJP's parameter tree, the VJP's inputs);
+    the FrozenBatchNorm statistics are held fixed."""
+    def fn(variables, inputs, cots):
+        def f(params, inputs):
+            return module.apply({"params": params, "batch_stats":
+                                 variables.get("batch_stats", {})}, inputs)
+        outs, vjp = jax.vjp(f, variables["params"], inputs)
+        dparams, dinputs = vjp(tuple(cots))
+        return outs, dparams, dinputs
+    return jax.jit(fn)
+
+
+def port_vjp(model, inputs, cots):
+    """NHWC numpy ``inputs`` (one array or a list) through an NCHW port
+    module, and the gradient of sum(outputs * ``cots``): (NHWC outputs,
+    {name: gradient} of the parameters that require one, NHWC input
+    gradients, zero where none reaches the input)."""
+    many = isinstance(inputs, (list, tuple))
+    xs = [t(x).permute(0, 3, 1, 2).requires_grad_(True)
+          for x in (inputs if many else [inputs])]
+    outs = model(xs if many else xs[0])
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    live = [(o, t(c).permute(0, 3, 1, 2)) for o, c in zip(outs, cots)
+            if o.requires_grad]      # a frozen stage's output has none
+    grads = torch.autograd.grad(
+        [o for o, _ in live], xs + [p for _, p in named],
+        [c for _, c in live], allow_unused=True)
+    dxs = [torch.zeros_like(x) if g is None else g
+           for x, g in zip(xs, grads[:len(xs)])]
+    return ([o.detach().permute(0, 2, 3, 1) for o in outs],
+            {n: g for (n, _), g in zip(named, grads[len(xs):])},
+            [d.permute(0, 2, 3, 1) for d in dxs])
+
+
+def assert_vjp_close(model, got, want, rel=1e-4):
+    """``port_vjp``'s results against ``jax_vjp_fn``'s, each tensor
+    within ``rel`` of max(1, max|ref|); a parameter the port freezes must
+    have an all-zero JAX gradient."""
+    (outs, dparams, dxs), (jouts, jdparams, jdxs) = got, want
+    assert len(outs) == len(jouts)
+    for g, w in zip(outs, jouts):
+        assert_close(g, w, rel)
+    for g, w in zip(dxs, jdxs if isinstance(jdxs, (list, tuple))
+                    else [jdxs]):
+        assert_close(g, w, rel)
+    from lsnet_torch.weights import to_jax_variables
+    flat_g = {jax.tree_util.keystr(p): v for p, v in
+              jax.tree_util.tree_flatten_with_path(
+                  to_jax_variables(model, dparams)["params"])[0]}
+    flat_w = {jax.tree_util.keystr(p): v for p, v in
+              jax.tree_util.tree_flatten_with_path(jdparams)[0]}
+    assert set(flat_g) <= set(flat_w)
+    for name, w in flat_w.items():
+        if name in flat_g:
+            assert_close(flat_g[name], w, rel)
+        else:
+            assert not np.any(np.asarray(w)), name
+
+
+
+def assert_round_trip(model, variables):
+    """``weights.to_jax_variables`` of a port module loaded from
+    ``variables`` gives those variables back exactly."""
+    from lsnet_torch.weights import to_jax_variables
+    flat = jax.tree_util.tree_flatten_with_path
+    want = {jax.tree_util.keystr(p): np.asarray(a)
+            for p, a in flat(variables)[0]}
+    got = {jax.tree_util.keystr(p): a
+           for p, a in flat(to_jax_variables(model))[0]}
+    assert got.keys() == want.keys()
+    for k, a in want.items():
+        assert np.array_equal(got[k], a), k
