@@ -257,7 +257,25 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    floor, the anchors' grids ceil) or 640x640 (NAS-FPN); (c)
    HourglassNet-104 at 511x511, MobileNetV2 (1.0) and BFP on the R50
    FPN's outputs at 800x1344, B=2, bf16: forward and backward, finite,
-   profiled, peak memory.
+   profiled, peak memory;
+17. the last modules of the JAX package: the shipped R50 bbox file at full
+   width with VOC's 20 classes, bf16, B=2 at its 800x1344 canvas, on a
+   procedural VOC-layout set (XML boxes, a difficult object, about
+   600x1000 images; the val split the same images as COCO json), through
+   ``lsnet_torch/tools/dist_train.sh CONFIG 1`` (torchrun, one NCCL rank,
+   2 epochs of one step, checkpoints after each, the EvalHook after the
+   second; ``KernelLaunchHook`` reads K1's 8 launches a forward and 8 + 8
+   backward a step) and ``dist_test.sh`` on its last checkpoint; the same
+   file without ``--launcher`` in this process, from the seeded init
+   (step 1 held against dist_train.sh's, step 2 only logged) and resumed
+   from dist_train.sh's step-1 checkpoint (step 2 held against its):
+   loss and ``grad_norm`` within 2e-3; ``eval_map`` of the card's
+   detections against the XML GTs; ``flow_warp`` on the card against the
+   CPU at B=2 1080x1920, both modes; a ``utils.profiling.trace`` of one
+   step naming K1's three kernels and phase 5's profile of the step; and
+   ``lsnet_torch.tools.dist_check``'s comparison: two gloo ranks on the
+   one card against one process on the VOC set's global batch of 4 (f32,
+   one step from the trained state), run beside ``dist_test.sh``.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (all ten kernels) and, last, ``{"ok": true, "device": {...}}``; the
@@ -271,7 +289,8 @@ K1 cases of phase 2a and phase 8, ``--only cpv`` for phase 9,
 ``--only tools`` for phase 12 (after a narrow runner on the card for
 analyze_logs' log), ``--only two_stage`` for phase 13 (a, b),
 ``--only pose`` for phase 13c, ``--only mask`` for phase 14,
-``--only cascade`` for phase 15 and ``--only zoo_rest`` for phase 16. With
+``--only cascade`` for phase 15, ``--only zoo_rest`` for phase 16 and
+``--only data_rest`` for phase 17. With
 ``CHIP_SMOKE_LOG=<path>`` in the environment it also writes every line it
 prints to that file, each after the seconds since the start. It needs
 the repository
@@ -564,6 +583,24 @@ NARROW_HRNET = dict(
 NARROW_REGNET = dict(w0=24, wa=24.48, wm=2.54, depth=8, group_w=8)
 HOURGLASS_HW = (511, 511)        # CornerNet's input
 ZOO_REST_MODULE_ITERS = 3        # timed forward + backward of 16c
+
+
+# phase 17: the last modules of the JAX package. The shipped R50 bbox file
+# at full width with VOC's 20 classes, trained through dist_train.sh (one
+# NCCL rank) on a procedural VOC-layout set of landscape images about the
+# size of VOC's largest; flow_warp at a 1080p frame pair; two gloo ranks
+# on the one card against one process at the file's canvas
+DATA_REST_CONFIG = os.path.join(REPO, "configs", "lsnet",
+                                "lsnet_bbox_r50_fpn_1x_coco.py")
+DATA_REST_HW = [(600, 1000), (592, 1008), (608, 992), (600, 1000)]
+DATA_REST_EPOCHS = 2            # of one step each: a checkpoint after step 1
+FLOW_B, FLOW_HW = 2, (1080, 1920)
+# loss and grad_norm of a step through dist_train.sh (one rank: every
+# collective is the identity) against the same step without --launcher
+# from the same weights: the backward kernels add with atomics
+DIST_GRAD_NORM_RTOL = 2e-3
+# two gloo ranks against one process, f32 (the atomics again)
+DIST_CHECK_TOL = 1e-4
 
 
 LOG_PATH = os.environ.get("CHIP_SMOKE_LOG")    # optional copy of the log
@@ -1696,27 +1733,12 @@ def gradients_card_vs_cpu(label, cfg, lcfg, hw, sampling=fd.TRAIN_SAMPLING,
 
 
 def launch_counts():
-    return {
-        "deform_gather_contract": deform_gather_contract.launches,
-        "deform_gather_contract_bwd_data":
-            dg.deform_gather_contract_bwd_data.launches,
-        "deform_gather_contract_bwd_weight":
-            dg.deform_gather_contract_bwd_weight.launches,
-        "deform_gather_grouped_contract":
-            deform_gather_grouped_contract.launches,
-        "deform_gather_grouped_contract_bwd_data":
-            gr.deform_gather_grouped_contract_bwd_data.launches,
-        "deform_gather_grouped_contract_bwd_weight":
-            gr.deform_gather_grouped_contract_bwd_weight.launches,
-    }
+    return {name: fn.launches
+            for name, fn in runner_hooks.kernel_wrappers().items()}
 
 
 def zero_launch_counts():
-    for fn in (deform_gather_contract, dg.deform_gather_contract_bwd_data,
-               dg.deform_gather_contract_bwd_weight,
-               deform_gather_grouped_contract,
-               gr.deform_gather_grouped_contract_bwd_data,
-               gr.deform_gather_grouped_contract_bwd_weight):
+    for fn in runner_hooks.kernel_wrappers().values():
         fn.launches = 0
 
 
@@ -1850,32 +1872,34 @@ def profile(label, run, batch_ms):
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         log(f"  {dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
     return {"device_ms": total / 1e3, "dgc_ms": dgc / 1e3,
-            "idle_share": 1.0 - total / 1e3 / batch_ms}
+            "idle_share": 1.0 - total / 1e3 / batch_ms,
+            "bwd_ms": {k: v / 1e3 for k, v in bwd.items()}}
 
 
 @runner_hooks.HOOKS.register_module()
-class LaunchCountHook(runner_hooks.Hook):
-    """Phase 6: the kernels' launch counts, read after each train step and
-    after each epoch's evaluation (it runs after ``EvalHook``), each read
-    setting them to 0; set to 0 before the run, when the backbone the run
-    starts from is copied too."""
-    priority = 95
-    steps, evals = [], []
-    start_backbone = {}
+class BackboneSnapshotHook(runner_hooks.Hook):
+    """Phase 6b: a copy of the backbone the run starts from."""
+    backbone = {}
 
     def before_train(self, ctx):
-        LaunchCountHook.start_backbone = {
+        BackboneSnapshotHook.backbone = {
             k: v.detach().cpu().clone()
             for k, v in ctx.model.backbone.state_dict().items()}
-        zero_launch_counts()
 
-    def after_iter(self, ctx):
-        LaunchCountHook.steps.append(launch_counts())
-        zero_launch_counts()
 
-    def after_epoch(self, ctx):
-        LaunchCountHook.evals.append(launch_counts())
-        zero_launch_counts()
+def runner_launches(work_dir):
+    """The reads of the runner's ``KernelLaunchHook`` in ``work_dir``
+    (rank 0; the file is removed): the launches of each train step, and
+    of each epoch, which hold its evaluation."""
+    path = os.path.join(work_dir, "launches_rank0.jsonl")
+    with open(path) as f:
+        reads = [json.loads(line) for line in f]
+    os.remove(path)
+    by_mode = {"train": [], "epoch": []}
+    for r in reads:
+        by_mode[r.pop("mode")].append(r)
+        r.pop("step")
+    return by_mode["train"], by_mode["epoch"]
 
 
 def f32_train_step(*args, **kwargs):
@@ -1985,7 +2009,7 @@ def pretrained_backbone_file(path):
 def runner_options(train_root, val_root, train_ann, val_ann):
     """(--options of tools.test, and the more of tools.train): the
     procedural sets, 3 classes, a score threshold under the focal prior
-    (0.01, where a model 8 steps from its init still scores), and for
+    (0.01, where a model 4 steps from its init still scores), and for
     training 2 images a step, a log record and an eval every epoch, and
     the launch-count hook."""
     test = [f"data.val.ann_file={val_ann}",
@@ -1995,7 +2019,7 @@ def runner_options(train_root, val_root, train_ann, val_ann):
         f"data.train.ann_file={train_ann}",
         f"data.train.img_prefix={os.path.join(train_root, 'imgs')}",
         "data.samples_per_gpu=2", "log_interval=1", "evaluation.interval=1",
-        "custom_hooks=[{'type': 'LaunchCountHook'}]"]
+        "custom_hooks=[{'type': 'KernelLaunchHook'}]"]
 
 
 def check_runner(root):
@@ -2018,14 +2042,14 @@ def check_runner(root):
     write_s = time.perf_counter() - t0
     work_a, work_b = (os.path.join(root, n) for n in ("A", "B"))
     torch.cuda.reset_peak_memory_stats()
-    LaunchCountHook.steps.clear()
-    LaunchCountHook.evals.clear()
     res = train_tool.main([RUNNER_CONFIG, "--work-dir", work_a,
                            "--total-epochs", str(RUNNER_EPOCHS),
                            "--options", *opts,
-                           f"model.pretrained={pretrained}"])
-    steps, evals = list(LaunchCountHook.steps), list(LaunchCountHook.evals)
-    got = LaunchCountHook.start_backbone
+                           f"model.pretrained={pretrained}",
+                           "custom_hooks=[{'type': 'KernelLaunchHook'}, "
+                           "{'type': 'BackboneSnapshotHook'}]"])
+    steps, evals = runner_launches(work_a)
+    got = BackboneSnapshotHook.backbone
     n_dcn = sum(k.endswith("conv_offset.weight") for k in want)
     if got.keys() != want.keys() or any(
             not torch.equal(got[k], v) for k, v in want.items()):
@@ -2036,7 +2060,7 @@ def check_runner(root):
         f"{os.path.getsize(pretrained)} bytes written in {write_s:.1f}s, "
         "equal tensor for tensor")
     del want, got
-    LaunchCountHook.start_backbone = {}
+    BackboneSnapshotHook.backbone = {}
     train = log_records(work_a, "train")
     val = log_records(work_a, "val")
     cfg = Config.fromfile(RUNNER_CONFIG)
@@ -2074,7 +2098,8 @@ def check_runner(root):
             raw["optimizer"]["count"] != osd["count"] or any(
                 not torch.equal(a, b.cpu()) for a, b in
                 zip(raw["optimizer"]["momentum"], osd["momentum"])):
-        raise AssertionError("runner A: step_8.pt differs from the state")
+        raise AssertionError(f"runner A: {os.path.basename(path_a)} "
+                             "differs from the state")
     if raw["meta"] != {"dcn_sampling_train": "bilinear"} or \
             dict(ckpt.deploy_sampling(raw["meta"])) != \
             dict(fd.INFERENCE_SAMPLING):
@@ -2091,7 +2116,7 @@ def check_runner(root):
     del model, opt, res, sd, osd
     torch.cuda.empty_cache()
 
-    # tools.test on A's step_8.pt, its evaluation timed
+    # tools.test on A's last checkpoint, its evaluation timed
     timed = []
     evaluate = runner_loop.evaluate_detector
 
@@ -2116,7 +2141,7 @@ def check_runner(root):
         raise AssertionError("runner: tools.test metrics disagree with "
                              "the EvalHook's")
 
-    # run B, resumed from A's step_4.pt
+    # run B, resumed from A's first epoch's checkpoint
     path_4 = os.path.join(work_a, "ckpts", f"step_{RUNNER_STEPS}.pt")
     res_b = train_tool.main([RUNNER_CONFIG, "--work-dir", work_b,
                              "--total-epochs", str(RUNNER_EPOCHS),
@@ -2220,7 +2245,7 @@ def check_accuracy_run(root):
     """Phase 7: ``lsnet_torch.tools.accuracy_run`` --task bbox --dcn for
     ``ACC_EPOCHS`` epochs on ``ACC_TRAIN`` images, then --eval-only at
     ``backbone=nearest`` on its last checkpoint: finite, falling losses,
-    COCO metric keys, the K1 launches of every step (``LaunchCountHook``)
+    COCO metric keys, the K1 launches of every step (``KernelLaunchHook``)
     and of the eval-only run; the K1 calls of the first train step (bf16)
     and of the first eval batch (f32) held against their plain versions.
     Returns the launches per train step and per eval batch, and the
@@ -2238,13 +2263,13 @@ def check_accuracy_run(root):
                 ACC_K1_PER_STEP * eval_batches}
 
     real_train = runner_loop.train_detector
+    work_dirs = []
 
-    def train_counted(cfg, *args, **kwargs):
-        cfg.custom_hooks = [dict(type="LaunchCountHook")]
-        return real_train(cfg, *args, **kwargs)
+    def train_counted(cfg, work_dir, *args, **kwargs):
+        cfg.custom_hooks = [dict(type="KernelLaunchHook")]
+        work_dirs.append(work_dir)
+        return real_train(cfg, work_dir, *args, **kwargs)
 
-    LaunchCountHook.steps.clear()
-    LaunchCountHook.evals.clear()
     runner_loop.train_detector = train_counted
     calls, undo = capture_k1_calls(ACC_K1_PER_STEP)
     try:
@@ -2254,13 +2279,12 @@ def check_accuracy_run(root):
         train_s = time.perf_counter() - t0
         # the hook read and zeroed the counts after every step and epoch:
         # what is left is the closing evaluation's
-        step_counts = list(LaunchCountHook.steps)
-        epoch_counts = list(LaunchCountHook.evals)
         closing = launch_counts()
     finally:
         runner_loop.train_detector = real_train
         undo()
-        LaunchCountHook.start_backbone = {}
+    (work_dir,) = work_dirs
+    step_counts, epoch_counts = runner_launches(work_dir)
     losses, metrics = res["losses"], res["metrics"]
     log(f"accuracy_run bbox --dcn, {ACC_EPOCHS} epochs of "
         f"{steps // ACC_EPOCHS} steps: losses {losses}, metrics "
@@ -2933,8 +2957,6 @@ def check_cpv_res2_runner(root):
     test_opts, opts = runner_options(train_root, val_root, train_ann,
                                      val_ann)
     work = os.path.join(root, "work")
-    LaunchCountHook.steps.clear()
-    LaunchCountHook.evals.clear()
     calls, undo = capture_k1_calls({
         "forward": RES2_CPV_PER_STEP["deform_gather_contract"],
         "bwd_data": RES2_CPV_K1_CALLS, "bwd_weight": RES2_CPV_K1_CALLS})
@@ -2945,9 +2967,8 @@ def check_cpv_res2_runner(root):
                                "--total-epochs", "1", "--options", *opts])
     finally:
         undo()
-        LaunchCountHook.start_backbone = {}
     train_s = time.perf_counter() - t0
-    steps, evals = list(LaunchCountHook.steps), list(LaunchCountHook.evals)
+    steps, evals = runner_launches(work)
     train = log_records(work, "train")
     val = log_records(work, "val")
     for r in train:
@@ -3260,19 +3281,12 @@ def check_file_runner(label, path, k1, loss_keys, root,
     test_opts, opts = runner_options(train_root, val_root, train_ann,
                                      val_ann)
     work = os.path.join(root, "work")
-    LaunchCountHook.steps.clear()
-    LaunchCountHook.evals.clear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    try:
-        res = train_tool.main([path, "--work-dir", work,
-                               "--total-epochs", "1",
-                               "--max-iters-per-epoch", "2",
-                               "--options", *opts])
-    finally:
-        LaunchCountHook.start_backbone = {}
+    res = train_tool.main([path, "--work-dir", work, "--total-epochs", "1",
+                           "--max-iters-per-epoch", "2", "--options", *opts])
     train_s = time.perf_counter() - t0
-    steps, evals = list(LaunchCountHook.steps), list(LaunchCountHook.evals)
+    steps, evals = runner_launches(work)
     train = log_records(work, "train")
     val = log_records(work, "val")
     for r in train:
@@ -4318,7 +4332,7 @@ def check_pose_runner(root, task):
         f"data.train.ann_file={train_ann}",
         f"data.train.img_prefix={os.path.join(train_root, 'imgs')}",
         "data.samples_per_gpu=2", "log_interval=1", "evaluation.interval=1",
-        "custom_hooks=[{'type': 'LaunchCountHook'}]"]
+        "custom_hooks=[{'type': 'KernelLaunchHook'}]"]
     k1 = K1_PER_FORWARD[task]
     recompute = 2 if cfg.model.backbone.get("with_cp") else 1
     want = {**dict.fromkeys(launch_counts(), 0),
@@ -4334,8 +4348,6 @@ def check_pose_runner(root, task):
                  "deform_gather_contract": k1,
                  "deform_gather_grouped_contract": GROUPED_PER_FORWARD}
     work = os.path.join(root, "work")
-    LaunchCountHook.steps.clear()
-    LaunchCountHook.evals.clear()
     calls, undo = capture_k1_calls(k1)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4345,9 +4357,8 @@ def check_pose_runner(root, task):
                                "--options", *opts])
     finally:
         undo()
-        LaunchCountHook.start_backbone = {}
     train_s = time.perf_counter() - t0
-    steps, evals = list(LaunchCountHook.steps), list(LaunchCountHook.evals)
+    steps, evals = runner_launches(work)
     train = log_records(work, "train")
     val = log_records(work, "val")
     for r in train:
@@ -4748,12 +4759,10 @@ def check_segm_runner(root, path, label, seeds, finite):
         f"data.train.ann_file={train_ann}",
         f"data.train.img_prefix={os.path.join(train_root, 'imgs')}",
         "data.samples_per_gpu=2", "log_interval=1", "evaluation.interval=1",
-        "custom_hooks=[{'type': 'LaunchCountHook'}, "
+        "custom_hooks=[{'type': 'KernelLaunchHook'}, "
         "{'type': 'ProfileIterHook'}]"]
     none = dict.fromkeys(launch_counts(), 0)
     work = os.path.join(root, "work")
-    LaunchCountHook.steps.clear()
-    LaunchCountHook.evals.clear()
     ProfileIterHook.seen, ProfileIterHook.result = 0, {}
     seen = []
     undo = counting_cascade_stages(seen)
@@ -4765,9 +4774,8 @@ def check_segm_runner(root, path, label, seeds, finite):
                                "--options", *opts])
     finally:
         undo()
-        LaunchCountHook.start_backbone = {}
     train_s = time.perf_counter() - t0
-    steps, evals = list(LaunchCountHook.steps), list(LaunchCountHook.evals)
+    steps, evals = runner_launches(work)
     train = log_records(work, "train")
     val = log_records(work, "val")
     for r in train:
@@ -5342,19 +5350,400 @@ def check_zoo_rest(root):
     numbers["seconds"] = time.perf_counter() - t0
     return numbers, by_path
 
+# ------------------------------------------- phase 17: the last modules
+
+def data_rest_options(voc_set, voc_root, val_json):
+    """--options of phase 17's train and test runs: the VOC-layout train
+    split, its COCO json val split, VOC's 20 classes, a score threshold
+    under the focal prior, a log record a step, an evaluation after the
+    last epoch and the port's ``KernelLaunchHook``."""
+    return [
+        "data.train.type=VOCDataset", f"data.train.ann_file={voc_set}",
+        f"data.train.img_prefix={voc_root}",
+        f"data.val.ann_file={val_json}",
+        f"data.val.img_prefix={os.path.join(voc_root, 'JPEGImages')}",
+        "model.bbox_head.num_classes=20", "model.pretrained=None",
+        "data.samples_per_gpu=2", "log_interval=1",
+        f"evaluation.interval={DATA_REST_EPOCHS}",
+        "test_cfg.score_thr=0.005",
+        "custom_hooks=[{'type': 'KernelLaunchHook'}]"]
+
+
+def data_rest_train(work, opts, *args):
+    """The phase-17 file through ``tools.train`` in this process, without
+    ``--launcher`` and without evaluation, one step an epoch: (its train
+    records, its result)."""
+    res = train_tool.main([DATA_REST_CONFIG, "--work-dir", work,
+                           "--total-epochs", str(DATA_REST_EPOCHS),
+                           "--max-iters-per-epoch", "1", *args,
+                           "--options", *opts, "evaluation.interval=100"])
+    return log_records(work, "train"), res
+
+
+def same_step(got, want):
+    """loss and grad_norm within DIST_GRAD_NORM_RTOL."""
+    return all(abs(got[k] - want[k]) <= DIST_GRAD_NORM_RTOL * abs(want[k])
+               for k in ("loss", "grad_norm"))
+
+
+def step_spread(got, want):
+    """Each logged value's relative difference between two records."""
+    return {k: abs(got[k] - v) / max(abs(v), 1e-12) for k, v in want.items()
+            if k.startswith("loss") or k == "grad_norm"}
+
+
+def step_one_weights(path_a, path_b, cfg):
+    """Two runs' step-1 checkpoints of ``cfg`` from its seeded init: the
+    largest difference of a weight between them over the largest step-1
+    update, and the tensor whose difference is largest against its own
+    largest update."""
+    init = build_detector(cfg.model.to_dict())
+    init_weights_(init, torch.Generator().manual_seed(cfg.get("seed", 0)))
+    s0 = init.state_dict()
+    a, b = (ckpt.load_checkpoint(p)["model"] for p in (path_a, path_b))
+    diff, update, worst = 0.0, 0.0, (None, 0.0)
+    for k, t in a.items():
+        if not t.is_floating_point():
+            continue
+        d = float((t.float() - b[k].float()).abs().max())
+        u = float((t.float() - s0[k].float()).abs().max())
+        diff, update = max(diff, d), max(update, u)
+        if u > 0 and d / u > worst[1]:
+            worst = (k, d / u)
+    return {"max_diff": diff, "max_update": update,
+            "diff_over_update": diff / update, "worst_tensor": worst[0],
+            "worst_diff_over_its_update": worst[1]}
+
+
+def voc_eval_map(model, cfg, voc_set, voc_root):
+    """``data.extra.eval_map`` of ``model``'s detections on the card (f32,
+    the shipped inference sampling) against the XML GTs of the train
+    split in test mode (the difficult object kept), both AP modes."""
+    from lsnet_torch.data.coco import DatasetConfig, collate_batch
+    from lsnet_torch.data.extra import VOCDataset, eval_map
+    ds = VOCDataset(DatasetConfig(
+        ann_file=voc_set, img_prefix=voc_root,
+        img_scale=tuple(cfg.data.val.get("img_scale", (1333, 800)))),
+        test_mode=True)
+    canvas = tuple(cfg.get("canvas_shape") or (H, W))
+    tcfg = runner_loop.test_cfg_from(cfg, canvas)
+    dets, gts = [], []
+    model.eval()
+    for i in range(len(ds)):
+        batch = collate_batch([ds.get_sample(i)], canvas)
+        with torch.inference_mode():
+            det = runner_loop.forward_decode(
+                model, torch.from_numpy(batch["image"]).cuda(),
+                torch.from_numpy(batch["img_shape"]).cuda(),
+                torch.from_numpy(batch["scale_factor"]).cuda(), tcfg,
+                fd.INFERENCE_SAMPLING, cfg)
+        keep = det.valid[0].cpu().numpy()
+        boxes = det.bboxes[0].float().cpu().numpy()[keep]
+        scores = det.scores[0].float().cpu().numpy()[keep]
+        labels = det.labels[0].cpu().numpy()[keep]
+        dets.append([np.concatenate([boxes[labels == c],
+                                     scores[labels == c, None]], 1)
+                     for c in range(len(ds.CLASSES))])
+        bb, lab = ds._parse_objects(ds.img_infos[i]["img_id"])
+        gts.append(dict(bboxes=bb, labels=lab))
+    model.train()
+    out = {}
+    for name, use_07 in (("area", False), ("voc07", True)):
+        m, per_class = eval_map(dets, gts, use_07_metric=use_07)
+        out[f"mAP_{name}"] = m
+    out["detections"] = int(sum(len(d) for per in dets for d in per))
+    out["gts"] = int(sum(len(g["labels"]) for g in gts))
+    return out
+
+
+def check_flow_warp():
+    """``ops.flow_warp`` on the card against the CPU at B=2, 1080x1920x3
+    f32, both modes (1e-4 absolute on 0-255 values); events ms."""
+    from lsnet_torch.ops import flow_warp
+    gen = torch.Generator().manual_seed(17)
+    img = torch.rand(FLOW_B, *FLOW_HW, 3, generator=gen) * 255
+    flow = torch.randn(FLOW_B, *FLOW_HW, 2, generator=gen) * 8
+    out = {}
+    for mode in ("nearest", "bilinear"):
+        want = flow_warp(img, flow, 0, mode)
+        gi, gf = img.cuda(), flow.cuda()
+        got = flow_warp(gi, gf, 0, mode)
+        err = float((got.cpu() - want).abs().max())
+        if err > 1e-4:
+            raise AssertionError(f"flow_warp {mode}: card vs CPU {err}")
+        out[mode] = {"max_abs_err": err,
+                     "ms": cuda_ms(lambda: flow_warp(gi, gf, 0, mode), 10)}
+    return out
+
+
+def check_trace(model, optimizer, cfg, root, voc_set, voc_root):
+    """One train step of the trained model under ``utils.profiling.trace``:
+    the trace file must name K1's three kernels."""
+    from lsnet_torch.data.coco import DataLoader, batch_to_device
+    from lsnet_torch.data.extra import build_dataset
+    from lsnet_torch.utils.profiling import profile_time, trace
+    cfg = Config(cfg.to_dict())
+    ds = build_dataset("VOCDataset", runner_loop._dataset_cfg(
+        cfg, "train", flip_ratio=0.0))
+    batch = next(iter(DataLoader(ds, 2, tuple(cfg.canvas_shape),
+                                 prefetch=0).epoch(0)))
+    step = runner_step.make_train_step(
+        model, optimizer, runner_loop.train_loss_cfg(
+            cfg, tuple(batch["image"].shape[1:3])))
+    batch = batch_to_device(batch, "cuda")
+    step(batch)                                   # warm-up
+    log_dir = os.path.join(root, "trace")
+    import io
+    timed = io.StringIO()
+    with trace(log_dir), profile_time("phase 17", "train step",
+                                      stream=timed):
+        metrics = step(batch)
+    names = os.listdir(log_dir)
+    if len(names) != 1:
+        raise AssertionError(f"trace: files {names}")
+    text = open(os.path.join(log_dir, names[0])).read()
+    found = {k: k in text for k in ("dgc_bf16_wgmma", "bwd_data_kernel",
+                                    "bwd_weight_kernel")}
+    if not all(found.values()):
+        raise AssertionError(f"trace: K1 kernels {found}")
+    # the step's host time and device time by kernel (phase 5's profile)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    prof = profile("R50 VOC train step", lambda: step(batch), step_ms)
+    k1_ms = prof["dgc_ms"] + sum(v for k, v in prof["bwd_ms"].items()
+                                 if not k.startswith("grouped"))
+    return {"file": names[0], "bytes": len(text), "kernels": found,
+            "profile_time": timed.getvalue().strip(),
+            "loss": float(metrics["loss"]), "step_ms": step_ms,
+            "device_ms": prof["device_ms"], "k1_ms": k1_ms,
+            "k1_forward_ms": prof["dgc_ms"], "k1_bwd_ms": prof["bwd_ms"],
+            "idle_share": prof["idle_share"],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def rank_costs(model, cfg):
+    """Phase 17: the work each of W ranks does for every image of the
+    global batch (``samples_per_gpu * W`` images a step): the loader's
+    host ms an image (JPEG decode, resize, flip, normalise, pad: the
+    median over the VOC set) and the bytes of the head's f32 outputs an
+    image that ``parallel.gather_outputs`` all-gathers; the JPEG decode
+    alone, timed apart."""
+    from PIL import Image
+    from lsnet_torch.data.coco import collate_batch
+    from lsnet_torch.data.extra import build_dataset
+    ds = build_dataset("VOCDataset", runner_loop._dataset_cfg(
+        cfg, "train", flip_ratio=0.5))
+    canvas = tuple(cfg.canvas_shape)
+    rng = np.random.RandomState(0)
+    ms, decode_ms = [], []
+    for i in range(len(ds)):
+        t0 = time.perf_counter()
+        with Image.open(ds._img_path(ds.img_infos[i]["img_id"], None)) as im:
+            np.asarray(im.convert("RGB"))
+        t1 = time.perf_counter()
+        batch = collate_batch([ds.get_sample(i, rng)], canvas)
+        ms.append((time.perf_counter() - t1) * 1e3)
+        decode_ms.append((t1 - t0) * 1e3)
+    with torch.no_grad():
+        outs = model(torch.from_numpy(batch["image"]).cuda(),
+                     fd.TRAIN_SAMPLING)
+    maps = [m for v in outs.values() if not isinstance(v, torch.Tensor)
+            for m in v]
+    return {"host_ms_per_image": float(np.median(ms)),
+            "host_ms_each": ms, "decode_ms_each": decode_ms,
+            "gathered_bytes_per_image": 4 * sum(m[0].numel() for m in maps)}
+
+
+def check_two_gloo_ranks(cfg, state, root):
+    """``tools.dist_check``'s comparison: one f32 step of ``cfg``'s model
+    from ``state`` on the VOC set's global batch of 4, in this process and
+    in two spawned gloo ranks on the one card (2 images each)."""
+    from lsnet_torch.data.coco import DataLoader
+    from lsnet_torch.data.extra import build_dataset
+    from lsnet_torch.tools import dist_check
+    ds = build_dataset("VOCDataset", runner_loop._dataset_cfg(
+        cfg, "train", flip_ratio=0.0))
+    batch = next(iter(DataLoader(ds, 4, tuple(cfg.canvas_shape),
+                                 prefetch=0).epoch(0)))
+    job = dict(model_cfg=cfg.model.to_dict(), state=state,
+               loss_cfg=runner_loop.train_loss_cfg(
+                   cfg, tuple(batch["image"].shape[1:3])),
+               optim=dict(base_lr=0.01, steps_per_epoch=1, decay_epochs=[],
+                          clip_norm=runner_loop.clip_norm_from(cfg),
+                          warmup_iters=0),
+               batches=[{k: v for k, v in batch.items() if k != "img_id"}])
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    try:
+        alone = dist_check.run_steps(job, "cuda")    # f32: TF32 off
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (ranks,) = dist_check.run_ranks([job], 2, root, "cuda", timeout=300)
+    errs = dist_check.compare(ranks, alone, state)
+    shards = [int(batch["gt_valid"][r * 2:(r + 1) * 2].sum())
+              for r in range(2)]
+    if not dist_check.within(errs, DIST_CHECK_TOL):
+        raise AssertionError(f"two gloo ranks vs one process: {errs}")
+    return {"max_rel_err": errs, "tol": DIST_CHECK_TOL,
+            "gts_per_rank": shards, "loss": alone["metrics"][0]["loss"],
+            "grad_norm": alone["metrics"][0]["grad_norm"]}
+
+
+def check_data_rest(root):
+    """Phase 17. Returns (numbers, launches by path)."""
+    import signal
+    from lsnet_torch.tools.shapes import make_shapes_voc
+    t0 = time.perf_counter()
+    voc_root = os.path.join(root, "VOC2012")
+    voc_set, _, val_json = make_shapes_voc(voc_root, len(DATA_REST_HW),
+                                           seed=17, hw=DATA_REST_HW)
+    opts = data_rest_options(voc_set, voc_root, val_json)
+    work_d, work_f, work_r = (os.path.join(root, n)
+                              for n in ("dist", "fresh", "resumed"))
+    sh = os.path.join(REPO, "lsnet_torch", "tools")
+    t1 = time.perf_counter()
+    run = subprocess.run(
+        ["bash", os.path.join(sh, "dist_train.sh"), DATA_REST_CONFIG, "1",
+         "--total-epochs", str(DATA_REST_EPOCHS), "--max-iters-per-epoch",
+         "1", "--work-dir", work_d, "--options", *opts],
+        capture_output=True, text=True, timeout=400)
+    if run.returncode:
+        log(run.stdout[-4000:] + run.stderr[-8000:])
+        raise AssertionError(f"dist_train.sh exited {run.returncode}")
+    dist_s = time.perf_counter() - t1
+    train_d = log_records(work_d, "train")
+    steps, epochs = runner_launches(work_d)
+    none = dict.fromkeys(launch_counts(), 0)
+    want_step = {**none, "deform_gather_contract": 8,
+                 "deform_gather_contract_bwd_data": 8,
+                 "deform_gather_contract_bwd_weight": 8}
+    # one eval batch (4 landscape images, the runner's batch 8) after
+    # the last epoch
+    want_epochs = [none] * (DATA_REST_EPOCHS - 1) + [
+        {**none, "deform_gather_contract": 8}]
+    if len(train_d) != DATA_REST_EPOCHS or steps != [want_step] * len(
+            train_d) or epochs != want_epochs or not all(
+                math.isfinite(r[k]) for r in train_d
+                for k in ("loss", "grad_norm")):
+        raise AssertionError(f"dist_train.sh: records {train_d}, launches "
+                             f"per step {steps}, per epoch {epochs}")
+    log(f"phase 17 dist_train.sh (1 NCCL rank): {json.dumps(train_d)}; "
+        f"launches per step {json.dumps(steps[0])}, per eval "
+        f"{json.dumps(epochs[-1])}")
+    ckpts = [os.path.join(work_d, "ckpts", f"step_{n}.pt")
+             for n in range(1, DATA_REST_EPOCHS + 1)]
+    cfg = Config.fromfile(DATA_REST_CONFIG)
+    cfg.merge_from_dict(train_tool.parse_options(opts))
+
+    # dist_test.sh on the last checkpoint, beside this process's runs and
+    # the gloo ranks (none of them timed)
+    out_json = os.path.join(root, "dist_test.json")
+    test_log = os.path.join(root, "dist_test.log")
+    t1 = time.perf_counter()
+    with open(test_log, "w") as f:
+        test = subprocess.Popen(
+            ["bash", os.path.join(sh, "dist_test.sh"), DATA_REST_CONFIG,
+             ckpts[-1], "1", "--eval", "bbox", "--out", out_json,
+             "--options", *opts], stdout=f, stderr=subprocess.STDOUT,
+            start_new_session=True)
+    try:
+        # the same file without --launcher: from the seeded init, and
+        # from dist_train.sh's step-1 weights
+        fresh, res = data_rest_train(work_f, opts)
+        del res
+        resumed, res = data_rest_train(work_r, opts, "--resume-from",
+                                       ckpts[0])
+        state = {k: v.detach().cpu().clone()
+                 for k, v in res["model"].state_dict().items()}
+        # two gloo ranks on the one card against one process on the
+        # global batch of 4 (the VOC set), f32, from the trained state
+        t2 = time.perf_counter()
+        gloo = check_two_gloo_ranks(cfg, state, os.path.join(root, "gloo"))
+        gloo_s = time.perf_counter() - t2
+        del state
+        test.wait(timeout=300)
+    finally:
+        if test.poll() is None:
+            os.killpg(test.pid, signal.SIGKILL)
+            test.wait()
+    test_s = time.perf_counter() - t1
+    if test.returncode:
+        with open(test_log) as f:
+            log(f.read()[-8000:])
+        raise AssertionError(f"dist_test.sh exited {test.returncode}")
+    steps_log = {"dist_train": train_d, "fresh": fresh, "resumed": resumed}
+    log(f"phase 17 steps without --launcher {json.dumps(steps_log)}")
+    if len(fresh) != DATA_REST_EPOCHS or len(resumed) != 1 or not same_step(
+            fresh[0], train_d[0]) or not same_step(resumed[0], train_d[1]):
+        raise AssertionError("phase 17: step 1 from the init or step 2 from "
+                             "dist_train.sh's step-1 weights differs")
+    weights = step_one_weights(ckpts[0], os.path.join(work_f, "ckpts",
+                                                      "step_1.pt"), cfg)
+    spread = {"step1": step_spread(fresh[0], train_d[0]),
+              "step2_resumed": step_spread(resumed[0], train_d[1]),
+              "step2_fresh": step_spread(fresh[1], train_d[1]),
+              "step1_weights": weights}
+    log(f"phase 17 without --launcher against dist_train.sh "
+        f"{json.dumps(spread)}")
+    log(f"phase 17 two gloo ranks vs one process {json.dumps(gloo)}")
+
+    with open(out_json) as f:
+        metrics = json.load(f)
+    hook = {k: v for k, v in log_records(work_d, "val")[-1].items()
+            if k not in ("mode", "epoch")}
+    if metrics.keys() != hook.keys() or len(metrics) != 12 or any(
+            not -1.0 <= v <= 1.0 for v in metrics.values()):
+        raise AssertionError(f"dist_test.sh metrics {metrics} vs the "
+                             f"EvalHook's {hook}")
+    log(f"phase 17 dist_test.sh {json.dumps(metrics)}; EvalHook "
+        f"{json.dumps(hook)}")
+
+    voc_map = voc_eval_map(res["model"], cfg, voc_set, voc_root)
+    log(f"phase 17 eval_map on the card's detections {json.dumps(voc_map)}")
+    flow = check_flow_warp()
+    log(f"phase 17 flow_warp {json.dumps(flow)}")
+    traced = check_trace(res["model"], res["optimizer"], cfg, root, voc_set,
+                         voc_root)
+    log(f"phase 17 profiling.trace {json.dumps(traced)}")
+    costs = rank_costs(res["model"], cfg)
+    log(f"phase 17 per image of the global batch, on every rank "
+        f"{json.dumps(costs)}")
+    del res
+    torch.cuda.empty_cache()
+    numbers = {
+        "dist_train": {"seconds": dist_s, "records": train_d,
+                       "launches_per_step": steps[0],
+                       "launches_per_eval": epochs[-1]},
+        "without_launcher": {"fresh": fresh, "resumed": resumed,
+                             "spread": spread},
+        "dist_test": {"seconds_beside_the_rest": test_s,
+                      "metrics": metrics},
+        "eval_map": voc_map, "flow_warp": flow, "trace": traced,
+        "rank_costs": costs, "two_gloo_ranks": dict(gloo, seconds=gloo_s),
+        "seconds": time.perf_counter() - t0}
+    by_path = {"dist_train.sh R50 VOC train": steps[0],
+               "dist_train.sh R50 VOC eval": epochs[-1]}
+    return numbers, by_path
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", choices=["backward", "probes", "accuracy",
                                            "api", "cpv", "reppoints",
                                            "dense", "tools", "two_stage",
                                            "pose", "mask", "cascade",
-                                           "zoo_rest"],
+                                           "zoo_rest", "data_rest"],
                         default=None,
                         help="run phases 2c and 2d, phase 2e, phase 7, "
                         "phase 2a's Res2Net cases and phase 8, phase 9, "
                         "phase 10, phase 11, phase 12, phase 13 (a, b), "
-                        "phase 13c, phase 14, phase 15 or phase 16 alone; "
-                        "no result line")
+                        "phase 13c, phase 14, phase 15, phase 16 or phase "
+                        "17 alone; no result line")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5438,11 +5827,13 @@ def main(argv=None):
         log(f"partial run (--only dense) passed in "
             f"{time.perf_counter() - t_start:.1f}s; no result line")
         return 0
-    if opts.only in ("two_stage", "pose", "mask", "cascade", "zoo_rest"):
+    if opts.only in ("two_stage", "pose", "mask", "cascade", "zoo_rest",
+                     "data_rest"):
         import tempfile
         run = {"two_stage": check_two_stage, "pose": check_pose,
                "mask": check_mask, "cascade": check_cascade,
-               "zoo_rest": check_zoo_rest}[opts.only]
+               "zoo_rest": check_zoo_rest,
+               "data_rest": check_data_rest}[opts.only]
         with tempfile.TemporaryDirectory() as root:
             numbers, by_path = run(root)
         log(f"{smi}: {opts.only} " + json.dumps(numbers))
@@ -5630,6 +6021,13 @@ def main(argv=None):
                 rest_numbers[name]["train_peak_memory_bytes"]
         log(f"{smi}: zoo_rest " + json.dumps(rest_numbers)
             + f" (phase 16 in {rest_numbers['seconds']:.1f}s)")
+        # phase 17: the last modules (VOC, data-parallel runner, optflow,
+        # profiling)
+        data_numbers, data_paths = check_data_rest(os.path.join(
+            root, "data_rest"))
+        by_path.update(data_paths)
+        log(f"{smi}: data_rest " + json.dumps(data_numbers)
+            + f" (phase 17 in {data_numbers['seconds']:.1f}s)")
     for name, entry in probe_entries.items():
         by_path.setdefault("lsnet_torch.tools.probe", {})[name] = \
             entry["launches"]

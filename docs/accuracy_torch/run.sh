@@ -21,13 +21,18 @@
 #           docs/accuracy_torch/jax_cpu/cpv/;
 #   cpvmore cpv at seed 1, and at seed 0 with the train step in f32
 #           (trace.py f32), for the spread of the cpv runs;
+#   ste     bbox --dcn --epochs 36 at seed 0 with --train-sampling
+#           nearest_ste (every site, the JAX run r5/ste36_clean.json made
+#           with LSNET_DCN_SAMPLING=nearest_ste; deployed at nearest
+#           everywhere), then --eval-only on its last checkpoint at
+#           nearest (matched) and bilinear (mismatched);
 #   trace   phase 7 of chip_smoke.py, then docs/accuracy_torch/trace.py's
 #           first 20 steps of the bbox --dcn config (CPU f32, card f32
 #           twice, card bf16 twice), then bbox --dcn --epochs 36 at seed 0
 #           three more times and once with the train step in f32, each
 #           with the three --eval-only deploys.
 #
-#   bash docs/accuracy_torch/run.sh bbox|more|again|trace|cpv|cpvmore [OUT]
+#   bash docs/accuracy_torch/run.sh bbox|more|again|ste|trace|cpv|cpvmore [OUT]
 #
 # Work dirs (data, checkpoints) go to $WORK (default work/accuracy_torch);
 # OUT (default work/accuracy_torch_results) receives each run's console
@@ -36,7 +41,7 @@
 # folder's scripts) as the part found them.
 # While a run trains, every checkpoint but its newest is deleted.
 set -euo pipefail
-part=${1:?bbox, more, again, trace, cpv or cpvmore}
+part=${1:?bbox, more, again, ste, trace, cpv or cpvmore}
 OUT=${2:-work/accuracy_torch_results}
 WORK=${WORK:-work/accuracy_torch}
 mkdir -p "$OUT" "$WORK"
@@ -96,6 +101,16 @@ again)
         run "bbox_dcn36_s${seed}b" --task bbox --dcn --epochs 36 \
             --seed "$seed"
         deploys "bbox_dcn36_s${seed}b" "ev_s${seed}b_"
+    done
+    ;;
+ste)
+    run ste36_s0 --task bbox --dcn --epochs 36 --seed 0 \
+        --train-sampling nearest_ste
+    ckpt=$(ls -1 "$WORK/ste36_s0/ckpts" | grep -E '^step_[0-9]+\.pt$' \
+        | sort -t_ -k2 -n | tail -n 1)
+    for s in nearest bilinear; do
+        run "ev_ste_$s" --task bbox --dcn --eval-only \
+            "$WORK/ste36_s0/ckpts/$ckpt" --sampling "$s"
     done
     ;;
 trace)

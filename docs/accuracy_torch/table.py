@@ -9,7 +9,9 @@ Reads ``docs/accuracy_torch/<run>/result.json`` and ``*.log.json`` (what
 ``run.sh`` brings back from the card) and the JAX records
 ``docs/accuracy/r5/*.json`` and ``train_*.log``; for LSNet-CPV the JAX
 package's CPU run of the same command, ``jax_cpu/cpv/result.json``, with
-the tolerance of ``PERF.md`` section 6 written for it. Prints markdown. A run
+the tolerance of ``PERF.md`` section 6 written for it; for the
+all-``nearest_ste`` run (``run.sh ste``) the JAX records
+``r5/ev_ste_{nearest,bilinear}.json``. Prints markdown. A run
 that is not there is left out.
 """
 
@@ -51,6 +53,12 @@ CPV_JAX = os.path.join(HERE, "jax_cpu", "cpv", "result.json")
 CPV_RUNS = [("cpv12", "seed 0 bf16"), ("cpv12_s1", "seed 1 bf16"),
             ("cpv12_f32", "seed 0 f32 step"),
             ("port_cpu/cpv12", "seed 0 bf16 on the CPU")]
+# the all-nearest_ste R50-DCN 36e run (run.sh ste) and its two deploys
+# beside JAX's r5 records of the same run; each within STE of JAX's, as
+# written in PERF.md section 6 (PR 25) before the run
+STE = 1.5
+STE_RUNS = [("ev_ste_nearest", "ev_ste_nearest.json", "matched"),
+            ("ev_ste_bilinear", "ev_ste_bilinear.json", "mismatched")]
 DEPLOYS = ("bilinear", "backbone_nearest", "backbone_nearest_refine_nearest")
 JAX_DEPLOY = {"bilinear": "ev2_bilinear.json",
               "backbone_nearest": "ev2_b_near.json",
@@ -158,6 +166,29 @@ def cpv_rows():
               f"({statistics.fmean(card) - want:+.2f} from JAX's one run).")
 
 
+def ste_rows():
+    """The STE run's deploys beside JAX's (``r5/ev_ste_*.json``)."""
+    got = [(name, jrec, what) for name, jrec, what in STE_RUNS
+           if os.path.exists(os.path.join(HERE, name, "result.json"))]
+    if not got:
+        return
+    print()
+    print("| all-nearest_ste R50-DCN 36e, deploy | bbox mAP | JAX | verdict "
+          f"(within {STE}) | card |")
+    print("|---|---|---|---|---|")
+    for name, jrec, what in got:
+        r = load(os.path.join(HERE, name, "result.json"))
+        v = metric(os.path.join(HERE, name, "result.json"), "bbox_mAP")
+        w = metric(os.path.join(JAX, jrec), "bbox_mAP")
+        print(f"| {r['sampling']} ({what}) | {v:.2f} | {w:.2f} | "
+              f"{v - w:+.2f}, {verdict(abs(v - w) <= STE)} | {r['card']} |")
+    run = os.path.join(HERE, "ste36_s0", "result.json")
+    if os.path.exists(run):
+        r = load(run)
+        print(f"| the run's own evaluation, {r['sampling']} | "
+              f"{metric(run, 'bbox_mAP'):.2f} | — | — | {r['card']} |")
+
+
 def main():
     print("| run | metric (deployed sampling) | JAX | verdict | card |"
           " train s | loss at " + " / ".join(map(str, ITERS))
@@ -234,6 +265,7 @@ def main():
               f"{verdict(abs(mean - jax_row[0]) <= MEAN)}), range "
               f"{min(vals):.2f}-{max(vals):.2f}{spread}")
     cpv_rows()
+    ste_rows()
 
 
 if __name__ == "__main__":

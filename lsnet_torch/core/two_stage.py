@@ -50,6 +50,8 @@ import numpy as np
 import torch
 
 from ..ops.flat_deform import INFERENCE_SAMPLING, TRAIN_SAMPLING
+from ..parallel import (all_reduce_sum, batch_mean, gather_rows,
+                        global_count, world_size)
 from ..ops.nms import NEG_INF, _top_stable, batched_nms, box_iou, nms
 from ..models.losses.common import bce_with_logits
 from .anchors import (AnchorConfig, _clip_boxes, anchor_valid_flags,
@@ -189,7 +191,8 @@ def rpn_loss(rpn_outs: Maps, batch: Batch, cfg: TwoStageConfig):
     """The RPN's BCE objectness and L1 delta losses over every positive
     and the highest-scoring negatives, ``rpn_num_samples`` in all, each
     normalised by the image's sample count (the reference's
-    ``avg_factor``), then averaged over the images. The RPN assigner's
+    ``avg_factor``), then averaged over the images (the global batch's
+    under W ranks: ``parallel.batch_mean``). The RPN assigner's
     ``min_pos_iou`` is ``rpn_neg_iou``, as in the JAX package."""
     acfg = rpn_anchor_cfg(cfg)
     anchors, scores, deltas = _rpn_flat(rpn_outs, cfg)
@@ -219,7 +222,7 @@ def rpn_loss(rpn_outs: Maps, batch: Batch, cfg: TwoStageConfig):
     loss_cls = (bce_with_logits(scores, posf) * wc).sum(1) / n_samp
     d = bbox2delta(anchors, tgt)
     loss_reg = ((deltas - d).abs().sum(-1) * posf).sum(1) / n_samp
-    return loss_cls.mean(), loss_reg.mean()
+    return batch_mean(loss_cls), batch_mean(loss_reg)
 
 
 def rcnn_loss(cls_logits: torch.Tensor, reg: torch.Tensor,
@@ -228,14 +231,15 @@ def rcnn_loss(cls_logits: torch.Tensor, reg: torch.Tensor,
     """Softmax CE over the sampled RoIs and SmoothL1 (``smoothl1_beta``,
     a number or a scalar tensor) of the label's deltas over the
     positives, both over the count of sampled RoIs (the reference's
-    ``avg_factor``). cls_logits (B*S, C+1), reg (B*S, 4C or 4)."""
+    ``avg_factor``; the global batch's under W ranks). cls_logits
+    (B*S, C+1), reg (B*S, 4C or 4)."""
     BS = cls_logits.shape[0]
     labels_f = labels.reshape(-1)
     valid_f = valid.reshape(-1).float()
     pos_f = pos.reshape(-1).float()
     logp = torch.log_softmax(cls_logits.float(), dim=-1)
     ce = -torch.gather(logp, 1, labels_f[:, None])[:, 0]
-    n_valid = torch.clamp(valid_f.sum(), min=1.0)
+    n_valid = torch.clamp(global_count(valid_f.sum()), min=1.0)
     loss_cls = (ce * valid_f).sum() / n_valid
     n_reg = reg.shape[-1] // 4
     reg = reg.reshape(BS, n_reg, 4).float()
@@ -247,6 +251,12 @@ def rcnn_loss(cls_logits: torch.Tensor, reg: torch.Tensor,
     sl1 = torch.where(diff < b, 0.5 * diff * diff / b, diff - 0.5 * b).sum(-1)
     loss_reg = (sl1 * pos_f).sum() / n_valid
     return loss_cls, loss_reg
+
+
+def _num_pos(posf: torch.Tensor) -> torch.Tensor:
+    """The count of positive RoIs a loss divides by, at least 1: the
+    global batch's under W ranks."""
+    return torch.clamp(global_count(posf.sum()), min=1.0)
 
 
 def _detached(maps: Maps) -> Maps:
@@ -337,7 +347,9 @@ def dynamic_rcnn_loss(model, batch: Batch, cfg: TwoStageConfig, iou_thr,
       proposal-to-GT IoU;
     * ``stat_beta``: the ``beta_topk * B``-th smallest mean(|dx|, |dy|) of
       the positives' targets; with fewer positives the smallest of them
-      (JAX's expression), ``inf`` with none."""
+      (JAX's expression), ``inf`` with none.
+
+    Both are the global batch's under W ranks."""
     losses, st = _stages(model, batch, cfg, sampling, pos_iou=iou_thr,
                          smoothl1_beta=beta)
     props, pvalid, deltas, pos = st.props, st.pvalid, st.deltas, st.pos
@@ -348,10 +360,12 @@ def dynamic_rcnn_loss(model, batch: Batch, cfg: TwoStageConfig, iou_thr,
                            torch.zeros_like(ious))
         mx = ious.amax(dim=2)
         k = min(iou_topk, mx.shape[1])
-        stat_iou = torch.topk(mx, k, dim=1).values[:, k - 1].mean()
-        err = deltas.reshape(-1, 4)[:, :2].abs().mean(-1)
-        posf = pos.reshape(-1)
-        k = beta_topk * props.shape[0]
+        stat_iou = all_reduce_sum(batch_mean(
+            torch.topk(mx, k, dim=1).values[:, k - 1]))
+        # over the global batch's positives under W ranks
+        err = gather_rows(deltas.reshape(-1, 4)[:, :2].abs().mean(-1))
+        posf = gather_rows(pos.reshape(-1))
+        k = beta_topk * props.shape[0] * world_size()
         neg_err = torch.where(posf, -err, torch.full_like(err,
                                                           float("-inf")))
         kth = -torch.topk(neg_err, k).values[k - 1]
@@ -561,7 +575,7 @@ def mask_loss(mask_logits: torch.Tensor, rois: torch.Tensor,
     sel = _label_maps(mask_logits, labels).float()
     posf = pos.float()
     bce = bce_with_logits(sel, targets).mean(dim=(1, 2))
-    return (bce * posf).sum() / torch.clamp(posf.sum(), min=1.0)
+    return (bce * posf).sum() / _num_pos(posf)
 
 
 def _gt_of(rois: torch.Tensor, gts: torch.Tensor, gvalid: torch.Tensor
@@ -705,8 +719,7 @@ def maskiou_loss(model, st: Stages, ms: MaskStage) -> torch.Tensor:
                              ms.gt_idx, ms.targets)
     iou_p = _label_column(maskiou.float(), ms.labels)
     posf = ms.pos.float()
-    return 0.5 * ((iou_p - iou_t) ** 2 * posf).sum() / torch.clamp(
-        posf.sum(), min=1.0)
+    return 0.5 * ((iou_p - iou_t) ** 2 * posf).sum() / _num_pos(posf)
 
 
 def mask_scoring_rcnn_loss(model, batch: Batch, cfg: TwoStageConfig,
@@ -780,7 +793,7 @@ def point_loss(model, st: Stages, ms: MaskStage, num_points: int = 196,
     tgt = point_sample(grid[..., None], points)[..., 0]
     posf = ms.pos.float()
     loss = (bce_with_logits(pt_sel, tgt).mean(-1) * posf).sum() \
-        / torch.clamp(posf.sum(), min=1.0)
+        / _num_pos(posf)
     return loss, points
 
 
@@ -1079,7 +1092,7 @@ def grid_loss(model, batch: Batch, st: Stages, grid_points: int = 9,
     tgt = grid_targets(st.rois.reshape(B * S, 4), gt.reshape(B * S, 4),
                        grid_points)
     posf = st.pos.reshape(-1).float()
-    n_pos = torch.clamp(posf.sum(), min=1.0)
+    n_pos = _num_pos(posf)
     loss = 0.0
     for key in ("fused", "unfused"):
         bce = bce_with_logits(out[key].float(), tgt).mean(dim=(1, 2, 3))
@@ -1189,7 +1202,7 @@ def semantic_loss(sem_logits: torch.Tensor, batch: Batch,
     ``weight``."""
     tgt = semantic_targets(batch, cfg, *sem_logits.shape[1:3])
     logp = torch.log_softmax(sem_logits.float(), dim=-1)
-    return -torch.gather(logp, 3, tgt[..., None]).mean() * weight
+    return -batch_mean(torch.gather(logp, 3, tgt[..., None])) * weight
 
 
 def htc_loss(model, batch: Batch, cfg: TwoStageConfig,

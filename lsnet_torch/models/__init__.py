@@ -103,9 +103,6 @@ NECK_KINDS = {
     "RFP": (RFP, ("rfp_backbone", "aspp_out_channels", "aspp_dilations",
                   "add_extra_convs"))}
 NECKS = (None,) + tuple(NECK_KINDS)
-# what the port does not run yet: the data half of the zoo
-LATER = ("ROADMAP Queue 1 \"Inherited zoo\" item 3.4 (its data half: "
-         "data/extra.py's other datasets and eval_map)")
 HEADS = ("LSHead", "LSCPVHead", "RepPointsHead", "RepPointsV2Head",
          "DenseRepPointsHead", "DenseRepPointsV2Head", "GARetinaHead",
          "GARPNHead") + tuple(DENSE_KINDS)

@@ -8,7 +8,7 @@ decay, clip 35) scaled to the run, key for key the JAX tool's.
     python3 -m lsnet_torch.tools.accuracy_run
         [--task bbox|segm|pose|pose_kbox|cpv]
         [--out DIR] [--epochs 12] [--train 160] [--val 40] [--batch 8]
-        [--dcn] [--seed 0] [--device cuda|cpu]
+        [--dcn] [--seed 0] [--train-sampling SPEC] [--device cuda|cpu]
     python3 -m lsnet_torch.tools.accuracy_run --eval-only DIR/ckpts/step_N.pt
         [--sampling SPEC] [same model flags]
 
@@ -22,7 +22,12 @@ wall-clock ``seconds`` of training and evaluation. ``--eval-only``
 restores a checkpoint from any work dir and evaluates it at the sampling
 ``SPEC`` (the grammar of ``ops.flat_deform.sampling_from_spec``, e.g.
 ``bilinear`` or ``backbone=nearest,refine=nearest``; by default the
-checkpoint's deployed sampling). ``--seed`` seeds the model's init; the
+checkpoint's deployed sampling). ``--train-sampling SPEC`` (same
+grammar, e.g. ``nearest_ste``) writes ``train_cfg.dcn_sampling``: the
+run trains at that sampling, records it in each checkpoint's meta and
+evaluates at its deployed sampling (a ``nearest_ste`` site deploys
+``nearest``), the counterpart of the ``LSNET_DCN_SAMPLING`` with which
+the JAX tool's STE runs were made. ``--seed`` seeds the model's init; the
 data are always the train set of seed 0 and the val set of seed 1. It
 runs on the card unless ``--device cpu`` is given.
 """
@@ -59,11 +64,12 @@ def accuracy_cfg(args, train_ann: str, train_dir: str, val_ann: str,
                  val_dir: str):
     """The run's ``Config``: model, train and test settings, data and
     schedule. ``args`` needs ``task``, ``dcn``, ``batch``, ``epochs``,
-    ``train`` and ``seed``."""
+    ``train`` and ``seed``; a ``train_sampling`` spec, where set, becomes
+    ``train_cfg.dcn_sampling``."""
     from ..utils.config import Config
 
     pose = args.task in ("pose", "pose_kbox")
-    return Config(dict(
+    cfg = Config(dict(
         model=dict(
             type="LSCPVDetector" if args.task == "cpv" else "LSDetector",
             # --dcn uses R50: a BasicBlock (R18) carries no DCN
@@ -115,6 +121,9 @@ def accuracy_cfg(args, train_ann: str, train_dir: str, val_ann: str,
         total_epochs=args.epochs,
         seed=args.seed,
     ))
+    if getattr(args, "train_sampling", None):
+        cfg.merge_from_dict({"train_cfg.dcn_sampling": args.train_sampling})
+    return cfg
 
 
 def sampling_name(sampling: Mapping[str, str]) -> str:
@@ -165,12 +174,20 @@ def parse_args(argv=None):
                     help="no training: evaluate this step_N.pt")
     ap.add_argument("--sampling", default=None, metavar="SPEC",
                     help="the sampling of an --eval-only run")
+    ap.add_argument("--train-sampling", default=None, metavar="SPEC",
+                    help="the train sampling (train_cfg.dcn_sampling), "
+                    "e.g. nearest_ste")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.sampling is not None and args.eval_only is None:
         raise ValueError("--sampling is for an --eval-only run; a training "
-                         "run samples as its config's "
-                         "train_cfg.dcn_sampling")
+                         "run takes --train-sampling")
+    if args.train_sampling is not None:
+        if args.eval_only is not None:
+            raise ValueError("--train-sampling is for a training run; an "
+                             "--eval-only run takes --sampling")
+        from ..ops.flat_deform import sampling_from_spec
+        sampling_from_spec(args.train_sampling)     # validate
     if args.out is None:
         args.out = f"work/accuracy_torch_{args.task}"
     return args
@@ -181,7 +198,8 @@ def main(argv=None) -> Dict[str, Any]:
 
     from ..models import build_detector
     from ..ops.flat_deform import sampling_from_spec
-    from ..train.checkpoint import refine_taps_env, restore_eval_state
+    from ..train.checkpoint import (refine_taps_env, restore_eval_state,
+                                    train_meta)
     from ..train.loop import (eval_sampling, evaluate_detector,
                               runner_device, train_detector)
 
@@ -207,7 +225,7 @@ def main(argv=None) -> Dict[str, Any]:
     else:
         out = train_detector(cfg, args.out, total_epochs=args.epochs,
                              eval_interval=10 ** 9, device=device)
-        model, meta = out["model"], None
+        model, meta = out["model"], train_meta(args.train_sampling)
         train_s = time.perf_counter() - t0
     sampling = eval_sampling(explicit, meta, refine_taps_env())
     t1 = time.perf_counter()
@@ -219,6 +237,9 @@ def main(argv=None) -> Dict[str, Any]:
     if not args.eval_only:
         result.update(losses=train_losses(args.out), epochs=args.epochs,
                       train_images=args.train)
+    if args.train_sampling:
+        result.update(train_sampling=sampling_name(
+            sampling_from_spec(args.train_sampling)))
     result.update(val_images=args.val, task=args.task, dcn=args.dcn,
                   seed=args.seed, sampling=sampling_name(sampling),
                   card=card_name(device),

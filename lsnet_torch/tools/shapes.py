@@ -9,7 +9,10 @@ them taken in turn, so a set can mix orientations. At the default
 seed.
 
     python3 -m lsnet_torch.tools.shapes OUT_DIR [--n 16] [--seed 0]
-        [--pose] [--hw 128 160]
+        [--pose] [--hw 128 160] [--voc]
+
+``make_shapes_voc`` (``--voc``) writes the same set in the Pascal VOC
+layout, with a COCO json of the same images over VOC's 20 classes.
 """
 
 from __future__ import annotations
@@ -116,6 +119,80 @@ def make_shapes_coco(root: str, n_images: int, seed: int, pose: bool = False,
     return ann_file, img_dir
 
 
+# the VOC names the three shape classes take in a VOC-layout set
+VOC_NAMES = ("car", "dog", "person")
+
+
+def make_shapes_voc(root: str, n_images: int, seed: int,
+                    hw: Union[Tuple[int, int],
+                              Sequence[Tuple[int, int]]] = HW,
+                    names: Sequence[str] = VOC_NAMES,
+                    split: str = "train") -> Tuple[str, str, str]:
+    """The shapes set of ``make_shapes_coco`` in the Pascal VOC layout:
+    ``root/JPEGImages/*.jpg``, ``root/Annotations/*.xml`` (1-based
+    inclusive boxes, the shape classes named ``names``; the first object
+    of the first image is ``difficult``) and
+    ``root/ImageSets/Main/{split}.txt``; beside them ``root/val.json``,
+    the same images and objects as COCO json over VOC's 20 classes (the
+    difficult object ``iscrowd``), the val split's form. Returns
+    (imageset file, img_prefix, COCO json)."""
+    from PIL import Image
+
+    voc = ("aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car",
+           "cat", "chair", "cow", "diningtable", "dog", "horse",
+           "motorbike", "person", "pottedplant", "sheep", "sofa", "train",
+           "tvmonitor")
+    ann_file, img_dir = make_shapes_coco(os.path.join(root, "shapes"),
+                                         n_images, seed, hw=hw)
+    with open(ann_file) as f:
+        coco = json.load(f)
+    for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets",
+                                                          "Main")):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    by_img = {}
+    for a in coco["annotations"]:
+        by_img.setdefault(a["image_id"], []).append(a)
+    ids, images, anns = [], [], []
+    for im in coco["images"]:
+        img_id = f"{im['id']:06d}"
+        ids.append(img_id)
+        Image.open(os.path.join(img_dir, im["file_name"])).convert(
+            "RGB").save(os.path.join(root, "JPEGImages", f"{img_id}.jpg"),
+                        quality=95)
+        objs = []
+        for j, a in enumerate(by_img.get(im["id"], [])):
+            x, y, w, h = a["bbox"]
+            x1, y1 = int(round(x)) + 1, int(round(y)) + 1
+            x2, y2 = int(round(x + w)) + 1, int(round(y + h)) + 1
+            name = names[a["category_id"] - 1]
+            diff = int(im["id"] == coco["images"][0]["id"] and j == 0)
+            objs.append(
+                f"<object><name>{name}</name><difficult>{diff}</difficult>"
+                f"<bndbox><xmin>{x1}</xmin><ymin>{y1}</ymin>"
+                f"<xmax>{x2}</xmax><ymax>{y2}</ymax></bndbox></object>")
+            anns.append(dict(
+                id=len(anns) + 1, image_id=im["id"],
+                category_id=voc.index(name) + 1,
+                bbox=[x1 - 1.0, y1 - 1.0, float(x2 - x1), float(y2 - y1)],
+                area=float((x2 - x1) * (y2 - y1)), iscrowd=diff))
+        with open(os.path.join(root, "Annotations", f"{img_id}.xml"),
+                  "w") as f:
+            f.write(f"<annotation><filename>{img_id}.jpg</filename><size>"
+                    f"<width>{im['width']}</width><height>{im['height']}"
+                    f"</height><depth>3</depth></size>{''.join(objs)}"
+                    "</annotation>")
+        images.append(dict(id=im["id"], file_name=f"{img_id}.jpg",
+                           width=im["width"], height=im["height"]))
+    set_file = os.path.join(root, "ImageSets", "Main", f"{split}.txt")
+    with open(set_file, "w") as f:
+        f.write("\n".join(ids) + "\n")
+    val_json = os.path.join(root, "val.json")
+    with open(val_json, "w") as f:
+        json.dump(dict(images=images, annotations=anns, categories=[
+            dict(id=i + 1, name=n) for i, n in enumerate(voc)]), f)
+    return set_file, root, val_json
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("out")
@@ -123,7 +200,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pose", action="store_true")
     ap.add_argument("--hw", type=int, nargs=2, default=HW)
+    ap.add_argument("--voc", action="store_true")
     args = ap.parse_args(argv)
+    if args.voc:
+        print(make_shapes_voc(args.out, args.n, args.seed, tuple(args.hw)))
+        return
     print(make_shapes_coco(args.out, args.n, args.seed, args.pose,
                            tuple(args.hw)))
 

@@ -5,7 +5,9 @@ protocol, priorities (lower runs first) and config-driven
 The context carries the model and its ``ClippedSGD`` in place of the JAX
 ``TrainState``. ``CheckpointHook`` writes one ``step_{N}.pt`` per save,
 which holds its own meta, so ``max_keep`` prunes whole checkpoints and
-leaves no stale meta behind. The Tensorboard, W&B and MLflow hooks import
+leaves no stale meta behind. Under W ranks the logging and checkpoint
+hooks act on rank 0 (the reference's ``@master_only``); the other ranks
+wait at the checkpoint. The Tensorboard, W&B and MLflow hooks import
 their package when the run starts; where it is absent (or its start
 fails) they write the same scalars to a jsonl file in the work dir.
 """
@@ -17,6 +19,7 @@ import logging
 import os
 from typing import Any, Dict, List, Optional
 
+from ..parallel import barrier, is_main_process, rank
 from ..utils.registry import Registry
 from .checkpoint import checkpoint_steps, save_checkpoint
 
@@ -72,6 +75,8 @@ class LoggerHook(Hook):
         self.logger = logger
 
     def after_iter(self, ctx):
+        if not is_main_process():       # reference hooks are @master_only
+            return
         self.logger.log_iter(ctx.epoch + 1, ctx.iter, ctx.steps_per_epoch,
                              ctx.lr, ctx.metrics)
 
@@ -91,6 +96,9 @@ class CheckpointHook(Hook):
     def after_epoch(self, ctx):
         if ctx.model is None or (ctx.epoch + 1) % self.interval:
             return
+        if not is_main_process():       # every rank holds the same model
+            barrier()
+            return
         out = self.out_dir or os.path.join(ctx.work_dir, "ckpts")
         path = save_checkpoint(out, ctx.model, ctx.optimizer,
                                ctx.global_step, ctx.meta)
@@ -98,6 +106,7 @@ class CheckpointHook(Hook):
         if self.max_keep:
             for s in checkpoint_steps(out)[:-self.max_keep]:
                 os.remove(os.path.join(out, f"step_{s}.pt"))
+        barrier()
 
 
 @HOOKS.register_module()
@@ -112,9 +121,57 @@ class EvalHook(Hook):
     def after_epoch(self, ctx):
         if ctx.eval_fn is None or (ctx.epoch + 1) % self.interval:
             return
-        metrics = ctx.eval_fn()
-        if self.logger is not None:
+        metrics = ctx.eval_fn()             # on every rank, its share
+        if self.logger is not None and is_main_process():
             self.logger.log_eval(ctx.epoch + 1, metrics)
+
+
+def kernel_wrappers():
+    """The main paths' kernel wrappers by name; each counts its launches
+    in ``launches``."""
+    from ..ops import deform_gather as dg
+    from ..ops import grouped as gr
+    return {"deform_gather_contract": dg.deform_gather_contract,
+            "deform_gather_contract_bwd_data":
+                dg.deform_gather_contract_bwd_data,
+            "deform_gather_contract_bwd_weight":
+                dg.deform_gather_contract_bwd_weight,
+            "deform_gather_grouped_contract":
+                gr.deform_gather_grouped_contract,
+            "deform_gather_grouped_contract_bwd_data":
+                gr.deform_gather_grouped_contract_bwd_data,
+            "deform_gather_grouped_contract_bwd_weight":
+                gr.deform_gather_grouped_contract_bwd_weight}
+
+
+@HOOKS.register_module()
+class KernelLaunchHook(Hook):
+    """The kernels' launch counts (``kernel_wrappers``): set to 0 before
+    the run, read after every step and after each epoch (it runs after
+    ``EvalHook``, so an epoch's read holds its evaluation), each read
+    setting them to 0. Every rank appends its reads to
+    ``work_dir/launches_rank{r}.jsonl``: ``{"mode": "train" or "epoch",
+    "step": ..., kernel: count, ...}``."""
+    priority = 95
+
+    def _read(self, ctx, mode):
+        counts = {}
+        for name, fn in kernel_wrappers().items():
+            counts[name], fn.launches = fn.launches, 0
+        with open(os.path.join(ctx.work_dir,
+                               f"launches_rank{rank()}.jsonl"), "a") as f:
+            f.write(json.dumps({"mode": mode, "step": ctx.global_step,
+                                **counts}) + "\n")
+
+    def before_train(self, ctx):
+        for fn in kernel_wrappers().values():
+            fn.launches = 0
+
+    def after_iter(self, ctx):
+        self._read(ctx, "train")
+
+    def after_epoch(self, ctx):
+        self._read(ctx, "epoch")
 
 
 class _ScalarHook(Hook):
@@ -143,7 +200,7 @@ class _ScalarHook(Hook):
         return os.path.join(ctx.work_dir, self.fallback_name)
 
     def before_train(self, ctx):
-        if not _is_main_process():     # reference hooks are @master_only
+        if not is_main_process():     # reference hooks are @master_only
             return
         try:
             self._start(ctx)
@@ -164,20 +221,14 @@ class _ScalarHook(Hook):
             self._fallback.write(json.dumps(
                 {"step": ctx.global_step, **scalars}) + "\n")
             self._fallback.flush()
-        elif _is_main_process():
+        elif is_main_process():
             self._log(scalars, ctx.global_step)
 
     def after_train(self, ctx):
         if self._fallback is not None:
             self._fallback.close()
-        elif _is_main_process():
+        elif is_main_process():
             self._finish(ctx)
-
-
-def _is_main_process() -> bool:
-    import torch.distributed as dist
-    return not (dist.is_available() and dist.is_initialized()
-                and dist.get_rank() != 0)
 
 
 @HOOKS.register_module()

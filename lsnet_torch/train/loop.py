@@ -51,12 +51,23 @@ the pasted masks (``segm_*``), as the JAX runner's; the cascade files
 necks ``models.BACKBONES`` and ``models.NECKS`` name runs under these
 detectors (``lsnet_torch.configs`` has five published compositions:
 HRNet + HRFPN, RegNet, PAFPN, FPN_CARAFE and NAS-FPN). The datasets come
-from ``data.extra.build_dataset``: ``CocoDataset``, and ``CocoPoseDataset``
-(the pose files') as the same dataset.
+from ``data.extra.build_dataset``: all eight of JAX's ``DATASET_TYPES``
+(COCO and the pose files' ``CocoPoseDataset``, VOC, WIDER Face,
+Cityscapes, DeepFashion, LVIS and LVIS v1). The evaluation reads the val
+split as COCO json, as JAX's ``evaluate_detector`` does (a COCO-style
+type through its own class, so LVIS' ``coco_url`` names its files; an
+XML type's val split is a COCO json); ``data.extra.eval_map`` scores VOC
+detections as a function, as in JAX.
 
-Left out, as the TPU's own or not yet ported: the compile cache, the
-chunk budget and the device mesh (one card; ``num_hosts`` 1 until ROADMAP
-Queue 1 "Multi-GPU").
+Under W ranks (``torchrun``, ``tools.train --launcher pytorch``) every
+rank builds the same loader from the same seed with the global batch of
+``samples_per_gpu * W`` images (JAX's ``per_dev * n_dev``), and
+``train.step`` makes each step the one-process step on that batch
+(``lsnet_torch.parallel``); logging and checkpoints run on rank 0 (JAX's
+``@master_only`` hooks) and each rank evaluates its share of the val
+images, gathered by ``parallel.collect_results``. Left out, as the
+TPU's own: the compile cache, the chunk budget and the spatial ("model")
+mesh axis.
 """
 
 from __future__ import annotations
@@ -79,16 +90,17 @@ from ..core.reppoints import (RepPointsConfig, RepPointsV2Config,
 from ..core.two_stage import (TWO_STAGE_DECODES, DynamicRCNNSchedule,
                               TwoStageConfig, dynamic_rcnn_loss,
                               two_stage_decode)
-from ..data.coco import (DataLoader, DatasetConfig, batch_to_device,
-                         collate_batch)
-from ..data.extra import DATASET_TYPES, build_dataset
+from ..data.coco import (CocoDataset, DataLoader, DatasetConfig,
+                         batch_to_device, collate_batch)
+from ..data.extra import build_dataset, dataset_class
 from ..evalkit.evaluator import (coco_gt_from_annotations, detections_to_coco,
                                  evaluate_coco, mask_detections_to_coco)
-from ..models import (BACKBONES, DETECTORS, HEADS, LATER, MASK_TYPES, NECKS,
+from ..models import (BACKBONES, DETECTORS, HEADS, MASK_TYPES, NECKS,
                       TWO_STAGE, build_detector, head_cfg_of, is_two_stage)
 from ..models.init import init_weights_
 from ..ops.flat_deform import (INFERENCE_SAMPLING, TRAIN_SAMPLING,
                                sampling_from_spec, with_refine_taps)
+from .. import parallel
 from ..utils.logging import JsonLogger, collect_env
 from .checkpoint import (deploy_sampling, deploy_taps,
                          load_pretrained_backbone, refine_taps_env,
@@ -469,8 +481,8 @@ def test_cfg_from(cfg, image_shape) -> TestConfig:
 def check_runnable(cfg) -> None:
     """Raise ``NotImplementedError`` for a model the port does not run
     (one that no builder of the JAX package names either), naming what
-    it runs, or a dataset it does not read yet, naming the ROADMAP entry
-    (Queue 1 "Inherited zoo" item 3.4, its data half)."""
+    it runs, and the registry's ``KeyError`` for a dataset type that
+    ``data.extra.DATASET_TYPES`` does not name."""
     model = cfg.model
     head = head_cfg(cfg).get("type")
     roi_head = (model.get("roi_head") or {}).get("type", "StandardRoIHead")
@@ -495,12 +507,8 @@ def check_runnable(cfg) -> None:
             f"{', '.join(str(n) for n in NECKS)}, every type the JAX "
             "package's builders name")
     for split in ("train", "val"):
-        kind = cfg.data.get(split, {}).get("type", "CocoDataset")
-        if kind not in DATASET_TYPES:
-            raise NotImplementedError(
-                f"dataset {kind}: the port reads "
-                f"{', '.join(DATASET_TYPES)}; the rest of data/extra.py is "
-                f"{LATER}")
+        dataset_class(cfg.data.get(split, {}).get("type", "CocoDataset"))
+
 
 
 def _polygon_trained(cfg) -> bool:
@@ -580,8 +588,9 @@ def train_detector(cfg, work_dir: str, *, total_epochs: Optional[int] = None,
                    device="cuda") -> Dict[str, Any]:
     """A training run from a ``Config``. Returns the model, its optimizer,
     the step reached and the work dir."""
-    device = runner_device(device)
+    device = parallel.rank_device(runner_device(device))
     check_runnable(cfg)
+    world = parallel.world_size()
     os.makedirs(work_dir, exist_ok=True)
     logger = JsonLogger(work_dir, interval=cfg.get("log_interval", 50))
     print("environment:", dict(collect_env()), flush=True)
@@ -602,7 +611,8 @@ def train_detector(cfg, work_dir: str, *, total_epochs: Optional[int] = None,
         keep_ratio=train.get("keep_ratio", True),
         flip_ratio=train.get("flip_ratio", 0.5),
         max_instances=cfg.get("max_instances", 100)))
-    batch_size = data_cfg.get("samples_per_gpu", 2)     # one card
+    # the global batch, the same on every rank (JAX's per_dev * n_dev)
+    batch_size = data_cfg.get("samples_per_gpu", 2) * world
     explicit_canvas = cfg.get("canvas_shape")
     loader = DataLoader(ds, batch_size,
                         tuple(explicit_canvas) if explicit_canvas else None)
@@ -697,6 +707,17 @@ def train_detector(cfg, work_dir: str, *, total_epochs: Optional[int] = None,
             "step": optimizer.count, "work_dir": work_dir}
 
 
+def val_dataset(cfg) -> CocoDataset:
+    """The val split as COCO json, as JAX's ``evaluate_detector`` reads it:
+    through the type's own class where that is a ``CocoDataset`` (LVIS
+    names its files from ``coco_url``), else (an XML type) through
+    ``CocoDataset``."""
+    cls = dataset_class(cfg.data.val.get("type", "CocoDataset"))
+    if not issubclass(cls, CocoDataset):
+        cls = CocoDataset
+    return cls(_dataset_cfg(cfg, "val", filter_empty=False), test_mode=True)
+
+
 def evaluate_detector(cfg, model: torch.nn.Module, canvas, *,
                       batch_size: int = 8, max_images: Optional[int] = None,
                       sampling: Mapping[str, str] = INFERENCE_SAMPLING
@@ -707,12 +728,13 @@ def evaluate_detector(cfg, model: torch.nn.Module, canvas, *,
 
     Images are grouped by orientation, so each batch pads onto one canvas
     (``canvas`` is the landscape one, portrait its transpose). The forward
-    runs in the dtype and on the device of the model's parameters."""
+    runs in the dtype and on the device of the model's parameters. Under
+    W ranks each rank decodes every W-th image of a group and the
+    detections are gathered (``parallel.collect_results``): every rank
+    returns the same metrics."""
     check_runnable(cfg)
     task = head_cfg(cfg).get("task", "bbox")
-    ds = build_dataset(cfg.data.val.get("type", "CocoDataset"),
-                       _dataset_cfg(cfg, "val", filter_empty=False),
-                       test_mode=True)
+    ds = val_dataset(cfg)
     param = next(model.parameters())
     n = len(ds) if max_images is None else min(max_images, len(ds))
     img_sizes = {info["id"]: (info["height"], info["width"])
@@ -723,6 +745,8 @@ def evaluate_detector(cfg, model: torch.nn.Module, canvas, *,
     for i in range(n):
         info = ds.img_infos[i]
         groups[port if info["height"] > info["width"] else land].append(i)
+    groups = {cv: idx[parallel.rank()::parallel.world_size()]
+              for cv, idx in groups.items()}
     was_training = model.training
     model.eval()
     dts, segm_dts = [], []
@@ -752,6 +776,8 @@ def evaluate_detector(cfg, model: torch.nn.Module, canvas, *,
                                           task=task, img_sizes=img_sizes)
     finally:
         model.train(was_training)
+    dts = parallel.collect_results(dts)
+    segm_dts = parallel.collect_results(segm_dts)
     eval_ids = {int(info["id"]) for info in ds.img_infos[:n]}
     gts = [g for g in coco_gt_from_annotations(ds.coco, task=task)
            if g["image_id"] in eval_ids]

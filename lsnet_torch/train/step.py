@@ -20,6 +20,15 @@ copies and the bf16 image, and cast to f32 where they assign and sum.
 ``grad_norm`` is the global norm before the clip over the trainable
 parameters, the norm the clip sees; the JAX step's metric also counts the
 gradients of the frozen stage, which the port never computes.
+
+Under W ranks (``lsnet_torch.parallel``) the step takes the global batch
+on every rank and computes the one-process step on it, as JAX's jitted
+mesh step does: the rank runs the model on its rows; a head's outputs are
+gathered and every rank takes the whole batch's loss, or a full loss runs
+on the rank's rows with the global batch's normalisers and its terms are
+summed; the gradients are summed over the ranks before the clip. Every
+rank's update and metrics are then the same. In one process nothing of
+this runs.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from ..core.reppoints import (RepPointsConfig, RepPointsV2Config,
 from ..core.two_stage import (TWO_STAGE_LOSSES, TwoStageConfig,
                               two_stage_loss)
 from ..ops.flat_deform import TRAIN_SAMPLING
+from .. import parallel
 from .optim import ClippedSGD
 
 # the loss of each head family, by its config's type
@@ -90,7 +100,8 @@ def make_train_step(model: torch.nn.Module, optimizer: ClippedSGD,
     ``image`` (B, H, W, 3) NHWC and the keys of the loss, on the model's
     device.
     metrics: ``loss``, the loss terms and the pre-clip ``grad_norm``, as
-    tensors on the device (no synchronisation)."""
+    tensors on the device (no synchronisation). Under W ranks ``batch`` is
+    the global batch, the same on every rank."""
     if full_loss_fn is None and isinstance(loss_cfg, TwoStageConfig):
         ts_loss = TWO_STAGE_LOSSES.get(type(model).__name__, two_stage_loss)
 
@@ -114,21 +125,29 @@ def make_train_step(model: torch.nn.Module, optimizer: ClippedSGD,
         return _reparametrize_module(model, cast)
 
     def step(batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        image = batch["image"]
+        image = parallel.shard_rows(batch["image"])
         if mixed_precision:
             image = image.to(torch.bfloat16)
         with compute_copies():
             if full_loss_fn is not None:
-                total, losses = full_loss_fn(model, {**batch, "image": image},
-                                             sampling)
+                total, losses = full_loss_fn(
+                    model, {**parallel.shard_batch_pytree(batch),
+                            "image": image}, sampling)
             else:
-                # assignment and losses in f32
-                outs = as_f32(model(image, sampling))
+                # assignment and losses in f32, over the global batch
+                outs = parallel.gather_outputs(as_f32(model(image, sampling)))
                 total, losses = loss_fn(outs, batch, loss_cfg)
             grads = torch.autograd.grad(total, optimizer.params)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
-        metrics["grad_norm"] = optimizer.step(grads)
+        if full_loss_fn is not None:
+            # each rank's terms are its share of the global loss; the
+            # statistics (``stat_*``) are the global batch's already
+            metrics = {k: v if k.startswith("stat_")
+                       else parallel.all_reduce_sum(v)
+                       for k, v in metrics.items()}
+        metrics["grad_norm"] = optimizer.step(
+            parallel.reduce_gradients(grads))
         return metrics
 
     return step

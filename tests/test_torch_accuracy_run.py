@@ -10,7 +10,12 @@
   iterations of an epoch) writes ``result.json`` with finite losses and
   COCO metric keys; an ``--eval-only`` run of its checkpoint records the
   sampling it was given.
-* ``--sampling`` without ``--eval-only`` raises.
+* ``--train-sampling`` writes ``train_cfg.dcn_sampling`` and is
+  otherwise the JAX tool's config, the run of its STE records; a CPU run
+  with it records the spec in its checkpoints and evaluates at the
+  deployed sampling.
+* ``--sampling`` without ``--eval-only``, ``--train-sampling`` with it,
+  and an unknown spec raise.
 """
 
 import argparse
@@ -99,8 +104,51 @@ def test_cpu_run_and_eval_only(tmp_path):
     assert "losses" not in ev and "bbox_mAP" in ev["metrics"]
 
 
+def test_train_sampling_config_is_the_jax_ste_runs():
+    """``--train-sampling nearest_ste`` on the R50-DCN bbox 36e run of
+    ``docs/accuracy/README.md`` (``r5/ste36_clean.json``): the JAX tool's
+    config of that run, which trained under ``LSNET_DCN_SAMPLING=
+    nearest_ste``, with ``train_cfg.dcn_sampling`` set to the same spec;
+    the JAX runner reads that key with ``set_sampling``, the process-wide
+    state the variable sets, and both packages parse the spec to the same
+    site -> mode mapping."""
+    from lsnet_tpu.ops import flat_deform as jfd
+    from lsnet_torch.ops.flat_deform import sampling_from_spec, sampling_spec
+    args = argparse.Namespace(task="bbox", dcn=True, epochs=36, train=160,
+                              batch=8, seed=0, train_sampling="nearest_ste")
+    ours = _plain(accuracy_run.accuracy_cfg(args, *PATHS.values()).to_dict())
+    want = _plain(_jax_tool_cfg(args))
+    assert ours["train_cfg"].pop("dcn_sampling") == "nearest_ste"
+    assert ours == want
+    default, listed = jfd._parse_sampling("nearest_ste")
+    assert dict(sampling_from_spec("nearest_ste")) == {
+        s: listed.get(s, default) for s in ("backbone", "tower", "refine")}
+    assert sampling_spec("nearest_ste") == "nearest_ste"
+    args.train_sampling = None
+    assert _plain(accuracy_run.accuracy_cfg(
+        args, *PATHS.values()).to_dict()) == want
+
+
+def test_cpu_run_with_train_sampling(tmp_path):
+    out = str(tmp_path / "ste")
+    res = accuracy_run.main(["--device", "cpu", "--task", "bbox", "--val",
+                             "2", "--batch", "2", "--epochs", "1",
+                             "--train", "20", "--out", out,
+                             "--train-sampling", "nearest_ste"])
+    assert res["train_sampling"] == \
+        "backbone=nearest_ste,refine=nearest_ste,tower=nearest_ste"
+    # the run evaluates at its deployed sampling: nearest at every site
+    assert res["sampling"] == "backbone=nearest,refine=nearest,tower=nearest"
+    from lsnet_torch.train.checkpoint import load_checkpoint
+    meta = load_checkpoint(os.path.join(out, "ckpts", "step_10.pt"))["meta"]
+    assert meta["dcn_sampling_train"] == "nearest_ste"
+
+
 @pytest.mark.parametrize("argv,err,match", [
-    (["--sampling", "bilinear"], ValueError, "--eval-only")])
+    (["--sampling", "bilinear"], ValueError, "--eval-only"),
+    (["--train-sampling", "nearest_ste", "--eval-only", "x.pt"], ValueError,
+     "--train-sampling is for a training run"),
+    (["--train-sampling", "cubic"], ValueError, "sampling spec")])
 def test_refused(argv, err, match):
     with pytest.raises(err, match=match):
         accuracy_run.main(argv + ["--device", "cpu"])

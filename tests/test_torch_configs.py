@@ -483,9 +483,7 @@ def test_two_stage_files_name_their_queue_item(name):
     """A two-stage file on MobileNetV2 (1.0, outputs 1, 2, 4, 6),
     HourglassNet-104 or BFP, and the NAS-FPN RetinaNet composition:
     ``check_runnable`` admits each and ``build_detector`` builds it on
-    the ``meta`` device; the only refusal left of item 3.4 names its data
-    half (``models.LATER``)."""
-    from lsnet_torch.models import LATER as LATER_ITEM
+    the ``meta`` device."""
     cfg = _later_cfg(name)
     ploop.check_runnable(cfg)
     with torch.device("meta"):
@@ -493,8 +491,6 @@ def test_two_stage_files_name_their_queue_item(name):
     assert {"mobilenet_backbone": [24, 32, 96, 320],
             "hourglass_backbone": [256, 256]}.get(
         name, [256, 512, 1024, 2048]) == model.backbone.out_channels
-    assert "\"Inherited zoo\" item 3.4" in LATER_ITEM
-    assert "data half" in LATER_ITEM
 
 
 @pytest.mark.parametrize("name", [n for n in CONFIGS if "pose" in n])

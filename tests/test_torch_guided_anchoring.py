@@ -295,3 +295,73 @@ def test_runner_and_api_ga_retina(shapes_set, tmp_path):
     res = apis.inference_detector(bundle, img)
     assert len(res["scores"]) > 0 and not res["landmarks"].any()
     assert (res["labels"] < C).all()
+
+
+def _covering_batch(pts, hw):
+    """Two images of GTs centred on cell origins at the level their size
+    picks (scale 8, 16, 32 px: levels 0, 1, 2), so each centre region
+    (shrunk to 0.2) holds a cell; the second image's last slot is
+    padding."""
+    boxes = np.zeros((2, 3, 4), np.float32)
+    for b in range(2):
+        for lvl, (s, size) in enumerate(((8, 9.0), (16, 17.0),
+                                          (32, 31.0))):
+            cells = pts[pts[:, 2] == s]
+            x, y = cells[(3 * b + 2 * lvl + 1) % len(cells), :2]
+            boxes[b, lvl] = [x - size / 2, y - size / 2 - 1,
+                             x + size / 2, y + size / 2 + 1]
+    valid = np.array([[True] * 3, [True, True, False]])
+    shape = np.array([hw] * 2, np.int32)
+    return dict(gt_bboxes=boxes, gt_labels=np.array([[0, 1, 2], [2, 1, 0]],
+                                                     np.int32),
+                gt_valid=valid, img_shape=shape, pad_shape=shape.copy())
+
+
+def test_ga_retina_shape_term_on_covered_centres():
+    """ROADMAP Queue 3: GA-RetinaNet's ``loss_shape`` read 0.0 on every
+    batch seen so far, its GTs too small for their centre regions to
+    hold a cell. Here each GT's region holds one: JAX's term
+    (``lsnet_tpu/core/dense_loss.py`` ``ga_retina_loss``) is non-zero,
+    and the port's term, the whole loss and the gradient of the term
+    with respect to every level's shape map equal JAX's (1e-5 relative,
+    gradients 1e-5 of their largest entry)."""
+    from lsnet_tpu.core import dense_loss as jdl
+    from test_torch_dense_heads import HW, jax_loss_cfg, random_outputs
+
+    pcfg = dataclasses.replace(ploop.dense_cfg_from(file_cfg("ga_retina"),
+                                                    HW), num_classes=C)
+    jcfg = jax_loss_cfg(pcfg)
+    levels = levels_of(pcfg.strides)
+    outs = random_outputs("ga_retina", levels, CHANNELS["ga_retina"], 23)
+    pts = pdl._level_points(pcfg, "cpu").numpy()
+    batch = _covering_batch(pts, HW)
+
+    def jf(shape):
+        jouts = {k: [jnp.asarray(x) for x in v] for k, v in outs.items()}
+        jouts["shape"] = shape
+        total, terms = jdl.dense_loss(jouts, {k: jnp.asarray(v) for k, v in
+                                              batch.items()}, jcfg)
+        return terms["loss_shape"], (total, terms)
+
+    (want, (jtotal, jterms)), jgrad = jax.value_and_grad(jf, has_aux=True)(
+        [jnp.asarray(x) for x in outs["shape"]])
+    assert float(want) > 0.01
+
+    pouts = {k: [t(x) for x in v] for k, v in outs.items()}
+    for m in pouts["shape"]:
+        m.requires_grad_(True)
+    total, terms = pdl.dense_loss(pouts, {k: t(v) for k, v in
+                                          batch.items()}, pcfg)
+    got = terms["loss_shape"]
+    assert abs(float(got.detach()) - float(want)) <= 1e-5 * float(want)
+    assert abs(float(total.detach()) - float(jtotal)) <= \
+        1e-5 * abs(float(jtotal))
+    for k, v in jterms.items():
+        assert abs(float(terms[k].detach()) - float(v)) <= 1e-5 * max(1e-6,
+                                                             abs(float(v)))
+    grads = torch.autograd.grad(got, pouts["shape"])
+    top = max(float(np.abs(np.asarray(g)).max()) for g in jgrad)
+    assert top > 0
+    for g, w in zip(grads, jgrad):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-5 * top)

@@ -209,13 +209,16 @@ def runs(tmp_path_factory):
 
 
 def test_dataset_registry_matches_jax(tmp_path):
-    """The port's two registry entries are the JAX registry's COCO ones
-    (``CocoPoseDataset`` is ``CocoDataset``), an unknown type raises
-    ``KeyError`` in both, and a pose set keeps the person images only,
-    the same images as JAX's."""
-    assert set(p_extra.DATASET_TYPES) == {"CocoDataset", "CocoPoseDataset"}
+    """The port's registry has the JAX registry's eight entries, each of
+    the same class; its two COCO ones are ``CocoDataset``
+    (``CocoPoseDataset`` is ``CocoDataset``) in both; an unknown type
+    raises ``KeyError`` in both, and a pose set keeps the person images
+    only, the same images as JAX's."""
+    assert set(p_extra.DATASET_TYPES) == set(j_extra.DATASET_TYPES)
     for name, kind in p_extra.DATASET_TYPES.items():
-        assert kind is p_coco.CocoDataset
+        assert kind.__name__ == j_extra.DATASET_TYPES[name].__name__
+    for name in ("CocoDataset", "CocoPoseDataset"):
+        assert p_extra.DATASET_TYPES[name] is p_coco.CocoDataset
         assert j_extra.DATASET_TYPES[name] is j_coco.CocoDataset
     for build, cfg_cls in ((p_extra.build_dataset, p_coco.DatasetConfig),
                            (j_extra.build_dataset, j_coco.DatasetConfig)):
@@ -245,14 +248,22 @@ def test_dataset_registry_matches_jax(tmp_path):
             for a in anns} == {1}
 
 
-@pytest.mark.parametrize("kind", ["VOCDataset", "LVISDataset"])
+@pytest.mark.parametrize("kind", ["VOCDataset", "LVISDataset",
+                                  "NopeDataset"])
 def test_other_datasets_are_refused_with_their_roadmap_entry(kind):
+    """The runner admits every type of the registry (the other datasets
+    of ``data/extra.py`` are ported: no ROADMAP entry is named any more)
+    in the train and the val split, and refuses a type the registry does
+    not name with the registry's ``KeyError``."""
     cfg = Config.fromfile(os.path.join(REPO, "configs", "lsnet",
                                        FILES["pose_bbox"]))
-    cfg.merge_from_dict({"data.val.type": kind})
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 \"Inherited zoo\" item 3.4"):
-        ploop.check_runnable(cfg)
+    for split in ("train", "val"):
+        cfg.merge_from_dict({f"data.{split}.type": kind})
+        if kind in p_extra.DATASET_TYPES:
+            ploop.check_runnable(cfg)
+        else:
+            with pytest.raises(KeyError, match="unknown dataset type"):
+                ploop.check_runnable(cfg)
 
 
 @pytest.mark.parametrize("name", sorted(FILES))
